@@ -1,0 +1,374 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
+
+1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA.
+2. Build: every CUDA kernel of the port, from the sources in the checkout.
+3. Kernel checks: each kernel against its plain PyTorch version on the card,
+   at the serving path's shapes and a few edge shapes, with the stated
+   tolerance; times by CUDA events after warm-up (kernel, plain version,
+   and the one PyTorch call that computes the same function, if any).
+4. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
+   generator, bf16) behind a ``Predictor`` with micro-batching and warmup:
+   sequential, concurrent, packed-YUV420 and windowed requests. Checks the
+   result dicts, that the kernels' launch counts rose as the path requires,
+   and one request's ``prob_fake`` against the plain versions.
+5. Summary: the ``{"kernels": [...]}`` line, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure exits non-zero before the last line. Without a CUDA device it
+exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import traceback
+from unittest import mock
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_OPS = {"bf16": 989e12,        # dense tensor-core bf16
+            "f32": 67e12}          # f32 on the CUDA cores
+
+K1_SOURCE = "deepfake_video_detection_tpu_torch/csrc/normalize.cu"
+K2_SOURCE = "deepfake_video_detection_tpu_torch/csrc/flash_fwd.cu"
+K1_REPLACES = "deepfake_video_detection_tpu/ops/preprocess.py:38"
+K2_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:180"
+
+# tolerances, with their reasons
+K1_TOL = {"f32": 1e-6,    # same IEEE steps in the same order: a few f32 ulp
+          "bf16": 1.6e-2}  # one bf16 ulp for |y| in [2, 4), at a rounding tie
+K2_TOL_O = {"f32": 1e-4,    # f32 sums taken in another order
+            "bf16": 2e-2}   # one bf16 ulp near |x| ~ 4
+K2_TOL_LSE = 1e-3           # f32 logsumexp, sum order
+PROB_TOL = 2e-2             # served prob_fake, kernels vs plain versions, bf16
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call on the current stream, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound_ms(nbytes: float, ops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_k1(torch, P, gen):
+    """fused_normalize vs its plain version. Returns the case records."""
+    cases = []
+    specs = [((16, 8, 224, 224, 3), torch.bfloat16, "main"),
+             ((16, 8, 224, 224, 3), torch.float32, ""),
+             ((3, 37, 41, 3), torch.bfloat16, "size not a multiple of 128"),
+             ((5, 7, 3), torch.float32, "input not 16-byte aligned")]
+    for shape, dt, note in specs:
+        n = int(np.prod(shape))
+        if "aligned" in note:
+            buf = torch.randint(0, 256, (n + 1,), dtype=torch.uint8,
+                                device="cuda", generator=gen)
+            x = buf[1:].view(shape)
+        else:
+            x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                              generator=gen)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        got = P.fused_normalize(x, dt)
+        ref = P.fused_normalize_plain(x, dt)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        tol = K1_TOL[name]
+        itemsize = torch.empty((), dtype=dt).element_size()
+        bound, by = _bound_ms(n * (1 + itemsize), 3 * n, "f32")
+        rec = {"kernel": "fused_normalize", "shape": list(shape), "out": name,
+               "note": note, "max_abs_err": err, "tol": tol,
+               "kernel_ms": _time_ms(torch, lambda: P.fused_normalize(x, dt)),
+               "plain_ms": _time_ms(torch, lambda: P.fused_normalize_plain(x, dt)),
+               "library_ms": None, "bound_ms": bound, "bound_by": by}
+        _emit(rec)
+        _require(err <= tol, f"fused_normalize {shape} -> {name}: err {err} > {tol}")
+        cases.append(rec)
+    return cases
+
+
+def check_k2(torch, A, gen):
+    """flash_attention_fwd vs its plain version. Returns the case records."""
+    import torch.nn.functional as F
+
+    cases = []
+    # (B, H, N, d, dtype, q/k/v as strided views of one QKV buffer, note)
+    specs = [(8, 12, 197, 64, torch.bfloat16, True, "main: one request"),
+             (128, 12, 197, 64, torch.bfloat16, True, "largest bucket"),
+             (8, 12, 197, 64, torch.float32, False, ""),
+             (2, 12, 640, 64, torch.bfloat16, False, "K3 regime, n_pad > 512"),
+             (4, 6, 197, 32, torch.float32, False, "d = 32"),
+             (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
+             (2, 4, 130, 256, torch.float32, False, "d = 256"),
+             (2, 4, 100, 80, torch.bfloat16, True, "d = 80")]
+    for B, H, N, d, dt, strided, note in specs:
+        if strided:
+            qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        else:
+            q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dt)
+                       for _ in range(3))
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        out, lse = A.flash_attention_fwd(q, k, v)
+        ref, ref_lse = A.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        err_lse = float((lse - ref_lse).abs().max())
+        _require(bool(torch.isfinite(out.float()).all()), f"flash {note}: non-finite O")
+        itemsize = q.element_size()
+        nbytes = 4 * B * H * N * d * itemsize + 4 * B * H * N
+        bound, by = _bound_ms(nbytes, 4.0 * B * H * N * N * d, name)
+        rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
+               "dtype": name, "strided_qkv": strided, "note": note,
+               "max_abs_err": err, "tol": K2_TOL_O[name],
+               "lse_max_abs_err": err_lse, "lse_tol": K2_TOL_LSE,
+               "kernel_ms": _time_ms(torch, lambda: A.flash_attention_fwd(q, k, v)),
+               "plain_ms": _time_ms(torch, lambda: A.flash_attention_plain(q, k, v)),
+               "library_ms": _time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+               "bound_ms": bound, "bound_by": by}
+        _emit(rec)
+        _require(err <= K2_TOL_O[name], f"flash {rec['shape']} {name}: O err {err}")
+        _require(err_lse <= K2_TOL_LSE, f"flash {rec['shape']} {name}: lse err {err_lse}")
+        cases.append(rec)
+    return cases
+
+
+RESULT_KEYS = ("prediction", "verdict_yes_no", "description", "pred_class",
+               "confidence", "prob_real", "prob_fake", "num_faces", "threshold",
+               "frame_scores")
+
+
+def _check_result(res: dict, n_frames: int, what: str) -> None:
+    _require(isinstance(res, dict) and "error" not in res, f"{what}: {res}")
+    missing = [k for k in RESULT_KEYS if k not in res]
+    _require(not missing, f"{what}: result lacks {missing}")
+    p = res["prob_fake"]
+    _require(isinstance(p, float) and 0.0 <= p <= 1.0, f"{what}: prob_fake {p}")
+    fs = res["frame_scores"]
+    _require(len(fs) == n_frames and abs(sum(fs) - 1.0) < 0.02,
+             f"{what}: frame_scores {fs}")
+
+
+def serve(torch, A, P, smi: str):
+    """Drive the Predictor; returns (launch counts, records)."""
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve import predict as predict_mod
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor, serving_dtype
+
+    T, size, windows = 8, 224, 2
+    os.environ.update({"MAX_FRAMES": str(T), "SERVE_WINDOWS": str(windows),
+                       "FACE_SIZE": str(size)})
+    t0 = time.perf_counter()
+    dtype = serving_dtype("cuda")
+    _require(dtype == torch.bfloat16, f"serving dtype on the card is {dtype}")
+    model = BackboneDetector("vit_base_patch16_224", compute_dtype=dtype,
+                             device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    pred = Predictor(model, None, "pretrained", device="cuda")
+    _require(pred.warmup_done.wait(timeout=600), "warmup did not finish in 600 s")
+    _require(pred.warmup_error is None, f"warmup failed: {pred.warmup_error!r}")
+    setup_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    faces = [rng.integers(0, 256, (T, size, size, 3), dtype=np.uint8)
+             for _ in range(8)]
+    packed = [rng.integers(0, 256, (T, size * size * 3 // 2), dtype=np.uint8)
+              for _ in range(2)]
+    long_clip = rng.integers(0, 256, (windows * T, size, size, 3), dtype=np.uint8)
+
+    P.fused_normalize.launches = 0
+    A.flash_attention_fwd.launches = 0
+    batches0 = pred._batcher.batches_run
+
+    seq_s, seq = [], []
+    for i in range(4):
+        t = time.perf_counter()
+        seq.append(pred.predict_faces(faces[i], video_id=f"seq{i}"))
+        seq_s.append(time.perf_counter() - t)
+
+    conc = [None] * 8
+    barrier = threading.Barrier(8)
+
+    def client(i):
+        barrier.wait()
+        conc[i] = pred.predict_faces(faces[i], video_id=f"conc{i}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    conc_s = time.perf_counter() - t
+    _require(not any(th.is_alive() for th in threads), "a concurrent request hung")
+
+    yuv = [pred._predict_pretrained(p, f"yuv{i}", packed_yuv=True)
+           for i, p in enumerate(packed)]
+    win = pred._predict_pretrained(long_clip, "windows", windows=windows)
+
+    k1 = P.fused_normalize.launches
+    k2 = A.flash_attention_fwd.launches
+    batches = pred._batcher.batches_run - batches0
+
+    for i, r in enumerate(seq):
+        _check_result(r, T, f"sequential request {i}")
+    for i, r in enumerate(conc):
+        _check_result(r, T, f"concurrent request {i}")
+    for i, r in enumerate(yuv):
+        _check_result(r, T, f"packed-YUV request {i}")
+    _check_result(win, T, "windowed request")
+    _require(win.get("windows", {}).get("count") == windows,
+             f"windowed request: {win.get('windows')}")
+
+    # every RGB forward runs K1 once; every forward runs K2 once per block
+    forwards = batches + 1                    # batcher steps + the windowed scan
+    rgb_forwards = forwards - len(packed)     # the two YUV requests ran alone
+    depth = len(model.backbone.blocks)
+    _require(k1 == rgb_forwards, f"fused_normalize launches {k1} != {rgb_forwards}")
+    _require(k2 == depth * forwards, f"flash launches {k2} != {depth} x {forwards}")
+
+    # the same request through the plain versions, on the card
+    x = torch.from_numpy(faces[0][None]).cuda()
+    with mock.patch.object(predict_mod, "fused_normalize", P.fused_normalize_plain), \
+            mock.patch.object(A, "flash_attention",
+                              lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+        probs_plain = pred._forward(x)[0].float().cpu().numpy()[0]
+    fake_idx = 1
+    diff = abs(float(probs_plain[fake_idx]) - seq[0]["prob_fake"])
+    _require(diff <= PROB_TOL, f"prob_fake kernels vs plain differ by {diff}")
+
+    # forward times at one request and at the largest bucket (CUDA events)
+    fwd_ms = {}
+    for b in (1, 16):
+        xb = torch.from_numpy(np.stack([faces[i % 8] for i in range(b)])).cuda()
+        fwd_ms[b] = _time_ms(torch, lambda: pred._forward(xb), iters=5, warmup=2)
+    pred.close()
+
+    rec = {"phase": "serving", "card": smi, "model": "vit_base_patch16_224",
+           "dtype": "bf16", "frames_per_clip": T, "setup_s": setup_s,
+           "sequential_latency_s": seq_s,
+           "concurrent_clients": 8, "concurrent_wall_s": conc_s,
+           "concurrent_clips_per_s": 8 / conc_s,
+           "sequential_clips_per_s": len(seq_s) / sum(seq_s),
+           "forward_ms_1clip": fwd_ms[1], "forward_ms_16clips": fwd_ms[16],
+           "batcher_steps": batches, "forwards": forwards,
+           "launches": {"fused_normalize": k1, "flash_attention_fwd": k2},
+           "prob_fake_kernels": seq[0]["prob_fake"],
+           "prob_fake_plain": float(probs_plain[fake_idx]),
+           "prob_fake_abs_diff": diff, "prob_tol": PROB_TOL,
+           "verdicts": [r["prediction"] for r in seq + conc + yuv + [win]]}
+    _emit(rec)
+    return {"fused_normalize": k1, "flash_attention_fwd": k2}, rec
+
+
+def _summary_entry(name, source, replaces, main, launches, tol):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": main["max_abs_err"], "tol": tol,
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shape": main["shape"]}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    from deepfake_video_detection_tpu_torch.ops import _build
+    from deepfake_video_detection_tpu_torch.ops import attention as A
+    from deepfake_video_detection_tpu_torch.ops import preprocess as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _smi()
+    print(smi, flush=True)
+    _emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count()})
+
+    t = time.perf_counter()
+    per_source = _build.build_all()
+    _emit({"phase": "build", "seconds": time.perf_counter() - t,
+           "per_source": per_source})
+    for src, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  nvcc[{src}]: {line.strip()}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_cases = check_k1(torch, P, gen)
+    k2_cases = check_k2(torch, A, gen)
+
+    launches, _ = serve(torch, A, P, smi)
+    _require(all(v > 0 for v in launches.values()),
+             f"a kernel was not launched on the serving path: {launches}")
+
+    kernels = [
+        _summary_entry("fused_normalize", K1_SOURCE, K1_REPLACES, k1_cases[0],
+                       launches["fused_normalize"], k1_cases[0]["tol"]),
+        _summary_entry("flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0],
+                       launches["flash_attention_fwd"], k2_cases[0]["tol"]),
+    ]
+    print(_smi(), flush=True)
+    _emit({"kernels": kernels})
+    _emit({"ok": True, "device": {"platform": "gpu",
+                                  "kind": torch.cuda.get_device_name(0),
+                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SystemExit:
+        raise
+    except BaseException:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        sys.exit(1)

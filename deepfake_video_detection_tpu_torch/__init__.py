@@ -1,0 +1,24 @@
+"""PyTorch / CUDA port of the deepfake video detection framework.
+
+Counterpart of ``deepfake_video_detection_tpu`` (the JAX package, which stays
+the reference) for one NVIDIA Hopper card. The module tree and names mirror
+the JAX package so each port module sits where its reference does. The port
+imports ``torch`` and ``numpy``, never ``jax`` nor the JAX package.
+
+Every Pallas kernel on a ported path has a hand-written CUDA kernel for
+``sm_90a`` under ``csrc/``, built by ``nvcc`` at first use (``ops/_build.py``)
+and bound with ``ctypes``. Beside each kernel its module keeps a plain
+PyTorch version, taken only for tensors that lie on the CPU.
+
+Sub-packages
+------------
+``utils``       env parsing, dotted-path helpers
+``data``        ImageNet normalisation constants and the plain op
+``ops``         the kernels' wrappers (fused normalize, flash forward), YUV420
+``nn``          initialisers on a ``torch.Generator``, functional layers
+``models``      ViT backbones and the per-frame ``BackboneDetector``
+``checkpoint``  JAX trees / native ``.npz`` checkpoints → ``state_dict``
+``serve``       ``Predictor`` and the request micro-batcher
+"""
+
+__version__ = "0.1.0"

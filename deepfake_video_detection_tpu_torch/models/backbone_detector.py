@@ -1,0 +1,106 @@
+"""Per-frame backbone + temporal-attention detector as an ``nn.Module``.
+
+Counterpart of ``deepfake_video_detection_tpu/models/backbone_detector.py``
+(``build_backbone``, ``BackboneDetector``): per-frame backbone features →
+temporal attention MLP (feat→64→1, sigmoid, softmax over T) →
+attention-weighted pooling → dropout + fc(feat→256→num_classes). Input
+``(B, T, H, W, C)`` of normalised frames; returns ``(logits (B, C) f32,
+frame_scores (B, T))``. The backbone runs over the flattened ``B·T`` frames.
+
+Only the ViT backbones are ported so far; EfficientNet, ResNet and the
+ensemble come with the B0/ResNet/ensemble serving slice (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+from torch.nn.utils import skip_init
+
+from deepfake_video_detection_tpu_torch.models.vit import _VARIANTS, VisionTransformer
+from deepfake_video_detection_tpu_torch.nn import init as I
+from deepfake_video_detection_tpu_torch.nn import layers as L
+
+
+def build_backbone(name: str, compute_dtype: torch.dtype = torch.float32,
+                   device=None, generator: Optional[torch.Generator] = None
+                   ) -> nn.Module:
+    """Backbone factory with the JAX package's name dispatch."""
+    name = name.lower()
+    if name.startswith("vit"):
+        variant = name if name in _VARIANTS else "vit_base_patch16_224"
+        return VisionTransformer(variant=variant, num_classes=0,
+                                 compute_dtype=compute_dtype, device=device,
+                                 generator=generator)
+    if name == "tinyconv" or name.startswith(("resnet", "efficientnet")):
+        raise NotImplementedError(
+            f"backbone {name!r} is not ported yet (ROADMAP Queue 1: "
+            f"B0/ResNet/ensemble serving slice)")
+    raise ValueError(f"Unsupported backbone: {name}")
+
+
+class BackboneDetector(nn.Module):
+    def __init__(self, backbone_name: str = "efficientnet_b0",
+                 num_classes: int = 2, dropout_rate: float = 0.5,
+                 use_temporal_attention: bool = True,
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator or torch.Generator().manual_seed(0)
+        self.backbone_name = backbone_name
+        self.num_classes = num_classes
+        self.dropout_rate = dropout_rate
+        self.use_temporal_attention = use_temporal_attention
+        self.compute_dtype = compute_dtype
+        self.backbone = build_backbone(backbone_name, compute_dtype, device, g)
+        self.feature_dim = F = self.backbone.feature_dim
+        kw = {"device": device or "cpu", "dtype": compute_dtype}
+        if use_temporal_attention:
+            self.temporal_attention = nn.Sequential(
+                skip_init(nn.Linear, F, 64, **kw), nn.ReLU(),
+                skip_init(nn.Linear, 64, 1, **kw))
+        self.fc1 = skip_init(nn.Linear, F, 256, **kw)
+        self.fc2 = skip_init(nn.Linear, 256, num_classes, **kw)
+        self._init_head(g)
+
+    @torch.no_grad()
+    def _init_head(self, g: torch.Generator) -> None:
+        """The JAX ``init`` distributions for the head: torch defaults for
+        the temporal MLP, kaiming_normal fan_out for fc1, N(0, 0.01) for fc2,
+        zero head biases."""
+        F = self.feature_dim
+        if self.use_temporal_attention:
+            ta0, ta2 = self.temporal_attention[0], self.temporal_attention[2]
+            ta0.weight.copy_(I.kaiming_uniform((64, F), g))
+            ta0.bias.copy_(I.uniform_bias((64,), F, g))
+            ta2.weight.copy_(I.kaiming_uniform((1, 64), g))
+            ta2.bias.copy_(I.uniform_bias((1,), 64, g))
+        self.fc1.weight.copy_(I.kaiming_normal((256, F), g, mode="fan_out"))
+        self.fc1.bias.copy_(I.zeros((256,)))
+        self.fc2.weight.copy_(I.normal((self.num_classes, 256), g, std=0.01))
+        self.fc2.bias.copy_(I.zeros((self.num_classes,)))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``x``: (B, T, H, W, C) normalised frames. ``generator`` drives
+        dropout when ``train`` (on x's device)."""
+        B, T = x.shape[0], x.shape[1]
+        feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])))
+        feats = feats.reshape(B, T, self.feature_dim)
+        if self.use_temporal_attention:
+            a = torch.sigmoid(self.temporal_attention(feats))[..., 0]  # (B, T)
+            attn = torch.softmax(a.to(torch.float32), dim=1).to(feats.dtype)
+            frame_scores = attn
+            pooled = torch.sum(feats * attn[..., None], dim=1)        # (B, F)
+        else:
+            pooled = feats.mean(dim=1)
+            frame_scores = torch.full((B, T), 1.0 / T, dtype=feats.dtype,
+                                      device=feats.device)
+        h = L.dropout(pooled, self.dropout_rate, train, generator)
+        h = torch.relu(self.fc1(h))
+        h = L.dropout(h, self.dropout_rate, train, generator)
+        logits = self.fc2(h).to(torch.float32)
+        return logits, frame_scores

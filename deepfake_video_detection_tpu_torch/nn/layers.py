@@ -1,0 +1,80 @@
+"""Functional layers with the JAX package's numerics and layouts.
+
+Counterpart of ``deepfake_video_detection_tpu/nn/layers.py`` for what the
+ViT serving path needs. Activations are channel-last (NHWC) at the public
+functions, as in the JAX package; weights are torch's (``(out, in)``
+linears, OIHW convs). Each function casts its weights to the activation's
+dtype, as the JAX layers cast their f32 params, and ``layer_norm`` computes
+in f32.
+
+Attention differs from the JAX layer on purpose: the JAX package reads
+``VIT_FUSED_ATTN`` to choose between XLA and its Pallas kernel, a choice
+measured on a TPU. Here a CUDA input always goes through the hand-written
+flash kernel and a CPU input through its plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from deepfake_video_detection_tpu_torch.ops import attention as A
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch.nn.Linear: weight (out, in), y = x @ Wᵀ + b."""
+    return F.linear(x, weight.to(x.dtype), _cast(bias, x.dtype))
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None,
+           stride: Union[int, Tuple[int, int]] = 1,
+           padding: Union[int, Tuple[int, int]] = 0) -> torch.Tensor:
+    """2-D cross-correlation, ``x`` NHWC in and out, ``weight`` OIHW."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                 _cast(bias, x.dtype), stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in f32, returned in x's dtype."""
+    y = F.layer_norm(x.to(torch.float32), (x.shape[-1],),
+                     weight.to(torch.float32), bias.to(torch.float32), eps)
+    return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout; identity unless ``train`` with ``rate`` > 0. The
+    generator must live on x's device."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def multi_head_attention(x: torch.Tensor, qkv_weight: torch.Tensor,
+                         qkv_bias: Optional[torch.Tensor],
+                         proj_weight: torch.Tensor,
+                         proj_bias: Optional[torch.Tensor],
+                         num_heads: int) -> torch.Tensor:
+    """timm-style fused-QKV self-attention. ``x``: (B, N, C).
+
+    q, k and v are strided views of the QKV projection, fed to the flash
+    kernel without a copy; its output merges heads as a view."""
+    B, N, C = x.shape
+    head = C // num_heads
+    qkv = linear(x, qkv_weight, qkv_bias).reshape(B, N, 3, num_heads, head)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)      # each (B, nh, N, hd)
+    out = A.flash_attention(q, k, v)                    # (B, nh, N, hd)
+    out = out.transpose(1, 2).reshape(B, N, C)
+    return linear(out, proj_weight, proj_bias)

@@ -1,0 +1,469 @@
+"""Serving inference engine for the pretrained detector, on one CUDA card.
+
+Counterpart of ``deepfake_video_detection_tpu/serve/predict.py`` for
+``model_type="pretrained"`` with a single ``BackboneDetector``: the same
+decision policy and result-dict schema. Requests come in as face crops,
+through :meth:`Predictor.predict_faces` (RGB) or
+:meth:`Predictor._predict_pretrained` with ``packed_yuv=True`` (packed
+YUV420, half the host→device bytes). The policy: optional windowed scan
+(``SERVE_WINDOWS``) with the order-statistics threshold correction,
+calibrated threshold from ``calibration_best.json`` /
+``DETECT_FAKE_THRESHOLD`` / 0.5 with the extreme-threshold guard, and the
+``MIN_FACES``, borderline-margin and low-confidence abstains.
+
+Result keys: prediction, verdict_yes_no, description, pred_class,
+confidence, prob_real, prob_fake, num_faces, threshold, enhanced_agent,
+frame_scores (+ windows, abstained).
+
+On CUDA the RGB forward runs the fused-normalize kernel (K1) and every ViT
+block the flash-attention kernel (K2). Video decoding and face detection
+(``predict_video``), ensembles, the enhanced agent, the legacy model types
+and saliency come with later slices of the port (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from deepfake_video_detection_tpu_torch.data.normalize import imagenet_normalize
+from deepfake_video_detection_tpu_torch.ops.preprocess import fused_normalize
+from deepfake_video_detection_tpu_torch.ops.yuv import yuv420_packed_to_rgb
+from deepfake_video_detection_tpu_torch.serve.batcher import MicroBatcher, to_host
+from deepfake_video_detection_tpu_torch.utils.config import (
+    env_bool, env_float, env_int, env_str)
+
+logger = logging.getLogger(__name__)
+
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
+
+
+def _get_fake_class_index(num_classes: int = 2) -> int:
+    idx = env_int("FAKE_CLASS_INDEX", 1)
+    return idx if idx in (0, 1) and num_classes == 2 else (1 if num_classes == 2 else 0)
+
+
+def load_calibration(checkpoint_path: Optional[str]) -> Optional[dict]:
+    """The full ``calibration_best.json`` next to the checkpoint, if any."""
+    if not checkpoint_path:
+        return None
+    cal = os.path.join(os.path.dirname(checkpoint_path), "calibration_best.json")
+    if not os.path.exists(cal):
+        return None
+    try:
+        with open(cal) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def load_calibration_threshold(checkpoint_path: Optional[str]) -> Optional[float]:
+    """The calibrated threshold (``best_thr_accuracy``, else
+    ``best_thr_f1``) next to the checkpoint, if any."""
+    data = load_calibration(checkpoint_path)
+    if not data:
+        return None
+    try:
+        thr = data.get("best_thr_accuracy", data.get("best_thr_f1"))
+        return float(thr) if thr is not None else None
+    except (TypeError, ValueError):
+        return None
+
+
+def windowed_threshold(thr: float, windows: int, quantiles) -> float:
+    """Order-statistics (Šidák) correction for max-of-W scan verdicts.
+
+    ``thr`` was calibrated on single-span scores; a windowed scan thresholds
+    the max of ``windows`` scores. With the empirical CDF F of real-class
+    scores (``real_score_quantiles``), the single-span FPR is α = 1 − F(thr);
+    keeping the per-video FPR at α under W independent windows needs
+    per-window α' = 1 − (1−α)^(1/W), i.e. threshold F⁻¹(1 − α'). Returns
+    max(thr, corrected); ``thr`` unchanged without quantiles."""
+    if windows <= 1 or not quantiles:
+        return thr
+    q = np.maximum.accumulate(np.asarray(quantiles, np.float64))
+    if q.size < 2:
+        return thr
+    ps = np.linspace(0.0, 1.0, q.size)
+    alpha = 1.0 - float(np.interp(thr, q, ps))
+    if alpha <= 0.0:
+        return thr  # thr already above every real score seen in validation
+    alpha_w = 1.0 - (1.0 - alpha) ** (1.0 / windows)
+    return max(thr, float(np.interp(1.0 - alpha_w, ps, q)))
+
+
+def _detection_threshold(default: float) -> float:
+    return env_float("DETECT_FAKE_THRESHOLD", default)
+
+
+def resolve_device(device: Any = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises if CUDA is asked for and
+    there is none (no silent fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} was asked for but CUDA is not "
+                           f"available")
+    return dev
+
+
+def serving_dtype(device: Any = "cuda") -> torch.dtype:
+    """Compute dtype for a served model: ``COMPUTE_DTYPE`` (``auto`` by
+    default: bf16 on the card, f32 on the CPU). Unknown values serve f32
+    with a warning."""
+    name = (env_str("COMPUTE_DTYPE", "auto") or "auto").lower()
+    if name == "auto":
+        name = "bfloat16" if torch.device(device).type == "cuda" else "float32"
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if name not in ("float32", "f32"):
+        logger.warning("COMPUTE_DTYPE=%r not supported "
+                       "(bfloat16|float32|auto); serving in float32", name)
+    return torch.float32
+
+
+def make_forward_fns(model: torch.nn.Module, face_size: int):
+    """The serving forward of a single detector as two functions of a
+    device tensor, each returning ``(probs f32, logits, frame_scores,
+    member_logits=None)``: ``fwd`` takes uint8 RGB frames (B, T, H, W, 3),
+    ``fwd_yuv`` packed YUV420 crops (B, T, face_size*face_size*3//2)."""
+    compute_dtype = getattr(model, "compute_dtype", torch.float32)
+
+    def head(x):
+        logits, scores = model(x)
+        return torch.softmax(logits.to(torch.float32), dim=-1), logits, scores, None
+
+    @torch.inference_mode()
+    def fwd(frames_u8: torch.Tensor):
+        return head(fused_normalize(frames_u8, out_dtype=compute_dtype))
+
+    @torch.inference_mode()
+    def fwd_yuv(packed_u8: torch.Tensor):
+        rgb = yuv420_packed_to_rgb(packed_u8, face_size, face_size)
+        return head(imagenet_normalize(rgb / 255.0, scaled=True))
+
+    return fwd, fwd_yuv
+
+
+class CenterCropExtractor:
+    """Stand-in for the JAX package's ``FaceExtractor`` until the extraction
+    slice: carries the three attributes the Predictor reads."""
+
+    detector = "center"
+    keep_all = False
+
+    def __init__(self, face_size: Optional[int] = None):
+        self.face_size = face_size or env_int("FACE_SIZE", 224)
+
+
+class Predictor:
+    """Holds the model on its device and the serving forwards; thread-safe
+    for requests."""
+
+    def __init__(self, model: torch.nn.Module,
+                 variables: Optional[Dict[str, torch.Tensor]],
+                 model_type: str, checkpoint_path: Optional[str] = None,
+                 extractor: Optional[Any] = None, device: Any = "cuda"):
+        """``variables``: a ``state_dict`` loaded strictly into ``model``,
+        or None to serve the weights the model holds. ``extractor``: any
+        object with ``face_size``, ``detector`` and ``keep_all``. The JAX
+        ``enhanced_agent`` argument comes with ensembles, the only models
+        it is consulted for."""
+        if model_type != "pretrained":
+            raise NotImplementedError(f"model_type {model_type!r} {_NOT_PORTED}")
+        if hasattr(model, "members"):
+            raise NotImplementedError(f"ensemble serving {_NOT_PORTED}")
+        self.device = resolve_device(device)
+        if variables is not None:
+            model.load_state_dict(variables, strict=True)
+        self.model = model.to(self.device).eval()
+        self.model_type = model_type
+        self.checkpoint_path = checkpoint_path
+        self.extractor = extractor or CenterCropExtractor()
+
+        size = self.extractor.face_size
+        self._forward, self._forward_yuv = make_forward_fns(self.model, size)
+
+        # dynamic micro-batching: concurrent requests coalesce into one
+        # batched device step. The item functions are bound once so the
+        # batcher can group calls by function identity.
+        self._batcher = None
+        if env_bool("SERVE_MICROBATCH", True):
+            self._batcher = MicroBatcher(
+                max_batch=max(1, env_int("SERVE_MICROBATCH_MAX", 16)),
+                max_wait_s=env_float("SERVE_MICROBATCH_WAIT_MS", 4.0) / 1e3)
+            self._fwd_item = lambda stacked: self._forward(self._to_device(stacked))
+            self._fwd_yuv_item = lambda stacked: self._forward_yuv(
+                self._to_device(stacked))
+
+        # startup warmup (default on) in a background thread: builds the
+        # kernels and runs every batch shape once, so the first requests do
+        # not pay for it. A failure does not take the server down; it is
+        # logged and kept in ``warmup_error``.
+        self.warmup_error: Optional[BaseException] = None
+        self.warmup_done = threading.Event()
+        if env_bool("SERVE_WARMUP", True):
+            threading.Thread(target=self.warmup, name="predictor-warmup",
+                             daemon=True).start()
+        else:
+            self.warmup_done.set()
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def warmup(self) -> None:
+        """Run the RGB and the packed-YUV forward once at every batch shape
+        serving can produce: batch 1, the windowed scan's W, and every
+        micro-batch bucket."""
+        try:
+            T = max(1, min(64, env_int("MAX_FRAMES", 8)))
+            size = self.extractor.face_size
+            windows = max(1, min(64, env_int("SERVE_WINDOWS", 1)))
+            batch_sizes = [1]
+            if windows > 1:
+                batch_sizes.append(windows)
+            if self._batcher is not None:
+                batch_sizes.extend(self._batcher.bucket_sizes())
+            for b in dict.fromkeys(batch_sizes):  # dedupe, keep order
+                packed = torch.zeros((b, T, size * size * 3 // 2),
+                                     dtype=torch.uint8, device=self.device)
+                to_host(self._forward_yuv(packed)[0])
+                frames = torch.zeros((b, T, size, size, 3), dtype=torch.uint8,
+                                     device=self.device)
+                to_host(self._forward(frames)[0])
+        except Exception as e:  # warmup must never take the server down
+            logger.exception("serving warmup failed")
+            self.warmup_error = e
+        finally:
+            self.warmup_done.set()
+
+    def close(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+
+    # ------------------------------------------------------------------
+
+    def predict_video(self, video_path: str, explain: bool = False) -> Dict[str, Any]:
+        raise NotImplementedError(f"video decoding and face extraction "
+                                  f"{_NOT_PORTED}: use predict_faces")
+
+    def predict_faces(self, faces: np.ndarray, video_id: str = "video",
+                      explain: bool = False) -> Dict[str, Any]:
+        """Run the decision policy on pre-extracted face crops
+        (T, H, W, 3) uint8 RGB."""
+        if explain:
+            raise NotImplementedError(f"saliency (explain) {_NOT_PORTED}")
+        return self._predict_pretrained(faces, video_id)
+
+    def _predict_pretrained(self, faces: np.ndarray, video_id: str,
+                            packed_yuv: bool = False, windows: int = 1,
+                            n_extracted: Optional[int] = None) -> Dict[str, Any]:
+        abstain_conf = env_float("DETECT_ABSTAIN_CONF", 0.60)
+        abstain_margin = max(0.0, min(0.5, env_float("DETECT_ABSTAIN_MARGIN", 0.0)))
+        # the number of faces actually extracted, not a padded count
+        num_faces = int(faces.shape[0]) if n_extracted is None else n_extracted
+        min_faces = max(1, env_int("MIN_FACES", 2))
+        if num_faces < min_faces:
+            return {
+                "prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                "description": (
+                    f"Not enough faces/frames detected for a stable decision "
+                    f"(num_faces={num_faces}, min_faces={min_faces}). Try a "
+                    f"clearer face shot, better lighting, or a longer clip."),
+                "pred_class": None, "confidence": None, "prob_real": None,
+                "prob_fake": None, "num_faces": num_faces, "abstained": True,
+            }
+
+        win_payload = None
+        fwd = self._forward_yuv if packed_yuv else self._forward
+        if windows > 1:
+            # windowed scan: one batched forward over (W, T, ...) — the
+            # windows are the batch, so this bypasses the request batcher
+            T = max(1, -(-faces.shape[0] // windows))  # ceil: keep the tail
+            need = windows * T
+            if faces.shape[0] < need:  # repeat-pad short clips
+                pad = np.repeat(faces[-1:], need - faces.shape[0], axis=0)
+                faces = np.concatenate([faces, pad])
+            faces_w = np.asarray(faces[:need]).reshape(
+                (windows, T) + faces.shape[1:])
+            probs, _, frame_scores, _ = (
+                to_host(o) for o in fwd(self._to_device(faces_w)))
+        elif self._batcher is not None:
+            # coalesce with concurrent requests into one device step; each
+            # output comes back as this request's length-1 slice
+            item_fn = self._fwd_yuv_item if packed_yuv else self._fwd_item
+            probs, _, frame_scores, _ = self._batcher.call(
+                item_fn, np.asarray(faces), out_axes=(0, 0, 0, 1))
+        else:
+            probs, _, frame_scores, _ = (
+                to_host(o) for o in fwd(self._to_device(np.asarray(faces)[None])))
+        probs_all = np.asarray(probs)          # (W or 1, C)
+        fake_idx = _get_fake_class_index(probs_all.shape[1])
+        # verdict from the most-suspicious window (max prob_fake)
+        widx = int(np.argmax(probs_all[:, fake_idx])) \
+            if probs_all.shape[0] > 1 else 0
+        if windows > 1:
+            win_payload = {
+                "policy": "max", "count": int(probs_all.shape[0]),
+                "deciding_window": widx,
+                "prob_fake": [round(float(p), 6)
+                              for p in probs_all[:, fake_idx]],
+            }
+            if num_faces < need:
+                # frames without a detected face were dropped and the rest
+                # cycle-padded: window i is no longer the i-th time segment
+                win_payload["temporal_alignment"] = "cycled"
+                win_payload["note"] = (
+                    "some sampled frames had no detected face and were "
+                    "dropped before cycle-padding; window indices are "
+                    "approximate, not uniform time segments")
+            else:
+                win_payload["temporal_alignment"] = "exact"
+        probs = probs_all[widx]
+        real_idx = 1 - fake_idx if probs.shape[0] == 2 else 0
+        prob_fake = float(probs[fake_idx])
+        prob_real = float(probs[real_idx])
+
+        thr = load_calibration_threshold(self.checkpoint_path)
+        thr = 0.5 if thr is None else float(thr)
+        thr = float(_detection_threshold(thr))
+        if not env_bool("ALLOW_EXTREME_CALIBRATION_THRESHOLD") and \
+                (thr < 0.05 or thr > 0.95):
+            thr = 0.5
+        if windows > 1 and env_bool("SERVE_WINDOW_CAL", True):
+            # max-of-W inflates real-video FPR at the single-span threshold;
+            # correct via the calibration artifact's real-score CDF
+            cal = load_calibration(self.checkpoint_path) or {}
+            thr_w = windowed_threshold(thr, int(probs_all.shape[0]),
+                                       cal.get("real_score_quantiles"))
+            win_payload["threshold_correction"] = {
+                "method": ("order-statistics over the calibration "
+                           "real-score quantiles"
+                           if thr_w != thr else "unavailable"),
+                "base": round(float(thr), 6),
+                "effective": round(float(thr_w), 6),
+            }
+            thr = thr_w
+        is_fake = prob_fake >= thr
+        pred_class = 1 if is_fake else 0
+        confidence = prob_fake if is_fake else prob_real
+        description = f"Pretrained detector (thr={thr:.2f})"
+
+        base = {"prob_real": prob_real, "prob_fake": prob_fake,
+                "num_faces": num_faces, "threshold": thr,
+                "enhanced_agent": None,
+                # the temporal attention weights of the deciding window
+                "frame_scores": [round(float(s), 4)
+                                 for s in np.asarray(frame_scores)[widx]]}
+        if win_payload is not None:
+            base["windows"] = win_payload
+        if abstain_margin > 0.0 and abs(prob_fake - thr) <= abstain_margin:
+            return {
+                "prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                "description": (
+                    f"Borderline score (prob_fake={prob_fake * 100:.1f}%, "
+                    f"thr={thr:.2f} ± {abstain_margin:.2f}). Manual review "
+                    f"recommended.\n\n" + description),
+                "pred_class": None, "confidence": float(confidence),
+                "abstained": True, **base,
+            }
+        if confidence < abstain_conf:
+            return {
+                "prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                "description": (
+                    f"Low confidence ({confidence * 100:.1f}%). This video may "
+                    f"be out-of-domain (different compression, face quality, "
+                    f"lighting, or manipulation type). Manual review "
+                    f"recommended.\n\n" + description),
+                "pred_class": None, "confidence": float(confidence),
+                "abstained": True, **base,
+            }
+        return {
+            "prediction": "Deepfake" if pred_class == 1 else "Real",
+            "verdict_yes_no": "Yes" if pred_class == 1 else "No",
+            "description": description, "pred_class": pred_class,
+            "confidence": float(confidence), **base,
+        }
+
+
+# ---------------------------------------------------------------------------
+# human-readable messaging (≙ the JAX package's serve/predict.py helpers)
+# ---------------------------------------------------------------------------
+
+
+def simple_english_message(result: Optional[Dict[str, Any]],
+                           filename: Optional[str] = None) -> str:
+    if not isinstance(result, dict):
+        return "Sorry, I could not check this video."
+    if result.get("error"):
+        return f"Sorry, I could not check this video. Error: {result['error']}"
+    name = f" for {filename}" if filename else ""
+    if result.get("abstained"):
+        return (f"I am not sure about this video{name}. "
+                f"Please try a clearer or longer clip.")
+    conf = result.get("confidence")
+    pct = f" I am {conf * 100:.0f}% sure." if isinstance(conf, float) else ""
+    if result.get("pred_class") == 1:
+        return f"This video{name} looks FAKE.{pct}"
+    return f"This video{name} looks REAL.{pct}"
+
+
+def ensure_exact_word_count(text: str, target: int = 200) -> str:
+    """Pad/trim to exactly ``target`` words."""
+    words = text.split()
+    if len(words) > target:
+        return " ".join(words[:target])
+    filler = ("Please review the result carefully and use your own judgment "
+              "when sharing this video with other people online.").split()
+    i = 0
+    while len(words) < target:
+        words.append(filler[i % len(filler)])
+        i += 1
+    return " ".join(words)
+
+
+def simple_english_justification_200_words(result: Dict[str, Any],
+                                           filename: str = "") -> str:
+    verdict = result.get("prediction", "Uncertain")
+    conf = result.get("confidence")
+    prob_fake = result.get("prob_fake")
+    num_faces = result.get("num_faces", 0)
+    parts = [
+        f"We checked the video {filename} with our deepfake detector.",
+        f"The final verdict is: {verdict}.",
+    ]
+    if isinstance(conf, float):
+        parts.append(f"The system is about {conf * 100:.0f} percent confident "
+                     f"in this verdict.")
+    if isinstance(prob_fake, float):
+        parts.append(f"The model gave a fake probability of "
+                     f"{prob_fake * 100:.0f} percent.")
+    parts.append(f"We looked at {num_faces} face pictures taken from different "
+                 f"moments of the video.")
+    parts.append("The detector studies each face for small signs that editing "
+                 "tools leave behind, like strange skin texture, blurry edges "
+                 "around the face, odd lighting, or eyes and teeth that do not "
+                 "look natural.")
+    parts.append("It also compares the faces across time, because fake videos "
+                 "often flicker or change in ways real videos do not.")
+    if result.get("abstained"):
+        parts.append("This time the system was not sure enough to give a firm "
+                     "answer, so it chose to say it is uncertain instead of "
+                     "guessing.")
+        parts.append("A clearer video with a bigger, brighter face would help "
+                     "it decide.")
+    elif result.get("pred_class") == 1:
+        parts.append("The signs of editing were strong enough for the system "
+                     "to call this video fake.")
+        parts.append("Be careful before trusting or sharing it.")
+    else:
+        parts.append("The system did not find strong signs of editing, so the "
+                     "video looks real to it.")
+        parts.append("Remember that no detector is perfect, so stay careful "
+                     "online.")
+    return ensure_exact_word_count(" ".join(parts), 200)

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked ``cuda``. Whether a card is present is decided inside each test, so
+every worker collects the same tests; without one they skip. On a machine
+with a card and ``nvcc``:
+
+    python -m pytest tests/test_torch_port_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepfake_video_detection_tpu_torch.ops import attention as A
+from deepfake_video_detection_tpu_torch.ops import preprocess as P
+
+pytestmark = pytest.mark.cuda
+
+
+def _cuda_generator() -> torch.Generator:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((2, 8, 224, 224, 3), torch.bfloat16, 0),
+    ((2, 8, 224, 224, 3), torch.float32, 0),
+    ((3, 37, 41, 3), torch.bfloat16, 0),          # not a multiple of 16 or 128
+    ((5, 7, 3), torch.float32, 1),                # not 16-byte aligned
+])
+def test_fused_normalize_kernel_matches_plain(shape, dtype, offset):
+    gen = _cuda_generator()
+    n = int(np.prod(shape))
+    buf = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    x = buf[offset:].view(shape)
+    before = P.fused_normalize.launches
+    got = P.fused_normalize(x, dtype)
+    assert P.fused_normalize.launches == before + 1
+    ref = P.fused_normalize_plain(x, dtype)
+    tol = 1.6e-2 if dtype == torch.bfloat16 else 1e-6
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,H,N,d,dtype,strided", [
+    (8, 12, 197, 64, torch.bfloat16, True),       # ViT-B/16, one request
+    (8, 12, 197, 64, torch.float32, False),
+    (2, 12, 640, 64, torch.bfloat16, False),      # the streaming (K3) regime
+    (4, 6, 197, 32, torch.float32, False),
+    (16, 12, 1, 64, torch.bfloat16, False),
+    (2, 4, 130, 256, torch.float32, False),
+    (2, 4, 100, 80, torch.bfloat16, True),
+])
+def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
+    gen = _cuda_generator()
+    if strided:
+        qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+    before = A.flash_attention_fwd.launches
+    out, lse = A.flash_attention_fwd(q, k, v)
+    assert A.flash_attention_fwd.launches == before + 1
+    ref, ref_lse = A.flash_attention_plain(q, k, v)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert out.shape == (B, H, N, d) and out.dtype == dtype
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+def test_flash_kernel_is_forward_only():
+    gen = _cuda_generator()
+    q = torch.randn((1, 2, 8, 16), device="cuda", generator=gen, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        A.flash_attention_fwd(q, q, q)
+    with torch.no_grad():
+        A.flash_attention_fwd(q, q, q)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take():
+    gen = _cuda_generator()
+    q = torch.randn((1, 2, 8, 300), device="cuda", generator=gen)
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q, q, q)                  # d > 256
+    q = torch.randn((1, 2, 16, 8), device="cuda", generator=gen).transpose(-1, -2)
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q, q, q)                  # last axis strided
+
+
+def test_small_detector_on_cuda_matches_plain_versions():
+    """A two-block ViT-Tiny detector: kernels vs the plain versions."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+
+    gen = _cuda_generator()
+    model = BackboneDetector("vit_tiny_patch16_224", device="cuda")
+    model.backbone = VisionTransformer("vit_tiny_patch16_224", img_size=64, depth=2,
+                                       device="cuda")
+    x = torch.randint(0, 256, (2, 3, 64, 64, 3), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    with torch.no_grad():
+        logits, _ = model(P.fused_normalize(x, torch.float32))
+        with mock.patch.object(A, "flash_attention",
+                               lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+            ref, _ = model(P.fused_normalize_plain(x, torch.float32))
+    assert float((logits - ref).abs().max()) <= 1e-3

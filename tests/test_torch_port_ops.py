@@ -1,0 +1,126 @@
+"""PyTorch port ops vs the JAX package's ops, on the CPU.
+
+The port's kernels run only on a CUDA card; here each wrapper takes its
+plain PyTorch version (the tensors lie on the CPU), which is held against
+the JAX Pallas kernel run in interpret mode, on the same numpy inputs.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from deepfake_video_detection_tpu.data.normalize import imagenet_normalize as jax_imagenet_normalize
+from deepfake_video_detection_tpu.ops.attention import _flash_impl, flash_attention as jax_flash
+from deepfake_video_detection_tpu.ops.preprocess import fused_normalize as jax_fused_normalize
+from deepfake_video_detection_tpu.ops.yuv import yuv420_packed_to_rgb as jax_yuv_to_rgb
+from deepfake_video_detection_tpu_torch.data.normalize import imagenet_normalize
+from deepfake_video_detection_tpu_torch.ops import _build
+from deepfake_video_detection_tpu_torch.ops import attention as A
+from deepfake_video_detection_tpu_torch.ops import preprocess as P
+from deepfake_video_detection_tpu_torch.ops import yuv as Y
+
+
+def test_fused_normalize_plain_matches_pallas_interpret():
+    x = np.random.default_rng(0).integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8)
+    ref = np.asarray(jax_fused_normalize(jnp.asarray(x), out_dtype=jnp.float32,
+                                         interpret=True))
+    got = P.fused_normalize(torch.from_numpy(x), out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_fused_normalize_odd_shape_matches_imagenet_normalize():
+    # 5*7*9*3 elements: not a multiple of the TPU kernel's 128 lanes
+    x = np.random.default_rng(1).integers(0, 256, (5, 7, 9, 3), dtype=np.uint8)
+    ref = np.asarray(jax_imagenet_normalize(jnp.asarray(x)))
+    got = P.fused_normalize(torch.from_numpy(x), out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    # the port's own plain imagenet_normalize agrees too
+    np.testing.assert_allclose(imagenet_normalize(torch.from_numpy(x)).numpy(),
+                               ref, atol=1e-6)
+    # bf16 output is the f32 result rounded once
+    bf = P.fused_normalize(torch.from_numpy(x))
+    assert bf.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bf.float().numpy(),
+                                  got.to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("bad", [np.zeros((4, 4, 4), np.uint8),
+                                 np.zeros((4, 3), np.float32)])
+def test_fused_normalize_rejects_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        P.fused_normalize(torch.from_numpy(bad))
+    with pytest.raises(ValueError):
+        P.fused_normalize(torch.zeros((2, 3), dtype=torch.uint8),
+                          out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("n", [64, 197, 640])
+def test_flash_plain_matches_pallas_interpret(n):
+    """N = 64 and 197 land in the short-N kernel (n_pad ≤ 512, K2), N = 640
+    in the streaming kernel (K3)."""
+    rng = np.random.default_rng(n)
+    q, k, v = (rng.normal(size=(1, 2, n, 64)).astype(np.float32) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref_out = np.asarray(jax_flash(jq, jk, jv, interpret=True))
+    ref_lse = np.asarray(_flash_impl(jq, jk, jv, interpret=True)[1])[..., 0]
+    out, lse = A.flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert out.shape == (1, 2, n, 64) and lse.shape == (1, 2, n)
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=2e-5)
+    np.testing.assert_allclose(
+        A.flash_attention(*(torch.from_numpy(a) for a in (q, k, v))).numpy(),
+        ref_out, atol=2e-5)
+
+
+def test_flash_plain_takes_strided_qkv_views():
+    """The views multi_head_attention cuts from a fused QKV buffer."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.normal(size=(2, 50, 3, 4, 16)).astype(np.float32))
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    assert not q.is_contiguous()
+    out, lse = A.flash_attention_fwd(q, k, v)
+    ref, ref_lse = A.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous())
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=1e-6)
+
+
+def test_flash_rejects_mismatched_inputs():
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q, q[:, :, :4], q)
+    with pytest.raises(ValueError):
+        A.flash_attention_fwd(q, q.to(torch.bfloat16), q)
+
+
+def test_yuv420_packed_to_rgb_matches_jax():
+    h = w = 16
+    packed = np.random.default_rng(4).integers(0, 256, (2, 3, h * w * 3 // 2),
+                                               dtype=np.uint8)
+    ref = np.asarray(jax_yuv_to_rgb(jnp.asarray(packed), h, w))
+    got = Y.yuv420_packed_to_rgb(torch.from_numpy(packed), h, w)
+    assert got.shape == (2, 3, h, w, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No nvcc → the build raises; there is no fallback."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert not list(tmp_path.iterdir())
+
+
+def test_kernel_libraries_are_named_by_source_hash():
+    paths = {s: _build.library_path(s) for s in _build.SOURCES}
+    assert len(set(paths.values())) == len(_build.SOURCES)
+    for src, p in paths.items():
+        assert (_build.CSRC_DIR / src).exists()
+        assert p.parent == _build.BUILD_DIR and p.name.startswith("lib")
