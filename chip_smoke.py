@@ -6,17 +6,25 @@
 Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 
 1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA.
-2. Build: every CUDA kernel of the port, from the sources in the checkout.
+2. Build: every CUDA kernel of the port, from the sources in the checkout,
+   one ``nvcc`` per source, all at once.
 3. Kernel checks: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes and a few edge shapes, with the stated
+   at the main paths' shapes and a few edge shapes, with the stated
    tolerance; times by CUDA events after warm-up (kernel, plain version,
    and the one PyTorch call that computes the same function, if any).
 4. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
-   generator, bf16) behind a ``Predictor`` with micro-batching and warmup:
-   sequential, concurrent, packed-YUV420 and windowed requests. Checks the
-   result dicts, that the kernels' launch counts rose as the path requires,
-   and one request's ``prob_fake`` against the plain versions.
-5. Summary: the ``{"kernels": [...]}`` line, then the last line
+   generator, f32 params, bf16 activations) behind a ``Predictor`` with
+   micro-batching and warmup: sequential, concurrent, packed-YUV420 and
+   windowed requests. Checks the result dicts, that the kernels' launch
+   counts rose as the path requires, and one request's ``prob_fake``
+   against the plain versions.
+5. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
+   16 frames at 224 px) trains ViT-B/16 for one epoch through ``Trainer``
+   (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
+   checks the launch counts of the forward and backward kernels, the
+   artefacts, one step through the kernels against the plain versions, and
+   serves the checkpoint it wrote; then times a train step.
+6. Summary: the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -26,6 +34,7 @@ exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,8 +51,12 @@ PEAK_OPS = {"bf16": 989e12,        # dense tensor-core bf16
 
 K1_SOURCE = "deepfake_video_detection_tpu_torch/csrc/normalize.cu"
 K2_SOURCE = "deepfake_video_detection_tpu_torch/csrc/flash_fwd.cu"
+K4_SOURCE = "deepfake_video_detection_tpu_torch/csrc/flash_bwd.cu"
 K1_REPLACES = "deepfake_video_detection_tpu/ops/preprocess.py:38"
 K2_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:180"
+K4_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:209"
+K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
+K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 
 # tolerances, with their reasons
 K1_TOL = {"f32": 1e-6,    # same IEEE steps in the same order: a few f32 ulp
@@ -52,6 +65,11 @@ K2_TOL_O = {"f32": 1e-4,    # f32 sums taken in another order
             "bf16": 2e-2}   # one bf16 ulp near |x| ~ 4
 K2_TOL_LSE = 1e-3           # f32 logsumexp, sum order
 PROB_TOL = 2e-2             # served prob_fake, kernels vs plain versions, bf16
+K4_TOL_F32 = 1e-3           # atol = rtol, the JAX suite's gradient tolerance (sum order)
+K4_TOL_BF16 = 2e-2          # max error over the reference's max |value|, bf16 outputs
+K4_TOL_FLOOR = 1e-4         # absolute floor: at N = 1 dQ, dK are 0 up to f32 residue
+STEP_TOL_LOSS = 1e-2        # one train step, kernels vs plain, relative: bf16
+STEP_TOL_NORM = 5e-2        # activations through 12 blocks round at other places
 
 
 class SmokeFailure(RuntimeError):
@@ -173,6 +191,86 @@ def check_k2(torch, A, gen):
         _emit(rec)
         _require(err <= K2_TOL_O[name], f"flash {rec['shape']} {name}: O err {err}")
         _require(err_lse <= K2_TOL_LSE, f"flash {rec['shape']} {name}: lse err {err_lse}")
+        cases.append(rec)
+    return cases
+
+
+def _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided):
+    """q, k, v (views of one QKV buffer when ``strided``), the forward's out
+    and lse, and dO as the (B, H, N, d) view of a (B, N, H*d) gradient, as
+    the head merge of ``multi_head_attention`` hands it back."""
+    if strided:
+        qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dt)
+                   for _ in range(3))
+    out, lse = A.flash_attention_fwd(q, k, v)
+    dout = torch.randn((B, N, H * d), device="cuda", generator=gen).to(dt)
+    return q, k, v, out, lse, dout.view(B, N, H, d).transpose(1, 2)
+
+
+def check_k4(torch, A, gen):
+    """flash_attention_bwd vs its plain version. Returns the case records."""
+    import torch.nn.functional as F
+
+    cases = []
+    # (B, H, N, d, dtype, strided q/k/v and dO, note)
+    specs = [(128, 12, 197, 64, torch.bfloat16, True,
+              "main: one train step of ViT-B/16 (8 clips x 16 frames)"),
+             (8, 12, 197, 64, torch.float32, True, ""),
+             (2, 12, 640, 64, torch.bfloat16, False,
+              "K5/K6 regime, n_pad > 512 (no port path yet)"),
+             (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
+             (4, 6, 197, 32, torch.float32, False, "d = 32"),
+             (2, 4, 130, 256, torch.float32, False, "d = 256")]
+    for B, H, N, d, dt, strided, note in specs:
+        q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        got = A.flash_attention_bwd(q, k, v, out, lse, dout)
+        ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        again = A.flash_attention_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for label, g, r in zip(("dq", "dk", "dv"), got, ref):
+            _require(bool(torch.isfinite(g.float()).all()), f"flash bwd {note}: non-finite {label}")
+            err = float((g.float() - r.float()).abs().max())
+            errs[label] = err
+            if name == "bf16":
+                ok &= err <= max(K4_TOL_BF16 * float(r.float().abs().max()), K4_TOL_FLOOR)
+            else:
+                ok &= bool(torch.allclose(g, r, atol=K4_TOL_F32, rtol=K4_TOL_F32))
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+
+        # the library yardstick: autograd through scaled_dot_product_attention
+        # on the same inputs, minus that call's forward
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(ql, kl, vl)
+            torch.autograd.grad(o, (ql, kl, vl), dout)
+
+        with torch.no_grad():
+            sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl))
+        library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
+
+        itemsize = q.element_size()
+        nbytes = 8 * B * H * N * d * itemsize + 4 * B * H * N
+        bound, by = _bound_ms(nbytes, 10.0 * B * H * N * N * d, name)
+        rec = {"kernel": "flash_attention_bwd", "shape": [B, H, N, d],
+               "dtype": name, "strided": strided, "note": note,
+               "max_abs_err": max(errs.values()), "errs": errs,
+               "tol": K4_TOL_BF16 if name == "bf16" else K4_TOL_F32,
+               "tol_kind": "relative to max |ref|" if name == "bf16" else "atol=rtol",
+               "deterministic": deterministic,
+               "kernel_ms": _time_ms(torch, lambda: A.flash_attention_bwd(
+                   q, k, v, out, lse, dout)),
+               "plain_ms": _time_ms(torch, lambda: A.flash_attention_bwd_plain(
+                   q, k, v, out, lse, dout)),
+               "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+        _emit(rec)
+        _require(ok, f"flash bwd {rec['shape']} {name}: errors {errs}")
+        _require(deterministic, f"flash bwd {rec['shape']} {name}: runs differ")
         cases.append(rec)
     return cases
 
@@ -305,6 +403,154 @@ def serve(torch, A, P, smi: str):
     return {"fused_normalize": k1, "flash_attention_fwd": k2}, rec
 
 
+def _write_faces(root: str, n_clips: int, T: int, size: int) -> None:
+    """Synthetic ``.npz`` face stacks from seed 0, half labelled fake (the
+    fake clips a little brighter)."""
+    rng = np.random.default_rng(0)
+    for i in range(n_clips):
+        label = i % 2
+        faces = rng.integers(0, 200, (T, size, size, 3), dtype=np.uint8) + 40 * label
+        np.savez(os.path.join(root, f"clip_{i:02d}_{'fake' if label else 'real'}.npz"),
+                 faces=faces.astype(np.uint8), label=np.int64(label))
+
+
+def train(torch, A, P, smi: str):
+    """Train ViT-B/16 one epoch through Trainer, check it, serve its
+    checkpoint, time a step. Returns (launch counts, record)."""
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import (
+        load_checkpoint, state_dict_from_jax)
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    n_clips, T, size, B = 24, 16, 224, 8
+    root = tempfile.mkdtemp(prefix="dfdt_train_")
+    try:
+        data, out = os.path.join(root, "faces"), os.path.join(root, "run")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        _write_faces(data, n_clips, T, size)
+        ds = VideoFacesDataset(data, num_frames=T)
+        train_ds, val_ds = ds.split(0.2)
+        model = BackboneDetector("vit_base_patch16_224", compute_dtype=torch.bfloat16,
+                                 device="cuda", generator=torch.Generator().manual_seed(0))
+        _require(all(p.dtype == torch.float32 for p in model.parameters()),
+                 "training params are not f32")
+        cfg = TrainerConfig(out_dir=out, epochs=1, batch_size=B, num_frames=T,
+                            lr=1e-4, optimizer="adam", schedule="step", loss="ce",
+                            balance="weights", grad_clip=None, best_metric="f1",
+                            threshold_sweep=True, augment=True,
+                            model_config={"model_type": "pretrained",
+                                          "backbone": "vit_base_patch16_224"})
+        trainer = Trainer(model, train_ds, val_ds, cfg, device="cuda")
+        step_metrics = []
+        step_fn = trainer.train_step
+
+        def recording_step(state, batch, gen):
+            state, m = step_fn(state, batch, gen)
+            step_metrics.append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        trainer.train_step = recording_step
+        setup_s = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        P.fused_normalize.launches = 0
+        A.flash_attention_fwd.launches = 0
+        A.flash_attention_bwd.launches = 0
+        t = time.perf_counter()
+        state = trainer.train(log=lambda msg: print(f"  trainer: {msg}", flush=True))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t
+        launches = {"flash_attention_fwd": A.flash_attention_fwd.launches,
+                    "flash_attention_bwd": A.flash_attention_bwd.launches,
+                    "fused_normalize": P.fused_normalize.launches}
+        peak_bytes = torch.cuda.max_memory_allocated()
+
+        depth = len(model.backbone.blocks)
+        steps = state.step
+        val_batches = -(-len(val_ds) // B)
+        _require(steps == -(-len(train_ds) // B), f"{steps} train steps")
+        _require(launches["flash_attention_fwd"] == depth * (steps + val_batches),
+                 f"flash fwd launches {launches} != {depth} x ({steps} + {val_batches})")
+        _require(launches["flash_attention_bwd"] == depth * steps,
+                 f"flash bwd launches {launches} != {depth} x {steps}")
+        _require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                     for m in step_metrics), f"non-finite step metrics {step_metrics}")
+        for name in ("checkpoint_best.npz", "training_history.csv",
+                     "calibration_best.json", "preds_epoch_0.csv"):
+            _require(os.path.exists(os.path.join(out, name)), f"no {name}")
+
+        # one step's loss and grad norm, kernels vs plain versions, on one
+        # augmented batch with the same dropout draws (no optimizer update)
+        batch = next(iter(trainer._device_batches(train_ds, True)))
+        batch.pop("paths", None)
+        batch = trainer._prep_train(batch, torch.Generator(device="cuda").manual_seed(1))
+        params = list(model.parameters())
+
+        def loss_and_norm():
+            logits, _ = model(batch["frames"], train=True,
+                              generator=torch.Generator(device="cuda").manual_seed(2))
+            loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
+            grads = torch.autograd.grad(loss, params)
+            return float(loss.detach()), float(global_norm(grads))
+
+        loss_k, norm_k = loss_and_norm()
+        with mock.patch.object(A, "flash_attention",
+                               lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+            loss_p, norm_p = loss_and_norm()
+        d_loss = abs(loss_k - loss_p) / abs(loss_p)
+        d_norm = abs(norm_k - norm_p) / norm_p
+        _require(d_loss <= STEP_TOL_LOSS and d_norm <= STEP_TOL_NORM,
+                 f"step kernels vs plain: loss {loss_k} vs {loss_p}, "
+                 f"grad norm {norm_k} vs {norm_p}")
+
+        # serve the checkpoint the run wrote
+        best = os.path.join(out, "checkpoint_best.npz")
+        variables, meta = load_checkpoint(best)
+        served = BackboneDetector("vit_base_patch16_224", compute_dtype=torch.bfloat16,
+                                  device="cuda")
+        os.environ["SERVE_WARMUP"] = "0"
+        pred = Predictor(served, state_dict_from_jax(variables), "pretrained",
+                         checkpoint_path=best, device="cuda")
+        faces = np.load(train_ds.files[0])["faces"]
+        res = pred.predict_faces(faces, video_id="trained")
+        pred.close()
+        _check_result(res, T, "request to the trained checkpoint")
+
+        # a train step at the full shape, by CUDA events
+        step_ms = _time_ms(torch, lambda: step_fn(state, batch, None),
+                           iters=5, warmup=1)
+        rec = {"phase": "training", "card": smi, "model": "vit_base_patch16_224",
+               "params": "f32", "activations": "bf16", "clips": n_clips,
+               "batch_clips": B, "frames_per_clip": T, "setup_s": setup_s,
+               "epoch_s": epoch_s, "train_steps": steps, "val_batches": val_batches,
+               "step_metrics": step_metrics,
+               "epoch_train_loss": trainer.history[-1]["train_loss"],
+               "epoch_val_accuracy": trainer.history[-1]["accuracy"],
+               "launches": launches,
+               "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+               "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
+               "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
+               "step_tol": {"loss": STEP_TOL_LOSS, "grad_norm": STEP_TOL_NORM},
+               "checkpoint_meta_epoch": meta.get("epoch"),
+               "served_prediction": res["prediction"], "served_prob_fake": res["prob_fake"],
+               "step_ms": step_ms, "frames_per_s": B * T / step_ms * 1e3,
+               "max_memory_allocated_bytes": peak_bytes}
+        _emit(rec)
+        print(f"training step {step_ms:.2f} ms ({B * T / step_ms * 1e3:.1f} frames/s), "
+              f"peak {peak_bytes / 2**30:.2f} GiB allocated on {smi}", flush=True)
+        return launches, rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _summary_entry(name, source, replaces, main, launches, tol):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -344,16 +590,35 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_cases = check_k1(torch, P, gen)
     k2_cases = check_k2(torch, A, gen)
+    k4_cases = check_k4(torch, A, gen)
 
-    launches, _ = serve(torch, A, P, smi)
-    _require(all(v > 0 for v in launches.values()),
-             f"a kernel was not launched on the serving path: {launches}")
+    served, _ = serve(torch, A, P, smi)
+    _require(all(v > 0 for v in served.values()),
+             f"a kernel was not launched on the serving path: {served}")
+    trained, _ = train(torch, A, P, smi)
+    _require(trained["flash_attention_fwd"] > 0 and trained["flash_attention_bwd"] > 0,
+             f"a kernel was not launched on the training path: {trained}")
 
+    k2 = _summary_entry("flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0],
+                        served["flash_attention_fwd"] + trained["flash_attention_fwd"],
+                        k2_cases[0]["tol"])
+    k2["launches_by_path"] = {"serving": served["flash_attention_fwd"],
+                              "training": trained["flash_attention_fwd"]}
+    k4 = _summary_entry("flash_attention_bwd", K4_SOURCE, K4_REPLACES, k4_cases[0],
+                        trained["flash_attention_bwd"], k4_cases[0]["tol"])
+    k4["launches_by_path"] = {"training": trained["flash_attention_bwd"]}
+    regime = next(c for c in k4_cases if c["shape"][2] > 512)
+    k5k6 = []
+    for what, replaces in (("dQ pass (K5)", K5_REPLACES), ("dK/dV pass (K6)", K6_REPLACES)):
+        e = _summary_entry("flash_attention_bwd", K4_SOURCE, replaces, regime, 0,
+                           regime["tol"])
+        e["note"] = (f"{what} regime, n_pad > 512: no port path reaches it yet; "
+                     f"ms is both passes of one backward call")
+        k5k6.append(e)
     kernels = [
         _summary_entry("fused_normalize", K1_SOURCE, K1_REPLACES, k1_cases[0],
-                       launches["fused_normalize"], k1_cases[0]["tol"]),
-        _summary_entry("flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0],
-                       launches["flash_attention_fwd"], k2_cases[0]["tol"]),
+                       served["fused_normalize"], k1_cases[0]["tol"]),
+        k2, k4, *k5k6,
     ]
     print(_smi(), flush=True)
     _emit({"kernels": kernels})

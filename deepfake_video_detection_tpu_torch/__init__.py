@@ -12,12 +12,16 @@ PyTorch version, taken only for tensors that lie on the CPU.
 
 Sub-packages
 ------------
-``utils``       env parsing, dotted-path helpers
-``data``        ImageNet normalisation constants and the plain op
-``ops``         the kernels' wrappers (fused normalize, flash forward), YUV420
+``utils``       env parsing, dotted-path helpers, device choice
+``data``        normalisation, ``.npz`` face-stack dataset, loader with
+                device prefetch, on-device augmentation
+``ops``         the kernels' wrappers (fused normalize, flash forward and
+                backward as one autograd Function), YUV420
 ``nn``          initialisers on a ``torch.Generator``, functional layers
 ``models``      ViT backbones and the per-frame ``BackboneDetector``
-``checkpoint``  JAX trees / native ``.npz`` checkpoints → ``state_dict``
+``checkpoint``  JAX trees / native ``.npz`` checkpoints ↔ ``state_dict``
+``train``       losses, optimizer, train/eval steps, ``Trainer``, CLI
+``evals``       classification metrics and the threshold sweep
 ``serve``       ``Predictor`` and the request micro-batcher
 """
 

@@ -6,6 +6,10 @@ temporal attention MLP (feat→64→1, sigmoid, softmax over T) →
 attention-weighted pooling → dropout + fc(feat→256→num_classes). Input
 ``(B, T, H, W, C)`` of normalised frames; returns ``(logits (B, C) f32,
 frame_scores (B, T))``. The backbone runs over the flattened ``B·T`` frames.
+Parameters are f32 and ``compute_dtype`` is the activations' dtype, as in
+the ViT; the model lives on ``device``, the card unless the caller names
+another. ``train=True`` applies dropout with draws from the generator the
+caller passes (its numbers differ from ``jax.random``'s).
 
 Only the ViT backbones are ported so far; EfficientNet, ResNet and the
 ensemble come with the B0/ResNet/ensemble serving slice (ROADMAP Queue 1).
@@ -22,6 +26,7 @@ from torch.nn.utils import skip_init
 from deepfake_video_detection_tpu_torch.models.vit import _VARIANTS, VisionTransformer
 from deepfake_video_detection_tpu_torch.nn import init as I
 from deepfake_video_detection_tpu_torch.nn import layers as L
+from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 
 
 def build_backbone(name: str, compute_dtype: torch.dtype = torch.float32,
@@ -56,7 +61,7 @@ class BackboneDetector(nn.Module):
         self.compute_dtype = compute_dtype
         self.backbone = build_backbone(backbone_name, compute_dtype, device, g)
         self.feature_dim = F = self.backbone.feature_dim
-        kw = {"device": device or "cpu", "dtype": compute_dtype}
+        kw = {"device": resolve_device(device), "dtype": torch.float32}
         if use_temporal_attention:
             self.temporal_attention = nn.Sequential(
                 skip_init(nn.Linear, F, 64, **kw), nn.ReLU(),
@@ -91,7 +96,9 @@ class BackboneDetector(nn.Module):
         feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])))
         feats = feats.reshape(B, T, self.feature_dim)
         if self.use_temporal_attention:
-            a = torch.sigmoid(self.temporal_attention(feats))[..., 0]  # (B, T)
+            ta0, ta2 = self.temporal_attention[0], self.temporal_attention[2]
+            a = torch.relu(L.linear(feats, ta0.weight, ta0.bias))
+            a = torch.sigmoid(L.linear(a, ta2.weight, ta2.bias))[..., 0]  # (B, T)
             attn = torch.softmax(a.to(torch.float32), dim=1).to(feats.dtype)
             frame_scores = attn
             pooled = torch.sum(feats * attn[..., None], dim=1)        # (B, F)
@@ -100,7 +107,7 @@ class BackboneDetector(nn.Module):
             frame_scores = torch.full((B, T), 1.0 / T, dtype=feats.dtype,
                                       device=feats.device)
         h = L.dropout(pooled, self.dropout_rate, train, generator)
-        h = torch.relu(self.fc1(h))
+        h = torch.relu(L.linear(h, self.fc1.weight, self.fc1.bias))
         h = L.dropout(h, self.dropout_rate, train, generator)
-        logits = self.fc2(h).to(torch.float32)
+        logits = L.linear(h, self.fc2.weight, self.fc2.bias).to(torch.float32)
         return logits, frame_scores

@@ -7,11 +7,12 @@ four ``_VARIANTS`` and timm's parameter names (``cls_token``, ``pos_embed``,
 ``(B, H, W, 3)``; the output is the post-norm CLS embedding
 (``num_classes=0``, the backbone mode) or the head's logits.
 
-Parameters are held in ``compute_dtype`` (bf16 for serving on the card):
-the JAX package keeps f32 params and casts them at each op, which gives the
-same values for every op except the LayerNorm affine, which sees the bf16
-copy of its f32 weights here. Every block's attention runs the flash kernel
-on CUDA (``nn.layers.multi_head_attention``).
+Parameters are f32, as in the JAX package; ``compute_dtype`` (bf16 on the
+card) is the activations' dtype, and each op casts its weights to it
+(``nn.layers``), so a bf16 model trains f32 weights. Every block's attention
+runs the flash kernels on CUDA, forward and backward
+(``nn.layers.multi_head_attention``). The model lives on ``device``, the
+card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch.nn.utils import skip_init
 
 from deepfake_video_detection_tpu_torch.nn import init as I
 from deepfake_video_detection_tpu_torch.nn import layers as L
+from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 
 _VARIANTS = {
     # embed_dim, depth, heads, mlp_ratio
@@ -120,7 +122,7 @@ class VisionTransformer(nn.Module):
         self.feature_dim = self.embed_dim
 
         D = self.embed_dim
-        kw = {"device": device or "cpu", "dtype": compute_dtype}
+        kw = {"device": resolve_device(device), "dtype": torch.float32}
         self.cls_token = nn.Parameter(torch.empty(1, 1, D, **kw))
         self.pos_embed = nn.Parameter(torch.empty(1, self.num_patches + 1, D, **kw))
         self.patch_embed = PatchEmbed(patch_size, D, **kw)
@@ -159,8 +161,8 @@ class VisionTransformer(nn.Module):
         """``x``: (B, H, W, 3) NHWC. Returns CLS features (B, D), or logits."""
         x = x.to(self.compute_dtype)
         y = self.patch_embed(x)
-        cls = self.cls_token.expand(y.shape[0], -1, -1)
-        y = torch.cat([cls, y], dim=1) + self.pos_embed
+        cls = self.cls_token.to(y.dtype).expand(y.shape[0], -1, -1)
+        y = torch.cat([cls, y], dim=1) + self.pos_embed.to(y.dtype)
         for blk in self.blocks:
             y = blk(y)
         y = L.layer_norm(y, self.norm.weight, self.norm.bias, self.ln_eps)

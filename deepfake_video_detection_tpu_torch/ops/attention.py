@@ -1,20 +1,27 @@
-"""Flash attention forward: O = softmax(QKᵀ/√d)·V and the row logsumexp (K2).
+"""Flash attention, forward (K2) and backward (K4), as one autograd Function.
 
-Counterpart of ``deepfake_video_detection_tpu/ops/attention.py``'s forward
-(``_flash_impl`` → ``_short_attn_kernel`` for n_pad ≤ 512, ``_attn_kernel``
-above). On CUDA tensors :func:`flash_attention_fwd` launches the
-hand-written kernel ``csrc/flash_fwd.cu``, which streams 64-key tiles with
-an online softmax and so covers both TPU regimes with one kernel. On CPU
-tensors it takes :func:`flash_attention_plain`, a dense f32 softmax.
+Counterpart of ``deepfake_video_detection_tpu/ops/attention.py``. Forward:
+``_flash_impl`` → ``_short_attn_kernel`` for n_pad ≤ 512, ``_attn_kernel``
+above. Backward: ``_flash_bwd`` → ``_short_bwd_kernel`` for n_pad ≤ 512, the
+two streaming passes ``_bwd_dq_kernel``/``_bwd_dkv_kernel`` above.
 
-Layout is the JAX one, ``(B, H, N, d)``. The kernel takes element strides
+On CUDA tensors :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``,
+which streams 64-key tiles with an online softmax, and
+:func:`flash_attention_bwd` launches ``csrc/flash_bwd.cu``, a dQ pass and a
+dK/dV pass (FlashAttention-2) that stream 64-row tiles. Each kernel streams
+over any N, so each covers both TPU regimes. On CPU tensors each wrapper
+takes its plain version, a dense f32 computation.
+
+:class:`FlashAttention` saves q, k, v, O and lse, as the JAX ``custom_vjp``
+keeps them as residuals, and :func:`flash_attention` is differentiable on
+both devices.
+
+Layout is the JAX one, ``(B, H, N, d)``. The kernels take element strides
 for B, H and N (the last axis must be contiguous), so the q/k/v views that
-``nn.layers.multi_head_attention`` cuts from its fused QKV projection go in
-without a copy. O comes back as a ``(B, H, N, d)`` view of a ``(B, N, H, d)``
-buffer, so merging the heads afterwards is free.
-
-Forward only: the backward kernels (K4–K6) come with training. A CUDA input
-that would need a gradient raises.
+``nn.layers.multi_head_attention`` cuts from its fused QKV projection, and
+the strided dO that autograd hands back through the head merge, go in
+without a copy. O, dQ, dK and dV come back as ``(B, H, N, d)`` views of
+``(B, N, H, d)`` buffers.
 """
 
 from __future__ import annotations
@@ -28,14 +35,15 @@ import torch
 
 from deepfake_video_detection_tpu_torch.ops import _build
 
-_SOURCE = "flash_fwd.cu"
+_FWD_SOURCE = "flash_fwd.cu"
+_BWD_SOURCE = "flash_bwd.cu"
 _MAX_HEAD_DIM = 256
 _count_lock = threading.Lock()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version, in f32: returns ``(out, lse)``, out in
+    """The plain PyTorch forward, in f32: returns ``(out, lse)``, out in
     q's dtype ``(B, H, N, d)``, lse f32 ``(B, H, N)``."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.to(torch.float32) * scale,
@@ -47,8 +55,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_SOURCE)
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor,
+                              dout: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch backward, in f32, from the forward's ``out`` and
+    ``lse``: ``P = exp(S − lse)``, ``D = rowsum(dO ⊙ O)``,
+    ``dS = P ⊙ (dO Vᵀ − D)``; returns ``(dq, dk, dv)`` in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    do = dout.to(torch.float32)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse.to(torch.float32)[..., None])
+    dcap = (do * out.to(torch.float32)).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - dcap)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fwd_library() -> ctypes.CDLL:
+    lib = _build.load(_FWD_SOURCE)
     fn = lib.dfdt_flash_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
@@ -56,47 +84,66 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash attention takes q, k, v of one (B, H, N, d) "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) \
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load(_BWD_SOURCE)
+    fn = lib.dfdt_flash_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_inputs(*ts: torch.Tensor) -> None:
+    q = ts[0]
+    if q.ndim != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"flash attention takes tensors of one (B, H, N, d) "
+                         f"shape, got {[tuple(t.shape) for t in ts]}")
+    if any(t.dtype != q.dtype for t in ts) \
             or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flash attention takes bf16 or f32 q, k, v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash attention: q, k, v on different devices")
+        raise ValueError(f"flash attention takes bf16 or f32 tensors of one "
+                         f"dtype, got {[t.dtype for t in ts]}")
+    if any(t.device != q.device for t in ts):
+        raise ValueError("flash attention: inputs on different devices")
+
+
+def _check_kernel_shape(q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: no kernel for {q.device}")
+    B, H, N, d = q.shape
+    if not 1 <= d <= _MAX_HEAD_DIM or N < 1 or B * H < 1:
+        raise ValueError(f"flash attention kernel takes 1 <= d <= 256 and "
+                         f"N >= 1, got {tuple(q.shape)}")
+
+
+def _heads_view(B: int, H: int, N: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised ``(B, H, N, d)`` view of a ``(B, N, H, d)`` buffer."""
+    return torch.empty((B, N, H, d), dtype=like.dtype,
+                       device=like.device).permute(0, 2, 1, 3)
+
+
+def _strides(*ts: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *(s for t in ts for s in t.stride()[:3]))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q, k, v``: ``(B, H, N, d)``, bf16 or f32, d ≤ 256, any N ≥ 1.
     Returns ``(out, lse)``: out ``(B, H, N, d)`` in q's dtype, lse f32
-    ``(B, H, N)``, the logsumexp of the scaled scores of each query row."""
+    ``(B, H, N)``, the logsumexp of the scaled scores of each query row.
+    Not differentiable through the kernel: use :func:`flash_attention`."""
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: no kernel for {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash attention on CUDA is forward-only: the backward kernels "
-            "(K4-K6) are not ported yet")
-    B, H, N, d = q.shape
-    if not 1 <= d <= _MAX_HEAD_DIM or N < 1 or B * H < 1:
-        raise ValueError(f"flash attention kernel takes 1 <= d <= 256 and "
-                         f"N >= 1, got {tuple(q.shape)}")
+    _check_kernel_shape(q)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash attention kernel needs the last axis of q, "
                          "k, v contiguous")
-    out = torch.empty((B, N, H, d), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    B, H, N, d = q.shape
+    out = _heads_view(B, H, N, d, q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = _library()
+    strides = _strides(q, k, v, out)
+    lib = _fwd_library()
     status = lib.dfdt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, N, d, int(q.dtype == torch.bfloat16),
@@ -108,11 +155,67 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out, lse
 
 
-# kernel launches since the last reset (a plain integer, set to 0 by callers)
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of ``out = flash_attention(q, k, v)`` for
+    the cotangent ``dout``, from the forward's ``out`` and ``lse``. All of
+    q, k, v, out, dout ``(B, H, N, d)`` in one dtype; lse f32 ``(B, H, N)``.
+    A tensor whose last axis is not contiguous is copied; any other strides
+    go to the kernel as they are."""
+    _check_inputs(q, k, v, out, dout)
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"flash attention backward takes lse f32 "
+                         f"{tuple(q.shape[:3])} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    _check_kernel_shape(q)
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    B, H, N, d = q.shape
+    dq, dk, dv = (_heads_view(B, H, N, d, q) for _ in range(3))
+    dcap = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, out, dout, dq, dk, dv)
+    lib = _bwd_library()
+    status = lib.dfdt_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, N, d,
+        int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, status, "flash_attention_bwd")
+    with _count_lock:
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# kernel launches since the last reset (plain integers, set to 0 by callers);
+# one backward call launches its dQ and dK/dV passes and counts once
 flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``softmax(QKᵀ/√d)·V`` with the flash backward: the forward saves
+    q, k, v, O and lse (the JAX residuals), the backward recomputes P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, lse, dout)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> torch.Tensor:
-    """``softmax(QKᵀ/√d)·V`` for ``(B, H, N, d)`` inputs, in q's dtype."""
-    return flash_attention_fwd(q, k, v)[0]
+    """``softmax(QKᵀ/√d)·V`` for ``(B, H, N, d)`` inputs, in q's dtype;
+    differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v)

@@ -36,8 +36,9 @@ from deepfake_video_detection_tpu_torch.data.normalize import imagenet_normalize
 from deepfake_video_detection_tpu_torch.ops.preprocess import fused_normalize
 from deepfake_video_detection_tpu_torch.ops.yuv import yuv420_packed_to_rgb
 from deepfake_video_detection_tpu_torch.serve.batcher import MicroBatcher, to_host
-from deepfake_video_detection_tpu_torch.utils.config import (
-    env_bool, env_float, env_int, env_str)
+from deepfake_video_detection_tpu_torch.utils.config import env_bool, env_float, env_int
+from deepfake_video_detection_tpu_torch.utils.device import (  # noqa: F401
+    resolve_device, serving_dtype)
 
 logger = logging.getLogger(__name__)
 
@@ -100,31 +101,6 @@ def windowed_threshold(thr: float, windows: int, quantiles) -> float:
 
 def _detection_threshold(default: float) -> float:
     return env_float("DETECT_FAKE_THRESHOLD", default)
-
-
-def resolve_device(device: Any = "cuda") -> torch.device:
-    """``device`` as a ``torch.device``; raises if CUDA is asked for and
-    there is none (no silent fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} was asked for but CUDA is not "
-                           f"available")
-    return dev
-
-
-def serving_dtype(device: Any = "cuda") -> torch.dtype:
-    """Compute dtype for a served model: ``COMPUTE_DTYPE`` (``auto`` by
-    default: bf16 on the card, f32 on the CPU). Unknown values serve f32
-    with a warning."""
-    name = (env_str("COMPUTE_DTYPE", "auto") or "auto").lower()
-    if name == "auto":
-        name = "bfloat16" if torch.device(device).type == "cuda" else "float32"
-    if name in ("bfloat16", "bf16"):
-        return torch.bfloat16
-    if name not in ("float32", "f32"):
-        logger.warning("COMPUTE_DTYPE=%r not supported "
-                       "(bfloat16|float32|auto); serving in float32", name)
-    return torch.float32
 
 
 def make_forward_fns(model: torch.nn.Module, face_size: int):

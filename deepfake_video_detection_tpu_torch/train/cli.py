@@ -1,0 +1,117 @@
+"""Training CLI on one CUDA card.
+
+Counterpart of ``deepfake_video_detection_tpu/train/cli.py`` for the
+pretrained detector with a ViT backbone:
+
+    python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
+        --model pretrained --backbone vit_base_patch16_224 --bf16
+
+80/20 split of the ``.npz`` face stacks in ``--data_dir``, class balancing
+(``--balance``), Adam + StepLR(5, 0.5), per-epoch and best-by-F1
+checkpoints, ``preds_epoch_N.csv``, ``--resume``, ``--smoke``. ``--bf16``
+means bf16 activations with f32 params. The JAX CLI's other model families,
+``--from-videos``, ``--progressive``, ``--steps_per_call > 1``,
+``--torch-export`` and the parallelism flags are not ported; each raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+
+def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16_224",
+                backbone: str = "efficientnet_b0", bf16: bool = False,
+                device="cuda", seed: int = 0):
+    """``(model, adjacency, model_config)`` as in the JAX CLI, for
+    ``pretrained`` with a ViT backbone; weights from a generator seeded
+    ``seed``."""
+    name = name.lower()
+    if name not in ("pretrained", "backbone"):
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP Queue 1: slice 3 for "
+            f"vit_gcn and cnn_lstm, item 11 for temporal)")
+    if not backbone.lower().startswith("vit"):
+        raise NotImplementedError(
+            f"backbone {backbone!r} is not ported yet (ROADMAP Queue 1: "
+            f"B0/ResNet/ensemble serving slice)")
+    model = BackboneDetector(backbone, compute_dtype=torch.bfloat16 if bf16
+                             else torch.float32, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+    return model, None, {"model_type": "pretrained", "backbone": backbone}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Train a deepfake video detector (CUDA)")
+    ap.add_argument("--data_dir", required=True)
+    ap.add_argument("--model", default="vit_gcn",
+                    choices=["vit_gcn", "cnn_lstm", "pretrained", "temporal"])
+    ap.add_argument("--vit_variant", default="vit_tiny_patch16_224")
+    ap.add_argument("--backbone", default="efficientnet_b0",
+                    help="backbone of the pretrained detector (ViT only so far)")
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--num_frames", type=int, default=16)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--balance", default="weights", choices=["weights", "sampler", "none"])
+    ap.add_argument("--out_dir", default="checkpoints")
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--checkpoint", default=None, help="alias of --resume")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--recursive", action="store_true")
+    ap.add_argument("--no-augment", action="store_true")
+    ap.add_argument("--steps_per_call", type=int, default=1)
+    ap.add_argument("--grad_accum", type=int, default=1,
+                    help="microbatches accumulated per optimizer step")
+    ap.add_argument("--torch-export", action="store_true")
+    ap.add_argument("--ema_decay", type=float, default=None,
+                    help="params-EMA decay (e.g. 0.999): validation and the "
+                         "best checkpoint use the EMA weights")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bfloat16 activations (params stay f32)")
+    ap.add_argument("--from-videos", dest="from_videos", action="store_true")
+    ap.add_argument("--progressive", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (the card by default)")
+    args = ap.parse_args(argv)
+
+    if args.from_videos:
+        raise NotImplementedError(
+            "--from-videos is not ported yet (ROADMAP Queue 1 item 7: the "
+            "port's bindings to libvideodec.so)")
+    if args.progressive:
+        raise NotImplementedError(
+            "--progressive is not ported yet (ROADMAP Queue 1 item 15)")
+
+    ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
+                           recursive=args.recursive)
+    train_ds, val_ds = ds.split(0.2)
+    model, adjacency, model_config = build_model(
+        args.model, args.num_frames, args.vit_variant, args.backbone,
+        bf16=args.bf16, device=args.device)
+    cfg = TrainerConfig(
+        out_dir=args.out_dir, epochs=args.epochs, batch_size=args.batch_size,
+        num_frames=args.num_frames, lr=args.lr, optimizer="adam",
+        schedule="step", loss="ce", balance=args.balance, grad_clip=None,
+        best_metric="f1", smoke=args.smoke, adjacency=adjacency,
+        augment=not args.no_augment, keep_torch_export=args.torch_export,
+        steps_per_call=args.steps_per_call, grad_accum=args.grad_accum,
+        ema_decay=args.ema_decay, model_config=model_config,
+        compute_dtype="bfloat16" if args.bf16 else "float32")
+    trainer = Trainer(model, train_ds, val_ds, cfg, device=args.device)
+    state = None
+    resume = args.resume or args.checkpoint
+    if resume:
+        state = trainer.resume(resume)
+    trainer.train(state)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

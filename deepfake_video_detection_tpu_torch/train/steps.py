@@ -1,0 +1,153 @@
+"""Train and eval steps.
+
+Counterpart of ``deepfake_video_detection_tpu/train/steps.py``: forward,
+loss, backward and optimizer update in one call, with the metrics the
+trainer reads (loss, correct, count, grad_norm). The JAX package compiles
+each step into one XLA program; here a step runs eagerly, and its metrics
+stay tensors on the device until the caller reads them.
+
+``remat=True`` recomputes the forward in the backward
+(``torch.utils.checkpoint``) as ``jax.checkpoint`` does; dropout draws are
+replayed by restoring the generator's state at the start of the forward.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from deepfake_video_detection_tpu_torch.train.optim import Optimizer
+from deepfake_video_detection_tpu_torch.train.state import TrainState
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def _forward(model, frames: torch.Tensor, train: bool,
+             generator: Optional[torch.Generator], remat: bool) -> torch.Tensor:
+    """The model's logits (the first output of a ``(logits, ...)`` tuple)."""
+    if not remat:
+        out = model(frames, train=train, generator=generator)
+    else:
+        gen_state = generator.get_state() if generator is not None else None
+
+        def run(x):
+            if gen_state is not None:
+                generator.set_state(gen_state)
+            return model(x, train=train, generator=generator)
+
+        out = checkpoint(run, frames, use_reentrant=False)
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _hits(logits: torch.Tensor, labels: torch.Tensor,
+          valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    hit = logits.argmax(dim=-1) == labels
+    if valid is None:
+        return hit.sum(), torch.tensor(labels.shape[0], device=labels.device)
+    return (hit & valid).sum(), valid.sum()
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """``sqrt(Σ ‖t‖²)`` in f32 (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
+                          for t in tensors))
+
+
+def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
+                    remat: bool = False
+                    ) -> Callable[[TrainState, dict, Optional[torch.Generator]],
+                                  Tuple[TrainState, Metrics]]:
+    """``step(state, batch, generator) -> (state, metrics)``. ``batch``:
+    ``frames`` (B, T, H, W, C) normalised, ``labels`` (B,), optionally
+    ``valid`` (B,) bool, all on the model's device. ``generator`` drives
+    dropout. The state is updated in place and returned."""
+
+    def step(state: TrainState, batch: dict,
+             generator: Optional[torch.Generator] = None):
+        params = state.params
+        logits = _forward(model, batch["frames"], True, generator, remat)
+        valid = batch.get("valid")
+        loss = loss_fn(logits, batch["labels"], sample_mask=valid)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = dict(zip(params, grads))
+        grad_norm = global_norm(g for g in grads.values() if g is not None)
+        tx.step(params, grads, state.opt_state)
+        state.step += 1
+        correct, count = _hits(logits.detach(), batch["labels"], valid)
+        return state, {"loss": loss.detach(), "correct": correct, "count": count,
+                       "grad_norm": grad_norm}
+
+    return step
+
+
+def make_multi_step(*args, **kwargs):
+    """Several optimizer steps per device dispatch (``lax.scan`` in the JAX
+    package) are a JAX dispatch device; on the card their counterpart is a
+    CUDA graph, not ported yet."""
+    raise NotImplementedError(
+        "steps_per_call > 1 is not ported (ROADMAP Queue 1: CUDA graphs for "
+        "the train step)")
+
+
+def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
+                    accum: int, remat: bool = False,
+                    prep: Optional[Callable[[dict, Optional[torch.Generator]], dict]] = None,
+                    sample_weight_fn: Optional[Callable[..., torch.Tensor]] = None):
+    """One optimizer step whose gradient is accumulated over ``accum``
+    microbatches. ``batches``: every leaf shaped ``(accum, B/accum, ...)``.
+    Microbatch gradients are combined by their weight sums
+    (``sample_weight_fn(labels, valid)``, the loss's class weight × validity),
+    so the result equals the full-batch gradient up to float addition order.
+    ``prep(batch, generator)`` (the trainer's augment + normalise) runs per
+    microbatch."""
+    if sample_weight_fn is None:
+        def sample_weight_fn(labels, valid):  # noqa: F811 — default: mask only
+            w = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+            return w if valid is None else w * valid.to(torch.float32)
+
+    def accum_step(state: TrainState, batches: dict,
+                   generator: Optional[torch.Generator] = None):
+        params = state.params
+        den = torch.sum(sample_weight_fn(batches["labels"], batches.get("valid")),
+                        dim=1)
+        scale = den / torch.clamp(torch.sum(den), min=1e-8)
+        grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+        loss = torch.zeros((), dtype=torch.float32, device=scale.device)
+        correct = torch.zeros((), dtype=torch.int64, device=scale.device)
+        count = torch.zeros((), dtype=torch.int64, device=scale.device)
+        for i in range(accum):
+            b = {k: v[i] for k, v in batches.items()}
+            if prep is not None:
+                b = prep(b, generator)
+            logits = _forward(model, b["frames"], True, generator, remat)
+            mean_k = loss_fn(logits, b["labels"], sample_mask=b.get("valid"))
+            g = torch.autograd.grad(mean_k * scale[i], list(params.values()),
+                                    allow_unused=True)
+            for n, gi in zip(params, g):
+                if gi is not None:
+                    grads[n] += gi
+            loss = loss + mean_k.detach() * scale[i]
+            c, k = _hits(logits.detach(), b["labels"], b.get("valid"))
+            correct, count = correct + c, count + k
+        grad_norm = global_norm(grads.values())
+        tx.step(params, grads, state.opt_state)
+        state.step += 1
+        return state, {"loss": loss, "correct": correct, "count": count,
+                       "grad_norm": grad_norm}
+
+    return accum_step
+
+
+def make_eval_step(model: Any) -> Callable[[dict], Metrics]:
+    """``step(batch) -> {"logits", "probs"}``, softmax in f32, no grad."""
+
+    @torch.inference_mode()
+    def step(batch: dict):
+        out = model(batch["frames"], train=False)
+        logits = out[0] if isinstance(out, tuple) else out
+        return {"logits": logits,
+                "probs": torch.softmax(logits.to(torch.float32), dim=-1)}
+
+    return step

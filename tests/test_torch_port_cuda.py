@@ -71,13 +71,67 @@ def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
     assert float((lse - ref_lse).abs().max()) <= 1e-3
 
 
-def test_flash_kernel_is_forward_only():
+def _bwd_inputs(gen, B, H, N, d, dtype, strided):
+    """q, k, v (strided views of one QKV buffer when ``strided``), the
+    forward's out and lse, and dO as the (B, H, N, d) view of a (B, N, H*d)
+    gradient, as the head merge of multi_head_attention hands it back."""
+    if strided:
+        qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+    out, lse = A.flash_attention_plain(q, k, v)
+    dout = torch.randn((B, N, H * d), device="cuda", generator=gen).to(dtype)
+    dout = dout.view(B, N, H, d).transpose(1, 2)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("B,H,N,d,dtype,strided", [
+    (16, 12, 197, 64, torch.bfloat16, True),      # ViT-B/16 training, 1 clip
+    (8, 12, 197, 64, torch.float32, False),
+    (2, 12, 640, 64, torch.bfloat16, False),      # the K5/K6 regime, n_pad > 512
+    (16, 12, 1, 64, torch.bfloat16, False),
+    (4, 6, 197, 32, torch.float32, False),
+    (2, 4, 130, 256, torch.float32, False),
+    (2, 4, 100, 80, torch.bfloat16, True),
+])
+def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
-    q = torch.randn((1, 2, 8, 16), device="cuda", generator=gen, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        A.flash_attention_fwd(q, q, q)
-    with torch.no_grad():
-        A.flash_attention_fwd(q, q, q)
+    q, k, v, out, lse, dout = _bwd_inputs(gen, B, H, N, d, dtype, strided)
+    before = A.flash_attention_bwd.launches
+    got = A.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert A.flash_attention_bwd.launches == before + 1
+    ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    for g, r in zip(got, ref):
+        assert g.shape == (B, H, N, d) and g.dtype == dtype
+        err = float((g.float() - r.float()).abs().max())
+        if dtype == torch.bfloat16:
+            # relative to the largest |value|; at N = 1 dQ and dK are 0 in
+            # exact arithmetic (P = 1, dP = D) and both sides hold f32
+            # rounding residue of ~1e-6, hence the absolute floor
+            assert err <= max(2e-2 * float(r.float().abs().max()), 1e-4)
+        else:                           # the JAX suite's gradient tolerance
+            assert torch.allclose(g, r, atol=1e-3, rtol=1e-3), err
+
+
+def test_flash_kernel_is_differentiable_and_deterministic():
+    """The autograd Function runs the forward and backward kernels; a
+    second backward on the same inputs agrees bit for bit (no atomics)."""
+    gen = _cuda_generator()
+    q, k, v = (torch.randn((2, 4, 150, 64), device="cuda", generator=gen)
+               .requires_grad_() for _ in range(3))
+    g = torch.randn((2, 4, 150, 64), device="cuda", generator=gen)
+    f0, b0 = A.flash_attention_fwd.launches, A.flash_attention_bwd.launches
+    grads = torch.autograd.grad((A.flash_attention(q, k, v) * g).sum(), (q, k, v))
+    assert (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    again = torch.autograd.grad((A.flash_attention(q, k, v) * g).sum(), (q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+    out, _ = A.flash_attention_plain(qd, kd, vd)
+    ref = torch.autograd.grad((out * g).sum(), (qd, kd, vd))
+    for a, r in zip(grads, ref):
+        assert torch.allclose(a, r, atol=1e-3, rtol=1e-3)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():

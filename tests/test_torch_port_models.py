@@ -46,7 +46,8 @@ def test_vit_matches_jax():
     variables = jax.jit(jmodel.init)(jax.random.PRNGKey(1))
     x = np.random.default_rng(1).normal(size=(2, 32, 32, 3)).astype(np.float32)
     ref, _ = jax.jit(lambda v, x: jmodel.apply(v, x))(variables, jnp.asarray(x))
-    model = VisionTransformer(variant="vit_tiny_patch16_224", img_size=32, depth=4)
+    model = VisionTransformer(variant="vit_tiny_patch16_224", img_size=32, depth=4,
+                              device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x))
@@ -59,7 +60,7 @@ def test_vit_variant_state_dict_matches_jax_tree(variant):
     tree (depth cut to one block to keep the test small)."""
     jmodel = JaxViT(variant=variant, img_size=32, depth=1)
     sd = state_dict_from_jax(jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
-    model = VisionTransformer(variant=variant, img_size=32, depth=1)
+    model = VisionTransformer(variant=variant, img_size=32, depth=1, device="cpu")
     ours = model.state_dict()
     assert sorted(ours) == sorted(sd)
     assert all(tuple(ours[k].shape) == tuple(sd[k].shape) for k in sd)
@@ -84,7 +85,7 @@ def test_multi_head_attention_matches_jax_layer():
 
 def test_detector_matches_jax(jax_detector):
     variables, x, ref_logits, ref_scores = jax_detector
-    model = BackboneDetector("vit_tiny_patch16_224")
+    model = BackboneDetector("vit_tiny_patch16_224", device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     with torch.no_grad():
         logits, scores = model(torch.from_numpy(x))
@@ -95,7 +96,7 @@ def test_detector_matches_jax(jax_detector):
 
 def test_state_dict_from_jax_loads_strict(jax_detector):
     variables = jax_detector[0]
-    model = BackboneDetector("vit_tiny_patch16_224")
+    model = BackboneDetector("vit_tiny_patch16_224", device="cpu")
     sd = state_dict_from_jax(variables)
     model.load_state_dict(sd, strict=True)
     # conv weights cross HWIO → OIHW
@@ -116,7 +117,7 @@ def test_jax_checkpoint_npz_gives_same_logits(jax_detector, tmp_path):
                     step=7)
     loaded, meta = load_checkpoint(path)
     assert meta["backbone"] == "vit_tiny_patch16_224" and meta["step"] == 7
-    model = BackboneDetector("vit_tiny_patch16_224")
+    model = BackboneDetector("vit_tiny_patch16_224", device="cpu")
     model.load_state_dict(state_dict_from_jax(loaded), strict=True)
     with torch.no_grad():
         logits, _ = model(torch.from_numpy(x))
@@ -124,9 +125,9 @@ def test_jax_checkpoint_npz_gives_same_logits(jax_detector, tmp_path):
 
 
 def test_seeded_init_is_reproducible_and_torch_shaped():
-    a = BackboneDetector("vit_tiny_patch16_224",
+    a = BackboneDetector("vit_tiny_patch16_224", device="cpu",
                          generator=torch.Generator().manual_seed(5))
-    b = BackboneDetector("vit_tiny_patch16_224",
+    b = BackboneDetector("vit_tiny_patch16_224", device="cpu",
                          generator=torch.Generator().manual_seed(5))
     sa, sb = a.state_dict(), b.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)

@@ -76,6 +76,41 @@ def test_flash_plain_matches_pallas_interpret(n):
         ref_out, atol=2e-5)
 
 
+@pytest.mark.parametrize("n", [64, 197, 640])
+def test_flash_attention_grad_matches_pallas_interpret(n):
+    """The port's autograd Function (the plain backward on the CPU) vs
+    ``jax.grad`` through the Pallas backward in interpret mode: N = 64 and
+    197 reach the short-N kernel (K4), N = 640 the two streaming passes
+    (K5, K6). f32, the JAX suite's gradient tolerance."""
+    rng = np.random.default_rng(100 + n)
+    q, k, v = (rng.normal(size=(1, 2, n, 64)).astype(np.float32) for _ in range(3))
+    ref = jax.grad(lambda q, k, v: jnp.sum(jax_flash(q, k, v, interpret=True) ** 2),
+                   argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = torch.autograd.grad(torch.sum(A.flash_attention(tq, tk, tv) ** 2),
+                              (tq, tk, tv))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-3, rtol=2e-3)
+
+
+def test_flash_bwd_plain_takes_strided_dout():
+    """dO as autograd hands it back through the head merge: a (B, H, N, d)
+    view of a (B, N, H*d) gradient."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, 20, 8)).astype(np.float32))
+               for _ in range(3))
+    out, lse = A.flash_attention_fwd(q, k, v)
+    g = torch.from_numpy(rng.normal(size=(2, 20, 24)).astype(np.float32))
+    dout = g.view(2, 20, 3, 8).transpose(1, 2)
+    assert not dout.is_contiguous()
+    got = A.flash_attention_bwd(q, k, v, out, lse, dout)
+    ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout.contiguous())
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    with pytest.raises(ValueError):
+        A.flash_attention_bwd(q, k, v, out, lse[:, :, :5], dout)
+
+
 def test_flash_plain_takes_strided_qkv_views():
     """The views multi_head_attention cuts from a fused QKV buffer."""
     rng = np.random.default_rng(3)

@@ -43,9 +43,9 @@ def serve_env(monkeypatch):
 
 
 def _port_model(variables):
-    model = BackboneDetector("vit_tiny_patch16_224")
+    model = BackboneDetector("vit_tiny_patch16_224", device="cpu")
     model.backbone = VisionTransformer(variant="vit_tiny_patch16_224",
-                                       img_size=SIZE, depth=2)
+                                       img_size=SIZE, depth=2, device="cpu")
     return model, state_dict_from_jax(variables)
 
 
