@@ -1,7 +1,8 @@
 """Per-frame backbone + temporal-attention detector as an ``nn.Module``.
 
 Counterpart of ``deepfake_video_detection_tpu/models/backbone_detector.py``
-(``build_backbone``, ``BackboneDetector``): per-frame backbone features →
+(``TinyConvBackbone``, ``build_backbone``, ``BackboneDetector``):
+per-frame backbone features →
 temporal attention MLP (feat→64→1, sigmoid, softmax over T) →
 attention-weighted pooling → dropout + fc(feat→256→num_classes). Input
 ``(B, T, H, W, C)`` of normalised frames; returns ``(logits (B, C) f32,
@@ -11,8 +12,10 @@ the ViT; the model lives on ``device``, the card unless the caller names
 another. ``train=True`` applies dropout with draws from the generator the
 caller passes (its numbers differ from ``jax.random``'s).
 
-Only the ViT backbones are ported so far; EfficientNet, ResNet and the
-ensemble come with the B0/ResNet/ensemble serving slice (ROADMAP Queue 1).
+The ViT backbones and the JAX package's ``tinyconv`` stub (two convs, the
+backbone of its cheap long-clip tests) are ported; EfficientNet, ResNet and
+the ensemble come with the B0/ResNet/ensemble serving slice (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -29,17 +32,46 @@ from deepfake_video_detection_tpu_torch.nn import layers as L
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 
 
+class TinyConvBackbone(nn.Module):
+    """Two 3×3 stride-2 convs (no bias) with ReLU, then a global average
+    pool: the JAX package's stub backbone, ``feature_dim`` 32. NHWC in,
+    ``(N, 32)`` out in the compute dtype."""
+
+    feature_dim = 32
+
+    def __init__(self, compute_dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator or torch.Generator().manual_seed(0)
+        self.compute_dtype = compute_dtype
+        kw = {"device": resolve_device(device), "dtype": torch.float32,
+              "bias": False}
+        self.conv1 = skip_init(nn.Conv2d, 3, 16, 3, **kw)
+        self.conv2 = skip_init(nn.Conv2d, 16, self.feature_dim, 3, **kw)
+        with torch.no_grad():
+            for conv in (self.conv1, self.conv2):
+                conv.weight.copy_(I.kaiming_normal(conv.weight.shape, g))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        x = torch.relu(L.conv2d(x, self.conv1.weight, stride=2, padding=1))
+        x = torch.relu(L.conv2d(x, self.conv2.weight, stride=2, padding=1))
+        return L.global_avg_pool(x)
+
+
 def build_backbone(name: str, compute_dtype: torch.dtype = torch.float32,
                    device=None, generator: Optional[torch.Generator] = None
                    ) -> nn.Module:
     """Backbone factory with the JAX package's name dispatch."""
     name = name.lower()
+    if name == "tinyconv":
+        return TinyConvBackbone(compute_dtype, device, generator)
     if name.startswith("vit"):
         variant = name if name in _VARIANTS else "vit_base_patch16_224"
         return VisionTransformer(variant=variant, num_classes=0,
                                  compute_dtype=compute_dtype, device=device,
                                  generator=generator)
-    if name == "tinyconv" or name.startswith(("resnet", "efficientnet")):
+    if name.startswith(("resnet", "efficientnet")):
         raise NotImplementedError(
             f"backbone {name!r} is not ported yet (ROADMAP Queue 1: "
             f"B0/ResNet/ensemble serving slice)")

@@ -83,6 +83,10 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm transformer block: ``y + attn(LN(y))``, then
+    ``y + fc2(gelu(fc1(LN(y))))`` (exact GELU). The temporal transformer
+    reuses it with its own width."""
+
     def __init__(self, dim: int, num_heads: int, hidden: int, eps: float, **kw):
         super().__init__()
         self.eps = eps

@@ -1,16 +1,17 @@
 """Functional layers with the JAX package's numerics and layouts.
 
 Counterpart of ``deepfake_video_detection_tpu/nn/layers.py`` for what the
-ViT serving path needs. Activations are channel-last (NHWC) at the public
+ViT, tinyconv and temporal-transformer paths need. Activations are channel-last (NHWC) at the public
 functions, as in the JAX package; weights are torch's (``(out, in)``
 linears, OIHW convs). Each function casts its weights to the activation's
 dtype, as the JAX layers cast their f32 params, and ``layer_norm`` computes
 in f32.
 
 Attention differs from the JAX layer on purpose: the JAX package reads
-``VIT_FUSED_ATTN`` to choose between XLA and its Pallas kernel, a choice
-measured on a TPU. Here a CUDA input always goes through the hand-written
-flash kernel and a CPU input through its plain version.
+``VIT_FUSED_ATTN`` (and, in the temporal transformer, an N threshold) to
+choose between XLA and its Pallas kernel, a choice measured on a TPU. Here
+a CUDA input always goes through the hand-written flash kernel and a CPU
+input through its plain version.
 """
 
 from __future__ import annotations
@@ -49,6 +50,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = F.layer_norm(x.to(torch.float32), (x.shape[-1],),
                      weight.to(torch.float32), bias.to(torch.float32), eps)
     return y.to(x.dtype)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1) + flatten on NHWC: (N, H, W, C) → (N, C), the
+    mean taken in f32."""
+    return x.to(torch.float32).mean(dim=(1, 2)).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

@@ -38,6 +38,9 @@ from deepfake_video_detection_tpu_torch.ops import _build
 _FWD_SOURCE = "flash_fwd.cu"
 _BWD_SOURCE = "flash_bwd.cu"
 _MAX_HEAD_DIM = 256
+# the JAX package's n_pad bound of its short-N kernels (K2, K4); above it
+# (N > 512) it launches the streaming ones (K3; K5 and K6)
+_SHORT_MAX = 512
 _count_lock = threading.Lock()
 
 
@@ -152,6 +155,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     _build.check(lib, status, "flash_attention_fwd")
     with _count_lock:
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.launches_long += int(N > _SHORT_MAX)
     return out, lse
 
 
@@ -189,13 +193,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, status, "flash_attention_bwd")
     with _count_lock:
         flash_attention_bwd.launches += 1
+        flash_attention_bwd.launches_long += int(N > _SHORT_MAX)
     return dq, dk, dv
 
 
 # kernel launches since the last reset (plain integers, set to 0 by callers);
-# one backward call launches its dQ and dK/dV passes and counts once
+# one backward call launches its dQ and dK/dV passes and counts once.
+# ``launches_long`` counts the launches at N > 512, the regime of the JAX
+# package's streaming kernels (K3 forward, K5/K6 backward); ``launches``
+# counts them all.
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_long = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_long = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,8 +1,11 @@
-"""Serving inference engine for the pretrained detector, on one CUDA card.
+"""Serving inference engine for the pretrained detector and the temporal
+transformer, on one CUDA card.
 
 Counterpart of ``deepfake_video_detection_tpu/serve/predict.py`` for
-``model_type="pretrained"`` with a single ``BackboneDetector``: the same
-decision policy and result-dict schema. Requests come in as face crops,
+``model_type="pretrained"`` (a single ``BackboneDetector``) and
+``model_type="temporal"`` (a ``TemporalTransformerDetector``), which the
+JAX package serves through the same forward functions, warmup, windows and
+policy: the same decision policy and result-dict schema. Requests come in as face crops,
 through :meth:`Predictor.predict_faces` (RGB) or
 :meth:`Predictor._predict_pretrained` with ``packed_yuv=True`` (packed
 YUV420, half the host→device bytes). The policy: optional windowed scan
@@ -16,7 +19,8 @@ confidence, prob_real, prob_fake, num_faces, threshold, enhanced_agent,
 frame_scores (+ windows, abstained).
 
 On CUDA the RGB forward runs the fused-normalize kernel (K1) and every ViT
-block the flash-attention kernel (K2). Video decoding and face detection
+and temporal block the flash-attention kernel (K2; a window holds at most 64
+frames, so the temporal blocks attend over N ≤ 65 tokens here). Video decoding and face detection
 (``predict_video``), ensembles, the enhanced agent, the legacy model types
 and saliency come with later slices of the port (ROADMAP Queue 1).
 """
@@ -150,7 +154,7 @@ class Predictor:
         object with ``face_size``, ``detector`` and ``keep_all``. The JAX
         ``enhanced_agent`` argument comes with ensembles, the only models
         it is consulted for."""
-        if model_type != "pretrained":
+        if model_type not in ("pretrained", "temporal"):
             raise NotImplementedError(f"model_type {model_type!r} {_NOT_PORTED}")
         if hasattr(model, "members"):
             raise NotImplementedError(f"ensemble serving {_NOT_PORTED}")

@@ -1,10 +1,14 @@
 """Training CLI on one CUDA card.
 
 Counterpart of ``deepfake_video_detection_tpu/train/cli.py`` for the
-pretrained detector with a ViT backbone:
+pretrained detector and the temporal transformer, each with a ViT or the
+``tinyconv`` backbone:
 
     python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
         --model pretrained --backbone vit_base_patch16_224 --bf16
+    python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
+        --model temporal --backbone vit_base_patch16_224 --num_frames 640 \\
+        --batch_size 1 --bf16
 
 80/20 split of the ``.npz`` face stacks in ``--data_dir``, class balancing
 (``--balance``), Adam + StepLR(5, 0.5), per-epoch and best-by-F1
@@ -12,7 +16,8 @@ checkpoints, ``preds_epoch_N.csv``, ``--resume``, ``--smoke``. ``--bf16``
 means bf16 activations with f32 params. The JAX CLI's other model families,
 ``--from-videos``, ``--progressive``, ``--steps_per_call > 1``,
 ``--torch-export`` and the parallelism flags are not ported; each raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item. The temporal model takes
+``--d_model``, ``--depth`` and ``--heads``.
 """
 
 from __future__ import annotations
@@ -23,28 +28,35 @@ import torch
 
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+    TemporalTransformerDetector)
 from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
 def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16_224",
-                backbone: str = "efficientnet_b0", bf16: bool = False,
-                device="cuda", seed: int = 0):
+                backbone: str = "efficientnet_b0", temporal_kwargs: dict = None,
+                bf16: bool = False, device="cuda", seed: int = 0):
     """``(model, adjacency, model_config)`` as in the JAX CLI, for
-    ``pretrained`` with a ViT backbone; weights from a generator seeded
-    ``seed``."""
+    ``pretrained`` and ``temporal`` with a ViT or ``tinyconv`` backbone;
+    ``temporal_kwargs``: the temporal model's sizes (``d_model``, ``depth``,
+    ``num_heads``). Weights from a generator seeded ``seed``."""
     name = name.lower()
-    if name not in ("pretrained", "backbone"):
+    if name not in ("pretrained", "backbone", "temporal", "temporal_transformer"):
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP Queue 1: slice 3 for "
-            f"vit_gcn and cnn_lstm, item 11 for temporal)")
-    if not backbone.lower().startswith("vit"):
+            f"vit_gcn and cnn_lstm)")
+    if not backbone.lower().startswith(("vit", "tinyconv")):
         raise NotImplementedError(
             f"backbone {backbone!r} is not ported yet (ROADMAP Queue 1: "
             f"B0/ResNet/ensemble serving slice)")
-    model = BackboneDetector(backbone, compute_dtype=torch.bfloat16 if bf16
-                             else torch.float32, device=device,
-                             generator=torch.Generator().manual_seed(seed))
-    return model, None, {"model_type": "pretrained", "backbone": backbone}
+    kw = {"compute_dtype": torch.bfloat16 if bf16 else torch.float32,
+          "device": device, "generator": torch.Generator().manual_seed(seed)}
+    if name in ("pretrained", "backbone"):
+        return (BackboneDetector(backbone, **kw), None,
+                {"model_type": "pretrained", "backbone": backbone})
+    tkw = dict(temporal_kwargs or {})
+    return (TemporalTransformerDetector(backbone, **tkw, **kw), None,
+            {"model_type": "temporal", "backbone": backbone, **tkw})
 
 
 def main(argv=None) -> int:
@@ -54,7 +66,8 @@ def main(argv=None) -> int:
                     choices=["vit_gcn", "cnn_lstm", "pretrained", "temporal"])
     ap.add_argument("--vit_variant", default="vit_tiny_patch16_224")
     ap.add_argument("--backbone", default="efficientnet_b0",
-                    help="backbone of the pretrained detector (ViT only so far)")
+                    help="backbone for pretrained/temporal models (ViT or "
+                     "tinyconv so far)")
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--num_frames", type=int, default=16)
@@ -77,6 +90,9 @@ def main(argv=None) -> int:
                     help="bfloat16 activations (params stay f32)")
     ap.add_argument("--from-videos", dest="from_videos", action="store_true")
     ap.add_argument("--progressive", action="store_true")
+    ap.add_argument("--d_model", type=int, default=256, help="temporal model width")
+    ap.add_argument("--depth", type=int, default=4, help="temporal transformer blocks")
+    ap.add_argument("--heads", type=int, default=4, help="temporal attention heads")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (the card by default)")
     args = ap.parse_args(argv)
@@ -92,9 +108,11 @@ def main(argv=None) -> int:
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)
     train_ds, val_ds = ds.split(0.2)
+    temporal_kwargs = dict(d_model=args.d_model, depth=args.depth,
+                           num_heads=args.heads)
     model, adjacency, model_config = build_model(
         args.model, args.num_frames, args.vit_variant, args.backbone,
-        bf16=args.bf16, device=args.device)
+        temporal_kwargs, bf16=args.bf16, device=args.device)
     cfg = TrainerConfig(
         out_dir=args.out_dir, epochs=args.epochs, batch_size=args.batch_size,
         num_frames=args.num_frames, lr=args.lr, optimizer="adam",

@@ -48,6 +48,8 @@ def test_fused_normalize_kernel_matches_plain(shape, dtype, offset):
     (8, 12, 197, 64, torch.bfloat16, True),       # ViT-B/16, one request
     (8, 12, 197, 64, torch.float32, False),
     (2, 12, 640, 64, torch.bfloat16, False),      # the streaming (K3) regime
+    (2, 4, 1025, 64, torch.bfloat16, True),       # long-clip evaluation, 1024 frames
+    (1, 4, 641, 64, torch.bfloat16, True),        # long-clip training, 640 frames
     (4, 6, 197, 32, torch.float32, False),
     (16, 12, 1, 64, torch.bfloat16, False),
     (2, 4, 130, 256, torch.float32, False),
@@ -62,8 +64,10 @@ def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
         q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dtype)
                    for _ in range(3))
     before = A.flash_attention_fwd.launches
+    long_before = A.flash_attention_fwd.launches_long
     out, lse = A.flash_attention_fwd(q, k, v)
     assert A.flash_attention_fwd.launches == before + 1
+    assert A.flash_attention_fwd.launches_long == long_before + (N > 512)
     ref, ref_lse = A.flash_attention_plain(q, k, v)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert out.shape == (B, H, N, d) and out.dtype == dtype
@@ -91,6 +95,8 @@ def _bwd_inputs(gen, B, H, N, d, dtype, strided):
     (16, 12, 197, 64, torch.bfloat16, True),      # ViT-B/16 training, 1 clip
     (8, 12, 197, 64, torch.float32, False),
     (2, 12, 640, 64, torch.bfloat16, False),      # the K5/K6 regime, n_pad > 512
+    (1, 4, 641, 64, torch.bfloat16, True),        # long-clip training, 640 frames
+    (2, 4, 1025, 64, torch.bfloat16, True),       # a longer clip, 1024 frames
     (16, 12, 1, 64, torch.bfloat16, False),
     (4, 6, 197, 32, torch.float32, False),
     (2, 4, 130, 256, torch.float32, False),
@@ -100,8 +106,10 @@ def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
     q, k, v, out, lse, dout = _bwd_inputs(gen, B, H, N, d, dtype, strided)
     before = A.flash_attention_bwd.launches
+    long_before = A.flash_attention_bwd.launches_long
     got = A.flash_attention_bwd(q, k, v, out, lse, dout)
     assert A.flash_attention_bwd.launches == before + 1
+    assert A.flash_attention_bwd.launches_long == long_before + (N > 512)
     ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout)
     for g, r in zip(got, ref):
         assert g.shape == (B, H, N, d) and g.dtype == dtype
@@ -163,3 +171,36 @@ def test_small_detector_on_cuda_matches_plain_versions():
                                lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
             ref, _ = model(P.fused_normalize_plain(x, torch.float32))
     assert float((logits - ref).abs().max()) <= 1e-3
+
+
+def test_long_clip_temporal_model_on_cuda_matches_plain_versions():
+    """A small tinyconv temporal model at T = 640 (N = 641): one step's loss
+    and gradients through the streaming-regime kernels vs the plain
+    versions, and the launch counts of that regime."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+
+    gen = _cuda_generator()
+    model = TemporalTransformerDetector("tinyconv", d_model=64, depth=2, num_heads=2,
+                                        dropout_rate=0.0, device="cuda")
+    x = torch.randn((1, 640, 16, 16, 3), device="cuda", generator=gen)
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        logits, _ = model(x, train=True)
+        loss = torch.nn.functional.cross_entropy(logits, torch.tensor([1], device="cuda"))
+        return loss, torch.autograd.grad(loss, params, allow_unused=True)
+
+    f0, b0 = A.flash_attention_fwd.launches_long, A.flash_attention_bwd.launches_long
+    loss, grads = loss_and_grads()
+    assert (A.flash_attention_fwd.launches_long, A.flash_attention_bwd.launches_long) == (
+        f0 + 2, b0 + 2)
+    with mock.patch.object(A, "flash_attention",
+                           lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+        ref_loss, ref_grads = loss_and_grads()
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4
+    for g, r in zip(grads, ref_grads):
+        if r is not None:
+            assert torch.allclose(g, r, atol=1e-3, rtol=1e-3)

@@ -138,7 +138,7 @@ def test_seeded_init_is_reproducible_and_torch_shaped():
     assert torch.equal(sa["fc1.bias"], torch.zeros(256))
 
 
-@pytest.mark.parametrize("name", ["efficientnet_b0", "resnet18", "tinyconv"])
+@pytest.mark.parametrize("name", ["efficientnet_b0", "resnet18", "resnet50"])
 def test_unported_backbones_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_backbone(name)

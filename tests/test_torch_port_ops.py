@@ -58,10 +58,11 @@ def test_fused_normalize_rejects_what_the_kernel_does_not_take(bad):
                           out_dtype=torch.float16)
 
 
-@pytest.mark.parametrize("n", [64, 197, 640])
+@pytest.mark.parametrize("n", [64, 197, 640, 641, 1025])
 def test_flash_plain_matches_pallas_interpret(n):
     """N = 64 and 197 land in the short-N kernel (n_pad ≤ 512, K2), N = 640
-    in the streaming kernel (K3)."""
+    and up in the streaming kernel (K3): 641 is the long-clip training
+    shape (640 frames + cls), 1025 the evaluation one."""
     rng = np.random.default_rng(n)
     q, k, v = (rng.normal(size=(1, 2, n, 64)).astype(np.float32) for _ in range(3))
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
@@ -76,12 +77,12 @@ def test_flash_plain_matches_pallas_interpret(n):
         ref_out, atol=2e-5)
 
 
-@pytest.mark.parametrize("n", [64, 197, 640])
+@pytest.mark.parametrize("n", [64, 197, 640, 641, 1025])
 def test_flash_attention_grad_matches_pallas_interpret(n):
     """The port's autograd Function (the plain backward on the CPU) vs
     ``jax.grad`` through the Pallas backward in interpret mode: N = 64 and
-    197 reach the short-N kernel (K4), N = 640 the two streaming passes
-    (K5, K6). f32, the JAX suite's gradient tolerance."""
+    197 reach the short-N kernel (K4), N = 640 and up the two streaming
+    passes (K5, K6). f32, the JAX suite's gradient tolerance."""
     rng = np.random.default_rng(100 + n)
     q, k, v = (rng.normal(size=(1, 2, n, 64)).astype(np.float32) for _ in range(3))
     ref = jax.grad(lambda q, k, v: jnp.sum(jax_flash(q, k, v, interpret=True) ** 2),

@@ -226,7 +226,7 @@ def test_serving_dtype_is_bf16_on_the_card_and_f32_on_the_cpu(monkeypatch):
 
 def test_unported_paths_raise(weights, serve_env, monkeypatch):
     model, sd = _port_model(weights[1])
-    for model_type in ("ensemble_pretrained", "temporal", "cnn_lstm", "vit_gcn"):
+    for model_type in ("ensemble_pretrained", "cnn_lstm", "vit_gcn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_predict.Predictor(model, sd, model_type, device="cpu")
     pred = port_predict.Predictor(model, sd, "pretrained", device="cpu")
