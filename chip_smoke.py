@@ -7,11 +7,15 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 
 1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA.
 2. Build: every CUDA kernel of the port, from the sources in the checkout,
-   one ``nvcc`` per source, all at once.
+   one ``nvcc`` per source, all at once; the tensor-core flash kernels at
+   d = 64 (every main path) must spill nothing (``-Xptxas -v``).
 3. Kernel checks: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and a few edge shapes, with the stated
    tolerance; times by CUDA events after warm-up (kernel, plain version,
-   and the one PyTorch call that computes the same function, if any).
+   and the one PyTorch call that computes the same function, if any), and
+   for the flash kernels their device time under ``torch.profiler``. Each
+   flash source routes by dtype: bf16 to its tensor-core kernel, f32 to its
+   CUDA-core one (``route``); every main-path case is bf16.
 4. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
    generator, f32 params, bf16 activations) behind a ``Predictor`` with
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
@@ -49,6 +53,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -71,6 +76,10 @@ K3_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:46"
 K4_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:209"
 K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
 K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
+
+# each flash source routes by dtype between two hand-written kernels
+ROUTES = {"bf16": "tensor-core bf16", "f32": "cuda-core f32"}
+MAIN_NOTES = ("main", "K3 main", "K5/K6 main")
 
 # tolerances, with their reasons
 K1_TOL = {"f32": 1e-6,    # same IEEE steps in the same order: a few f32 ulp
@@ -133,10 +142,68 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(torch, fn, kernels, iters: int = 20):
+    """Mean device ms per call of the named ``kernels`` (substrings of the
+    kernel names), each launched once per call, under ``torch.profiler``
+    (CUDA activity only), over ``iters`` calls. Beside ``_time_ms`` it tells
+    the device's share from the host's: where the host enqueues slower than
+    the card runs, the events time the host. A session that lacks a record
+    of some launch is taken again, twice at most, then reported as None."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        found = {k: [ev for ev in prof.key_averages() if k in ev.key] for k in kernels}
+        if all(len(evs) == 1 and evs[0].count == iters for evs in found.values()):
+            return sum(evs[0].self_device_time_total for evs in found.values()) / iters / 1e3
+    return None
+
+
 def _bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ptxas_stats(log: str) -> list:
+    """Registers and spill bytes of each kernel in one ``nvcc -Xptxas -v``
+    log: a "Function properties for NAME" line, then its stack and spill
+    line, then its "Used N registers" line."""
+    stats, cur = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            cur = {"function": line.split()[-1]}
+        elif cur is not None and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            stats.append(cur)
+            cur = None
+    return stats
+
+
+def check_build(build_log: dict) -> list:
+    """The tensor-core kernels at d = 64 (every main path) spill nothing;
+    returns their ptxas records."""
+    logs = [build_log.get(os.path.basename(src), "") for src in (K2_SOURCE, K4_SOURCE)]
+    if not all(logs):
+        print("  ptxas: flash libraries built by an earlier run, no stats", flush=True)
+        return []
+    tc = [dict(st, source=src) for src, log in zip(("flash_fwd.cu", "flash_bwd.cu"), logs)
+          for st in _ptxas_stats(log)
+          if "bf16_kernel" in st["function"] and "Li64E" in st["function"]]
+    for st in tc:
+        st["kernel"] = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_bf16_kernel", st["function"]).group(0)
+        print(f"  ptxas[{st['source']}] {st['kernel']}<64>: {st['registers']} registers, "
+              f"{st['spill_stores']} bytes spill stores", flush=True)
+    _require(len(tc) == 3, f"expected 3 tensor-core kernels at d = 64 in the ptxas logs, got {tc}")
+    _require(all(st["spill_stores"] == 0 for st in tc),
+             f"a tensor-core kernel spills at d = 64: {tc}")
+    return tc
 
 
 def check_k1(torch, P, gen):
@@ -189,7 +256,9 @@ def check_k2(torch, A, gen):
              (4, 6, 197, 32, torch.float32, False, "d = 32"),
              (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
-             (2, 4, 100, 80, torch.bfloat16, True, "d = 80")]
+             (2, 4, 100, 80, torch.bfloat16, True, "d = 80"),
+             (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
+             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile")]
     for B, H, N, d, dt, strided, note in specs:
         if strided:
             qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
@@ -210,12 +279,15 @@ def check_k2(torch, A, gen):
         nbytes = 4 * B * H * N * d * itemsize + 4 * B * H * N
         bound, by = _bound_ms(nbytes, 4.0 * B * H * N * N * d, name)
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
-               "dtype": name, "strided_qkv": strided, "note": note,
+               "dtype": name, "route": ROUTES[name], "strided_qkv": strided, "note": note,
                "max_abs_err": err, "ref_max_abs": ref_max, "rel_err": err / ref_max,
                "tol": BF16_TOL_REL if name == "bf16" else K2_TOL_F32,
                "tol_kind": "relative to max |ref|" if name == "bf16" else "absolute",
                "lse_max_abs_err": err_lse, "lse_tol": K2_TOL_LSE,
                "kernel_ms": _time_ms(torch, lambda: A.flash_attention_fwd(q, k, v)),
+               "kernel_device_ms": _device_ms(
+                   torch, lambda: A.flash_attention_fwd(q, k, v),
+                   ["flash_fwd_bf16_kernel" if name == "bf16" else "flash_fwd_kernel"]),
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_plain(q, k, v)),
                "library_ms": _time_ms(
                    torch, lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -256,7 +328,9 @@ def check_k4(torch, A, gen):
               "K5/K6 main: long-clip training, 1 clip x 640 frames + cls"),
              (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
              (4, 6, 197, 32, torch.float32, False, "d = 32"),
-             (2, 4, 130, 256, torch.float32, False, "d = 256")]
+             (2, 4, 130, 256, torch.float32, False, "d = 256"),
+             (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
+             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile")]
     for B, H, N, d, dt, strided, note in specs:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
         name = "bf16" if dt == torch.bfloat16 else "f32"
@@ -287,21 +361,26 @@ def check_k4(torch, A, gen):
         with torch.no_grad():
             sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl))
         library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
+        passes = [f"flash_bwd_{p}_{'bf16_' if name == 'bf16' else ''}kernel" for p in ("dq", "dkv")]
+
+        def bwd():
+            return A.flash_attention_bwd(q, k, v, out, lse, dout)
 
         itemsize = q.element_size()
         nbytes = 8 * B * H * N * d * itemsize + 4 * B * H * N
         bound, by = _bound_ms(nbytes, 10.0 * B * H * N * N * d, name)
         rec = {"kernel": "flash_attention_bwd", "shape": [B, H, N, d],
-               "dtype": name, "strided": strided, "note": note,
+               "dtype": name, "route": ROUTES[name], "strided": strided, "note": note,
                "max_abs_err": max(errs.values()), "errs": errs, "rel_errs": rel_errs,
                "tol": BF16_TOL_REL if name == "bf16" else K4_TOL_F32,
                "tol_kind": "relative to max |ref|" if name == "bf16" else "atol=rtol",
                "deterministic": deterministic,
-               "kernel_ms": _time_ms(torch, lambda: A.flash_attention_bwd(
-                   q, k, v, out, lse, dout)),
+               "kernel_ms": _time_ms(torch, bwd),
+               "kernel_device_ms": _device_ms(torch, bwd, passes),
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_bwd_plain(
                    q, k, v, out, lse, dout)),
-               "library_ms": library_ms, "bound_ms": bound, "bound_by": by}
+               "library_ms": library_ms,
+               "bound_ms": bound, "bound_by": by}
         _emit(rec)
         _require(ok, f"flash bwd {rec['shape']} {name}: errors {errs}")
         _require(deterministic, f"flash bwd {rec['shape']} {name}: runs differ")
@@ -841,10 +920,11 @@ def long_clips(torch, A, P, smi: str, device: str = "cuda"):
 
 
 def _summary_entry(name, source, replaces, main, launches, tol):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+    return {"name": name, "route": "cuda", "kernel_route": main.get("route", "cuda-core"),
+            "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": main["max_abs_err"], "tol": tol,
-            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "ms": main["kernel_ms"], "device_ms": main.get("kernel_device_ms"),
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"]}
 
@@ -869,17 +949,18 @@ def main() -> int:
 
     t = time.perf_counter()
     per_source = _build.build_all()
-    _emit({"phase": "build", "seconds": time.perf_counter() - t,
-           "per_source": per_source})
-    for src, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  nvcc[{src}]: {line.strip()}", flush=True)
+    build_s = time.perf_counter() - t
+    tc_stats = check_build(_build.build_log)
+    _emit({"phase": "build", "seconds": build_s, "per_source": per_source,
+           "tensor_core_d64": tc_stats})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_cases = check_k1(torch, P, gen)
     k2_cases = check_k2(torch, A, gen)
     k4_cases = check_k4(torch, A, gen)
+    for c in k2_cases + k4_cases:
+        if c["note"].startswith(MAIN_NOTES):
+            _require(c["dtype"] == "bf16", f"main-path case {c['note']!r} is {c['dtype']}")
 
     served, _ = serve(torch, A, P, smi)
     _require(all(v > 0 for v in served.values()),

@@ -7,8 +7,9 @@
 // (K6), the streaming FlashAttention-2 passes for n_pad > 512, since both
 // kernels here stream over any N. As in those kernels: keys >= N get P = 0
 // (the -1e30 mask), query rows >= N get P = 0 (the padded rows the TPU
-// kernels zero explicitly), the math runs in f32 whatever the input type,
-// and dQ, dK, dV are written in the input type.
+// kernels zero explicitly), sums are taken in f32 whatever the input type
+// (the bf16 kernels round P and dS to bf16 as product operands), and dQ,
+// dK, dV are written in the input type.
 //
 // Why two passes and not K4's single program: K4 runs one program per group
 // of heads that holds the whole (Np, Np) f32 score slab on chip. At Np = 256
@@ -23,29 +24,65 @@
 // its own query rows before its loop and writes it to a scratch vector; the
 // dK/dV pass, launched after it on the same stream, reads it.
 //
-// What bounds it on an H100: by the roofline, bytes. At the ViT-B/16 training
-// shape (128, 12, 197, 64) bf16 the function reads q, k, v, O, dO (5 x 38.7
-// MB) and lse, and writes dq, dk, dv (3 x 38.7 MB): ~312 MB, ~0.093 ms at
-// 3.35 TB/s; its 10*N^2*d*B*H = 38 GFLOP take ~0.039 ms at 989 TFLOP/s. This
-// first kernel keeps the TPU kernel's f32 arithmetic on the CUDA cores (67
-// TFLOP/s f32), so in practice it is bound by its own FMAs and shared-memory
-// reads; the tensor cores are left to a later change, as for the forward.
+// What bounds it on an H100: by the roofline, bytes. At the ViT-B/16
+// training shape (128, 12, 197, 64) bf16 the function reads q, k, v, O, dO
+// (5 x 38.7 MB) and lse, and writes dq, dk, dv (3 x 38.7 MB): ~312 MB,
+// ~0.093 ms at 3.35 TB/s; its 10*N^2*d*B*H = 38 GFLOP take ~0.039 ms at
+// 989 TFLOP/s. Two pairs of kernels, routed by dtype in dfdt_flash_bwd:
 //
-// Layout of the work, in both kernels: 256 threads as a 16 x 16 grid; thread
-// (ty, tx) owns tile rows ty + 16i and tile columns tx + 16j of every score
-// tile, and rows ty + 16i with head-dim columns tx + 16jj of its
-// accumulators. Tiles are staged as f32 in shared memory with rows padded by
-// one float (column walks hit distinct banks) and P/dS rows padded to BM + 16
-// floats (the two half-warps of a warp land 16 banks apart). The head dim is
-// a template on its padded width (32/64/128/256, zero-filled columns); the
-// tile height BM is 64, or 32 at d = 256 so the four staged tiles fit (144 KB
-// of dynamic shared memory, raised with cudaFuncSetAttribute). Inputs take
-// element strides for the B, H and N axes (the last axis contiguous), so dO
-// goes in as the strided view autograd hands over and q, k, v as views of a
-// fused QKV projection.
+// bf16 (every path of the port on the card) runs flash_bwd_dq_bf16_kernel
+// and flash_bwd_dkv_bf16_kernel on the tensor cores: blocks of 4 warps,
+// each warp owning 16 rows of the block's 64 (query rows in the dQ pass,
+// key rows in the dK/dV pass). Every product is an mma.m16n8k16 bf16 with
+// f32 accumulators (mma_bf16.cuh): S = Q K^T, dP = dO V^T, dQ += dS K in the
+// dQ pass; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q in the
+// dK/dV pass. P = exp2(S * scale*log2(e) - lse*log2(e)) and dS = P (dP - D)
+// are formed on the accumulator fragments; P and dS are rounded to bf16 in
+// registers and fed to the next product as its A operand, with no trip
+// through shared memory (one bf16 term: unlike the forward's P, this
+// rounding held every gradient gate of the port's paths on the card).
+// Tiles stay bf16 in shared memory (rows padded to DP + 8 elements,
+// conflict-free ldmatrix) and arrive by 16-byte cp.async;
+// the streamed tiles of 32 rows (K/V in the dQ pass; Q/dO with their lse
+// and D rows in the dK/dV pass) go through a 2-stage ring, tile t+1 in
+// flight while tile t is computed. The row tile runs fastest in the grid, so
+// the blocks of one head run together and share its streamed tiles in L2.
+// The block's own A fragments (Q and dO, or K and V) stay in registers at
+// d <= 64. Dynamic shared memory (128 + 128) (DP + 8) * 2 bytes plus the f32
+// rows: 37,120 (dQ) and 37,376 (dK/dV) at d = 64. The 16 x DP accumulators
+// fit the registers up to d = 128; at d = 256 the dK/dV pass's two of them
+// (256 f32 a lane) spill. Padding: only the streamed tile that holds row
+// N - 1 masks and skips its 16-row steps wholly at or past N (the other
+// tiles run branch-free code), and a warp whose 16 rows all lie at or past
+// N computes nothing (it still joins the barriers). d is padded in
+// registers to the mma depth of 16 and must be a multiple of 8 with 16-byte
+// aligned rows, which the wrapper guarantees by a zero-padded copy.
+//
+// f32 (the CLI's default without --bf16, and the f32 tests, which need
+// atol = rtol = 1e-3) runs flash_bwd_dq_kernel and flash_bwd_dkv_kernel:
+// the TPU kernel's f32 arithmetic on the CUDA cores (67 TFLOP/s f32; TF32
+// tensor cores would not hold it), bound in practice by their FMAs and
+// shared-memory reads. Layout of the work, in both: 256 threads as a
+// 16 x 16 grid; thread (ty, tx) owns tile rows ty + 16i and tile columns
+// tx + 16j of every score tile, and rows ty + 16i with head-dim columns
+// tx + 16jj of its accumulators. Tiles are staged as f32 in shared memory
+// with rows padded by one float (column walks hit distinct banks) and P/dS
+// rows padded to BM + 16 floats (the two half-warps of a warp land 16 banks
+// apart). The head dim is a template on its padded width (32/64/128/256,
+// zero-filled columns); the tile height BM is 64, or 32 at d = 256 so the
+// four staged tiles fit (144 KB of dynamic shared memory, raised with
+// cudaFuncSetAttribute).
+//
+// Both take element strides for the B, H and N axes (the last axis
+// contiguous), so dO goes in as the strided view autograd hands over and
+// q, k, v as views of a fused QKV projection.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -55,13 +92,11 @@ struct Strides {
   long long b, h, n;
 };
 
+// the CUDA-core kernels are templates on the element type; only f32 is
+// instantiated (bf16 runs on the tensor-core kernels)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // tile height for a padded head dim: 64 rows, or 32 at d = 256
 template <int DP> struct Tile {
@@ -377,6 +412,414 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ---- bf16: the tensor-core kernels ----
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DP> struct TcBwd {
+  static constexpr int THREADS = 128;      // 4 warps of 16 rows
+  static constexpr int ROWS = 64;          // rows a block owns
+  static constexpr int BN = 32;            // rows per streamed tile
+  static constexpr int LD = DP + 8;        // bf16 per shared-memory row
+  static constexpr bool kHold = DP <= 64;  // the block's A fragments in registers
+  static constexpr size_t tiles = sizeof(__nv_bfloat16) * (2 * ROWS + 4 * BN) * LD;
+  static constexpr size_t dq_smem = tiles + sizeof(float) * ROWS;
+  static constexpr size_t dkv_smem = tiles + sizeof(float) * 4 * BN;
+};
+
+// S = A0 B0^T and T = A1 B1^T for one warp: A0, A1 are the warp's 16 rows
+// (held fragments, or read at a0/a1 in shared memory), B0, B1 the streamed
+// tile's rows at b0/b1 (bn_off layout). In the LAST tile, 16-row steps at
+// or past `live` are skipped and stay 0; other tiles run without a branch.
+template <int DP, int BN, bool HOLD, bool LAST>
+__device__ __forceinline__ void two_products(float (&s)[BN / 8][4], float (&t)[BN / 8][4],
+                                             const uint32_t (&f0)[HOLD ? DP / 16 : 1][4],
+                                             const uint32_t (&f1)[HOLD ? DP / 16 : 1][4],
+                                             uint32_t a0, uint32_t a1, uint32_t b0,
+                                             uint32_t b1, int live) {
+  constexpr int LD = DP + 8;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
+#pragma unroll
+  for (int np = 0; np < BN / 16; ++np) {
+    if (!LAST || np * 16 < live) {
+#pragma unroll
+      for (int kd = 0; kd < DP / 16; ++kd) {
+        uint32_t x0[4], x1[4], y0[4], y1[4];
+        if constexpr (HOLD) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x0[i] = f0[kd][i];
+            x1[i] = f1[kd][i];
+          }
+        } else {
+          dfdt::ldsm_x4(x0, a0 + kd * 32);
+          dfdt::ldsm_x4(x1, a1 + kd * 32);
+        }
+        dfdt::ldsm_x4(y0, b0 + 2 * (np * 16 * LD + kd * 16));
+        dfdt::ldsm_x4(y1, b1 + 2 * (np * 16 * LD + kd * 16));
+        dfdt::mma_bf16(s[2 * np], x0, y0[0], y0[1]);
+        dfdt::mma_bf16(s[2 * np + 1], x0, y0[2], y0[3]);
+        dfdt::mma_bf16(t[2 * np], x1, y1[0], y1[1]);
+        dfdt::mma_bf16(t[2 * np + 1], x1, y1[2], y1[3]);
+      }
+    }
+  }
+}
+
+// acc += X Y for one warp: X is 16 x BN, the bf16 rounding of the C
+// fragments x; Y the streamed tile at y (bk_off layout, BN x DP). In the
+// LAST tile, 16-row steps at or past `live` are skipped (their X is 0).
+template <int DP, int BN, bool LAST>
+__device__ __forceinline__ void product_into(float (&acc)[DP / 8][4], const float (&x)[BN / 8][4],
+                                             uint32_t y, int live) {
+  constexpr int LD = DP + 8;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    if (!LAST || kk * 16 < live) {
+      uint32_t a[4];
+      dfdt::c_to_a<BN / 8>(a, x, kk);
+#pragma unroll
+      for (int jd = 0; jd < DP / 16; ++jd) {
+        uint32_t b[4];
+        dfdt::ldsm_x4_t(b, y + 2 * (kk * 16 * LD + jd * 16));
+        dfdt::mma_bf16(acc[2 * jd], a, b[0], b[1]);
+        dfdt::mma_bf16(acc[2 * jd + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Write a warp's 16 x DP accumulator times `mul` as bf16 rows of a (b, h)
+// slice, rows < n and columns < d.
+template <int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_stride,
+                                           const float (&acc)[DP / 8][4], float mul, int row0,
+                                           int n, int d, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = row0 + lane / 4 + 8 * i;
+    if (gr >= n) continue;
+#pragma unroll
+    for (int jd = 0; jd < DP / 8; ++jd) {
+      const int c = jd * 8 + 2 * (lane % 4);
+      if (c < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + gr * row_stride + c) =
+            __floats2bfloat162_rn(acc[jd][2 * i] * mul, acc[jd][2 * i + 1] * mul);
+    }
+  }
+}
+
+// The dQ pass on the tensor cores. One block per (64-row query tile, b*h):
+// D for the tile's rows, then a walk over the K/V tiles accumulating
+// dQ = sum dS K * scale.
+template <int DP>
+__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq, Strides sq,
+                         Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq, int H,
+                         int N, int d, float scale) {
+  using dfdt::bf16;
+  using C = TcBwd<DP>;
+  constexpr int BN = C::BN, LD = C::LD, KD = DP / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + C::ROWS * LD;
+  bf16* sK = sdO + C::ROWS * LD;  // two stages
+  bf16* sV = sK + 2 * BN * LD;    // two stages
+  float* sD = reinterpret_cast<float*>(sV + 2 * BN * LD);
+
+  // the row tile runs fastest in the grid, so the tiles of one head run
+  // together and share its K/V (dQ pass) or Q/dO (dK/dV pass) in L2
+  const int n_rt = (N + C::ROWS - 1) / C::ROWS;
+  const int bh = blockIdx.x / n_rt;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int row0 = (blockIdx.x % n_rt) * C::ROWS;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow0 = row0 + warp * 16;
+  const bool active = wrow0 < N;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sdO, dob, sdo.n, row0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
+  dfdt::cp_async_commit();
+
+  // D = rowsum(dO * O) in f32: two lanes per row, 16-byte reads
+  {
+    const int r = threadIdx.x / 2;
+    const int gr = row0 + r;
+    float part = 0.f;
+    if (gr < N) {
+      const bf16* orow = o + b * so.b + h * so.h + gr * so.n;
+      const bf16* drow = dob + gr * sdo.n;
+      for (int c = (threadIdx.x % 2) * 8; c < d; c += 16) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(o2[i]);
+          const float2 y = __bfloat1622float2(d2[i]);
+          part = fmaf(x.x, y.x, part);
+          part = fmaf(x.y, y.y, part);
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (threadIdx.x % 2 == 0) {
+      sD[r] = part;
+      if (gr < N) dvec[(long long)bh * N + gr] = part;
+    }
+  }
+
+  const float sl2 = scale * kLog2e;
+  float lrow[2], drow[2] = {0.f, 0.f};  // lse (log2 units) and D of rows g, g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = wrow0 + lane / 4 + 8 * i;
+    lrow[i] = gr < N ? lse[(long long)bh * N + gr] * kLog2e : 0.f;
+  }
+  float acc[2 * KD][4] = {};
+  uint32_t qf[C::kHold ? KD : 1][4], df[C::kHold ? KD : 1][4];
+  const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off<LD>(lane);
+  const uint32_t wdO = dfdt::smem_u32(sdO + warp * 16 * LD) + dfdt::a_off<LD>(lane);
+
+  const int n_tiles = (N + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
+                                               (t + 1) * BN, N, d);
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
+                                               (t + 1) * BN, N, d);
+      dfdt::cp_async_commit();
+      dfdt::cp_async_wait<1>();
+    } else {
+      dfdt::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if (t == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) drow[i] = sD[warp * 16 + lane / 4 + 8 * i];
+        if constexpr (C::kHold) {
+#pragma unroll
+          for (int kd = 0; kd < KD; ++kd) {
+            dfdt::ldsm_x4(qf[kd], wQ + kd * 32);
+            dfdt::ldsm_x4(df[kd], wdO + kd * 32);
+          }
+        }
+      }
+      const int key0 = t * BN;
+      const int kv = min(BN, N - key0);
+      const uint32_t tK = dfdt::smem_u32(sK + st * BN * LD);
+      const uint32_t tV = dfdt::smem_u32(sV + st * BN * LD);
+      // LAST: the tile that holds key N - 1 (masked, with skips)
+      auto step = [&](auto last) {
+        constexpr bool LAST = decltype(last)::value;
+        // S = Q K^T, dP = dO V^T
+        float s[BN / 8][4], dp[BN / 8][4];
+        two_products<DP, BN, C::kHold, LAST>(s, dp, qf, df, wQ, wdO,
+                                             tK + dfdt::bn_off<LD>(lane),
+                                             tV + dfdt::bn_off<LD>(lane), kv);
+        // dS = P (dP - D), P = exp(S scale - L) and 0 on keys >= N
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool live = !LAST || key0 + j * 8 + 2 * (lane % 4) + (e & 1) < N;
+            const float p = live ? exp2f(fmaf(s[j][e], sl2, -lrow[e >> 1])) : 0.f;
+            s[j][e] = p * (dp[j][e] - drow[e >> 1]);
+          }
+        // dQ += dS K
+        product_into<DP, BN, LAST>(acc, s, tK + dfdt::bk_off<LD>(lane), kv);
+      };
+      if (kv == BN)
+        step(std::false_type{});
+      else
+        step(std::true_type{});
+    }
+    __syncthreads();
+  }
+  if (active)
+    store_rows<DP>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, scale, wrow0, N, d, lane);
+}
+
+// The dK/dV pass on the tensor cores. One block per (64-key tile, b*h): a
+// walk over the Q/dO tiles (with their lse and D rows) accumulating
+// dV = sum P^T dO and dK = sum dS^T Q * scale; P = 0 on query rows >= N.
+template <int DP>
+__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
+flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                          Strides sdo, Strides sdk, Strides sdv, int H, int N, int d,
+                          float scale) {
+  using dfdt::bf16;
+  using C = TcBwd<DP>;
+  constexpr int BN = C::BN, LD = C::LD, KD = DP / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + C::ROWS * LD;
+  bf16* sQ = sV + C::ROWS * LD;  // two stages
+  bf16* sdO = sQ + 2 * BN * LD;  // two stages
+  float* sL = reinterpret_cast<float*>(sdO + 2 * BN * LD);  // two stages
+  float* sD = sL + 2 * BN;                                  // two stages
+
+  const int n_rt = (N + C::ROWS - 1) / C::ROWS;
+  const int bh = blockIdx.x / n_rt;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int key0 = (blockIdx.x % n_rt) * C::ROWS;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wkey0 = key0 + warp * 16;
+  const bool active = wkey0 < N;
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lb = lse + (long long)bh * N;
+  const float* db = dvec + (long long)bh * N;
+  // query tile `tile` (its Q, dO, lse and D rows) into stage `st`
+  auto load_queries = [&](int tile, int st) {
+    const int q0 = tile * BN;
+    dfdt::tile_async<DP, LD, BN, C::THREADS>(sQ + st * BN * LD, qb, sq.n, q0, N, d);
+    dfdt::tile_async<DP, LD, BN, C::THREADS>(sdO + st * BN * LD, dob, sdo.n, q0, N, d);
+    for (int i = threadIdx.x; i < 2 * BN; i += C::THREADS) {
+      const int r = i % BN;
+      const bool ok = q0 + r < N;
+      const float* src = i < BN ? lb : db;
+      dfdt::cp_async4((i < BN ? sL : sD) + st * BN + r, ok ? src + q0 + r : src, ok);
+    }
+  };
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sK, k + b * sk.b + h * sk.h, sk.n, key0, N, d);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sV, v + b * sv.b + h * sv.h, sv.n, key0, N, d);
+  load_queries(0, 0);
+  dfdt::cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float acc_dk[2 * KD][4] = {}, acc_dv[2 * KD][4] = {};
+  uint32_t kf[C::kHold ? KD : 1][4], vf[C::kHold ? KD : 1][4];
+  const uint32_t wK = dfdt::smem_u32(sK + warp * 16 * LD) + dfdt::a_off<LD>(lane);
+  const uint32_t wV = dfdt::smem_u32(sV + warp * 16 * LD) + dfdt::a_off<LD>(lane);
+
+  const int n_tiles = (N + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      load_queries(t + 1, st ^ 1);
+      dfdt::cp_async_commit();
+      dfdt::cp_async_wait<1>();
+    } else {
+      dfdt::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if constexpr (C::kHold) {
+        if (t == 0) {
+#pragma unroll
+          for (int kd = 0; kd < KD; ++kd) {
+            dfdt::ldsm_x4(kf[kd], wK + kd * 32);
+            dfdt::ldsm_x4(vf[kd], wV + kd * 32);
+          }
+        }
+      }
+      const int q0 = t * BN;
+      const int qv = min(BN, N - q0);
+      const uint32_t tQ = dfdt::smem_u32(sQ + st * BN * LD);
+      const uint32_t tdO = dfdt::smem_u32(sdO + st * BN * LD);
+      const float* tL = sL + st * BN;
+      const float* tD = sD + st * BN;
+      // LAST: the tile that holds query row N - 1 (masked, with skips)
+      auto step = [&](auto last) {
+        constexpr bool LAST = decltype(last)::value;
+        // S^T = K Q^T, dP^T = V dO^T
+        float s[BN / 8][4], dp[BN / 8][4];
+        two_products<DP, BN, C::kHold, LAST>(s, dp, kf, vf, wK, wV,
+                                             tQ + dfdt::bn_off<LD>(lane),
+                                             tdO + dfdt::bn_off<LD>(lane), qv);
+        // P^T (0 on query rows >= N: their lse is not a logsumexp) and dS^T
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * 8 + 2 * (lane % 4) + (e & 1);
+            const float p = !LAST || q0 + col < N
+                                ? exp2f(fmaf(s[j][e], sl2, -tL[col] * kLog2e))
+                                : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - tD[col]);
+          }
+        // dV += P^T dO, dK += dS^T Q
+        product_into<DP, BN, LAST>(acc_dv, s, tdO + dfdt::bk_off<LD>(lane), qv);
+        product_into<DP, BN, LAST>(acc_dk, dp, tQ + dfdt::bk_off<LD>(lane), qv);
+      };
+      if (qv == BN)
+        step(std::false_type{});
+      else
+        step(std::true_type{});
+    }
+    __syncthreads();
+  }
+  if (active) {
+    store_rows<DP>(dk + b * sdk.b + h * sdk.h, sdk.n, acc_dk, scale, wkey0, N, d, lane);
+    store_rows<DP>(dv + b * sdv.b + h * sdv.h, sdv.n, acc_dv, 1.f, wkey0, N, d, lane);
+  }
+}
+
+template <int DP>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* dvec, void* dq, void* dk,
+                        void* dv, const Strides* st, int B, int H, int N, int d, float scale,
+                        cudaStream_t stream) {
+  using C = TcBwd<DP>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::dq_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkv_smem);
+  if (err != cudaSuccess) return err;
+  using T = __nv_bfloat16;
+  const long long blocks = (long long)B * H * ((N + C::ROWS - 1) / C::ROWS);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  flash_bwd_dq_bf16_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dq_smem, stream>>>(
+      tq, tk, tv, static_cast<const T*>(o), tdo, lse, dvec, static_cast<T*>(dq), st[0], st[1],
+      st[2], st[3], st[4], st[5], H, N, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_bf16_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dkv_smem, stream>>>(
+      tq, tk, tv, tdo, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), st[0], st[1],
+      st[2], st[4], st[6], st[7], H, N, d, scale);
+  return cudaGetLastError();
+}
+
+// the tensor-core kernels take rows of 16-byte multiples: d % 8 == 0, every
+// B/H/N stride a multiple of 8 elements and 16-byte aligned data
+inline bool tc_aligned(const void* p, Strides s, int d) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && d % 8 == 0 && s.b % 8 == 0 &&
+         s.h % 8 == 0 && s.n % 8 == 0;
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* dvec, void* dq, void* dk, void* dv,
@@ -423,6 +866,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 
 // strides: 24 element strides, (b, h, n) for q, k, v, o, dout, dq, dk, dv in
 // that order. lse and dvec (scratch for D) are contiguous f32 (B, H, N).
+// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones.
 extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dvec, void* dq,
                               void* dk, void* dv, int B, int H, int N, int d, int is_bf16,
@@ -434,10 +878,24 @@ extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dvv = static_cast<float*>(dvec);
-  const cudaError_t err =
-      is_bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, o, dout, l, dvv, dq, dk, dv, st, B, H, N, d, scale, s)
-              : dispatch_d<float>(q, k, v, o, dout, l, dvv, dq, dk, dv, st, B, H, N, d, scale, s);
-  return (int)err;
+  if (!is_bf16)
+    return (int)dispatch_d<float>(q, k, v, o, dout, l, dvv, dq, dk, dv, st, B, H, N, d, scale, s);
+  const void* ins[5] = {q, k, v, o, dout};
+  for (int i = 0; i < 5; ++i)
+    if (!tc_aligned(ins[i], st[i], d)) return (int)cudaErrorMisalignedAddress;
+  for (int i = 5; i < 8; ++i)
+    if (st[i].b % 2 || st[i].h % 2 || st[i].n % 2) return (int)cudaErrorMisalignedAddress;
+#define DFDT_BWD_BF16(DP) \
+  case DP / 16:           \
+    return (int)launch_bf16<DP>(q, k, v, o, dout, l, dvv, dq, dk, dv, st, B, H, N, d, scale, s);
+  switch ((d + 15) / 16) {
+    DFDT_BWD_BF16(16) DFDT_BWD_BF16(32) DFDT_BWD_BF16(48) DFDT_BWD_BF16(64)
+    DFDT_BWD_BF16(80) DFDT_BWD_BF16(96) DFDT_BWD_BF16(112) DFDT_BWD_BF16(128)
+    DFDT_BWD_BF16(144) DFDT_BWD_BF16(160) DFDT_BWD_BF16(176) DFDT_BWD_BF16(192)
+    DFDT_BWD_BF16(208) DFDT_BWD_BF16(224) DFDT_BWD_BF16(240) DFDT_BWD_BF16(256)
+  }
+#undef DFDT_BWD_BF16
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* dfdt_error_string(int code) {

@@ -5,18 +5,51 @@
 // (K2, n_pad <= 512: the ViT blocks, N = 197 at 224 px) and computes the same
 // function as ::_attn_kernel (K3, the streaming kernel for n_pad > 512), since
 // it streams over any N. As in those kernels, keys >= N are masked to -1e30
-// (not -inf), l is guarded by max(l, 1e-30), the math runs in f32 whatever
+// (not -inf), l is guarded by max(l, 1e-30), sums are taken in f32 whatever
 // the input type, O is written in the input type and lse in f32.
 //
-// What bounds it on an H100: by the roofline, bytes. At the ViT-B/16 serving
-// shape (8, 12, 197, 64) bf16 one call does 4*N^2*d*B*H = 0.95 GFLOP (~1 us
-// at 989 TFLOP/s on the tensor cores) and moves 9.7 MB (~2.9 us at
-// 3.35 TB/s). This first kernel keeps the TPU kernel's f32 arithmetic and
-// runs it on the CUDA cores (67 TFLOP/s f32), with tiles padded to 64, so in
-// practice it is bound by its own FMAs and shared-memory reads; the tensor
-// cores (mma/wgmma on bf16 tiles) are left to a later change.
+// Two kernels, routed by dtype in dfdt_flash_fwd:
 //
-// Design: one block of 256 threads per (64-row query tile, batch*head). The
+// bf16 (every path of the port on the card: bf16 activations) runs
+// flash_fwd_bf16_kernel on the tensor cores. What bounds it on an H100: by
+// the roofline, bytes. At the ViT-B/16 training shape (128, 12, 197, 64)
+// one call moves 38.7 MB x 4 + lse (~0.047 ms at 3.35 TB/s) and does
+// 4*N^2*d*B*H = 15.3 GFLOP (~0.015 ms at 989 TFLOP/s). In practice it is
+// bound by instruction issue: per 16 x 64 tile a warp issues ~450
+// instructions, most of them the softmax and the split of P below, and
+// mma.sync cannot overlap them with the products (wgmma could). Design (as
+// FlashAttention-2): one block of 4 warps per (64-row query tile, b*h),
+// with the row tile fastest in the grid so the tiles of one head run
+// together and share its K/V in L2; each warp owns 16 query rows. S = Q K^T
+// and O += P V run as mma.m16n8k16 bf16 products with f32 accumulators
+// (mma_bf16.cuh); the online softmax runs on the accumulator fragments in
+// registers (row max and sum over the 4 lanes of a quad), with exp2f on
+// scores times scale*log2(e) folded into one FMA, and lse converted back to
+// the natural log on store. P goes from the accumulators straight into
+// P.V as its A operand, with no trip through shared memory, split into two
+// bf16 terms (hi = bf16(P), lo = bf16(P - hi), one more mma per step): one
+// term keeps P to 2^-9 and moved a saturated long-clip loss by a bf16 ulp
+// of its logit against the f32 plain version; two keep it to ~2^-17. Tiles
+// stay bf16 in shared memory (rows padded to DP + 8 elements, so ldmatrix
+// is conflict-free) and arrive by 16-byte cp.async: the Q tile once, K/V
+// tiles of BN = 64 keys (32 above d = 128) through a 2-stage ring, so tile
+// t+1 is in flight while tile t is computed. Q's fragments are re-read by ldmatrix
+// at each k-step: holding them in registers cost a block per SM and was
+// slower on the card. Dynamic shared memory: (64 + 4 BN) (DP + 8) * 2 bytes,
+// 46,080 at d = 64, 101,376 at d = 256. Padding: only the tile that holds
+// key N - 1 masks keys and skips its 16-key steps wholly at or past N (the
+// other tiles run branch-free code), and a warp whose 16 rows all lie at or
+// past N computes nothing (it still joins the block's barriers). d is
+// padded in registers to the mma depth of 16 (DP = d rounded up to 16,
+// zero-filled columns); d must be a multiple of 8 with 16-byte aligned rows,
+// which the wrapper guarantees by a zero-padded copy where the caller's are
+// not.
+//
+// f32 (the CLI's default without --bf16, and the f32 tests, which need 1e-4
+// absolute) runs flash_fwd_kernel: the TPU kernel's f32 arithmetic on the
+// CUDA cores (67 TFLOP/s f32; TF32 tensor cores would not hold 1e-4),
+// bound in practice by its own FMAs and shared-memory reads. Its design:
+// one block of 256 threads per (64-row query tile, batch*head). The
 // grid is (B*H, ceil(N/64)). The Q tile is staged once in shared memory,
 // pre-scaled by 1/sqrt(d) as the TPU kernel does; the block then walks
 // 64-row K/V tiles through shared memory with the online-softmax recurrence
@@ -30,14 +63,17 @@
 // The head dim is a template on its padded width (32/64/128/256, zero-filled
 // columns), so any d <= 256 is taken; the tiles live in dynamic shared memory
 // (69 KB at d = 64, 213 KB at d = 256) raised with cudaFuncSetAttribute.
-// There is no grouping of heads per program (_short_group): it existed because
-// a TPU grid runs in sequence, while this grid fills the 132 SMs in parallel.
-// Q, K and V take element strides for the B, H and N axes (the last axis is
-// contiguous), so the q/k/v views of a fused QKV projection go in without a
-// copy; O is written through strides as well.
+//
+// Both: there is no grouping of heads per program (_short_group): it existed
+// because a TPU grid runs in sequence, while this grid fills the 132 SMs in
+// parallel. Q, K and V take element strides for the B, H and N axes (the
+// last axis is contiguous), so the q/k/v views of a fused QKV projection go
+// in without a copy; O is written through strides as well.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -51,13 +87,11 @@ struct Strides {
   long long b, h, n;
 };
 
+// the CUDA-core kernels are templates on the element type; only f32 is
+// instantiated (bf16 runs on the tensor-core kernels)
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -202,6 +236,213 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- bf16: the tensor-core kernel ----
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int DP> struct TcFwd {
+  static constexpr int THREADS = 128;             // 4 warps of 16 query rows
+  static constexpr int BM = 64;                   // query rows per block
+  static constexpr int BN = DP <= 128 ? 64 : 32;  // keys per K/V tile
+  static constexpr int LD = DP + 8;               // bf16 per shared-memory row
+  static constexpr size_t smem = sizeof(__nv_bfloat16) * (BM + 4 * BN) * LD;
+};
+
+// One K/V tile for one warp: S = Q K^T, the online-softmax update of m, l
+// and acc, and acc += P V. LAST (the tile that holds key N - 1) masks keys
+// >= N to -1e30 and skips the 16-key steps wholly at or past N; every other
+// tile runs straight-line code, with no branch between its products.
+template <int DP, int BN, bool LAST>
+__device__ __forceinline__ void fwd_tile(float (&acc)[DP / 8][4], float (&m)[2], float (&l)[2],
+                                         uint32_t wQ, uint32_t tK, uint32_t tV, int key0,
+                                         int N, float sl2, int tq) {
+  constexpr int LD = DP + 8, KD = DP / 16, NT = BN / 8;
+  const int kv = LAST ? N - key0 : BN;  // live keys of this tile
+
+  // S = Q K^T
+  float s[NT][4] = {};
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    if (!LAST || np * 16 < kv) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4], bk[4];
+        dfdt::ldsm_x4(a, wQ + kd * 32);
+        dfdt::ldsm_x4(bk, tK + 2 * (np * 16 * LD + kd * 16));
+        dfdt::mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        dfdt::mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // online softmax on the fragments: the max is taken on the raw scores
+  // (sl2 > 0), and the scale folds into the exponent's FMA
+  float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (LAST && key0 + j * 8 + 2 * tq + (e & 1) >= N) s[j][e] = kNegBig;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * sl2);  // log2 units
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(s[j][e], sl2, -m[e >> 1]));
+      s[j][e] = p;
+      l[e >> 1] += p;
+    }
+#pragma unroll
+  for (int jd = 0; jd < 2 * KD; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+
+  // acc += P V, P split in registers into two bf16 A operands (hi + lo)
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (!LAST || kk * 16 < kv) {
+      uint32_t hi[4], lo[4];
+      dfdt::c_to_a_split<NT>(hi, lo, s, kk);
+#pragma unroll
+      for (int jd = 0; jd < KD; ++jd) {
+        uint32_t bv[4];
+        dfdt::ldsm_x4_t(bv, tV + 2 * (kk * 16 * LD + jd * 16));
+        dfdt::mma_bf16(acc[2 * jd], hi, bv[0], bv[1]);
+        dfdt::mma_bf16(acc[2 * jd + 1], hi, bv[2], bv[3]);
+        dfdt::mma_bf16(acc[2 * jd], lo, bv[0], bv[1]);
+        dfdt::mma_bf16(acc[2 * jd + 1], lo, bv[2], bv[3]);
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TcFwd<DP>::THREADS)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
+                      int H, int N, int d, float scale) {
+  using dfdt::bf16;
+  using C = TcFwd<DP>;
+  constexpr int BN = C::BN, LD = C::LD;
+  constexpr int KD = DP / 16;  // 16-deep k-steps over the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + C::BM * LD;  // two stages
+  bf16* sV = sK + 2 * BN * LD;  // two stages
+
+  // the row tile runs fastest in the grid, so the tiles of one head run
+  // together and share its K/V in L2
+  const int n_rt = (N + C::BM - 1) / C::BM;
+  const int bh = blockIdx.x / n_rt;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int row0 = (blockIdx.x % n_rt) * C::BM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tq = lane % 4;
+  const bool active = row0 + warp * 16 < N;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  dfdt::tile_async<DP, LD, C::BM, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
+  dfdt::cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float m[2] = {kNegBig, kNegBig};  // running max, log2 units, rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's part of the running sum
+  float acc[2 * KD][4] = {};
+  const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off<LD>(lane);
+
+  const int n_tiles = (N + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
+                                               (t + 1) * BN, N, d);
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
+                                               (t + 1) * BN, N, d);
+      dfdt::cp_async_commit();
+      dfdt::cp_async_wait<1>();
+    } else {
+      dfdt::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const uint32_t tK = dfdt::smem_u32(sK + st * BN * LD) + dfdt::bn_off<LD>(lane);
+      const uint32_t tV = dfdt::smem_u32(sV + st * BN * LD) + dfdt::bk_off<LD>(lane);
+      if ((t + 1) * BN <= N)
+        fwd_tile<DP, BN, false>(acc, m, l, wQ, tK, tV, t * BN, N, sl2, tq);
+      else
+        fwd_tile<DP, BN, true>(acc, m, l, wQ, tK, tV, t * BN, N, sl2, tq);
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+
+  bf16* ob = o + b * so.b + h * so.h;
+  const int g = lane / 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int gr = row0 + warp * 16 + g + 8 * i;
+    if (gr >= N) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    // one fast reciprocal per row; its error is far below the bf16 output's
+    const float inv = __fdividef(1.f, l_safe);
+#pragma unroll
+    for (int jd = 0; jd < 2 * KD; ++jd) {
+      const int c = jd * 8 + 2 * tq;
+      if (c < d)
+        *reinterpret_cast<__nv_bfloat162*>(ob + gr * so.n + c) =
+            __floats2bfloat162_rn(acc[jd][2 * i] * inv, acc[jd][2 * i + 1] * inv);
+    }
+    if (tq == 0) lse[(long long)bh * N + gr] = m[i] * kLn2 + logf(l_safe);
+  }
+}
+
+template <int DP>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int N,
+                        int d, float scale, cudaStream_t stream) {
+  constexpr size_t smem = TcFwd<DP>::smem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BM = TcFwd<DP>::BM;
+  const long long blocks = (long long)B * H * ((N + BM - 1) / BM);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_bf16_kernel<DP><<<(unsigned)blocks, TcFwd<DP>::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk, sv,
+      so, H, N, d, scale);
+  return cudaGetLastError();
+}
+
+// the tensor-core kernel takes rows of 16-byte multiples: d % 8 == 0, every
+// B/H/N stride a multiple of 8 elements and 16-byte aligned data
+inline bool tc_aligned(const void* p, Strides s, int d) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && d % 8 == 0 && s.b % 8 == 0 &&
+         s.h % 8 == 0 && s.n % 8 == 0;
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int N,
@@ -231,6 +472,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
 }  // namespace
 
 // strides: 12 element strides, (b, h, n) for q, k, v and o in that order.
+// bf16 goes to the tensor-core kernel, f32 to the CUDA-core one.
 extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int H, int N, int d, int is_bf16,
                               const long long* strides, float scale, void* stream) {
@@ -242,10 +484,21 @@ extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void*
   const Strides so{strides[9], strides[10], strides[11]};
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const cudaError_t err =
-      is_bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, o, l, sq, sk, sv, so, B, H, N, d, scale, s)
-              : dispatch_d<float>(q, k, v, o, l, sq, sk, sv, so, B, H, N, d, scale, s);
-  return (int)err;
+  if (!is_bf16) return (int)dispatch_d<float>(q, k, v, o, l, sq, sk, sv, so, B, H, N, d, scale, s);
+  if (!tc_aligned(q, sq, d) || !tc_aligned(k, sk, d) || !tc_aligned(v, sv, d) ||
+      so.b % 2 || so.h % 2 || so.n % 2)
+    return (int)cudaErrorMisalignedAddress;
+#define DFDT_FWD_BF16(DP) \
+  case DP / 16:           \
+    return (int)launch_bf16<DP>(q, k, v, o, l, sq, sk, sv, so, B, H, N, d, scale, s);
+  switch ((d + 15) / 16) {
+    DFDT_FWD_BF16(16) DFDT_FWD_BF16(32) DFDT_FWD_BF16(48) DFDT_FWD_BF16(64)
+    DFDT_FWD_BF16(80) DFDT_FWD_BF16(96) DFDT_FWD_BF16(112) DFDT_FWD_BF16(128)
+    DFDT_FWD_BF16(144) DFDT_FWD_BF16(160) DFDT_FWD_BF16(176) DFDT_FWD_BF16(192)
+    DFDT_FWD_BF16(208) DFDT_FWD_BF16(224) DFDT_FWD_BF16(240) DFDT_FWD_BF16(256)
+  }
+#undef DFDT_FWD_BF16
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* dfdt_error_string(int code) {

@@ -4,10 +4,10 @@ Each source under ``csrc/`` becomes one shared library with a plain C
 interface (no PyTorch headers, so a file builds in seconds). All missing
 libraries are compiled together, one ``nvcc`` process per source, into
 ``build/torch_kernels/`` at the repository root. A library's file name
-carries a hash of its source, so an edited kernel is rebuilt and a stale
-one is never loaded. Nothing is built at import time: the first launch of a
-kernel builds it, or a caller builds all of them up front with
-:func:`build_all`.
+carries a hash of its source and of the shared headers (``csrc/*.cuh``),
+so an edited kernel or header is rebuilt and a stale one is never loaded.
+Nothing is built at import time: the first launch of a kernel builds it,
+or a caller builds all of them up front with :func:`build_all`.
 
 There is no fallback: without ``nvcc``, or when a build fails, this raises.
 """
@@ -52,8 +52,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+    """The library of ``source``, named by a hash of the source and of every
+    header under ``csrc/``, so an edit to either rebuilds it."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, float]:

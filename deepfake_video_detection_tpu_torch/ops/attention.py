@@ -6,10 +6,16 @@ above. Backward: ``_flash_bwd`` → ``_short_bwd_kernel`` for n_pad ≤ 512, the
 two streaming passes ``_bwd_dq_kernel``/``_bwd_dkv_kernel`` above.
 
 On CUDA tensors :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``,
-which streams 64-key tiles with an online softmax, and
+which streams key tiles with an online softmax, and
 :func:`flash_attention_bwd` launches ``csrc/flash_bwd.cu``, a dQ pass and a
-dK/dV pass (FlashAttention-2) that stream 64-row tiles. Each kernel streams
-over any N, so each covers both TPU regimes. On CPU tensors each wrapper
+dK/dV pass (FlashAttention-2) that stream row tiles. Each kernel streams
+over any N, so each covers both TPU regimes. Each source routes by dtype:
+bf16 runs on the tensor cores (bf16 products, f32 sums), f32 on the CUDA
+cores in full f32. The tensor-core kernels take rows of 16-byte multiples;
+for a bf16 input whose rows are not (d not a multiple of 8, a stride not a
+multiple of 8 elements, or unaligned data), the wrapper hands the kernel a
+contiguous copy zero-padded to the next multiple of 8 in d, with the scale
+of the true d, and slices the result back. On CPU tensors each wrapper
 takes its plain version, a dense f32 computation.
 
 :class:`FlashAttention` saves q, k, v, O and lse, as the JAX ``custom_vjp``
@@ -41,7 +47,10 @@ _MAX_HEAD_DIM = 256
 # the JAX package's n_pad bound of its short-N kernels (K2, K4); above it
 # (N > 512) it launches the streaming ones (K3; K5 and K6)
 _SHORT_MAX = 512
+_DTYPES = (torch.bfloat16, torch.float32)
 _count_lock = threading.Lock()
+# ctypes array types of 12 and 24 strides, made once
+_STRIDE_ARRAYS = {n: ctypes.c_longlong * n for n in (12, 24)}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -81,31 +90,33 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fwd_library() -> ctypes.CDLL:
     lib = _build.load(_FWD_SOURCE)
     fn = lib.dfdt_flash_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:     # once per loaded library
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load(_BWD_SOURCE)
     fn = lib.dfdt_flash_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _check_inputs(*ts: torch.Tensor) -> None:
     q = ts[0]
-    if q.ndim != 4 or any(t.shape != q.shape for t in ts):
+    shape, dtype, device = q.shape, q.dtype, q.device
+    if len(shape) != 4 or any(t.shape != shape for t in ts[1:]):
         raise ValueError(f"flash attention takes tensors of one (B, H, N, d) "
                          f"shape, got {[tuple(t.shape) for t in ts]}")
-    if any(t.dtype != q.dtype for t in ts) \
-            or q.dtype not in (torch.bfloat16, torch.float32):
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in ts[1:]):
         raise ValueError(f"flash attention takes bf16 or f32 tensors of one "
                          f"dtype, got {[t.dtype for t in ts]}")
-    if any(t.device != q.device for t in ts):
+    if any(t.device != device for t in ts[1:]):
         raise ValueError("flash attention: inputs on different devices")
 
 
@@ -124,9 +135,22 @@ def _heads_view(B: int, H: int, N: int, d: int, like: torch.Tensor) -> torch.Ten
                        device=like.device).permute(0, 2, 1, 3)
 
 
+def _tc_aligned(*ts: torch.Tensor) -> bool:
+    """Whether the tensor-core kernels take these bf16 tensors as they are:
+    d a multiple of 8, B/H/N strides multiples of 8 elements, data 16-byte
+    aligned."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
+
+
+def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t``, its last axis zero-padded to a multiple
+    of 8."""
+    return torch.nn.functional.pad(t, (0, -t.shape[-1] % 8)).contiguous()
+
+
 def _strides(*ts: torch.Tensor):
-    return (ctypes.c_longlong * (3 * len(ts)))(
-        *(s for t in ts for s in t.stride()[:3]))
+    return _STRIDE_ARRAYS[3 * len(ts)](*(s for t in ts for s in t.stride()[:3]))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -143,20 +167,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError("flash attention kernel needs the last axis of q, "
                          "k, v contiguous")
     B, H, N, d = q.shape
-    out = _heads_view(B, H, N, d, q)
+    scale = 1.0 / math.sqrt(d)
+    bf16 = q.dtype == torch.bfloat16
+    padded = bf16 and not _tc_aligned(q, k, v)
+    if padded:
+        q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+    dp = q.shape[-1]
+    out = _heads_view(B, H, N, dp, q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out)
     lib = _fwd_library()
     status = lib.dfdt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, N, d, int(q.dtype == torch.bfloat16),
-        ctypes.addressof(strides), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), B, H, N, dp, int(bf16), ctypes.addressof(strides),
+        scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_fwd")
     with _count_lock:
         flash_attention_fwd.launches += 1
         flash_attention_fwd.launches_long += int(N > _SHORT_MAX)
-    return out, lse
+    return (out[..., :d] if padded else out), lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -180,20 +209,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           for t in (q, k, v, out, dout))
     lse = lse.contiguous()
     B, H, N, d = q.shape
-    dq, dk, dv = (_heads_view(B, H, N, d, q) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    bf16 = q.dtype == torch.bfloat16
+    padded = bf16 and not _tc_aligned(q, k, v, out, dout)
+    if padded:
+        q, k, v, out, dout = (_pad_head_dim(t) for t in (q, k, v, out, dout))
+    dp = q.shape[-1]
+    dq, dk, dv = (_heads_view(B, H, N, dp, q) for _ in range(3))
     dcap = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     lib = _bwd_library()
     status = lib.dfdt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, N, d,
-        int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        dk.data_ptr(), dv.data_ptr(), B, H, N, dp, int(bf16),
+        ctypes.addressof(strides), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd")
     with _count_lock:
         flash_attention_bwd.launches += 1
         flash_attention_bwd.launches_long += int(N > _SHORT_MAX)
+    if padded:
+        return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
 
 
