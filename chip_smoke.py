@@ -7,15 +7,21 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 
 1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA.
 2. Build: every CUDA kernel of the port, from the sources in the checkout,
-   one ``nvcc`` per source, all at once; the tensor-core flash kernels at
-   d = 64 (every main path) must spill nothing (``-Xptxas -v``).
+   one ``nvcc`` per source, all at once; the bf16 flash kernels at d = 64
+   (every main path), unsplit and split, and the split route's combine and
+   reduce kernels must spill nothing (``-Xptxas -v``).
 3. Kernel checks: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and a few edge shapes, with the stated
    tolerance; times by CUDA events after warm-up (kernel, plain version,
    and the one PyTorch call that computes the same function, if any), and
-   for the flash kernels their device time under ``torch.profiler``. Each
-   flash source routes by dtype: bf16 to its tensor-core kernel, f32 to its
-   CUDA-core one (``route``); every main-path case is bf16.
+   for the flash kernels their device time under ``torch.profiler``, every
+   kernel of the call summed and each named (``kernel_device_ms_by_kernel``),
+   beside the library call's (``library_device_ms``) at N > 512. Each flash
+   source routes by dtype: bf16 to its tensor-core kernels, f32 to its
+   CUDA-core ones (``route``); bf16 at N > 512 takes the split route
+   (``splits`` > 1: split kernels, then the combine or reduce kernel);
+   every main-path case is bf16. Then the split sweep: the long-N calls'
+   device time at every split count, beside the policy's.
 4. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
    generator, f32 params, bf16 activations) behind a ``Predictor`` with
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
@@ -34,7 +40,8 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
    1 (N = 641 tokens: the flash kernels run in the regime of the TPU's
    streaming kernels K3, K5 and K6), checks the launch counts of that
-   regime, the artefacts and one step of the temporal blocks through the
+   regime and that each took the split route, the artefacts and one step
+   of the temporal blocks through the
    kernels against the plain versions, and times a step. (b) The evaluator
    CLI scores the checkpoint at T = 1024 (N = 1025), batch 2: launch
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
@@ -142,13 +149,14 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, kernels, iters: int = 20):
+def _device_ms(torch, fn, kernels, iters: int = 20, parts=None):
     """Mean device ms per call of the named ``kernels`` (substrings of the
     kernel names), each launched once per call, under ``torch.profiler``
-    (CUDA activity only), over ``iters`` calls. Beside ``_time_ms`` it tells
-    the device's share from the host's: where the host enqueues slower than
-    the card runs, the events time the host. A session that lacks a record
-    of some launch is taken again, twice at most, then reported as None."""
+    (CUDA activity only), over ``iters`` calls; ``parts``, a dict, receives
+    each kernel's share. Beside ``_time_ms`` it tells the device's share
+    from the host's: where the host enqueues slower than the card runs, the
+    events time the host. A session that lacks a record of some launch is
+    taken again, twice at most, then reported as None."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -158,8 +166,42 @@ def _device_ms(torch, fn, kernels, iters: int = 20):
             torch.cuda.synchronize()
         found = {k: [ev for ev in prof.key_averages() if k in ev.key] for k in kernels}
         if all(len(evs) == 1 and evs[0].count == iters for evs in found.values()):
-            return sum(evs[0].self_device_time_total for evs in found.values()) / iters / 1e3
+            ms = {k: evs[0].self_device_time_total / iters / 1e3 for k, evs in found.items()}
+            if parts is not None:
+                parts.update(ms)
+            return sum(ms.values())
     return None
+
+
+def _session_device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device ms per call of every kernel ``fn`` launches, under
+    ``torch.profiler``: for a library call, whose kernels are not ours to
+    name."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()) / iters / 1e3
+
+
+def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
+    """The kernels one flash call launches, by name: f32 runs the CUDA-core
+    kernels, bf16 the tensor-core ones, unsplit (S = 1) or split with the
+    combine (forward) or reduce (backward) kernel."""
+    if direction == "fwd":
+        if dtype == "f32":
+            return ["flash_fwd_kernel"]
+        if splits == 1:
+            return ["flash_fwd_bf16_kernel"]
+        return ["flash_fwd_split_bf16_kernel", "flash_fwd_combine_kernel"]
+    if dtype == "f32":
+        return ["flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]
+    if splits == 1:
+        return ["flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"]
+    return ["flash_bwd_dq_split_bf16_kernel", "flash_bwd_dkv_split_bf16_kernel",
+            "flash_bwd_reduce_kernel"]
 
 
 def _bound_ms(nbytes: float, ops: float, dtype: str):
@@ -186,23 +228,34 @@ def _ptxas_stats(log: str) -> list:
     return stats
 
 
+# the bf16 flash kernels, unsplit and split (templates on the padded head
+# dim), and the split route's combine and reduce kernels
+TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_bf16_kernel"
+                       r"|flash_(fwd_combine|bwd_reduce)_kernel")
+TC_KERNELS_D64 = 8
+
+
 def check_build(build_log: dict) -> list:
-    """The tensor-core kernels at d = 64 (every main path) spill nothing;
-    returns their ptxas records."""
+    """The bf16 flash kernels at d = 64 (every main path) and the split
+    route's combine and reduce kernels spill nothing; returns their ptxas
+    records."""
     logs = [build_log.get(os.path.basename(src), "") for src in (K2_SOURCE, K4_SOURCE)]
     if not all(logs):
         print("  ptxas: flash libraries built by an earlier run, no stats", flush=True)
         return []
-    tc = [dict(st, source=src) for src, log in zip(("flash_fwd.cu", "flash_bwd.cu"), logs)
-          for st in _ptxas_stats(log)
-          if "bf16_kernel" in st["function"] and "Li64E" in st["function"]]
+    tc = []
+    for src, log in zip(("flash_fwd.cu", "flash_bwd.cu"), logs):
+        for st in _ptxas_stats(log):
+            m = TC_KERNEL.search(st["function"])
+            if m and ("Li64E" in st["function"] or m.group(3)):
+                tc.append(dict(st, source=src, kernel=m.group(0)))
     for st in tc:
-        st["kernel"] = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_bf16_kernel", st["function"]).group(0)
-        print(f"  ptxas[{st['source']}] {st['kernel']}<64>: {st['registers']} registers, "
+        print(f"  ptxas[{st['source']}] {st['kernel']}: {st['registers']} registers, "
               f"{st['spill_stores']} bytes spill stores", flush=True)
-    _require(len(tc) == 3, f"expected 3 tensor-core kernels at d = 64 in the ptxas logs, got {tc}")
+    _require(len(tc) == TC_KERNELS_D64,
+             f"expected {TC_KERNELS_D64} bf16 flash kernels at d = 64 in the ptxas logs, got {tc}")
     _require(all(st["spill_stores"] == 0 for st in tc),
-             f"a tensor-core kernel spills at d = 64: {tc}")
+             f"a bf16 flash kernel spills at d = 64: {tc}")
     return tc
 
 
@@ -253,6 +306,10 @@ def check_k2(torch, A, gen):
              (2, 12, 640, 64, torch.bfloat16, False, "K3 regime, n_pad > 512"),
              (2, 4, 1025, 64, torch.bfloat16, True,
               "K3 main: long-clip evaluation, 2 clips x 1024 frames + cls"),
+             (1, 4, 641, 64, torch.bfloat16, True,
+              "K3 main: long-clip training, 1 clip x 640 frames + cls"),
+             (2, 4, 513, 64, torch.bfloat16, False, "N = 513: the first split shape"),
+             (1, 4, 4097, 64, torch.bfloat16, True, "a clip of minutes: 4096 frames + cls"),
              (4, 6, 197, 32, torch.float32, False, "d = 32"),
              (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
@@ -267,6 +324,7 @@ def check_k2(torch, A, gen):
             q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dt)
                        for _ in range(3))
         name = "bf16" if dt == torch.bfloat16 else "f32"
+        splits = A._long_splits(B, H, N, d, name == "bf16")[0]
         out, lse = A.flash_attention_fwd(q, k, v)
         ref, ref_lse = A.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
@@ -275,11 +333,13 @@ def check_k2(torch, A, gen):
         err_lse = float((lse - ref_lse).abs().max())
         _require(bool(torch.isfinite(out.float()).all()), f"flash {note}: non-finite O")
         tol = BF16_TOL_REL * ref_max if name == "bf16" else K2_TOL_F32
+        parts = {}
         itemsize = q.element_size()
         nbytes = 4 * B * H * N * d * itemsize + 4 * B * H * N
         bound, by = _bound_ms(nbytes, 4.0 * B * H * N * N * d, name)
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
-               "dtype": name, "route": ROUTES[name], "strided_qkv": strided, "note": note,
+               "dtype": name, "route": ROUTES[name], "splits": splits,
+               "strided_qkv": strided, "note": note,
                "max_abs_err": err, "ref_max_abs": ref_max, "rel_err": err / ref_max,
                "tol": BF16_TOL_REL if name == "bf16" else K2_TOL_F32,
                "tol_kind": "relative to max |ref|" if name == "bf16" else "absolute",
@@ -287,11 +347,15 @@ def check_k2(torch, A, gen):
                "kernel_ms": _time_ms(torch, lambda: A.flash_attention_fwd(q, k, v)),
                "kernel_device_ms": _device_ms(
                    torch, lambda: A.flash_attention_fwd(q, k, v),
-                   ["flash_fwd_bf16_kernel" if name == "bf16" else "flash_fwd_kernel"]),
+                   _flash_kernels("fwd", name, splits), parts=parts),
+               "kernel_device_ms_by_kernel": parts,
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_plain(q, k, v)),
                "library_ms": _time_ms(
                    torch, lambda: F.scaled_dot_product_attention(q, k, v)),
                "bound_ms": bound, "bound_by": by}
+        if N > A._SHORT_MAX:
+            rec["library_device_ms"] = _session_device_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v))
         _emit(rec)
         _require(err <= tol, f"flash {rec['shape']} {name}: O err {err} > {tol}")
         _require(err_lse <= K2_TOL_LSE, f"flash {rec['shape']} {name}: lse err {err_lse}")
@@ -326,6 +390,8 @@ def check_k4(torch, A, gen):
              (2, 12, 640, 64, torch.bfloat16, False, "K5/K6 regime, n_pad > 512"),
              (1, 4, 641, 64, torch.bfloat16, True,
               "K5/K6 main: long-clip training, 1 clip x 640 frames + cls"),
+             (2, 4, 513, 64, torch.bfloat16, False, "N = 513: the first split shape"),
+             (1, 4, 4097, 64, torch.bfloat16, True, "a clip of minutes: 4096 frames + cls"),
              (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
              (4, 6, 197, 32, torch.float32, False, "d = 32"),
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
@@ -334,6 +400,7 @@ def check_k4(torch, A, gen):
     for B, H, N, d, dt, strided, note in specs:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
         name = "bf16" if dt == torch.bfloat16 else "f32"
+        splits = A._long_splits(B, H, N, d, name == "bf16")[1]
         got = A.flash_attention_bwd(q, k, v, out, lse, dout)
         ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout)
         again = A.flash_attention_bwd(q, k, v, out, lse, dout)
@@ -358,34 +425,89 @@ def check_k4(torch, A, gen):
             o = F.scaled_dot_product_attention(ql, kl, vl)
             torch.autograd.grad(o, (ql, kl, vl), dout)
 
-        with torch.no_grad():
-            sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl))
-        library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
-        passes = [f"flash_bwd_{p}_{'bf16_' if name == 'bf16' else ''}kernel" for p in ("dq", "dkv")]
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(ql, kl, vl)
+
+        library_ms = _time_ms(torch, sdpa_fwd_bwd) - _time_ms(torch, sdpa_fwd)
 
         def bwd():
             return A.flash_attention_bwd(q, k, v, out, lse, dout)
 
+        parts = {}
         itemsize = q.element_size()
         nbytes = 8 * B * H * N * d * itemsize + 4 * B * H * N
         bound, by = _bound_ms(nbytes, 10.0 * B * H * N * N * d, name)
         rec = {"kernel": "flash_attention_bwd", "shape": [B, H, N, d],
-               "dtype": name, "route": ROUTES[name], "strided": strided, "note": note,
+               "dtype": name, "route": ROUTES[name], "splits": splits,
+               "strided": strided, "note": note,
                "max_abs_err": max(errs.values()), "errs": errs, "rel_errs": rel_errs,
                "tol": BF16_TOL_REL if name == "bf16" else K4_TOL_F32,
                "tol_kind": "relative to max |ref|" if name == "bf16" else "atol=rtol",
                "deterministic": deterministic,
                "kernel_ms": _time_ms(torch, bwd),
-               "kernel_device_ms": _device_ms(torch, bwd, passes),
+               "kernel_device_ms": _device_ms(torch, bwd, _flash_kernels("bwd", name, splits),
+                                              parts=parts),
+               "kernel_device_ms_by_kernel": parts,
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_bwd_plain(
                    q, k, v, out, lse, dout)),
                "library_ms": library_ms,
                "bound_ms": bound, "bound_by": by}
+        if N > A._SHORT_MAX:
+            rec["library_device_ms"] = (_session_device_ms(torch, sdpa_fwd_bwd)
+                                        - _session_device_ms(torch, sdpa_fwd))
         _emit(rec)
         _require(ok, f"flash bwd {rec['shape']} {name}: errors {errs}")
         _require(deterministic, f"flash bwd {rec['shape']} {name}: runs differ")
         cases.append(rec)
     return cases
+
+
+# the long-N calls whose split counts the sweep measures: the main paths'
+# (evaluation forward, training forward and backward) and a clip of minutes
+SWEEP = (("fwd", (2, 4, 1025, 64)), ("fwd", (1, 4, 641, 64)), ("bwd", (1, 4, 641, 64)),
+         ("fwd", (1, 4, 4097, 64)), ("bwd", (1, 4, 4097, 64)))
+SWEEP_MAX_SPLITS = 16
+
+
+def sweep_splits(torch, A, gen):
+    """Device time of each long-N call of ``SWEEP`` at every split count S
+    that keeps 2 streamed tiles a split (up to 16), beside the S that
+    ``ops/attention.py::_long_splits`` picks: the measurement behind its
+    constants. Returns the records."""
+    recs = []
+    for direction, (B, H, N, d) in SWEEP:
+        q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, torch.bfloat16, True)
+        if direction == "fwd":
+            tiles, policy = -(-N // 64), A._long_splits(B, H, N, d)[0]
+
+            def call():
+                return A.flash_attention_fwd(q, k, v)
+        else:
+            tiles, policy = -(-N // 32), A._long_splits(B, H, N, d)[1]
+
+            def call():
+                return A.flash_attention_bwd(q, k, v, out, lse, dout)
+        times = {}
+        for S in range(1, min(SWEEP_MAX_SPLITS, tiles // 2) + 1):
+            with mock.patch.object(A, "_long_splits", lambda *_, S=S: (S, S)):
+                times[S] = _device_ms(torch, call, _flash_kernels(direction, "bf16", S))
+        measured = {S: t for S, t in times.items() if t is not None}
+        rec = {"phase": "split_sweep", "pass": direction, "shape": [B, H, N, d],
+               "policy_splits": policy, "device_ms": times,
+               "best_splits": min(measured, key=measured.get) if measured else None}
+        _emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def _require_split_route(A, what: str) -> None:
+    """Every flash call at N > 512 since the last reset took the split
+    route."""
+    for f in (A.flash_attention_fwd, A.flash_attention_bwd):
+        _require(f.launches_split == f.launches_long,
+                 f"{what}: {f.__name__} launched {f.launches_long} times at N > 512, "
+                 f"{f.launches_split} of them split")
 
 
 def _plain_attention(A):
@@ -667,7 +789,7 @@ def train(torch, A, P, smi: str):
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
-        f.launches = f.launches_long = 0
+        f.launches = f.launches_long = f.launches_split = 0
 
 
 def _counts(A, P) -> dict:
@@ -722,6 +844,7 @@ def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda")
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t
     launches = _counts(A, P)
+    _require_split_route(A, "long-clip training")
     peak_bytes = torch.cuda.max_memory_allocated()
 
     depth_bb, depth_t = len(model.backbone.blocks), model.depth
@@ -808,6 +931,7 @@ def evaluate_long(torch, A, P, smi: str, data: str, ckpt: str, device: str = "cu
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t
     launches = _counts(A, P)
+    _require_split_route(A, "long-clip evaluation")
 
     with open(out_csv) as f:
         rows = list(csv.DictReader(f))
@@ -921,12 +1045,14 @@ def long_clips(torch, A, P, smi: str, device: str = "cuda"):
 
 def _summary_entry(name, source, replaces, main, launches, tol):
     return {"name": name, "route": "cuda", "kernel_route": main.get("route", "cuda-core"),
+            "splits": main.get("splits", 1),
             "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": main["max_abs_err"], "tol": tol,
             "ms": main["kernel_ms"], "device_ms": main.get("kernel_device_ms"),
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "shape": main["shape"]}
+            "library_ms": main["library_ms"],
+            "library_device_ms": main.get("library_device_ms"), "shape": main["shape"]}
 
 
 def main() -> int:
@@ -961,6 +1087,9 @@ def main() -> int:
     for c in k2_cases + k4_cases:
         if c["note"].startswith(MAIN_NOTES):
             _require(c["dtype"] == "bf16", f"main-path case {c['note']!r} is {c['dtype']}")
+        if c["shape"][2] > A._SHORT_MAX and c["dtype"] == "bf16":
+            _require(c["splits"] > 1, f"flash {c['shape']} bf16 was not split")
+    sweep_splits(torch, A, gen)
 
     served, _ = serve(torch, A, P, smi)
     _require(all(v > 0 for v in served.values()),

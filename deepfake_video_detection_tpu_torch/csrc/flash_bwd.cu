@@ -22,16 +22,20 @@
 //
 // D = rowsum(dO * O) is fused into the dQ pass: each dQ block computes D for
 // its own query rows before its loop and writes it to a scratch vector; the
-// dK/dV pass, launched after it on the same stream, reads it.
+// dK/dV pass, launched after it on the same stream, reads it. (On the split
+// route every split block of a row tile computes D, the same sum in the
+// same order, and split 0 writes it.)
 //
 // What bounds it on an H100: by the roofline, bytes. At the ViT-B/16
 // training shape (128, 12, 197, 64) bf16 the function reads q, k, v, O, dO
 // (5 x 38.7 MB) and lse, and writes dq, dk, dv (3 x 38.7 MB): ~312 MB,
 // ~0.093 ms at 3.35 TB/s; its 10*N^2*d*B*H = 38 GFLOP take ~0.039 ms at
-// 989 TFLOP/s. Two pairs of kernels, routed by dtype in dfdt_flash_bwd:
+// 989 TFLOP/s. Routed by dtype in dfdt_flash_bwd, and bf16 by the split
+// count S:
 //
 // bf16 (every path of the port on the card) runs flash_bwd_dq_bf16_kernel
-// and flash_bwd_dkv_bf16_kernel on the tensor cores: blocks of 4 warps,
+// and flash_bwd_dkv_bf16_kernel on the tensor cores (S = 1: N <= 512, the
+// ViT blocks): blocks of 4 warps,
 // each warp owning 16 rows of the block's 64 (query rows in the dQ pass,
 // key rows in the dK/dV pass). Every product is an mma.m16n8k16 bf16 with
 // f32 accumulators (mma_bf16.cuh): S = Q K^T, dP = dO V^T, dQ += dS K in the
@@ -58,6 +62,29 @@
 // registers to the mma depth of 16 and must be a multiple of 8 with 16-byte
 // aligned rows, which the wrapper guarantees by a zero-padded copy.
 //
+// The split route (bf16, chosen by the wrapper for N > 512: the TPU's
+// streaming passes K5 and K6, the long-clip temporal transformer in
+// training). With B*H = 4 heads the two passes had 44 blocks each on 132
+// SMs, each walking 21 streamed tiles in series. The wrapper picks S splits
+// from the shape alone (ops/attention.py, _long_splits: the S that
+// minimises waves of the card x tiles per split + S / 2, tuned on an H100),
+// and
+// flash_bwd_dq_split_bf16_kernel and flash_bwd_dkv_split_bf16_kernel run
+// one block per (64-row tile, split, b*h), row tile fastest: the dQ pass
+// splits its key tiles, the dK/dV pass its query tiles, each block walking
+// its own balanced run (at least 2 tiles, so only the last split holds row
+// N - 1) with the same body as above and writing unscaled f32 partials of
+// dQ, or of dK and dV, to the caller's scratch, 3*S*B*H*N*d*4 bytes
+// (13.8 MB at (1, 4, 641, 64), S = 7). flash_bwd_reduce_kernel then sums
+// each row's S partials in order, applies the scale (dQ, dK) and rounds
+// once to bf16 through the caller's strides: no atomics, reruns are
+// bit-identical. What bounds it: at these shapes not the card ((1, 4, 641,
+// 64) needs 0.001 ms of bytes and operations, below a launch's own cost)
+// but the two passes' tile body and the reduce's traffic (~0.004 ms). At
+// d = 64 the split dQ pass takes 128 registers (4 blocks per SM), the
+// split dK/dV pass 168 (3), with the same shared memory as the unsplit
+// passes; the reduce 46 registers, none.
+//
 // f32 (the CLI's default without --bf16, and the f32 tests, which need
 // atol = rtol = 1e-3) runs flash_bwd_dq_kernel and flash_bwd_dkv_kernel:
 // the TPU kernel's f32 arithmetic on the CUDA cores (67 TFLOP/s f32; TF32
@@ -73,9 +100,10 @@
 // four staged tiles fit (144 KB of dynamic shared memory, raised with
 // cudaFuncSetAttribute).
 //
-// Both take element strides for the B, H and N axes (the last axis
-// contiguous), so dO goes in as the strided view autograd hands over and
-// q, k, v as views of a fused QKV projection.
+// f32 has no split route: at N > 512 its grid is as short of blocks as the
+// bf16 one was. Both take element strides for the B, H and N axes (the last
+// axis contiguous), so dO goes in as the strided view autograd hands over
+// and q, k, v as views of a fused QKV projection.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -512,17 +540,30 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_str
   }
 }
 
-// The dQ pass on the tensor cores. One block per (64-row query tile, b*h):
-// D for the tile's rows, then a walk over the K/V tiles accumulating
-// dQ = sum dS K * scale.
-template <int DP>
-__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq, Strides sq,
-                         Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq, int H,
-                         int N, int d, float scale) {
+// Arguments of the bf16 kernels. The unsplit passes write dq, dk and dv;
+// the split passes write f32 partials, which the reduce kernel sums:
+// part + 0, + plane, + 2 plane hold dQ, dK and dV, each (B*H, S, N, d)
+// and unscaled. The tensor-core kernels take them as separate parameters
+// and build this in registers: a struct parameter cost the dQ pass 34
+// registers a thread at d = 64 (162 against 128, ptxas), one block per SM.
+struct BwdArgs {
+  const __nv_bfloat16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* dvec;
+  __nv_bfloat16 *dq, *dk, *dv;
+  float* part;
+  long long plane;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int H, N, d, splits;
+  float scale;
+};
+
+// The dQ pass on the tensor cores. One block per (64-row query tile, key
+// split, b*h): D for the tile's rows (every split computes it, split 0
+// writes it), then a walk over the split's K/V tiles accumulating
+// dQ = sum dS K, written times the scale (!SPLIT) or as a partial (SPLIT).
+template <int DP, bool SPLIT>
+__device__ __forceinline__ void dq_block(const BwdArgs& a) {
   using dfdt::bf16;
   using C = TcBwd<DP>;
   constexpr int BN = C::BN, LD = C::LD, KD = DP / 16;
@@ -533,25 +574,25 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   bf16* sV = sK + 2 * BN * LD;    // two stages
   float* sD = reinterpret_cast<float*>(sV + 2 * BN * LD);
 
-  // the row tile runs fastest in the grid, so the tiles of one head run
-  // together and share its K/V (dQ pass) or Q/dO (dK/dV pass) in L2
-  const int n_rt = (N + C::ROWS - 1) / C::ROWS;
-  const int bh = blockIdx.x / n_rt;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int row0 = (blockIdx.x % n_rt) * C::ROWS;
+  const int N = a.N, d = a.d;
+  const dfdt::Work w = dfdt::block_work<C::ROWS, BN>(N, SPLIT ? a.splits : 1);
+  const int bh = w.bh;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int row0 = w.row0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wrow0 = row0 + warp * 16;
   const bool active = wrow0 < N;
 
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  const bf16* dob = dout + b * sdo.b + h * sdo.h;
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sdO, dob, sdo.n, row0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
+  const bf16* kb = a.k + b * a.sk.b + h * a.sk.h;
+  const bf16* vb = a.v + b * a.sv.b + h * a.sv.h;
+  const bf16* dob = a.dout + b * a.sdo.b + h * a.sdo.h;
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sQ, a.q + b * a.sq.b + h * a.sq.h, a.sq.n,
+                                                row0, N, d);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sdO, dob, a.sdo.n, row0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, a.sk.n, w.t0 * BN, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, a.sv.n, w.t0 * BN, N, d);
   dfdt::cp_async_commit();
 
   // D = rowsum(dO * O) in f32: two lanes per row, 16-byte reads
@@ -560,8 +601,8 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     const int gr = row0 + r;
     float part = 0.f;
     if (gr < N) {
-      const bf16* orow = o + b * so.b + h * so.h + gr * so.n;
-      const bf16* drow = dob + gr * sdo.n;
+      const bf16* orow = a.o + b * a.so.b + h * a.so.h + gr * a.so.n;
+      const bf16* drow = dob + gr * a.sdo.n;
       for (int c = (threadIdx.x % 2) * 8; c < d; c += 16) {
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
@@ -579,29 +620,28 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     if (threadIdx.x % 2 == 0) {
       sD[r] = part;
-      if (gr < N) dvec[(long long)bh * N + gr] = part;
+      if (gr < N && w.s == 0) a.dvec[(long long)bh * N + gr] = part;
     }
   }
 
-  const float sl2 = scale * kLog2e;
+  const float sl2 = a.scale * kLog2e;
   float lrow[2], drow[2] = {0.f, 0.f};  // lse (log2 units) and D of rows g, g + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int gr = wrow0 + lane / 4 + 8 * i;
-    lrow[i] = gr < N ? lse[(long long)bh * N + gr] * kLog2e : 0.f;
+    lrow[i] = gr < N ? a.lse[(long long)bh * N + gr] * kLog2e : 0.f;
   }
   float acc[2 * KD][4] = {};
   uint32_t qf[C::kHold ? KD : 1][4], df[C::kHold ? KD : 1][4];
   const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off<LD>(lane);
   const uint32_t wdO = dfdt::smem_u32(sdO + warp * 16 * LD) + dfdt::a_off<LD>(lane);
 
-  const int n_tiles = (N + BN - 1) / BN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
+  for (int t = w.t0; t < w.t1; ++t) {
+    const int st = (t - w.t0) & 1;
+    if (t + 1 < w.t1) {
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, a.sk.n,
                                                (t + 1) * BN, N, d);
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, a.sv.n,
                                                (t + 1) * BN, N, d);
       dfdt::cp_async_commit();
       dfdt::cp_async_wait<1>();
@@ -611,7 +651,7 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     __syncthreads();
 
     if (active) {
-      if (t == 0) {
+      if (t == w.t0) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) drow[i] = sD[warp * 16 + lane / 4 + 8 * i];
         if constexpr (C::kHold) {
@@ -653,22 +693,22 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     }
     __syncthreads();
   }
-  if (active)
-    store_rows<DP>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, scale, wrow0, N, d, lane);
+  if (!active) return;
+  const float one[2] = {1.f, 1.f};
+  if constexpr (SPLIT)
+    dfdt::store_rows_f32<DP>(a.part + ((long long)bh * a.splits + w.s) * N * d, acc, one, wrow0,
+                             N, d, lane);
+  else
+    store_rows<DP>(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.n, acc, a.scale, wrow0, N, d, lane);
 }
 
-// The dK/dV pass on the tensor cores. One block per (64-key tile, b*h): a
-// walk over the Q/dO tiles (with their lse and D rows) accumulating
-// dV = sum P^T dO and dK = sum dS^T Q * scale; P = 0 on query rows >= N.
-template <int DP>
-__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
-flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
-                          Strides sdo, Strides sdk, Strides sdv, int H, int N, int d,
-                          float scale) {
+// The dK/dV pass on the tensor cores. One block per (64-key tile, query
+// split, b*h): a walk over the split's Q/dO tiles (with their lse and D
+// rows) accumulating dV = sum P^T dO and dK = sum dS^T Q, written in bf16
+// (dK times the scale; !SPLIT) or as partials (SPLIT); P = 0 on query rows
+// >= N.
+template <int DP, bool SPLIT>
+__device__ __forceinline__ void dkv_block(const BwdArgs& a) {
   using dfdt::bf16;
   using C = TcBwd<DP>;
   constexpr int BN = C::BN, LD = C::LD, KD = DP / 16;
@@ -680,25 +720,26 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   float* sL = reinterpret_cast<float*>(sdO + 2 * BN * LD);  // two stages
   float* sD = sL + 2 * BN;                                  // two stages
 
-  const int n_rt = (N + C::ROWS - 1) / C::ROWS;
-  const int bh = blockIdx.x / n_rt;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int key0 = (blockIdx.x % n_rt) * C::ROWS;
+  const int N = a.N, d = a.d;
+  const dfdt::Work w = dfdt::block_work<C::ROWS, BN>(N, SPLIT ? a.splits : 1);
+  const int bh = w.bh;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int key0 = w.row0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wkey0 = key0 + warp * 16;
   const bool active = wkey0 < N;
 
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lb = lse + (long long)bh * N;
-  const float* db = dvec + (long long)bh * N;
+  const bf16* qb = a.q + b * a.sq.b + h * a.sq.h;
+  const bf16* dob = a.dout + b * a.sdo.b + h * a.sdo.h;
+  const float* lb = a.lse + (long long)bh * N;
+  const float* db = a.dvec + (long long)bh * N;
   // query tile `tile` (its Q, dO, lse and D rows) into stage `st`
   auto load_queries = [&](int tile, int st) {
     const int q0 = tile * BN;
-    dfdt::tile_async<DP, LD, BN, C::THREADS>(sQ + st * BN * LD, qb, sq.n, q0, N, d);
-    dfdt::tile_async<DP, LD, BN, C::THREADS>(sdO + st * BN * LD, dob, sdo.n, q0, N, d);
+    dfdt::tile_async<DP, LD, BN, C::THREADS>(sQ + st * BN * LD, qb, a.sq.n, q0, N, d);
+    dfdt::tile_async<DP, LD, BN, C::THREADS>(sdO + st * BN * LD, dob, a.sdo.n, q0, N, d);
     for (int i = threadIdx.x; i < 2 * BN; i += C::THREADS) {
       const int r = i % BN;
       const bool ok = q0 + r < N;
@@ -706,21 +747,22 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       dfdt::cp_async4((i < BN ? sL : sD) + st * BN + r, ok ? src + q0 + r : src, ok);
     }
   };
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sK, k + b * sk.b + h * sk.h, sk.n, key0, N, d);
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sV, v + b * sv.b + h * sv.h, sv.n, key0, N, d);
-  load_queries(0, 0);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sK, a.k + b * a.sk.b + h * a.sk.h, a.sk.n, key0,
+                                                N, d);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sV, a.v + b * a.sv.b + h * a.sv.h, a.sv.n, key0,
+                                                N, d);
+  load_queries(w.t0, 0);
   dfdt::cp_async_commit();
 
-  const float sl2 = scale * kLog2e;
+  const float sl2 = a.scale * kLog2e;
   float acc_dk[2 * KD][4] = {}, acc_dv[2 * KD][4] = {};
   uint32_t kf[C::kHold ? KD : 1][4], vf[C::kHold ? KD : 1][4];
   const uint32_t wK = dfdt::smem_u32(sK + warp * 16 * LD) + dfdt::a_off<LD>(lane);
   const uint32_t wV = dfdt::smem_u32(sV + warp * 16 * LD) + dfdt::a_off<LD>(lane);
 
-  const int n_tiles = (N + BN - 1) / BN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
+  for (int t = w.t0; t < w.t1; ++t) {
+    const int st = (t - w.t0) & 1;
+    if (t + 1 < w.t1) {
       load_queries(t + 1, st ^ 1);
       dfdt::cp_async_commit();
       dfdt::cp_async_wait<1>();
@@ -731,7 +773,7 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 
     if (active) {
       if constexpr (C::kHold) {
-        if (t == 0) {
+        if (t == w.t0) {
 #pragma unroll
           for (int kd = 0; kd < KD; ++kd) {
             dfdt::ldsm_x4(kf[kd], wK + kd * 32);
@@ -776,40 +818,155 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     }
     __syncthreads();
   }
-  if (active) {
-    store_rows<DP>(dk + b * sdk.b + h * sdk.h, sdk.n, acc_dk, scale, wkey0, N, d, lane);
-    store_rows<DP>(dv + b * sdv.b + h * sdv.h, sdv.n, acc_dv, 1.f, wkey0, N, d, lane);
+  if (!active) return;
+  if constexpr (SPLIT) {
+    const float one[2] = {1.f, 1.f};
+    float* dst = a.part + a.plane + ((long long)bh * a.splits + w.s) * N * d;
+    dfdt::store_rows_f32<DP>(dst, acc_dk, one, wkey0, N, d, lane);
+    dfdt::store_rows_f32<DP>(dst + a.plane, acc_dv, one, wkey0, N, d, lane);
+  } else {
+    store_rows<DP>(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.n, acc_dk, a.scale, wkey0, N, d,
+                   lane);
+    store_rows<DP>(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.n, acc_dv, 1.f, wkey0, N, d, lane);
   }
 }
 
+using bf16p = const __nv_bfloat16* __restrict__;
+
+// N <= 512, or a grid that fills the card unsplit: one block per (64-row
+// tile, b*h) walks every streamed tile.
 template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const float* lse, float* dvec, void* dq, void* dk,
-                        void* dv, const Strides* st, int B, int H, int N, int d, float scale,
-                        cudaStream_t stream) {
+__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
+flash_bwd_dq_bf16_kernel(bf16p q, bf16p k, bf16p v, bf16p o, bf16p dout,
+                         const float* __restrict__ lse, float* __restrict__ dvec,
+                         __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+                         Strides so, Strides sdo, Strides sdq, int H, int N, int d, float scale) {
+  const BwdArgs a{q, k, v, o, dout, lse, dvec, dq, nullptr, nullptr, nullptr, 0,
+                  sq, sk, sv, so, sdo, sdq, Strides{}, Strides{}, H, N, d, 1, scale};
+  dq_block<DP, false>(a);
+}
+template <int DP>
+__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
+flash_bwd_dkv_bf16_kernel(bf16p q, bf16p k, bf16p v, bf16p dout, const float* __restrict__ lse,
+                          float* __restrict__ dvec, __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                          Strides sdo, Strides sdk, Strides sdv, int H, int N, int d,
+                          float scale) {
+  const BwdArgs a{q, k, v, nullptr, dout, lse, dvec, nullptr, dk, dv,
+                  nullptr, 0, sq, sk, sv, Strides{}, sdo, Strides{}, sdk, sdv, H, N, d, 1, scale};
+  dkv_block<DP, false>(a);
+}
+
+// The split route: one block per (64-row tile, split, b*h).
+template <int DP>
+__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
+flash_bwd_dq_split_bf16_kernel(bf16p q, bf16p k, bf16p v, bf16p o, bf16p dout,
+                               const float* __restrict__ lse, float* __restrict__ dvec,
+                               float* __restrict__ part, Strides sq, Strides sk, Strides sv,
+                               Strides so, Strides sdo, int H, int N, int d, int splits,
+                               float scale) {
+  const BwdArgs a{q, k, v, o, dout, lse, dvec, nullptr, nullptr, nullptr, part, 0,
+                  sq, sk, sv, so, sdo, Strides{}, Strides{}, Strides{}, H, N, d, splits, scale};
+  dq_block<DP, true>(a);
+}
+template <int DP>
+__global__ void __launch_bounds__(TcBwd<DP>::THREADS)
+flash_bwd_dkv_split_bf16_kernel(bf16p q, bf16p k, bf16p v, bf16p dout,
+                                const float* __restrict__ lse, float* __restrict__ dvec,
+                                float* __restrict__ part, long long plane, Strides sq,
+                                Strides sk, Strides sv, Strides sdo, int H, int N, int d,
+                                int splits, float scale) {
+  const BwdArgs a{q, k, v, nullptr, dout, lse, dvec, nullptr, nullptr,
+                  nullptr, part, plane, sq, sk, sv, Strides{}, sdo, Strides{}, Strides{},
+                  Strides{}, H, N, d, splits, scale};
+  dkv_block<DP, true>(a);
+}
+
+constexpr int kReduceThreads = 256;
+
+// dQ, dK and dV from their S partials: the sum over s in order, times the
+// scale (dQ, dK) or 1 (dV), rounded once to bf16 and written through the
+// caller's strides. One thread per (output, row, 8 columns); rows = B*H*N.
+__global__ void __launch_bounds__(kReduceThreads)
+flash_bwd_reduce_kernel(BwdArgs a, long long rows) {
+  const int cpr = a.d / 8;
+  const long long per = rows * cpr;  // items of one output
+  const long long i = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= 3 * per) return;
+  const int which = (int)(i / per);  // 0: dQ, 1: dK, 2: dV
+  const long long j = i % per;
+  const int c = (int)(j % cpr) * 8;
+  const long long row = j / cpr;
+  const int n = (int)(row % a.N);
+  const long long bh = row / a.N;
+  const float* src = a.part + which * a.plane + (bh * a.splits * a.N + n) * a.d + c;
+  const long long step = (long long)a.N * a.d;  // from split s to s + 1
+  float acc[8] = {};
+#pragma unroll 4  // the loads of several splits in flight at once
+  for (int s = 0; s < a.splits; ++s) {
+    const float4* p = reinterpret_cast<const float4*>(src + s * step);
+    const float4 x = p[0], y = p[1];
+    acc[0] += x.x;
+    acc[1] += x.y;
+    acc[2] += x.z;
+    acc[3] += x.w;
+    acc[4] += y.x;
+    acc[5] += y.y;
+    acc[6] += y.z;
+    acc[7] += y.w;
+  }
+  const float mul = which < 2 ? a.scale : 1.f;
+  __nv_bfloat16* base = which == 0 ? a.dq : which == 1 ? a.dk : a.dv;
+  const Strides st = which == 0 ? a.sdq : which == 1 ? a.sdk : a.sdv;
+  __nv_bfloat16* dst = base + (bh / a.H) * st.b + (bh % a.H) * st.h + n * st.n + c;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    reinterpret_cast<__nv_bfloat162*>(dst)[k] =
+        __floats2bfloat162_rn(acc[2 * k] * mul, acc[2 * k + 1] * mul);
+}
+
+template <int DP>
+cudaError_t launch_bf16(const BwdArgs& a, int B, cudaStream_t stream) {
   using C = TcBwd<DP>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<DP>,
+  const int n_tiles = (a.N + C::BN - 1) / C::BN;
+  if (a.splits > n_tiles) return cudaErrorInvalidValue;  // no split without rows
+  const bool split = a.splits > 1;
+  cudaError_t err = cudaFuncSetAttribute(split ? (const void*)flash_bwd_dq_split_bf16_kernel<DP>
+                                               : (const void*)flash_bwd_dq_bf16_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::dq_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<DP>,
+  err = cudaFuncSetAttribute(split ? (const void*)flash_bwd_dkv_split_bf16_kernel<DP>
+                                   : (const void*)flash_bwd_dkv_bf16_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkv_smem);
   if (err != cudaSuccess) return err;
-  using T = __nv_bfloat16;
-  const long long blocks = (long long)B * H * ((N + C::ROWS - 1) / C::ROWS);
+  const long long rows = (long long)B * a.H * a.N;
+  const long long blocks = (long long)B * a.H * ((a.N + C::ROWS - 1) / C::ROWS) * a.splits;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  flash_bwd_dq_bf16_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dq_smem, stream>>>(
-      tq, tk, tv, static_cast<const T*>(o), tdo, lse, dvec, static_cast<T*>(dq), st[0], st[1],
-      st[2], st[3], st[4], st[5], H, N, d, scale);
+  const unsigned grid = (unsigned)blocks;
+  if (split)
+    flash_bwd_dq_split_bf16_kernel<DP><<<grid, C::THREADS, C::dq_smem, stream>>>(
+        a.q, a.k, a.v, a.o, a.dout, a.lse, a.dvec, a.part, a.sq, a.sk, a.sv, a.so, a.sdo, a.H,
+        a.N, a.d, a.splits, a.scale);
+  else
+    flash_bwd_dq_bf16_kernel<DP><<<grid, C::THREADS, C::dq_smem, stream>>>(
+        a.q, a.k, a.v, a.o, a.dout, a.lse, a.dvec, a.dq, a.sq, a.sk, a.sv, a.so, a.sdo, a.sdq,
+        a.H, a.N, a.d, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_bf16_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dkv_smem, stream>>>(
-      tq, tk, tv, tdo, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), st[0], st[1],
-      st[2], st[4], st[6], st[7], H, N, d, scale);
+  if (split)
+    flash_bwd_dkv_split_bf16_kernel<DP><<<grid, C::THREADS, C::dkv_smem, stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.part, a.plane, a.sq, a.sk, a.sv, a.sdo, a.H,
+        a.N, a.d, a.splits, a.scale);
+  else
+    flash_bwd_dkv_bf16_kernel<DP><<<grid, C::THREADS, C::dkv_smem, stream>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.dvec, a.dk, a.dv, a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv,
+        a.H, a.N, a.d, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  const long long items = 3 * rows * (a.d / 8);
+  flash_bwd_reduce_kernel<<<(unsigned)((items + kReduceThreads - 1) / kReduceThreads),
+                            kReduceThreads, 0, stream>>>(a, rows);
   return cudaGetLastError();
 }
 
@@ -866,12 +1023,16 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
 
 // strides: 24 element strides, (b, h, n) for q, k, v, o, dout, dq, dk, dv in
 // that order. lse and dvec (scratch for D) are contiguous f32 (B, H, N).
-// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones.
+// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. splits:
+// 1, or (bf16 only) the splits S of the split route, with `scratch` the
+// caller's f32 buffer of 3*S*B*H*N*d elements for the partials.
 extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dvec, void* dq,
                               void* dk, void* dv, int B, int H, int N, int d, int is_bf16,
-                              const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * 32)
+                              const long long* strides, float scale, int splits, void* scratch,
+                              void* stream) {
+  if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * 32 || splits < 1 ||
+      (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
   Strides st[8];
   for (int i = 0; i < 8; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
@@ -885,9 +1046,15 @@ extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const
     if (!tc_aligned(ins[i], st[i], d)) return (int)cudaErrorMisalignedAddress;
   for (int i = 5; i < 8; ++i)
     if (st[i].b % 2 || st[i].h % 2 || st[i].n % 2) return (int)cudaErrorMisalignedAddress;
+  using T = __nv_bfloat16;
+  const BwdArgs a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const T*>(o), static_cast<const T*>(dout), l, dvv,
+                  static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+                  static_cast<float*>(scratch), (long long)splits * B * H * N * d,
+                  st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], H, N, d, splits, scale};
 #define DFDT_BWD_BF16(DP) \
   case DP / 16:           \
-    return (int)launch_bf16<DP>(q, k, v, o, dout, l, dvv, dq, dk, dv, st, B, H, N, d, scale, s);
+    return (int)launch_bf16<DP>(a, B, s);
   switch ((d + 15) / 16) {
     DFDT_BWD_BF16(16) DFDT_BWD_BF16(32) DFDT_BWD_BF16(48) DFDT_BWD_BF16(64)
     DFDT_BWD_BF16(80) DFDT_BWD_BF16(96) DFDT_BWD_BF16(112) DFDT_BWD_BF16(128)

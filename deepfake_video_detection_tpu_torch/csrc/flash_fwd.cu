@@ -8,10 +8,11 @@
 // (not -inf), l is guarded by max(l, 1e-30), sums are taken in f32 whatever
 // the input type, O is written in the input type and lse in f32.
 //
-// Two kernels, routed by dtype in dfdt_flash_fwd:
+// Routed by dtype in dfdt_flash_fwd, and bf16 by the split count S:
 //
 // bf16 (every path of the port on the card: bf16 activations) runs
-// flash_fwd_bf16_kernel on the tensor cores. What bounds it on an H100: by
+// flash_fwd_bf16_kernel on the tensor cores (S = 1: N <= 512, the ViT
+// blocks). What bounds it on an H100: by
 // the roofline, bytes. At the ViT-B/16 training shape (128, 12, 197, 64)
 // one call moves 38.7 MB x 4 + lse (~0.047 ms at 3.35 TB/s) and does
 // 4*N^2*d*B*H = 15.3 GFLOP (~0.015 ms at 989 TFLOP/s). In practice it is
@@ -45,6 +46,29 @@
 // which the wrapper guarantees by a zero-padded copy where the caller's are
 // not.
 //
+// The split route (bf16, chosen by the wrapper for N > 512: the TPU's
+// streaming kernel K3's regime, the temporal transformer's long clips).
+// There a call has few heads (B*H = 4-8), so one block per (row tile, b*h)
+// left most SMs idle and each block walked 11-17 key tiles in series. The
+// wrapper picks S key splits from the shape alone (ops/attention.py,
+// _long_splits: the S that minimises waves of the card x tiles per split +
+// S / 2, tuned on an H100); flash_fwd_split_bf16_kernel runs one block per
+// (64-row query tile, key split, b*h), row tile fastest, each walking its
+// own run of key tiles with the same tile body (two-term P included) and
+// writing O_s = acc / l_s and lse_s in f32 to the caller's scratch,
+// S*B*H*N*(d + 1)*4 bytes (4.3 MB at (2, 4, 1025, 64), S = 2). The splits
+// are balanced and each keeps at least 2 tiles, so only the last one holds
+// key N - 1 and masks. flash_fwd_combine_kernel then takes each row's
+// partials in order: lse = log sum_s exp(lse_s), O = sum_s exp(lse_s - lse)
+// O_s, O rounded once to bf16 and written through the caller's strides.
+// Nothing depends on block order, so reruns are bit-identical. What bounds
+// it: at these shapes not the card (the bytes and operations of (2, 4,
+// 1025, 64) take 0.002 ms, below a launch's own cost) but the tile body,
+// whose time per tile stops falling beyond about 2 blocks per SM, and the
+// combine's latency (~0.003 ms). At d = 64 the split kernel takes 146
+// registers (3 blocks per SM) and the same 46,080 bytes of shared memory;
+// the combine 54 registers, none.
+//
 // f32 (the CLI's default without --bf16, and the f32 tests, which need 1e-4
 // absolute) runs flash_fwd_kernel: the TPU kernel's f32 arithmetic on the
 // CUDA cores (67 TFLOP/s f32; TF32 tensor cores would not hold 1e-4),
@@ -66,9 +90,10 @@
 //
 // Both: there is no grouping of heads per program (_short_group): it existed
 // because a TPU grid runs in sequence, while this grid fills the 132 SMs in
-// parallel. Q, K and V take element strides for the B, H and N axes (the
-// last axis is contiguous), so the q/k/v views of a fused QKV projection go
-// in without a copy; O is written through strides as well.
+// parallel (f32 has no split route: at N > 512 its grid is as short of
+// blocks as the bf16 one was). Q, K and V take element strides for the B, H
+// and N axes (the last axis is contiguous), so the q/k/v views of a fused
+// QKV projection go in without a copy; O is written through strides as well.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -328,12 +353,28 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[DP / 8][4], float (&m)[2],
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(TcFwd<DP>::THREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
-                      int H, int N, int d, float scale) {
+// Arguments of the bf16 kernels. The unsplit kernel writes o and lse; the
+// split kernel writes its partials, which the combine kernel reads: part_o
+// (B*H, S, N, d) f32, O_s normalised by its own l_s, and part_lse
+// (B*H, S, N), lse_s in the natural log. The tensor-core kernels take them
+// as separate parameters and build this in registers: a struct parameter
+// cost 20 registers a thread at d = 64 (148 against 128, ptxas), one block
+// per SM.
+struct FwdArgs {
+  const __nv_bfloat16 *q, *k, *v;
+  __nv_bfloat16* o;
+  float* lse;
+  float *part_o, *part_lse;
+  Strides sq, sk, sv, so;
+  int H, N, d, splits;
+  float scale;
+};
+
+// One block: query rows [row0, row0 + 64) of head bh against its run of key
+// tiles [t0, t1) (all of them when !SPLIT), then O and lse (!SPLIT) or the
+// split's O_s and lse_s (SPLIT).
+template <int DP, bool SPLIT>
+__device__ __forceinline__ void fwd_block(const FwdArgs& a) {
   using dfdt::bf16;
   using C = TcFwd<DP>;
   constexpr int BN = C::BN, LD = C::LD;
@@ -343,38 +384,36 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   bf16* sK = sQ + C::BM * LD;  // two stages
   bf16* sV = sK + 2 * BN * LD;  // two stages
 
-  // the row tile runs fastest in the grid, so the tiles of one head run
-  // together and share its K/V in L2
-  const int n_rt = (N + C::BM - 1) / C::BM;
-  const int bh = blockIdx.x / n_rt;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int row0 = (blockIdx.x % n_rt) * C::BM;
+  const int N = a.N, d = a.d;
+  const dfdt::Work w = dfdt::block_work<C::BM, BN>(N, SPLIT ? a.splits : 1);
+  const int b = w.bh / a.H;
+  const int h = w.bh % a.H;
+  const int row0 = w.row0;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tq = lane % 4;
   const bool active = row0 + warp * 16 < N;
 
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  dfdt::tile_async<DP, LD, C::BM, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
+  const bf16* kb = a.k + b * a.sk.b + h * a.sk.h;
+  const bf16* vb = a.v + b * a.sv.b + h * a.sv.h;
+  dfdt::tile_async<DP, LD, C::BM, C::THREADS>(sQ, a.q + b * a.sq.b + h * a.sq.h, a.sq.n, row0,
+                                              N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, a.sk.n, w.t0 * BN, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, a.sv.n, w.t0 * BN, N, d);
   dfdt::cp_async_commit();
 
-  const float sl2 = scale * kLog2e;
+  const float sl2 = a.scale * kLog2e;
   float m[2] = {kNegBig, kNegBig};  // running max, log2 units, rows g and g + 8
   float l[2] = {0.f, 0.f};          // this lane's part of the running sum
   float acc[2 * KD][4] = {};
   const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off<LD>(lane);
 
-  const int n_tiles = (N + BN - 1) / BN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
+  for (int t = w.t0; t < w.t1; ++t) {
+    const int st = (t - w.t0) & 1;
+    if (t + 1 < w.t1) {
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, a.sk.n,
                                                (t + 1) * BN, N, d);
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, a.sv.n,
                                                (t + 1) * BN, N, d);
       dfdt::cp_async_commit();
       dfdt::cp_async_wait<1>();
@@ -395,44 +434,139 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
   if (!active) return;
 
-  bf16* ob = o + b * so.b + h * so.h;
   const int g = lane / 4;
+  float inv[2], row_lse[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int gr = row0 + warp * 16 + g + 8 * i;
-    if (gr >= N) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
     // one fast reciprocal per row; its error is far below the bf16 output's
-    const float inv = __fdividef(1.f, l_safe);
+    inv[i] = __fdividef(1.f, l_safe);
+    row_lse[i] = m[i] * kLn2 + logf(l_safe);
+  }
+  const int wrow0 = row0 + warp * 16;
+  if constexpr (SPLIT) {
+    const long long plane = ((long long)w.bh * a.splits + w.s) * N;
+    dfdt::store_rows_f32<DP>(a.part_o + plane * d, acc, inv, wrow0, N, d, lane);
 #pragma unroll
-    for (int jd = 0; jd < 2 * KD; ++jd) {
-      const int c = jd * 8 + 2 * tq;
-      if (c < d)
-        *reinterpret_cast<__nv_bfloat162*>(ob + gr * so.n + c) =
-            __floats2bfloat162_rn(acc[jd][2 * i] * inv, acc[jd][2 * i + 1] * inv);
+    for (int i = 0; i < 2; ++i) {
+      const int gr = wrow0 + g + 8 * i;
+      if (gr < N && tq == 0) a.part_lse[plane + gr] = row_lse[i];
     }
-    if (tq == 0) lse[(long long)bh * N + gr] = m[i] * kLn2 + logf(l_safe);
+  } else {
+    bf16* ob = a.o + b * a.so.b + h * a.so.h;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int gr = wrow0 + g + 8 * i;
+      if (gr >= N) continue;
+#pragma unroll
+      for (int jd = 0; jd < 2 * KD; ++jd) {
+        const int c = jd * 8 + 2 * tq;
+        if (c < d)
+          *reinterpret_cast<__nv_bfloat162*>(ob + gr * a.so.n + c) =
+              __floats2bfloat162_rn(acc[jd][2 * i] * inv[i], acc[jd][2 * i + 1] * inv[i]);
+      }
+      if (tq == 0) a.lse[(long long)w.bh * N + gr] = row_lse[i];
+    }
   }
 }
 
+// N <= 512, or a grid that fills the card unsplit: one block per (64-row
+// query tile, b*h) walks every key tile.
 template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                        Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int N,
-                        int d, float scale, cudaStream_t stream) {
-  constexpr size_t smem = TcFwd<DP>::smem;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+__global__ void __launch_bounds__(TcFwd<DP>::THREADS)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
+                      int H, int N, int d, float scale) {
+  const FwdArgs a{q, k, v, o, lse, nullptr, nullptr, sq, sk, sv, so, H, N, d, 1, scale};
+  fwd_block<DP, false>(a);
+}
+
+// The split route: one block per (64-row query tile, key split, b*h).
+template <int DP>
+__global__ void __launch_bounds__(TcFwd<DP>::THREADS)
+flash_fwd_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, float* __restrict__ part_o,
+                            float* __restrict__ part_lse, Strides sq, Strides sk, Strides sv,
+                            int H, int N, int d, int splits, float scale) {
+  const FwdArgs a{q, k, v, nullptr, nullptr, part_o, part_lse, sq, sk, sv, Strides{},
+                  H, N, d, splits, scale};
+  fwd_block<DP, true>(a);
+}
+
+constexpr int kCombineThreads = 256;
+
+// O and lse of each query row from its S partials, summed over s in order:
+// lse = log sum_s exp(lse_s), O = sum_s exp(lse_s - lse) O_s. One thread per
+// (row, 8 columns); rows = B*H*N.
+__global__ void __launch_bounds__(kCombineThreads)
+flash_fwd_combine_kernel(FwdArgs a, long long rows) {
+  const int cpr = a.d / 8;
+  const long long i = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
+  if (i >= rows * cpr) return;
+  const int c = (int)(i % cpr) * 8;
+  const long long row = i / cpr;
+  const int n = (int)(row % a.N);
+  const long long bh = row / a.N;
+  const long long first = bh * a.splits * a.N + n;  // (bh, s = 0, n)
+  // unrolled, so the loads of several splits are in flight at once
+  float mx = kNegBig;
+#pragma unroll 4
+  for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, a.part_lse[first + (long long)s * a.N]);
+  float l = 0.f, acc[8] = {};
+#pragma unroll 4
+  for (int s = 0; s < a.splits; ++s) {
+    const long long r = first + (long long)s * a.N;
+    const float wgt = expf(a.part_lse[r] - mx);
+    const float4* src = reinterpret_cast<const float4*>(a.part_o + r * a.d + c);
+    const float4 x = src[0], y = src[1];
+    l += wgt;
+    acc[0] = fmaf(wgt, x.x, acc[0]);
+    acc[1] = fmaf(wgt, x.y, acc[1]);
+    acc[2] = fmaf(wgt, x.z, acc[2]);
+    acc[3] = fmaf(wgt, x.w, acc[3]);
+    acc[4] = fmaf(wgt, y.x, acc[4]);
+    acc[5] = fmaf(wgt, y.y, acc[5]);
+    acc[6] = fmaf(wgt, y.z, acc[6]);
+    acc[7] = fmaf(wgt, y.w, acc[7]);
+  }
+  const float l_safe = fmaxf(l, 1e-30f);
+  const float inv = 1.f / l_safe;
+  __nv_bfloat16* dst = a.o + (bh / a.H) * a.so.b + (bh % a.H) * a.so.h + n * a.so.n + c;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    reinterpret_cast<__nv_bfloat162*>(dst)[j] =
+        __floats2bfloat162_rn(acc[2 * j] * inv, acc[2 * j + 1] * inv);
+  if (c == 0) a.lse[row] = mx + logf(l_safe);
+}
+
+template <int DP>
+cudaError_t launch_bf16(const FwdArgs& a, int B, cudaStream_t stream) {
+  using C = TcFwd<DP>;
+  const int n_tiles = (a.N + C::BN - 1) / C::BN;
+  if (a.splits > n_tiles) return cudaErrorInvalidValue;  // no split without keys
+  const bool split = a.splits > 1;
+  cudaError_t err = cudaFuncSetAttribute(
+      split ? (const void*)flash_fwd_split_bf16_kernel<DP> : (const void*)flash_fwd_bf16_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
   if (err != cudaSuccess) return err;
-  constexpr int BM = TcFwd<DP>::BM;
-  const long long blocks = (long long)B * H * ((N + BM - 1) / BM);
+  const long long rows = (long long)B * a.H * a.N;
+  const long long blocks = (long long)B * a.H * ((a.N + C::BM - 1) / C::BM) * a.splits;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_bf16_kernel<DP><<<(unsigned)blocks, TcFwd<DP>::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk, sv,
-      so, H, N, d, scale);
+  if (split)
+    flash_fwd_split_bf16_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
+        a.q, a.k, a.v, a.part_o, a.part_lse, a.sq, a.sk, a.sv, a.H, a.N, a.d, a.splits, a.scale);
+  else
+    flash_fwd_bf16_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
+        a.q, a.k, a.v, a.o, a.lse, a.sq, a.sk, a.sv, a.so, a.H, a.N, a.d, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  const long long items = rows * (a.d / 8);
+  flash_fwd_combine_kernel<<<(unsigned)((items + kCombineThreads - 1) / kCombineThreads),
+                             kCombineThreads, 0, stream>>>(a, rows);
   return cudaGetLastError();
 }
 
@@ -472,11 +606,15 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
 }  // namespace
 
 // strides: 12 element strides, (b, h, n) for q, k, v and o in that order.
-// bf16 goes to the tensor-core kernel, f32 to the CUDA-core one.
+// bf16 goes to the tensor-core kernels, f32 to the CUDA-core one. splits:
+// 1, or (bf16 only) the key splits S of the split route, with `scratch` the
+// caller's f32 buffer of S*B*H*N*(d + 1) elements for the partials.
 extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int H, int N, int d, int is_bf16,
-                              const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * kBlockM)
+                              const long long* strides, float scale, int splits, void* scratch,
+                              void* stream) {
+  if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * kBlockM || splits < 1 ||
+      (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
@@ -488,9 +626,15 @@ extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void*
   if (!tc_aligned(q, sq, d) || !tc_aligned(k, sk, d) || !tc_aligned(v, sv, d) ||
       so.b % 2 || so.h % 2 || so.n % 2)
     return (int)cudaErrorMisalignedAddress;
+  using T = __nv_bfloat16;
+  float* part_o = static_cast<float*>(scratch);
+  FwdArgs a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+            static_cast<T*>(o), l, part_o,
+            part_o ? part_o + (long long)splits * B * H * N * d : nullptr,
+            sq, sk, sv, so, H, N, d, splits, scale};
 #define DFDT_FWD_BF16(DP) \
   case DP / 16:           \
-    return (int)launch_bf16<DP>(q, k, v, o, l, sq, sk, sv, so, B, H, N, d, scale, s);
+    return (int)launch_bf16<DP>(a, B, s);
   switch ((d + 15) / 16) {
     DFDT_FWD_BF16(16) DFDT_FWD_BF16(32) DFDT_FWD_BF16(48) DFDT_FWD_BF16(64)
     DFDT_FWD_BF16(80) DFDT_FWD_BF16(96) DFDT_FWD_BF16(112) DFDT_FWD_BF16(128)

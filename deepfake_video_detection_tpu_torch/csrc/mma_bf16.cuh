@@ -2,7 +2,8 @@
 // (flash_fwd.cu, flash_bwd.cu), as inline PTX for sm_90a: 16- and 4-byte
 // cp.async copies from global into shared memory (zero-filling what lies
 // outside the tensor), ldmatrix fragment loads, and the m16n8k16 bf16 mma
-// with f32 accumulators.
+// with f32 accumulators; and what the split route of both sources shares
+// (a block's rows and run of streamed tiles, the f32 partial rows).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
 // l of a warp, g = l / 4, t = l % 4:
@@ -147,6 +148,51 @@ __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, long long
     const int gr = row0 + r;
     const bool ok = gr < n && c < d;
     cp_async16(dst + r * LD + c, ok ? src + gr * row_stride + c : src, ok);
+  }
+}
+
+// The work of one block of a flash kernel: its ROWS rows from row0 of head
+// bh, against streamed tiles [t0, t1) of BN rows, the run of split s of
+// `splits`. Blocks go row tile fastest, then split, then head, so the blocks
+// that share a head's streamed tiles run together and share them in L2. The
+// splits are balanced: each takes floor or ceil of n_tiles / splits tiles,
+// so none is empty while splits <= n_tiles. With splits = 1 (a literal in
+// the unsplit kernels) this is the whole range and folds away.
+struct Work {
+  int row0, bh, s, t0, t1;
+};
+
+template <int ROWS, int BN>
+__device__ __forceinline__ Work block_work(int n, int splits) {
+  const int n_rt = (n + ROWS - 1) / ROWS;
+  const int n_tiles = (n + BN - 1) / BN;
+  const int rest = blockIdx.x / n_rt;
+  Work w;
+  w.row0 = (blockIdx.x % n_rt) * ROWS;
+  w.s = rest % splits;
+  w.bh = rest / splits;
+  w.t0 = w.s * n_tiles / splits;
+  w.t1 = (w.s + 1) * n_tiles / splits;
+  return w;
+}
+
+// Write a warp's 16 x DP accumulator, row i times mul[i], as f32 rows of
+// width d (a multiple of 8) into a partial, rows < n and columns < d.
+template <int DP>
+__device__ __forceinline__ void store_rows_f32(float* dst, const float (&acc)[DP / 8][4],
+                                               const float (&mul)[2], int row0, int n, int d,
+                                               int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = row0 + lane / 4 + 8 * i;
+    if (gr >= n) continue;
+#pragma unroll
+    for (int jd = 0; jd < DP / 8; ++jd) {
+      const int c = jd * 8 + 2 * (lane % 4);
+      if (c < d)
+        *reinterpret_cast<float2*>(dst + (long long)gr * d + c) =
+            make_float2(acc[jd][2 * i] * mul[i], acc[jd][2 * i + 1] * mul[i]);
+    }
   }
 }
 

@@ -18,6 +18,15 @@ contiguous copy zero-padded to the next multiple of 8 in d, with the scale
 of the true d, and slices the result back. On CPU tensors each wrapper
 takes its plain version, a dense f32 computation.
 
+The split route (bf16 at N > 512, the regime of the TPU's streaming
+kernels K3, K5 and K6). One block per (64-row tile, head) leaves most of
+the card idle at the temporal transformer's few heads, so the streamed loop
+is cut into S runs, each a block of its own writing f32 partials that a
+last small kernel combines (forward: by their logsumexps) or sums (backward)
+in a fixed order, so reruns are bit-identical. :func:`_long_splits` picks S
+from the shape alone; S = 1 runs the unsplit kernels. The wrapper allocates
+the partials.
+
 :class:`FlashAttention` saves q, k, v, O and lse, as the JAX ``custom_vjp``
 keeps them as residuals, and :func:`flash_attention` is differentiable on
 both devices.
@@ -33,6 +42,7 @@ without a copy. O, dQ, dK and dV come back as ``(B, H, N, d)`` views of
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Tuple
@@ -49,6 +59,31 @@ _MAX_HEAD_DIM = 256
 _SHORT_MAX = 512
 _DTYPES = (torch.bfloat16, torch.float32)
 _count_lock = threading.Lock()
+
+# The split policy, for the bf16 kernels' tiles: 64 query (key) rows per
+# block; the forward streams key tiles of 64 (32 above d = 128), the
+# backward tiles of 32 rows. The card runs _SMS times the blocks an SM
+# holds at once (a wave): 3 of the split forward and of the dK/dV pass (146
+# and 168 registers a thread at d = 64, ptxas), fewer where the shared
+# memory of a larger d allows fewer. S minimises waves x tiles per split
+# (the streamed tiles the slowest SM walks) + _SPLIT_COST x S (a split's
+# partials, written once and read again by the combine or reduce kernel),
+# the smallest S on a tie, over the counts that keep each split at least
+# _SPLIT_MIN_TILES tiles (the 2-stage cp.async ring overlaps one tile's
+# copy with the other's products) and the partials at most
+# _SPLIT_SCRATCH_CAP bytes. Tuned on an H100 against the split sweep of
+# `chip_smoke.py` (PERF.md): a fixed fill target (the smallest S that fills
+# one wave) put the N = 4097 backward into 2 waves of long blocks (0.357
+# against 0.304 ms at its best S), and waves x tiles alone split the short
+# calls into more blocks than their partials repay.
+_SMS = 132                          # streaming multiprocessors of an H100
+_ROW_TILE = 64
+_BWD_TILE = 32
+_SMEM_PER_SM = 227 * 1024
+_BLOCKS_PER_SM = 3
+_SPLIT_COST = 0.5
+_SPLIT_MIN_TILES = 2
+_SPLIT_SCRATCH_CAP = 256 << 20
 # ctypes array types of 12 and 24 strides, made once
 _STRIDE_ARRAYS = {n: ctypes.c_longlong * n for n in (12, 24)}
 
@@ -92,7 +127,8 @@ def _fwd_library() -> ctypes.CDLL:
     fn = lib.dfdt_flash_fwd
     if fn.argtypes is None:     # once per loaded library
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -102,9 +138,55 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.dfdt_flash_bwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split_count(blocks: int, tiles: int, per_sm: int, split_bytes: int) -> int:
+    slots = _SMS * per_sm
+    most = max(1, min(tiles // _SPLIT_MIN_TILES, _SPLIT_SCRATCH_CAP // split_bytes))
+    return min(range(1, most + 1),
+               key=lambda s: _cdiv(blocks * s, slots) * _cdiv(tiles, s) + _SPLIT_COST * s)
+
+
+@functools.lru_cache(maxsize=1024)
+def _long_splits(B: int, H: int, N: int, d: int, bf16: bool = True
+                 ) -> Tuple[int, int]:
+    """``(s_fwd, s_bwd)``: how many runs the forward cuts its key tiles
+    into, and the backward its streamed tiles (keys in the dQ pass, queries
+    in the dK/dV pass), for a ``(B, H, N, d)`` call. 1 for f32 and at
+    N ≤ 512 (the unsplit kernels); a pure function of the shape, so a shape
+    always gets the same S."""
+    if not bf16 or N <= _SHORT_MAX:
+        return 1, 1
+    dp = _cdiv(d, 8) * 8                    # the head dim the kernel sees
+    DP = _cdiv(dp, 16) * 16
+    key_tile = 64 if DP <= 128 else 32
+    fwd_smem = 2 * (_ROW_TILE + 4 * key_tile) * (DP + 8)
+    bwd_smem = 2 * (2 * _ROW_TILE + 4 * _BWD_TILE) * (DP + 8) + 4 * 4 * _BWD_TILE
+    blocks = B * H * _cdiv(N, _ROW_TILE)
+    s_fwd = _split_count(blocks, _cdiv(N, key_tile),
+                         min(_BLOCKS_PER_SM, _SMEM_PER_SM // fwd_smem),
+                         4 * B * H * N * (dp + 1))
+    s_bwd = _split_count(blocks, _cdiv(N, _BWD_TILE),
+                         min(_BLOCKS_PER_SM, _SMEM_PER_SM // bwd_smem),
+                         3 * 4 * B * H * N * dp)
+    return s_fwd, s_bwd
+
+
+def _partials(n: int, splits: int, like: torch.Tensor):
+    """The split kernels' f32 partials, ``splits * n`` elements, and their
+    address; none (a null address) when ``splits`` is 1."""
+    if splits == 1:
+        return None, None
+    buf = torch.empty(splits * n, dtype=torch.float32, device=like.device)
+    return buf, buf.data_ptr()
 
 
 def _check_inputs(*ts: torch.Tensor) -> None:
@@ -173,18 +255,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if padded:
         q, k, v = (_pad_head_dim(t) for t in (q, k, v))
     dp = q.shape[-1]
+    splits = _long_splits(B, H, N, d, bf16)[0]
     out = _heads_view(B, H, N, dp, q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    # partial O (B*H, S, N, dp) and lse (B*H, S, N) of the split route
+    part, part_ptr = _partials(B * H * N * (dp + 1), splits, q)
     strides = _strides(q, k, v, out)
     lib = _fwd_library()
     status = lib.dfdt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, N, dp, int(bf16), ctypes.addressof(strides),
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
+        scale, splits, part_ptr, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_fwd")
     with _count_lock:
         flash_attention_fwd.launches += 1
         flash_attention_fwd.launches_long += int(N > _SHORT_MAX)
+        flash_attention_fwd.launches_split += int(splits > 1)
     return (out[..., :d] if padded else out), lse
 
 
@@ -215,20 +301,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if padded:
         q, k, v, out, dout = (_pad_head_dim(t) for t in (q, k, v, out, dout))
     dp = q.shape[-1]
+    splits = _long_splits(B, H, N, d, bf16)[1]
     dq, dk, dv = (_heads_view(B, H, N, dp, q) for _ in range(3))
     dcap = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    # partial dQ, dK and dV, each (B*H, S, N, dp), of the split route
+    part, part_ptr = _partials(3 * B * H * N * dp, splits, q)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     lib = _bwd_library()
     status = lib.dfdt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, N, dp, int(bf16),
-        ctypes.addressof(strides), scale,
+        ctypes.addressof(strides), scale, splits, part_ptr,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd")
     with _count_lock:
         flash_attention_bwd.launches += 1
         flash_attention_bwd.launches_long += int(N > _SHORT_MAX)
+        flash_attention_bwd.launches_split += int(splits > 1)
     if padded:
         return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
@@ -237,12 +327,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # kernel launches since the last reset (plain integers, set to 0 by callers);
 # one backward call launches its dQ and dK/dV passes and counts once.
 # ``launches_long`` counts the launches at N > 512, the regime of the JAX
-# package's streaming kernels (K3 forward, K5/K6 backward); ``launches``
-# counts them all.
-flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_long = 0
-flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_long = 0
+# package's streaming kernels (K3 forward, K5/K6 backward);
+# ``launches_split`` those that took the split route (S > 1, with its
+# combine or reduce kernel); ``launches`` counts them all.
+for _f in (flash_attention_fwd, flash_attention_bwd):
+    _f.launches = _f.launches_long = _f.launches_split = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -136,6 +136,7 @@ def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 4, 150, 64), torch.float32),             # the CUDA-core kernels
     ((16, 12, 197, 64), torch.bfloat16),          # the tensor-core kernels
+    ((1, 4, 641, 64), torch.bfloat16),            # the split route, long-clip training
 ])
 def test_flash_kernel_is_differentiable_and_deterministic(shape, dtype):
     """The autograd Function runs the forward and backward kernels; a
@@ -158,6 +159,49 @@ def test_flash_kernel_is_differentiable_and_deterministic(shape, dtype):
             assert err <= 2e-2 * float(r.float().abs().max())
         else:
             assert torch.allclose(a, r, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,H,N,d", [
+    (4, 4, 513, 64),                              # the first split length
+    (1, 4, 1025, 64),                             # a 1024-frame clip
+    (1, 4, 4097, 64),                             # a clip of minutes
+])
+def test_flash_split_route_matches_plain(B, H, N, d):
+    """bf16 at N > 512 takes the split kernels (S > 1; at N = 513 and 1025 S
+    does not divide the streamed tiles, so the splits are uneven): forward
+    and backward against the plain versions, and a rerun of the backward
+    bit-identical."""
+    gen = _cuda_generator()
+    s_fwd, s_bwd = A._long_splits(B, H, N, d)
+    assert s_fwd > 1 and s_bwd > 1
+    if N < 4096:
+        assert -(-N // 64) % s_fwd and -(-N // 32) % s_bwd
+    q, k, v, _, _, dout = _bwd_inputs(gen, B, H, N, d, torch.bfloat16, True)
+    f0, b0 = A.flash_attention_fwd.launches_split, A.flash_attention_bwd.launches_split
+    out, lse = A.flash_attention_fwd(q, k, v)
+    ref, ref_lse = A.flash_attention_plain(q, k, v)
+    assert float((out.float() - ref.float()).abs().max()) <= 2e-2 * float(ref.float().abs().max())
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    got = A.flash_attention_bwd(q, k, v, out, lse, dout)
+    again = A.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert (A.flash_attention_fwd.launches_split, A.flash_attention_bwd.launches_split) == (
+        f0 + 1, b0 + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, r in zip(got, A.flash_attention_bwd_plain(q, k, v, out, lse, dout)):
+        assert float((g.float() - r.float()).abs().max()) <= 2e-2 * float(r.float().abs().max())
+
+
+def test_vit_shapes_take_the_unsplit_kernels():
+    """N <= 512 (the ViT-B/16 blocks) runs the unsplit tensor-core kernels."""
+    gen = _cuda_generator()
+    assert A._long_splits(128, 12, 197, 64) == (1, 1)
+    q, k, v, _, _, dout = _bwd_inputs(gen, 128, 12, 197, 64, torch.bfloat16, True)
+    f0, b0 = A.flash_attention_fwd.launches_split, A.flash_attention_bwd.launches_split
+    out, lse = A.flash_attention_fwd(q, k, v)
+    A.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_fwd.launches_split, A.flash_attention_bwd.launches_split) == (
+        f0, b0)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take():

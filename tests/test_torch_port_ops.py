@@ -160,3 +160,58 @@ def test_kernel_libraries_are_named_by_source_hash():
     for src, p in paths.items():
         assert (_build.CSRC_DIR / src).exists()
         assert p.parent == _build.BUILD_DIR and p.name.startswith("lib")
+
+
+# the split policy of the bf16 kernels at N > 512 (ops/attention.py::_long_splits)
+
+@pytest.mark.parametrize("shape,bf16", [
+    ((128, 12, 197, 64), True),                   # ViT-B/16 training
+    ((8, 12, 197, 64), True),                     # ViT-B/16 serving
+    ((1, 1, 512, 64), True),                      # the last short-N length
+    ((16, 12, 1, 64), True),
+    ((2, 4, 1025, 64), False),                    # f32 at N > 512
+    ((1, 4, 641, 64), False),
+])
+def test_split_policy_keeps_short_n_and_f32_unsplit(shape, bf16):
+    assert A._long_splits(*shape, bf16=bf16) == (1, 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 1025, 64), (1, 4, 641, 64)])
+def test_split_policy_splits_the_long_clip_shapes(shape):
+    """The temporal transformer's evaluation (N = 1025) and training
+    (N = 641) calls: 4 heads per clip leave most of the card idle unsplit."""
+    s_fwd, s_bwd = A._long_splits(*shape)
+    assert s_fwd > 1 and s_bwd > 1
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 1025, 64), (1, 4, 641, 64), (2, 4, 513, 64), (1, 4, 4097, 64),
+    (2, 12, 640, 64), (1, 1, 700, 256), (3, 2, 2000, 36), (1, 4, 65536, 64),
+])
+def test_split_policy_keeps_two_tiles_per_split_and_no_split_past_n(shape):
+    """The kernels give split s the streamed tiles [s T / S, (s + 1) T / S):
+    each split keeps at least 2 tiles, and each starts below N."""
+    B, H, N, d = shape
+    fwd_tile = 64 if -(-d // 16) * 16 <= 128 else 32
+    for splits, tile in zip(A._long_splits(*shape), (fwd_tile, 32)):
+        tiles = -(-N // tile)
+        bounds = [s * tiles // splits for s in range(splits + 1)]
+        assert splits >= 1
+        assert all(hi - lo >= 2 for lo, hi in zip(bounds, bounds[1:])) or splits == 1
+        assert all(lo * tile < N for lo in bounds[:-1]) and bounds[-1] == tiles
+
+
+def test_split_policy_is_a_function_of_the_shape():
+    """The same shape always gets the same S, so reruns are bit-identical."""
+    shapes = [(2, 4, 1025, 64), (1, 4, 641, 64), (1, 4, 4097, 64)]
+    first = [A._long_splits(*s) for s in shapes]
+    assert [A._long_splits(*s) for s in reversed(shapes)][::-1] == first
+    assert [A._long_splits(*s) for s in shapes] == first
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 65536, 64), (2, 4, 1025, 64), (1, 4, 4097, 256)])
+def test_split_scratch_stays_under_its_cap(shape):
+    B, H, N, d = shape
+    s_fwd, s_bwd = A._long_splits(*shape)
+    assert s_fwd * B * H * N * (d + 1) * 4 <= A._SPLIT_SCRATCH_CAP
+    assert 3 * s_bwd * B * H * N * d * 4 <= A._SPLIT_SCRATCH_CAP
