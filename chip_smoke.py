@@ -7,10 +7,29 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 
 1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA.
 2. Build: every CUDA kernel of the port, from the sources in the checkout,
-   one ``nvcc`` per source, all at once; the bf16 flash kernels at d = 64
-   (every main path), unsplit and split, and the split route's combine and
-   reduce kernels must spill nothing (``-Xptxas -v``).
-3. Kernel checks: each kernel against its plain PyTorch version on the card,
+   one ``nvcc`` per source, all started together; the fused-normalize
+   library is waited for at once and the conv-net phases (3-6) run while the
+   flash libraries compile. The bf16 flash kernels at d = 64 (every main
+   path), unsplit and split, and the split route's combine and reduce
+   kernels must spill nothing (``-Xptxas -v``).
+3. K1: the fused-normalize kernel's RGB and packed-YUV420 entries against
+   their plain versions at the serving shapes, timed by events and by
+   device, beside their bound and the plain versions' times.
+4. EfficientNet-B0 serving: a ``BackboneDetector`` (random weights from
+   seed 0, BN statistics drawn from U(0.5, 1.5), f32 params, bf16
+   activations) behind a ``Predictor`` with micro-batching and warmup:
+   sequential, concurrent (8 clients) and packed-YUV420 requests, launch
+   counts, one request's ``prob_fake`` against the plain versions, forward
+   ms at 1 and 16 clips, and the device time by kernel of one 16-clip YUV
+   and one RGB forward under ``torch.profiler``.
+5. Ensemble serving: B0 + resnet18 (``average``) with the enhanced decision
+   agent, the same requests and measurements; the agent's payload checked.
+6. The loader: the B0 detector saved with ``save_checkpoint`` (``.npz``)
+   and the ensemble as a reference ``{"model_state", "model_config"}`` ``.pt``;
+   ``serve/loader.py::load_model`` must pick each architecture at match
+   ratio 1.0 and the Predictor must serve it with phase 4's or 5's
+   ``prob_fake``.
+7. Kernel checks: each flash kernel against its plain PyTorch version on the card,
    at the main paths' shapes and a few edge shapes, with the stated
    tolerance; times by CUDA events after warm-up (kernel, plain version,
    and the one PyTorch call that computes the same function, if any), and
@@ -22,19 +41,19 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    (``splits`` > 1: split kernels, then the combine or reduce kernel);
    every main-path case is bf16. Then the split sweep: the long-N calls'
    device time at every split count, beside the policy's.
-4. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
+8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
    generator, f32 params, bf16 activations) behind a ``Predictor`` with
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
    windowed requests. Checks the result dicts, that the kernels' launch
    counts rose as the path requires, and one request's ``prob_fake``
    against the plain versions.
-5. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
+9. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
    16 frames at 224 px) trains ViT-B/16 for one epoch through ``Trainer``
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
    checks the launch counts of the forward and backward kernels, the
    artefacts, one step through the kernels against the plain versions, and
    serves the checkpoint it wrote; then times a train step.
-6. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
+10. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
@@ -47,8 +66,9 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-7. Summary: the ``{"kernels": [...]}`` line (K1-K6, each with its launches
-   on every path), then the last line ``{"ok": true, "device": {...}}``.
+11. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+   each with its launches on every path), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
 exits 2 and prints no result.
@@ -87,10 +107,16 @@ K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 # each flash source routes by dtype between two hand-written kernels
 ROUTES = {"bf16": "tensor-core bf16", "f32": "cuda-core f32"}
 MAIN_NOTES = ("main", "K3 main", "K5/K6 main")
+# f32 cases at the main paths' shapes: the training CLI's default without
+# --bf16 runs the CUDA-core kernels there (PERF.md's f32 rows)
+F32_ROW = "f32 row: "
 
 # tolerances, with their reasons
 K1_TOL = {"f32": 1e-6,    # same IEEE steps in the same order: a few f32 ulp
           "bf16": 1.6e-2}  # one bf16 ulp for |y| in [2, 4), at a rounding tie
+K1_YUV_TOL = {"f32": 1e-4,     # the same steps; the plain version's division by
+                               # a scalar may run as a multiply by its reciprocal
+              "bf16": 2e-2}    # of max |ref|: bf16 rounding of the output
 BF16_TOL_REL = 2e-2         # bf16 outputs: max error over the reference's max |value|
 K2_TOL_F32 = 1e-4           # f32 O, absolute: sums taken in another order
 K2_TOL_LSE = 1e-3           # f32 logsumexp, sum order
@@ -109,6 +135,14 @@ LONG_TOL_SCORES = 5e-2      # f32 frame scores: max error over max |ref|
 # the long-clip phase: the temporal transformer at the training CLI's
 # defaults over ViT-B/16 features; one synthetic set of 1024-frame clips
 # serves both paths (the dataset subsamples uniformly to T)
+# the conv-net serving phases: T = 8 face crops of 224 px, buckets 1-16
+CONV = {"frames": 8, "size": 224, "clients": 8, "bn_seed": 0,
+        "ensemble": ("efficientnet_b0", "resnet18")}
+ROUNDS = 3    # rounds of each concurrent measurement
+# the agent's payload keys (JAX serve/predict.py:569-576)
+AGENT_KEYS = ("is_fake", "ensemble_prob", "confidence", "alert_level", "uncertainty",
+              "explanation")
+
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
         "eval_batch": 2, "size": 224, "serve_frames": 8}
@@ -155,8 +189,9 @@ def _device_ms(torch, fn, kernels, iters: int = 20, parts=None):
     (CUDA activity only), over ``iters`` calls; ``parts``, a dict, receives
     each kernel's share. Beside ``_time_ms`` it tells the device's share
     from the host's: where the host enqueues slower than the card runs, the
-    events time the host. A session that lacks a record of some launch is
-    taken again, twice at most, then reported as None."""
+    events time the host. Each kernel's time is the mean over the records
+    the session holds: the profiler can drop some, so a session with fewer
+    than half of them is taken again, twice at most, then reported as None."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -164,9 +199,12 @@ def _device_ms(torch, fn, kernels, iters: int = 20, parts=None):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        found = {k: [ev for ev in prof.key_averages() if k in ev.key] for k in kernels}
-        if all(len(evs) == 1 and evs[0].count == iters for evs in found.values()):
-            ms = {k: evs[0].self_device_time_total / iters / 1e3 for k, evs in found.items()}
+        evs = prof.key_averages()
+        found = {k: [ev for ev in evs if k in ev.key] for k in kernels}
+        counts = {k: sum(ev.count for ev in e) for k, e in found.items()}
+        if all(2 * c >= iters for c in counts.values()):
+            ms = {k: sum(ev.self_device_time_total for ev in e) / counts[k] / 1e3
+                  for k, e in found.items()}
             if parts is not None:
                 parts.update(ms)
             return sum(ms.values())
@@ -286,10 +324,49 @@ def check_k1(torch, P, gen):
         rec = {"kernel": "fused_normalize", "shape": list(shape), "out": name,
                "note": note, "max_abs_err": err, "tol": tol,
                "kernel_ms": _time_ms(torch, lambda: P.fused_normalize(x, dt)),
+               "kernel_device_ms": _device_ms(torch, lambda: P.fused_normalize(x, dt),
+                                              ["normalize_kernel"]),
                "plain_ms": _time_ms(torch, lambda: P.fused_normalize_plain(x, dt)),
                "library_ms": None, "bound_ms": bound, "bound_by": by}
         _emit(rec)
         _require(err <= tol, f"fused_normalize {shape} -> {name}: err {err} > {tol}")
+        cases.append(rec)
+    return cases
+
+
+def check_k1_yuv(torch, P, gen):
+    """fused_normalize_yuv vs its plain version. Returns the case records."""
+    cases = []
+    specs = [((16, 8, 224, 224), torch.bfloat16, "main: the 16-clip serving bucket"),
+             ((16, 8, 224, 224), torch.float32, ""),
+             ((3, 5, 224, 224), torch.bfloat16, "an odd-sized batch")]
+    for (B, T, H, W), dt, note in specs:
+        x = torch.randint(0, 256, (B, T, H * W * 3 // 2), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        got = P.fused_normalize_yuv(x, H, W, dt)
+        ref = P.fused_normalize_yuv_plain(x, H, W, dt)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        ref_max = float(ref.float().abs().max())
+        tol = K1_YUV_TOL[name] * (ref_max if name == "bf16" else 1.0)
+        pixels = B * T * H * W
+        itemsize = got.element_size()
+        # 1.5 bytes in and 3 outputs a pixel; ~13 f32 operations an output
+        bound, by = _bound_ms(pixels * (1.5 + 3 * itemsize), 39.0 * pixels, "f32")
+        rec = {"kernel": "fused_normalize_yuv", "shape": [B, T, H, W], "out": name,
+               "note": note, "max_abs_err": err, "ref_max_abs": ref_max,
+               "tol": K1_YUV_TOL[name],
+               "tol_kind": "relative to max |ref|" if name == "bf16" else "absolute",
+               "kernel_ms": _time_ms(torch, lambda: P.fused_normalize_yuv(x, H, W, dt)),
+               "kernel_device_ms": _device_ms(
+                   torch, lambda: P.fused_normalize_yuv(x, H, W, dt), ["yuv420_normalize"]),
+               "plain_ms": _time_ms(torch, lambda: P.fused_normalize_yuv_plain(x, H, W, dt)),
+               "plain_device_ms": _session_device_ms(
+                   torch, lambda: P.fused_normalize_yuv_plain(x, H, W, dt)),
+               "library_ms": None, "bound_ms": bound, "bound_by": by}
+        _emit(rec)
+        _require(err <= tol, f"fused_normalize_yuv {rec['shape']} -> {name}: err {err} > {tol}")
         cases.append(rec)
     return cases
 
@@ -315,7 +392,9 @@ def check_k2(torch, A, gen):
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
              (2, 4, 100, 80, torch.bfloat16, True, "d = 80"),
              (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
-             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile")]
+             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
+             (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
+             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape")]
     for B, H, N, d, dt, strided, note in specs:
         if strided:
             qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
@@ -353,7 +432,7 @@ def check_k2(torch, A, gen):
                "library_ms": _time_ms(
                    torch, lambda: F.scaled_dot_product_attention(q, k, v)),
                "bound_ms": bound, "bound_by": by}
-        if N > A._SHORT_MAX:
+        if N > A._SHORT_MAX or note.startswith(F32_ROW):
             rec["library_device_ms"] = _session_device_ms(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v))
         _emit(rec)
@@ -396,7 +475,9 @@ def check_k4(torch, A, gen):
              (4, 6, 197, 32, torch.float32, False, "d = 32"),
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
              (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
-             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile")]
+             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
+             (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
+             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape")]
     for B, H, N, d, dt, strided, note in specs:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
         name = "bf16" if dt == torch.bfloat16 else "f32"
@@ -453,7 +534,7 @@ def check_k4(torch, A, gen):
                    q, k, v, out, lse, dout)),
                "library_ms": library_ms,
                "bound_ms": bound, "bound_by": by}
-        if N > A._SHORT_MAX:
+        if N > A._SHORT_MAX or note.startswith(F32_ROW):
             rec["library_device_ms"] = (_session_device_ms(torch, sdpa_fwd_bwd)
                                         - _session_device_ms(torch, sdpa_fwd))
         _emit(rec)
@@ -588,6 +669,7 @@ def serve(torch, A, P, smi: str):
     win = pred._predict_pretrained(long_clip, "windows", windows=windows)
 
     k1 = P.fused_normalize.launches
+    k1y = P.fused_normalize_yuv.launches
     k2 = A.flash_attention_fwd.launches
     batches = pred._batcher.batches_run - batches0
 
@@ -606,6 +688,7 @@ def serve(torch, A, P, smi: str):
     rgb_forwards = forwards - len(packed)     # the two YUV requests ran alone
     depth = len(model.backbone.blocks)
     _require(k1 == rgb_forwards, f"fused_normalize launches {k1} != {rgb_forwards}")
+    _require(k1y == len(packed), f"fused_normalize_yuv launches {k1y} != {len(packed)}")
     _require(k2 == depth * forwards, f"flash launches {k2} != {depth} x {forwards}")
 
     # the same request through the plain versions, on the card
@@ -632,13 +715,258 @@ def serve(torch, A, P, smi: str):
            "sequential_clips_per_s": len(seq_s) / sum(seq_s),
            "forward_ms_1clip": fwd_ms[1], "forward_ms_16clips": fwd_ms[16],
            "batcher_steps": batches, "forwards": forwards,
-           "launches": {"fused_normalize": k1, "flash_attention_fwd": k2},
+           "launches": {"fused_normalize": k1, "fused_normalize_yuv": k1y,
+                        "flash_attention_fwd": k2},
            "prob_fake_kernels": seq[0]["prob_fake"],
            "prob_fake_plain": float(probs_plain[fake_idx]),
            "prob_fake_abs_diff": diff, "prob_tol": PROB_TOL,
            "verdicts": [r["prediction"] for r in seq + conc + yuv + [win]]}
     _emit(rec)
-    return {"fused_normalize": k1, "flash_attention_fwd": k2}, rec
+    return {"fused_normalize": k1, "fused_normalize_yuv": k1y, "flash_attention_fwd": k2}, rec
+
+
+def _randomize_bn(torch, model, seed: int) -> None:
+    """BN running means and variances from U(0.5, 1.5) (as the JAX suite's
+    torch re-execution does), so that eval-mode normalisation does work and
+    the random-weight activations keep their scale through 16 blocks."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                buf.uniform_(0.5, 1.5, generator=gen)
+
+
+def _kernel_breakdown(torch, fn, top: int = 10) -> dict:
+    """Device time by kernel of one call of ``fn`` under ``torch.profiler``
+    (mean of 3 calls, after one warm call): the ``top`` kernels by device
+    time, their share, the call's total device time, its time by CUDA
+    events and the device's idle share of that time."""
+    fn()
+    torch.cuda.synchronize()
+    iters = 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if ev.self_device_time_total > 0]
+    total = sum(ev.self_device_time_total for ev in evs) / iters / 1e3
+    evs.sort(key=lambda ev: -ev.self_device_time_total)
+    wall = _time_ms(torch, fn, iters=iters, warmup=1)
+    return {"device_ms": total, "events_ms": wall,
+            "idle_share": max(0.0, 1.0 - total / wall) if wall > 0 else None,
+            "kernels": len(evs),
+            "launches": sum(ev.count for ev in evs) / iters,
+            "top": [{"kernel": ev.key[:120], "ms": ev.self_device_time_total / iters / 1e3,
+                     "share": ev.self_device_time_total / iters / 1e3 / total,
+                     "calls": ev.count / iters} for ev in evs[:top]]}
+
+
+def serve_convnet(torch, A, P, smi: str, ensemble: bool):
+    """Serve EfficientNet-B0 (or the B0 + resnet18 ensemble with the
+    enhanced agent) through the Predictor at full width and depth. Returns
+    (launches by kernel, record, the model, the first request's crops and
+    RGB and YUV results)."""
+    from deepfake_video_detection_tpu_torch.agents.enhanced import EnhancedDecisionAgent
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import (
+        BackboneDetector, EnsembleDetector)
+    from deepfake_video_detection_tpu_torch.serve import predict as predict_mod
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor, serving_dtype
+
+    T, size, n = CONV["frames"], CONV["size"], CONV["clients"]
+    os.environ.update({"MAX_FRAMES": str(T), "SERVE_WINDOWS": "1", "FACE_SIZE": str(size)})
+    what = "ensemble" if ensemble else "B0"
+    t0 = time.perf_counter()
+    dtype = serving_dtype("cuda")
+    _require(dtype == torch.bfloat16, f"serving dtype on the card is {dtype}")
+    gen = torch.Generator().manual_seed(0)
+    if ensemble:
+        model = EnsembleDetector(CONV["ensemble"], ensemble_method="average",
+                                 compute_dtype=dtype, device="cuda", generator=gen)
+        model_type, agent = "ensemble_pretrained", EnhancedDecisionAgent()
+    else:
+        model = BackboneDetector("efficientnet_b0", compute_dtype=dtype, device="cuda",
+                                 generator=gen)
+        model_type, agent = "pretrained", None
+    _randomize_bn(torch, model, CONV["bn_seed"])
+    _require(all(p.dtype == torch.float32 for p in model.parameters()), "params are not f32")
+    pred = Predictor(model, None, model_type, enhanced_agent=agent, device="cuda")
+    _require(pred.warmup_done.wait(timeout=600), f"{what} warmup did not finish in 600 s")
+    _require(pred.warmup_error is None, f"{what} warmup failed: {pred.warmup_error!r}")
+    setup_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(1)
+    faces = [rng.integers(0, 256, (T, size, size, 3), dtype=np.uint8) for _ in range(n)]
+    packed = [rng.integers(0, 256, (T, size * size * 3 // 2), dtype=np.uint8)
+              for _ in range(n)]
+
+    def concurrent(fn):
+        out, barrier = [None] * n, threading.Barrier(n)
+
+        def client(i):
+            barrier.wait()
+            out[i] = fn(i)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        _require(not any(th.is_alive() for th in threads), f"a concurrent {what} request hung")
+        return out, time.perf_counter() - t
+
+    # the first requests of a process pay one-time host costs (the first
+    # host-to-device copies of each size): every measurement is taken in
+    # rounds, and the median round is the one reported
+    _reset_counts(A, P)
+    batches0 = pred._batcher.batches_run
+    seq_s, seq = [], []
+    for i in range(6):
+        t = time.perf_counter()
+        seq.append(pred.predict_faces(faces[i], video_id=f"seq{i}"))
+        seq_s.append(time.perf_counter() - t)
+    yuv_seq = [pred._predict_pretrained(packed[i], f"yuv{i}", packed_yuv=True)
+               for i in range(2)]
+    conc, conc_yuv, conc_s, conc_yuv_s = [], [], [], []
+    for _ in range(ROUNDS):
+        res, sec = concurrent(lambda i: pred.predict_faces(faces[i], video_id=f"c{i}"))
+        conc += res
+        conc_s.append(sec)
+        res, sec = concurrent(lambda i: pred._predict_pretrained(
+            packed[i], f"cy{i}", packed_yuv=True))
+        conc_yuv += res
+        conc_yuv_s.append(sec)
+    torch.cuda.synchronize()
+    launches = {"fused_normalize": P.fused_normalize.launches,
+                "fused_normalize_yuv": P.fused_normalize_yuv.launches,
+                "flash_attention_fwd": A.flash_attention_fwd.launches}
+    batches = pred._batcher.batches_run - batches0
+
+    for i, r in enumerate(seq + conc + yuv_seq + conc_yuv):
+        _check_result(r, T, f"{what} request {i}")
+        if ensemble:
+            a = r.get("enhanced_agent")
+            _require(isinstance(a, dict) and sorted(a) == sorted(AGENT_KEYS),
+                     f"{what} request {i}: enhanced_agent {a}")
+            _require(a["explanation"] in r["description"],
+                     f"{what} request {i}: description is not the agent's")
+        else:
+            _require(r["enhanced_agent"] is None, f"B0 request {i}: an agent answered")
+    _require(launches["fused_normalize"] + launches["fused_normalize_yuv"] == batches,
+             f"{what}: K1 launches {launches} != {batches} batcher steps")
+    _require(launches["fused_normalize"] > 0 and launches["fused_normalize_yuv"] > 0,
+             f"{what}: a K1 entry was not launched: {launches}")
+    _require(launches["flash_attention_fwd"] == 0, f"{what}: attention launched {launches}")
+
+    # the first request through the plain versions, on the card
+    x = torch.from_numpy(faces[0][None]).cuda()
+    xp = torch.from_numpy(packed[0][None]).cuda()
+    with mock.patch.object(predict_mod, "fused_normalize", P.fused_normalize_plain), \
+            mock.patch.object(predict_mod, "fused_normalize_yuv", P.fused_normalize_yuv_plain):
+        p_plain = float(pred._forward(x)[0].float().cpu()[0, 1])
+        p_plain_yuv = float(pred._forward_yuv(xp)[0].float().cpu()[0, 1])
+    diff = abs(p_plain - seq[0]["prob_fake"])
+    diff_yuv = abs(p_plain_yuv - yuv_seq[0]["prob_fake"])
+    _require(max(diff, diff_yuv) <= PROB_TOL,
+             f"{what} prob_fake kernels vs plain differ by {diff} (RGB), {diff_yuv} (YUV)")
+
+    # forward times at one request and at the largest bucket (CUDA events),
+    # and the device time by kernel of one 16-clip forward of each kind
+    fwd_ms, breakdown = {}, {}
+    for b in (1, 16):
+        xb = torch.from_numpy(np.stack([faces[i % n] for i in range(b)])).cuda()
+        pb = torch.from_numpy(np.stack([packed[i % n] for i in range(b)])).cuda()
+        fwd_ms[f"rgb_{b}"] = _time_ms(torch, lambda: pred._forward(xb), iters=5, warmup=2)
+        fwd_ms[f"yuv_{b}"] = _time_ms(torch, lambda: pred._forward_yuv(pb), iters=5, warmup=2)
+    breakdown["yuv_16"] = _kernel_breakdown(torch, lambda: pred._forward_yuv(pb))
+    breakdown["rgb_16"] = _kernel_breakdown(torch, lambda: pred._forward(xb))
+    pred.close()
+
+    rec = {"phase": "ensemble_serving" if ensemble else "b0_serving", "card": smi,
+           "model": "+".join(CONV["ensemble"]) if ensemble else "efficientnet_b0",
+           "params": "f32", "activations": "bf16", "frames_per_clip": T,
+           "setup_s": setup_s, "sequential_latency_s": seq_s,
+           "sequential_latency_median_s": float(np.median(seq_s)),
+           "concurrent_clients": n, "concurrent_wall_s": conc_s,
+           "concurrent_clips_per_s": n / float(np.median(conc_s)),
+           "concurrent_yuv_wall_s": conc_yuv_s,
+           "concurrent_yuv_clips_per_s": n / float(np.median(conc_yuv_s)),
+           "forward_ms": fwd_ms, "batcher_steps": batches, "launches": launches,
+           "prob_fake_kernels": seq[0]["prob_fake"], "prob_fake_plain": p_plain,
+           "prob_fake_yuv_kernels": yuv_seq[0]["prob_fake"],
+           "prob_fake_yuv_plain": p_plain_yuv, "prob_tol": PROB_TOL,
+           "verdicts": [r["prediction"] for r in seq + yuv_seq + conc + conc_yuv]}
+    if ensemble:
+        rec["enhanced_agent"] = seq[0]["enhanced_agent"]
+    _emit(rec)
+    for kind, b in breakdown.items():
+        _emit({"phase": f"{rec['phase']}_device_time", "forward": kind, "card": smi, **b})
+    print(f"{what} serving: forward {fwd_ms['yuv_16']:.2f} ms at 16 clips (YUV), "
+          f"{fwd_ms['rgb_1']:.2f} ms at 1 clip; {rec['concurrent_yuv_clips_per_s']:.1f} "
+          f"clips/s with {n} clients (YUV) on {smi}", flush=True)
+    return launches, rec, model, (faces[0], seq[0], packed[0], yuv_seq[0])
+
+
+def serve_loaded(torch, A, P, b0_model, ens_model, b0_req, ens_req):
+    """Save the B0 detector with ``save_checkpoint`` and the ensemble as a
+    reference ``{"model_state", "model_config"}`` ``.pt``; load each with
+    ``serve/loader.py::load_model`` and serve the first request again.
+    Returns (launches by kernel, record)."""
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.agents.enhanced import EnhancedDecisionAgent
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import save_checkpoint
+    from deepfake_video_detection_tpu_torch.serve.loader import load_model
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+
+    root = tempfile.mkdtemp(prefix="dfdt_loader_")
+    try:
+        b0_path = os.path.join(root, "b0", "checkpoint_best.npz")
+        save_checkpoint(b0_path, b0_model.state_dict(), meta={"model_config": {
+            "model_type": "pretrained", "backbone": "efficientnet_b0"}})
+        ens_path = os.path.join(root, "ensemble", "checkpoint_best.pt")
+        os.makedirs(os.path.dirname(ens_path))
+        torch.save({"model_state": {k: v.cpu() for k, v in ens_model.state_dict().items()},
+                    "model_config": {"model_type": "ensemble_pretrained",
+                                     "backbones": list(CONV["ensemble"]),
+                                     "ensemble_method": "average"}}, ens_path)
+        cases = [("pretrained", "efficientnet_b0", b0_path, b0_req, None),
+                 ("ensemble_pretrained", CONV["ensemble"], ens_path, ens_req,
+                  EnhancedDecisionAgent())]
+        _reset_counts(A, P)
+        out = {}
+        for model_type, backbones, path, (faces, res, packed, res_yuv), agent in cases:
+            t = time.perf_counter()
+            model, variables, stats = load_model(path, device="cuda")
+            load_s = time.perf_counter() - t
+            _require(stats["model_type"] == model_type and stats["backbones"] == backbones
+                     and stats["match_ratio"] == 1.0,
+                     f"load_model({os.path.basename(path)}) chose {stats}")
+            with mock.patch.dict(os.environ, {"SERVE_WARMUP": "0"}):
+                pred = Predictor(model, variables, stats["model_type"], checkpoint_path=path,
+                                 enhanced_agent=agent, device="cuda")
+            got = pred.predict_faces(faces, video_id="loaded")
+            got_yuv = pred._predict_pretrained(packed, "loaded_yuv", packed_yuv=True)
+            pred.close()
+            _check_result(got, len(faces), f"the loaded {model_type} checkpoint")
+            diff = max(abs(got["prob_fake"] - res["prob_fake"]),
+                       abs(got_yuv["prob_fake"] - res_yuv["prob_fake"]))
+            _require(diff <= PROB_TOL, f"loaded {model_type}: prob_fake differs by {diff}")
+            out[model_type] = {"file": os.path.basename(path), "load_s": load_s,
+                               "stats": {k: stats[k] for k in ("model_type", "backbones",
+                                                                "match_ratio", "matched")},
+                               "prob_fake": got["prob_fake"], "prob_fake_abs_diff": diff}
+        torch.cuda.synchronize()
+        launches = {"fused_normalize": P.fused_normalize.launches,
+                    "fused_normalize_yuv": P.fused_normalize_yuv.launches}
+        _require(launches == {"fused_normalize": 2, "fused_normalize_yuv": 2},
+                 f"loaded serving launches {launches}")
+        rec = {"phase": "loader_serving", "cases": out, "launches": launches}
+        _emit(rec)
+        return launches, rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _write_faces(root: str, n_clips: int, T: int, size: int) -> None:
@@ -787,7 +1115,7 @@ def train(torch, A, P, smi: str):
 
 
 def _reset_counts(A, P) -> None:
-    P.fused_normalize.launches = 0
+    P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
         f.launches = f.launches_long = f.launches_split = 0
 
@@ -797,7 +1125,7 @@ def _counts(A, P) -> dict:
     N ≤ 512 stand for K2 (forward) and K4 (backward), at N > 512 for K3 and
     K5/K6 (one backward call runs both passes)."""
     fwd, bwd = A.flash_attention_fwd, A.flash_attention_bwd
-    return {"K1": P.fused_normalize.launches,
+    return {"K1": P.fused_normalize.launches, "K1-YUV": P.fused_normalize_yuv.launches,
             "K2": fwd.launches - fwd.launches_long, "K3": fwd.launches_long,
             "K4": bwd.launches - bwd.launches_long,
             "K5": bwd.launches_long, "K6": bwd.launches_long}
@@ -850,7 +1178,7 @@ def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda")
     depth_bb, depth_t = len(model.backbone.blocks), model.depth
     steps, val_batches = state.step, -(-len(val_ds) // B)
     _require(steps == len(train_ds), f"{steps} train steps")
-    want = {"K1": 0, "K2": depth_bb * (steps + val_batches),
+    want = {"K1": 0, "K1-YUV": 0, "K2": depth_bb * (steps + val_batches),
             "K3": depth_t * (steps + val_batches), "K4": depth_bb * steps,
             "K5": depth_t * steps, "K6": depth_t * steps}
     _require(launches == want, f"long-clip training launches {launches} != {want}")
@@ -944,7 +1272,8 @@ def evaluate_long(torch, A, P, smi: str, data: str, ckpt: str, device: str = "cu
              f"rebuilt {mt} with match_ratio {report['match_ratio']}")
     forwards = -(-n_clips // B)
     depth_bb, depth_t = len(model.backbone.blocks), model.depth
-    want = {"K1": forwards, "K2": depth_bb * forwards, "K3": depth_t * forwards,
+    want = {"K1": forwards, "K1-YUV": 0, "K2": depth_bb * forwards,
+            "K3": depth_t * forwards,
             "K4": 0, "K5": 0, "K6": 0}
     _require(launches == want, f"long-clip evaluation launches {launches} != {want}")
 
@@ -1008,7 +1337,7 @@ def serve_long(torch, A, P, model, ckpt: str, faces, device: str = "cuda"):
     launches = _counts(A, P)
     pred.close()
     _check_result(res, len(faces), "request to the temporal checkpoint")
-    want = {"K1": 1, "K2": len(model.backbone.blocks) + model.depth,
+    want = {"K1": 1, "K1-YUV": 0, "K2": len(model.backbone.blocks) + model.depth,
             "K3": 0, "K4": 0, "K5": 0, "K6": 0}
     _require(launches == want, f"temporal serving launches {launches} != {want}")
     _emit({"phase": "long_clip_serving", "frames": len(faces), "launches": launches,
@@ -1073,15 +1402,52 @@ def main() -> int:
            "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()})
 
-    t = time.perf_counter()
-    per_source = _build.build_all()
-    build_s = time.perf_counter() - t
-    tc_stats = check_build(_build.build_log)
-    _emit({"phase": "build", "seconds": build_s, "per_source": per_source,
-           "tensor_core_d64": tc_stats})
+    # one nvcc per source, all started together: the flash libraries compile
+    # in a thread while the conv-net phases, which need only K1, run
+    t_start = time.perf_counter()
+    flash_sources = [s for s in _build.SOURCES if s != "normalize.cu"]
+    flash_build = {}
+
+    def build_flash():
+        try:
+            flash_build["seconds"] = _build.build_all(flash_sources)
+        except BaseException as e:  # re-raised in the main thread
+            flash_build["error"] = e
+        flash_build["done_s"] = time.perf_counter() - t_start
+
+    flash_thread = threading.Thread(target=build_flash, name="flash-build")
+    flash_thread.start()
+    per_source = _build.build_all(["normalize.cu"])
+    phase_s = {"k1_build": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1_cases = check_k1(torch, P, gen)
+    k1_cases = timed("k1_checks", check_k1, torch, P, gen)
+    k1y_cases = timed("k1_yuv_checks", check_k1_yuv, torch, P, gen)
+    b0_served, _, b0_model, b0_req = timed("b0_serving", serve_convnet, torch, A, P, smi, False)
+    ens_served, _, ens_model, ens_req = timed("ensemble_serving", serve_convnet,
+                                              torch, A, P, smi, True)
+    loaded, _ = timed("loader_serving", serve_loaded, torch, A, P, b0_model, ens_model,
+                      b0_req, ens_req)
+    del b0_model, ens_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    flash_thread.join()
+    phase_s["waited_for_flash_build"] = time.perf_counter() - t
+    if "error" in flash_build:
+        raise flash_build["error"]
+    per_source.update(flash_build["seconds"])
+    tc_stats = check_build(_build.build_log)
+    _emit({"phase": "build", "seconds": flash_build["done_s"], "per_source": per_source,
+           "tensor_core_d64": tc_stats})
+
     k2_cases = check_k2(torch, A, gen)
     k4_cases = check_k4(torch, A, gen)
     for c in k2_cases + k4_cases:
@@ -1089,21 +1455,31 @@ def main() -> int:
             _require(c["dtype"] == "bf16", f"main-path case {c['note']!r} is {c['dtype']}")
         if c["shape"][2] > A._SHORT_MAX and c["dtype"] == "bf16":
             _require(c["splits"] > 1, f"flash {c['shape']} bf16 was not split")
-    sweep_splits(torch, A, gen)
+    timed("split_sweep", sweep_splits, torch, A, gen)
 
-    served, _ = serve(torch, A, P, smi)
+    served, _ = timed("vit_serving", serve, torch, A, P, smi)
     _require(all(v > 0 for v in served.values()),
              f"a kernel was not launched on the serving path: {served}")
-    trained, _ = train(torch, A, P, smi)
+    trained, _ = timed("vit_training", train, torch, A, P, smi)
     _require(trained["flash_attention_fwd"] > 0 and trained["flash_attention_bwd"] > 0,
              f"a kernel was not launched on the training path: {trained}")
     gc.collect()
     torch.cuda.empty_cache()
-    paths = {"serving": {"K1": served["fused_normalize"],
+
+    def conv_path(launches):
+        return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
+
+    paths = {"b0_serving": conv_path(b0_served),
+             "ensemble_serving": conv_path(ens_served),
+             "loader_serving": conv_path(loaded),
+             "serving": {"K1": served["fused_normalize"],
+                         "K1-YUV": served["fused_normalize_yuv"],
                          "K2": served["flash_attention_fwd"]},
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
-             **long_clips(torch, A, P, smi)}
+             **timed("long_clips", long_clips, torch, A, P, smi)}
+    phase_s["total"] = time.perf_counter() - t_start
+    _emit({"phase": "seconds", **phase_s})
 
     def entry(kid, name, source, replaces, case, note=None):
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
@@ -1121,6 +1497,9 @@ def main() -> int:
             "below N = 4096")
     kernels = [
         entry("K1", "fused_normalize", K1_SOURCE, K1_REPLACES, k1_cases[0]),
+        entry("K1-YUV", "fused_normalize_yuv", K1_SOURCE, K1_REPLACES, k1y_cases[0],
+              "K1's packed-YUV420 entry: the JAX package has no kernel there (XLA fuses "
+              "ops/yuv.py's colour matrix into K1's normalisation)"),
         entry("K2", "flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0]),
         entry("K3", "flash_attention_fwd", K2_SOURCE, K3_REPLACES, k3_case,
               "N > 512: the streaming regime"),

@@ -27,6 +27,7 @@ import torch
 from deepfake_video_detection_tpu_torch.utils.tree import flatten_dotted, unflatten_dotted
 
 _META_KEY = "__meta_json__"
+_STATE_LEAVES = ("running_mean", "running_var")
 
 
 def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
@@ -134,9 +135,11 @@ def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
                     opt_state: Optional[Mapping[str, Any]] = None,
                     step: Optional[int] = None) -> None:
     """Write the JAX package's native ``.npz`` checkpoint: ``params.<key>``
-    in the JAX layout, ``opt.<i>`` for the optimizer state (named in the
-    meta's ``opt_names``) and the ``__meta_json__`` blob; atomic rename."""
-    flat = {f"params.{k}": v
+    in the JAX layout, batch norm's ``running_mean``/``running_var`` under
+    ``state.<key>`` (where the JAX package keeps its model state),
+    ``opt.<i>`` for the optimizer state (named in the meta's ``opt_names``)
+    and the ``__meta_json__`` blob; atomic rename."""
+    flat = {f"{'state' if k.endswith(_STATE_LEAVES) else 'params'}.{k}": v
             for k, v in jax_params_from_state_dict(state_dict).items()}
     m = dict(meta or {})
     if opt_state is not None:

@@ -6,7 +6,8 @@ pretrained detector and the temporal transformer:
     python -m deepfake_video_detection_tpu_torch.evals.evaluate --data_dir faces/ \\
         --checkpoint ckpt/checkpoint_best.npz --num_frames 1024 --batch_size 2 --bf16
 
-Loads a native ``.npz`` checkpoint, rebuilds the model from its embedded
+Loads a native ``.npz`` or a reference ``.pt`` checkpoint
+(``checkpoint/store.py::load_any``), rebuilds the model from its embedded
 ``model_config`` with the JAX evaluator's architecture inference (the
 temporal ``d_model`` from ``cls_token`` or ``proj.weight``, the depth from
 the ``blocks.*`` keys, pipeline-layout checkpoints renumbered to the loop
@@ -19,8 +20,9 @@ On the card each batch is normalised by the fused-normalize kernel (K1)
 into the compute dtype, as serving does, and the whole forward runs under
 ``torch.inference_mode()``; a long clip's temporal blocks run the flash
 kernel in its streaming regime (N > 512). Not ported, each raising
-``NotImplementedError`` with its ROADMAP item: the other model families,
-``.pt`` checkpoints, ``--from-videos`` and ``--quantize int8``.
+``NotImplementedError`` with its ROADMAP item: the other model families
+(ensembles, rnn, vit_gcn, cnn_lstm: item 16), ``--from-videos`` and
+``--quantize int8``.
 """
 
 from __future__ import annotations
@@ -29,13 +31,13 @@ import argparse
 import csv
 import os
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
-from deepfake_video_detection_tpu_torch.checkpoint.bridge import (
-    load_checkpoint, state_dict_from_jax)
+from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
+from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import import_into_model
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.data.loader import Loader, prefetch_to_device
 from deepfake_video_detection_tpu_torch.evals.metrics import full_metrics, threshold_sweep
@@ -43,45 +45,6 @@ from deepfake_video_detection_tpu_torch.models.backbone_detector import Backbone
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector, infer_mlp_kwargs, normalize_state_dict)
 from deepfake_video_detection_tpu_torch.ops.preprocess import fused_normalize
-
-_DROP_LEAVES = ("num_batches_tracked",)
-
-
-def load_any(path: str):
-    """A native ``.npz`` checkpoint → ``(flat torch-layout state dict,
-    meta)``. Reference ``.pt`` checkpoints are not ported."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path!r}: only native .npz checkpoints load; .pt checkpoints are "
-            f"not ported yet (ROADMAP Queue 1 item 6)")
-    variables, meta = load_checkpoint(path)
-    return state_dict_from_jax(variables), meta
-
-
-def import_into_model(model: torch.nn.Module, sd: Mapping[str, Any]
-                      ) -> Dict[str, Any]:
-    """Shape-filtered non-strict load of ``sd`` into ``model``, as the JAX
-    ``import_into_variables``: missing and mismatched keys are skipped and
-    reported. Returns ``matched``, ``missing``, ``unexpected``,
-    ``shape_mismatch`` and ``match_ratio``."""
-    own = model.state_dict()
-    load, missing, mismatched = {}, [], []
-    for key, cur in own.items():
-        if key not in sd:
-            missing.append(key)
-            continue
-        src = torch.as_tensor(np.asarray(sd[key]))
-        if tuple(src.shape) != tuple(cur.shape):
-            mismatched.append((key, tuple(src.shape), tuple(cur.shape)))
-            continue
-        load[key] = src.to(cur.dtype)
-    model.load_state_dict(load, strict=False)
-    return {"matched": list(load), "missing": missing,
-            "unexpected": [k for k in sd if k not in load
-                           and not k.endswith(_DROP_LEAVES)],
-            "shape_mismatch": mismatched,
-            "match_ratio": len(load) / max(len(own), 1)}
-
 
 def build_model_from_checkpoint(sd: Mapping[str, Any], meta: Mapping[str, Any],
                                 model_type: str,
@@ -101,8 +64,8 @@ def build_model_from_checkpoint(sd: Mapping[str, Any], meta: Mapping[str, Any],
         mt = ("ensemble, rnn, vit_gcn or cnn_lstm" if any(other.match(k) for k in sd)
               else "pretrained")
     if mt not in ("pretrained", "temporal", "temporal_transformer"):
-        raise NotImplementedError(f"model type {mt!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 items 4 and 12)")
+        raise NotImplementedError(f"model type {mt!r} is not ported to the evaluator "
+                                  f"yet (ROADMAP Queue 1 item 16)")
     if mt in ("temporal", "temporal_transformer"):
         sd = normalize_state_dict(dict(sd))
         use_cls = "cls_token" in sd

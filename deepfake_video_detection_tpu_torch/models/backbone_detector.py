@@ -1,7 +1,9 @@
-"""Per-frame backbone + temporal-attention detector as an ``nn.Module``.
+"""Per-frame backbone + temporal-attention detector, and its ensemble, as
+``nn.Module``s.
 
 Counterpart of ``deepfake_video_detection_tpu/models/backbone_detector.py``
-(``TinyConvBackbone``, ``build_backbone``, ``BackboneDetector``):
+(``TinyConvBackbone``, ``build_backbone``, ``BackboneDetector``,
+``EnsembleDetector``):
 per-frame backbone features →
 temporal attention MLP (feat→64→1, sigmoid, softmax over T) →
 attention-weighted pooling → dropout + fc(feat→256→num_classes). Input
@@ -12,20 +14,28 @@ the ViT; the model lives on ``device``, the card unless the caller names
 another. ``train=True`` applies dropout with draws from the generator the
 caller passes (its numbers differ from ``jax.random``'s).
 
-The ViT backbones and the JAX package's ``tinyconv`` stub (two convs, the
-backbone of its cheap long-clip tests) are ported; EfficientNet, ResNet and
-the ensemble come with the B0/ResNet/ensemble serving slice (ROADMAP
-Queue 1).
+Backbones: EfficientNet b0-b4, ResNet-18/34/50, the ViTs and the JAX
+package's ``tinyconv`` stub (two convs, the backbone of its cheap long-clip
+tests). Every backbone takes ``(x, train, generator)``: batch norm and
+drop-path read them, the ViT and tinyconv ignore them.
+
+``EnsembleDetector`` runs its members (``models.<i>.…``) one after another
+and combines their logits by ``average``, ``weighted`` (a softmax over the
+learnt ``weights``) or ``voting`` (the one-hot majority class). The JAX
+package ``vmap``s members of one architecture to hand XLA one program; here
+a loop is the same computation.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 from torch.nn.utils import skip_init
 
+from deepfake_video_detection_tpu_torch.models.efficientnet import EfficientNet
+from deepfake_video_detection_tpu_torch.models.resnet import ResNet
 from deepfake_video_detection_tpu_torch.models.vit import _VARIANTS, VisionTransformer
 from deepfake_video_detection_tpu_torch.nn import init as I
 from deepfake_video_detection_tpu_torch.nn import layers as L
@@ -52,7 +62,8 @@ class TinyConvBackbone(nn.Module):
             for conv in (self.conv1, self.conv2):
                 conv.weight.copy_(I.kaiming_normal(conv.weight.shape, g))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         x = torch.relu(L.conv2d(x, self.conv1.weight, stride=2, padding=1))
         x = torch.relu(L.conv2d(x, self.conv2.weight, stride=2, padding=1))
@@ -64,17 +75,16 @@ def build_backbone(name: str, compute_dtype: torch.dtype = torch.float32,
                    ) -> nn.Module:
     """Backbone factory with the JAX package's name dispatch."""
     name = name.lower()
+    kw = {"compute_dtype": compute_dtype, "device": device, "generator": generator}
     if name == "tinyconv":
         return TinyConvBackbone(compute_dtype, device, generator)
+    if name.startswith("resnet"):
+        return ResNet(variant=name, **kw)
+    if name.startswith("efficientnet"):
+        return EfficientNet(variant=name.split("_")[-1] if "_" in name else "b0", **kw)
     if name.startswith("vit"):
         variant = name if name in _VARIANTS else "vit_base_patch16_224"
-        return VisionTransformer(variant=variant, num_classes=0,
-                                 compute_dtype=compute_dtype, device=device,
-                                 generator=generator)
-    if name.startswith(("resnet", "efficientnet")):
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP Queue 1: "
-            f"B0/ResNet/ensemble serving slice)")
+        return VisionTransformer(variant=variant, **kw)
     raise ValueError(f"Unsupported backbone: {name}")
 
 
@@ -125,7 +135,7 @@ class BackboneDetector(nn.Module):
         """``x``: (B, T, H, W, C) normalised frames. ``generator`` drives
         dropout when ``train`` (on x's device)."""
         B, T = x.shape[0], x.shape[1]
-        feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])))
+        feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])), train, generator)
         feats = feats.reshape(B, T, self.feature_dim)
         if self.use_temporal_attention:
             ta0, ta2 = self.temporal_attention[0], self.temporal_attention[2]
@@ -143,3 +153,53 @@ class BackboneDetector(nn.Module):
         h = L.dropout(h, self.dropout_rate, train, generator)
         logits = L.linear(h, self.fc2.weight, self.fc2.bias).to(torch.float32)
         return logits, frame_scores
+
+
+class EnsembleDetector(nn.Module):
+    def __init__(self, backbone_names: Sequence[str] = ("efficientnet_b0", "resnet18"),
+                 num_classes: int = 2, dropout_rate: float = 0.5,
+                 ensemble_method: str = "average",
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if ensemble_method not in ("average", "weighted", "voting"):
+            raise ValueError(f"Unknown ensemble method: {ensemble_method}")
+        g = generator or torch.Generator().manual_seed(0)
+        self.backbone_names = tuple(backbone_names)
+        self.num_classes = num_classes
+        self.ensemble_method = ensemble_method
+        self.compute_dtype = compute_dtype
+        self.models = nn.ModuleList(
+            BackboneDetector(n, num_classes, dropout_rate, True, compute_dtype, device, g)
+            for n in self.backbone_names)
+        if ensemble_method == "weighted":
+            n = len(self.backbone_names)
+            self.weights = nn.Parameter(torch.full((n,), 1.0 / n,
+                                                   device=resolve_device(device)))
+
+    @property
+    def members(self) -> nn.ModuleList:
+        return self.models
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                return_member_logits: bool = False):
+        """``(logits, frame_scores)``, and with ``return_member_logits`` the
+        members' logits ``(M, B, C)`` as a third output."""
+        outs = [m(x, train, generator) for m in self.models]
+        logits = torch.stack([o[0] for o in outs])          # (M, B, C) f32
+        scores = torch.stack([o[1] for o in outs])          # (M, B, T)
+        if self.ensemble_method == "average":
+            out_logits, out_scores = logits.mean(dim=0), scores.mean(dim=0)
+        elif self.ensemble_method == "weighted":
+            w = torch.softmax(self.weights, dim=0)
+            out_logits = torch.sum(logits * w[:, None, None], dim=0)
+            out_scores = torch.sum(scores * w[:, None, None].to(scores.dtype), dim=0)
+        else:  # voting: the majority class, one-hot
+            votes = torch.nn.functional.one_hot(logits.argmax(-1), self.num_classes)
+            out_logits = torch.nn.functional.one_hot(
+                votes.sum(dim=0).argmax(-1), self.num_classes).to(torch.float32)
+            out_scores = scores.mean(dim=0)
+        if return_member_logits:
+            return out_logits, out_scores, logits
+        return out_logits, out_scores

@@ -174,7 +174,7 @@ class TemporalTransformerDetector(nn.Module):
         """``x``: (B, T, H, W, C) normalised frames. ``generator`` drives
         dropout when ``train`` (on x's device)."""
         B, T = x.shape[0], x.shape[1]
-        feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])))
+        feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])), train, generator)
         return self.forward_temporal(feats.reshape(B, T, self.feature_dim),
                                      train, generator)
 

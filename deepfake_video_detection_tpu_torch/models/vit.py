@@ -161,8 +161,11 @@ class VisionTransformer(nn.Module):
             self.head.weight.copy_(I.trunc_normal(self.head.weight.shape, g, std=0.02))
             self.head.bias.copy_(I.zeros(self.num_classes))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: (B, H, W, 3) NHWC. Returns CLS features (B, D), or logits."""
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``x``: (B, H, W, 3) NHWC. Returns CLS features (B, D), or logits.
+        ``train`` and ``generator`` are taken as every backbone takes them;
+        the ViT draws nothing."""
         x = x.to(self.compute_dtype)
         y = self.patch_embed(x)
         cls = self.cls_token.to(y.dtype).expand(y.shape[0], -1, -1)

@@ -5,16 +5,41 @@ distributions (the JAX package reproduces torch's defaults). Values are drawn
 on the generator's device in float32; a CPU generator gives the same weights
 whatever device the model then lives on. Conv weights here are **OIHW**
 (torch layout), where the JAX package keeps HWIO; the fans are the same.
+
+Inside :func:`shapes_only` every draw is an empty tensor on the ``meta``
+device: a model built there on ``device="meta"`` is a template of shapes
+that costs neither memory nor random numbers (``serve/loader.py`` scores
+checkpoints against such templates).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Sequence, Tuple, Union
+from typing import Iterator, Sequence, Tuple, Union
 
 import torch
 
 Shape = Sequence[int]
+
+_SHAPES_ONLY = contextvars.ContextVar("shapes_only", default=False)
+
+
+@contextlib.contextmanager
+def shapes_only() -> Iterator[None]:
+    """Draw nothing: every initialiser returns an empty ``meta`` tensor."""
+    token = _SHAPES_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY.reset(token)
+
+
+def _draw(fn, shape: Shape, generator: torch.Generator) -> torch.Tensor:
+    if _SHAPES_ONLY.get():
+        return torch.empty(tuple(shape), device="meta")
+    return fn(tuple(shape), generator=generator, device=generator.device)
 
 
 def _fans(shape: Shape) -> Tuple[int, int]:
@@ -29,8 +54,7 @@ def _fans(shape: Shape) -> Tuple[int, int]:
 
 def _uniform(shape: Shape, generator: torch.Generator, lo: float, hi: float
              ) -> torch.Tensor:
-    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
-    return u * (hi - lo) + lo
+    return _draw(torch.rand, shape, generator) * (hi - lo) + lo
 
 
 def kaiming_uniform(shape: Shape, generator: torch.Generator,
@@ -46,8 +70,7 @@ def kaiming_normal(shape: Shape, generator: torch.Generator,
                    mode: str = "fan_out") -> torch.Tensor:
     fan_in, fan_out = _fans(shape)
     std = math.sqrt(2.0 / (fan_out if mode == "fan_out" else fan_in))
-    return std * torch.randn(tuple(shape), generator=generator,
-                             device=generator.device)
+    return std * _draw(torch.randn, shape, generator)
 
 
 def uniform_bias(shape: Shape, fan_in: int, generator: torch.Generator
@@ -59,8 +82,7 @@ def uniform_bias(shape: Shape, fan_in: int, generator: torch.Generator
 
 def normal(shape: Shape, generator: torch.Generator, std: float = 0.01
            ) -> torch.Tensor:
-    return std * torch.randn(tuple(shape), generator=generator,
-                             device=generator.device)
+    return std * _draw(torch.randn, shape, generator)
 
 
 def trunc_normal(shape: Shape, generator: torch.Generator, std: float = 0.02

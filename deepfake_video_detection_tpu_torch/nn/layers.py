@@ -1,11 +1,16 @@
 """Functional layers with the JAX package's numerics and layouts.
 
 Counterpart of ``deepfake_video_detection_tpu/nn/layers.py`` for what the
-ViT, tinyconv and temporal-transformer paths need. Activations are channel-last (NHWC) at the public
-functions, as in the JAX package; weights are torch's (``(out, in)``
-linears, OIHW convs). Each function casts its weights to the activation's
-dtype, as the JAX layers cast their f32 params, and ``layer_norm`` computes
-in f32.
+ViT, EfficientNet, ResNet, tinyconv and temporal-transformer paths need.
+Activations are channel-last (NHWC) at the public functions, as in the JAX
+package; weights are torch's (``(out, in)`` linears, OIHW convs). Each
+function casts its weights to the activation's dtype, as the JAX layers
+cast their f32 params, and ``layer_norm`` computes in f32.
+
+NHWC is only a memory format here: a contiguous NHWC activation permuted to
+NCHW is a channels-last view, cuDNN takes it and returns channels-last, and
+the permute back is a view again, so a conv net stays channels-last from
+layer to layer without a copy.
 
 Attention differs from the JAX layer on purpose: the JAX package reads
 ``VIT_FUSED_ATTN`` (and, in the temporal transformer, an N threshold) to
@@ -37,11 +42,40 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None,
            stride: Union[int, Tuple[int, int]] = 1,
-           padding: Union[int, Tuple[int, int]] = 0) -> torch.Tensor:
-    """2-D cross-correlation, ``x`` NHWC in and out, ``weight`` OIHW."""
+           padding: Union[int, Tuple[int, int]] = 0,
+           groups: int = 1) -> torch.Tensor:
+    """2-D cross-correlation, ``x`` NHWC in and out, ``weight`` OIHW
+    (``(O, C/groups, kH, kW)``)."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                 _cast(bias, x.dtype), stride, padding)
+                 _cast(bias, x.dtype), stride, padding, 1, groups)
     return y.permute(0, 2, 3, 1)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               train: bool = False, eps: float = 1e-5, momentum: float = 0.1
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """BatchNorm over the last axis (NHWC) with torch semantics: in
+    training the biased batch variance normalises and the unbiased one
+    enters the running update. Returns ``(y, (new_mean, new_var))``; in
+    eval the running stats pass through. Either way the normalisation is
+    folded into one scale and shift computed in f32 and cast to x's dtype,
+    as in the JAX layer."""
+    if train:
+        dims = tuple(range(x.ndim - 1))
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=dims)
+        var = (xf * xf).mean(dim=dims) - mean * mean
+        n = x.numel() // x.shape[-1]
+        unbiased = var * (n / max(n - 1, 1))
+        new_stats = ((1 - momentum) * running_mean + momentum * mean,
+                     (1 - momentum) * running_var + momentum * unbiased)
+    else:
+        mean, var = running_mean, running_var
+        new_stats = (running_mean, running_var)
+    inv = torch.rsqrt(var.to(torch.float32) + eps) * weight.to(torch.float32)
+    shift = bias.to(torch.float32) - mean.to(torch.float32) * inv
+    return torch.addcmul(shift.to(x.dtype), x, inv.to(x.dtype)), new_stats
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -52,10 +86,26 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def max_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0
+               ) -> torch.Tensor:
+    """torch.nn.MaxPool2d on NHWC; the padding counts as −inf."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0
+               ) -> torch.Tensor:
+    """Window sums taken in f32 over ``kernel²`` (the padding counts as
+    zeros, as in the JAX layer), returned in x's dtype. NHWC."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).to(torch.float32), kernel, stride,
+                     padding, count_include_pad=True)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d(1) + flatten on NHWC: (N, H, W, C) → (N, C), the
-    mean taken in f32."""
-    return x.to(torch.float32).mean(dim=(1, 2)).to(x.dtype)
+    mean taken in f32 (accumulated in f32, without an f32 copy of x)."""
+    return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -66,6 +116,19 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         return x
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, train: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth: each sample of the batch (axis 0) is zeroed with
+    probability ``rate`` and the rest scaled by 1/(1 − rate); identity
+    unless ``train`` with ``rate`` > 0. The generator lives on x's device."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -1,11 +1,14 @@
-"""Serving inference engine for the pretrained detector and the temporal
-transformer, on one CUDA card.
+"""Serving inference engine for the pretrained detector, its ensemble and
+the temporal transformer, on one CUDA card.
 
 Counterpart of ``deepfake_video_detection_tpu/serve/predict.py`` for
-``model_type="pretrained"`` (a single ``BackboneDetector``) and
-``model_type="temporal"`` (a ``TemporalTransformerDetector``), which the
-JAX package serves through the same forward functions, warmup, windows and
-policy: the same decision policy and result-dict schema. Requests come in as face crops,
+``model_type="pretrained"`` (a single ``BackboneDetector``: EfficientNet,
+ResNet or ViT), ``"ensemble_pretrained"`` (an ``EnsembleDetector``, with the
+optional ``EnhancedDecisionAgent`` over its members' logits) and
+``"temporal"`` (a ``TemporalTransformerDetector``), which the JAX package
+serves through the same forward functions, warmup, windows and policy: the
+same decision policy and result-dict schema. ``serve/loader.py::load_model``
+builds any of them from a checkpoint. Requests come in as face crops,
 through :meth:`Predictor.predict_faces` (RGB) or
 :meth:`Predictor._predict_pretrained` with ``packed_yuv=True`` (packed
 YUV420, half the host→device bytes). The policy: optional windowed scan
@@ -18,11 +21,13 @@ Result keys: prediction, verdict_yes_no, description, pred_class,
 confidence, prob_real, prob_fake, num_faces, threshold, enhanced_agent,
 frame_scores (+ windows, abstained).
 
-On CUDA the RGB forward runs the fused-normalize kernel (K1) and every ViT
-and temporal block the flash-attention kernel (K2; a window holds at most 64
-frames, so the temporal blocks attend over N ≤ 65 tokens here). Video decoding and face detection
-(``predict_video``), ensembles, the enhanced agent, the legacy model types
-and saliency come with later slices of the port (ROADMAP Queue 1).
+On CUDA the RGB forward runs the fused-normalize kernel (K1), the
+packed-YUV forward K1's YUV420 entry (colour matrix and normalisation in one
+pass), and every ViT and temporal block the flash-attention kernel (K2; a
+window holds at most 64 frames, so the temporal blocks attend over N ≤ 65
+tokens here); the conv nets run cuDNN convolutions, channels-last. Video
+decoding and face detection (``predict_video``, ROADMAP item 7), the legacy
+model types (item 12) and saliency (item 13) come with later slices.
 """
 
 from __future__ import annotations
@@ -36,9 +41,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from deepfake_video_detection_tpu_torch.data.normalize import imagenet_normalize
-from deepfake_video_detection_tpu_torch.ops.preprocess import fused_normalize
-from deepfake_video_detection_tpu_torch.ops.yuv import yuv420_packed_to_rgb
+from deepfake_video_detection_tpu_torch.ops.preprocess import (
+    fused_normalize, fused_normalize_yuv)
 from deepfake_video_detection_tpu_torch.serve.batcher import MicroBatcher, to_host
 from deepfake_video_detection_tpu_torch.utils.config import env_bool, env_float, env_int
 from deepfake_video_detection_tpu_torch.utils.device import (  # noqa: F401
@@ -107,16 +111,22 @@ def _detection_threshold(default: float) -> float:
     return env_float("DETECT_FAKE_THRESHOLD", default)
 
 
-def make_forward_fns(model: torch.nn.Module, face_size: int):
-    """The serving forward of a single detector as two functions of a
-    device tensor, each returning ``(probs f32, logits, frame_scores,
-    member_logits=None)``: ``fwd`` takes uint8 RGB frames (B, T, H, W, 3),
-    ``fwd_yuv`` packed YUV420 crops (B, T, face_size*face_size*3//2)."""
+def make_forward_fns(model: torch.nn.Module, is_ensemble: bool, face_size: int):
+    """The serving forward as two functions of a device tensor, each
+    returning ``(probs f32, logits, frame_scores, member_logits)``
+    (``member_logits`` (M, B, C) for an ensemble, else None): ``fwd`` takes
+    uint8 RGB frames (B, T, H, W, 3), ``fwd_yuv`` packed YUV420 crops
+    (B, T, face_size*face_size*3//2). Each normalises into the model's
+    compute dtype with one K1 launch."""
     compute_dtype = getattr(model, "compute_dtype", torch.float32)
 
     def head(x):
-        logits, scores = model(x)
-        return torch.softmax(logits.to(torch.float32), dim=-1), logits, scores, None
+        if is_ensemble:
+            logits, scores, member_logits = model(x, return_member_logits=True)
+        else:
+            (logits, scores), member_logits = model(x), None
+        return (torch.softmax(logits.to(torch.float32), dim=-1), logits, scores,
+                member_logits)
 
     @torch.inference_mode()
     def fwd(frames_u8: torch.Tensor):
@@ -124,8 +134,8 @@ def make_forward_fns(model: torch.nn.Module, face_size: int):
 
     @torch.inference_mode()
     def fwd_yuv(packed_u8: torch.Tensor):
-        rgb = yuv420_packed_to_rgb(packed_u8, face_size, face_size)
-        return head(imagenet_normalize(rgb / 255.0, scaled=True))
+        return head(fused_normalize_yuv(packed_u8, face_size, face_size,
+                                        out_dtype=compute_dtype))
 
     return fwd, fwd_yuv
 
@@ -148,26 +158,28 @@ class Predictor:
     def __init__(self, model: torch.nn.Module,
                  variables: Optional[Dict[str, torch.Tensor]],
                  model_type: str, checkpoint_path: Optional[str] = None,
+                 enhanced_agent: Optional[Any] = None,
                  extractor: Optional[Any] = None, device: Any = "cuda"):
         """``variables``: a ``state_dict`` loaded strictly into ``model``,
-        or None to serve the weights the model holds. ``extractor``: any
-        object with ``face_size``, ``detector`` and ``keep_all``. The JAX
-        ``enhanced_agent`` argument comes with ensembles, the only models
-        it is consulted for."""
-        if model_type not in ("pretrained", "temporal"):
-            raise NotImplementedError(f"model_type {model_type!r} {_NOT_PORTED}")
-        if hasattr(model, "members"):
-            raise NotImplementedError(f"ensemble serving {_NOT_PORTED}")
+        or None to serve the weights the model holds. ``enhanced_agent``:
+        an ``agents.enhanced.EnhancedDecisionAgent``, consulted for
+        ensembles. ``extractor``: any object with ``face_size``,
+        ``detector`` and ``keep_all``."""
+        if model_type not in ("pretrained", "ensemble_pretrained", "temporal"):
+            raise NotImplementedError(f"model_type {model_type!r} {_NOT_PORTED} "
+                                      f"(item 12: the legacy families)")
         self.device = resolve_device(device)
         if variables is not None:
             model.load_state_dict(variables, strict=True)
         self.model = model.to(self.device).eval()
         self.model_type = model_type
         self.checkpoint_path = checkpoint_path
+        self.enhanced_agent = enhanced_agent
         self.extractor = extractor or CenterCropExtractor()
 
+        is_ensemble = model_type == "ensemble_pretrained" or hasattr(model, "members")
         size = self.extractor.face_size
-        self._forward, self._forward_yuv = make_forward_fns(self.model, size)
+        self._forward, self._forward_yuv = make_forward_fns(self.model, is_ensemble, size)
 
         # dynamic micro-batching: concurrent requests coalesce into one
         # batched device step. The item functions are bound once so the
@@ -230,14 +242,14 @@ class Predictor:
 
     def predict_video(self, video_path: str, explain: bool = False) -> Dict[str, Any]:
         raise NotImplementedError(f"video decoding and face extraction "
-                                  f"{_NOT_PORTED}: use predict_faces")
+                                  f"{_NOT_PORTED} (item 7): use predict_faces")
 
     def predict_faces(self, faces: np.ndarray, video_id: str = "video",
                       explain: bool = False) -> Dict[str, Any]:
         """Run the decision policy on pre-extracted face crops
         (T, H, W, 3) uint8 RGB."""
         if explain:
-            raise NotImplementedError(f"saliency (explain) {_NOT_PORTED}")
+            raise NotImplementedError(f"saliency (explain) {_NOT_PORTED} (item 13)")
         return self._predict_pretrained(faces, video_id)
 
     def _predict_pretrained(self, faces: np.ndarray, video_id: str,
@@ -271,16 +283,16 @@ class Predictor:
                 faces = np.concatenate([faces, pad])
             faces_w = np.asarray(faces[:need]).reshape(
                 (windows, T) + faces.shape[1:])
-            probs, _, frame_scores, _ = (
+            probs, logits, frame_scores, member_logits = (
                 to_host(o) for o in fwd(self._to_device(faces_w)))
         elif self._batcher is not None:
             # coalesce with concurrent requests into one device step; each
             # output comes back as this request's length-1 slice
             item_fn = self._fwd_yuv_item if packed_yuv else self._fwd_item
-            probs, _, frame_scores, _ = self._batcher.call(
+            probs, logits, frame_scores, member_logits = self._batcher.call(
                 item_fn, np.asarray(faces), out_axes=(0, 0, 0, 1))
         else:
-            probs, _, frame_scores, _ = (
+            probs, logits, frame_scores, member_logits = (
                 to_host(o) for o in fwd(self._to_device(np.asarray(faces)[None])))
         probs_all = np.asarray(probs)          # (W or 1, C)
         fake_idx = _get_fake_class_index(probs_all.shape[1])
@@ -332,11 +344,47 @@ class Predictor:
         is_fake = prob_fake >= thr
         pred_class = 1 if is_fake else 0
         confidence = prob_fake if is_fake else prob_real
-        description = f"Pretrained detector (thr={thr:.2f})"
+        description = (f"Ensemble pretrained detector (thr={thr:.2f})"
+                       if self.model_type == "ensemble_pretrained"
+                       else f"Pretrained detector (thr={thr:.2f})")
+
+        agent_payload = None
+        if (not env_bool("DISABLE_ENHANCED_AGENT")
+                and self.enhanced_agent is not None
+                and member_logits is not None):
+            member_np = np.asarray(member_logits)[:, widx]  # (M, C)
+            x = member_np - member_np.max(-1, keepdims=True)
+            member_probs = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+            ind = member_probs[:, fake_idx]
+            uncertainty = float(np.std(ind)) if ind.shape[0] >= 2 else 0.0
+            try:
+                # per-call overrides, not attribute writes: the agent is
+                # shared by the request threads
+                pred = self.enhanced_agent.process_ensemble_output(
+                    np.asarray(logits)[widx], list(member_np),
+                    np.asarray(frame_scores)[widx], video_id, uncertainty,
+                    decision_threshold=thr, fake_class_index=fake_idx)
+                agent_payload = {
+                    "is_fake": bool(pred.is_fake) if pred.is_fake is not None else None,
+                    "ensemble_prob": float(pred.ensemble_prob),
+                    "confidence": float(pred.confidence),
+                    "alert_level": pred.alert_level.name,
+                    "uncertainty": float(pred.uncertainty),
+                    "explanation": pred.explanation,
+                }
+                description = agent_payload["explanation"] or description
+                if pred.is_fake is not None:
+                    pred_class = int(pred.is_fake)
+                confidence = float(agent_payload["confidence"])
+            except Exception:
+                # as in the JAX package, a failing agent leaves the verdict to
+                # the detector; the failure is logged here
+                logger.exception("enhanced agent failed for %s", video_id)
+                agent_payload = None
 
         base = {"prob_real": prob_real, "prob_fake": prob_fake,
                 "num_faces": num_faces, "threshold": thr,
-                "enhanced_agent": None,
+                "enhanced_agent": agent_payload,
                 # the temporal attention weights of the deciding window
                 "frame_scores": [round(float(s), 4)
                                  for s in np.asarray(frame_scores)[widx]]}

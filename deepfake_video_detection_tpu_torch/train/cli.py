@@ -47,8 +47,8 @@ def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16
             f"vit_gcn and cnn_lstm)")
     if not backbone.lower().startswith(("vit", "tinyconv")):
         raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet (ROADMAP Queue 1: "
-            f"B0/ResNet/ensemble serving slice)")
+            f"training the {backbone!r} backbone is not ported yet (ROADMAP Queue 1 "
+            f"items 14-15; the port serves it: serve/loader.py)")
     kw = {"compute_dtype": torch.bfloat16 if bf16 else torch.float32,
           "device": device, "generator": torch.Generator().manual_seed(seed)}
     if name in ("pretrained", "backbone"):

@@ -44,6 +44,31 @@ def test_fused_normalize_kernel_matches_plain(shape, dtype, offset):
     assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 8, 224, 224), torch.bfloat16),          # the serving forward's largest bucket
+    ((16, 8, 224, 224), torch.float32),
+    ((3, 5, 224, 224), torch.bfloat16),           # an odd-sized batch
+    ((2, 3, 6, 10), torch.float32),               # a row of 5 pairs: pairs straddle rows
+])
+def test_fused_normalize_yuv_kernel_matches_plain(shape, dtype):
+    gen = _cuda_generator()
+    B, T, H, W = shape
+    x = torch.randint(0, 256, (B, T, H * W * 3 // 2), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    before = P.fused_normalize_yuv.launches
+    got = P.fused_normalize_yuv(x, H, W, dtype)
+    assert P.fused_normalize_yuv.launches == before + 1
+    ref = P.fused_normalize_yuv_plain(x, H, W, dtype)
+    assert got.dtype == dtype and got.shape == (B, T, H, W, 3)
+    err = float((got.float() - ref.float()).abs().max())
+    tol = 2e-2 * float(ref.float().abs().max()) if dtype == torch.bfloat16 else 1e-4
+    assert err <= tol
+    with pytest.raises(ValueError):
+        P.fused_normalize_yuv(x, H + 1, W, dtype)                # odd H
+    with pytest.raises(ValueError):
+        P.fused_normalize_yuv(x[..., 1:], H, W, dtype)           # wrong last axis
+
+
 @pytest.mark.parametrize("B,H,N,d,dtype,strided", [
     (8, 12, 197, 64, torch.bfloat16, True),       # ViT-B/16, one request
     (8, 12, 197, 64, torch.float32, False),
@@ -266,3 +291,39 @@ def test_long_clip_temporal_model_on_cuda_matches_plain_versions():
     for g, r in zip(grads, ref_grads):
         if r is not None:
             assert torch.allclose(g, r, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("backbones", [("efficientnet_b0",), ("efficientnet_b0", "resnet18")])
+def test_convnet_serving_forward_on_cuda_matches_plain_versions(backbones, monkeypatch):
+    """B0 and the B0 + resnet18 ensemble at 64 px, f32 on the card, BN
+    stats drawn from U(0.5, 1.5): the serving forwards (K1's RGB and YUV
+    entries, cuDNN convs) against the plain normalisations on the same
+    model."""
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import (
+        BackboneDetector, EnsembleDetector)
+    from deepfake_video_detection_tpu_torch.serve.predict import make_forward_fns
+
+    gen = _cuda_generator()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = (BackboneDetector(backbones[0], device="cuda") if len(backbones) == 1
+             else EnsembleDetector(backbones, device="cuda")).eval()
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith(("running_mean", "running_var")):
+                buf.uniform_(0.5, 1.5, generator=gen)
+    fwd, fwd_yuv = make_forward_fns(model, len(backbones) > 1, 64)
+    x = torch.randint(0, 256, (2, 3, 64, 64, 3), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    packed = torch.randint(0, 256, (2, 3, 64 * 64 * 3 // 2), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    k1, k1y = P.fused_normalize.launches, P.fused_normalize_yuv.launches
+    probs, _, _, members = fwd(x)
+    probs_yuv = fwd_yuv(packed)[0]
+    assert (P.fused_normalize.launches, P.fused_normalize_yuv.launches) == (k1 + 1, k1y + 1)
+    assert (members is None) == (len(backbones) == 1)
+    with torch.no_grad():
+        ref = torch.softmax(model(P.fused_normalize_plain(x, torch.float32))[0], -1)
+        ref_yuv = torch.softmax(model(P.fused_normalize_yuv_plain(
+            packed, 64, 64, torch.float32))[0], -1)
+    assert float((probs - ref).abs().max()) <= 1e-4
+    assert float((probs_yuv - ref_yuv).abs().max()) <= 1e-4

@@ -143,6 +143,35 @@ def test_yuv420_packed_to_rgb_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("shape", [(2, 3, 32, 32), (1, 1, 6, 10)])
+def test_fused_normalize_yuv_plain_matches_jax(shape):
+    """The YUV entry's plain version, as a function of the packed bytes,
+    against the JAX serving forward's arithmetic: ``yuv420_packed_to_rgb``
+    then ``imagenet_normalize(rgb / 255, scaled=True)``."""
+    B, T, H, W = shape
+    x = np.random.default_rng(H).integers(0, 256, (B, T, H * W * 3 // 2), dtype=np.uint8)
+    rgb = jax_yuv_to_rgb(jnp.asarray(x), H, W)
+    ref = np.asarray(jax_imagenet_normalize(rgb / 255.0, scaled=True))
+    got = P.fused_normalize_yuv(torch.from_numpy(x), H, W, out_dtype=torch.float32)
+    assert got.shape == (B, T, H, W, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    bf = P.fused_normalize_yuv(torch.from_numpy(x), H, W)       # bf16 by default
+    np.testing.assert_array_equal(bf.float().numpy(),
+                                  got.to(torch.bfloat16).float().numpy())
+
+
+def test_fused_normalize_yuv_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((2, 6 * 10 * 3 // 2), dtype=torch.uint8)
+    for bad in [dict(height=5, width=12), dict(height=6, width=9),    # odd H or W
+                dict(height=6, width=12)]:                            # wrong last axis
+        with pytest.raises(ValueError):
+            P.fused_normalize_yuv(x, **bad)
+    with pytest.raises(ValueError):
+        P.fused_normalize_yuv(x.float(), 6, 10)
+    with pytest.raises(ValueError):
+        P.fused_normalize_yuv(x, 6, 10, out_dtype=torch.float16)
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc → the build raises; there is no fallback."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)

@@ -1,7 +1,9 @@
 """The port's Predictor vs the JAX package's Predictor, on the CPU, f32.
 
 Both serve the same weights: a ViT-Tiny BackboneDetector cut to two blocks
-at 32 px (the backbone is swapped the same way on both sides), with
+at 32 px (the backbone is swapped the same way on both sides), an
+EfficientNet-B0 detector and the B0 + resnet18 ensemble with the enhanced
+agent (JAX trees filled from a seeded numpy generator), with
 ``SERVE_WARMUP=0``, ``MIN_FACES=1`` and ``DETECT_ABSTAIN_CONF=0``. The JAX
 side runs its default XLA attention, the same function as the flash kernel.
 """
@@ -15,13 +17,19 @@ import pytest
 import jax
 import torch
 
+from deepfake_video_detection_tpu.agents.enhanced import EnhancedDecisionAgent as JaxAgent
 from deepfake_video_detection_tpu.models.backbone_detector import BackboneDetector as JaxDetector
+from deepfake_video_detection_tpu.models.backbone_detector import EnsembleDetector as JaxEnsemble
 from deepfake_video_detection_tpu.models.vit import VisionTransformer as JaxViT
 from deepfake_video_detection_tpu.serve import predict as jax_predict
+from deepfake_video_detection_tpu_torch.agents.enhanced import EnhancedDecisionAgent
 from deepfake_video_detection_tpu_torch.checkpoint.bridge import state_dict_from_jax
-from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+from deepfake_video_detection_tpu_torch.models.backbone_detector import (
+    BackboneDetector, EnsembleDetector)
 from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
+
+from test_torch_port_convnets import random_variables
 
 SIZE, T = 32, 4
 PROB_ATOL = 5e-4
@@ -117,6 +125,125 @@ def test_windowed_scan_with_quantiles_matches_jax(weights, serve_env, tmp_path):
     assert oc["effective"] == pytest.approx(rc["effective"], abs=1e-6)
     assert oc["effective"] > oc["base"]
     ppred.close()
+
+
+def _advice_quirk_case(weights, serve_env, tmp_path, quantiles):
+    """A windowed request over 2 windows of a clip whose detections came up
+    short (5 of 8 frames extracted), with ``real_score_quantiles`` as given."""
+    serve_env.setenv("SERVE_WINDOWS", "2")
+    ckpt = tmp_path / "best_model.npz"
+    ckpt.write_bytes(b"")
+    (tmp_path / "calibration_best.json").write_text(json.dumps({
+        "best_thr_accuracy": 0.5, "real_score_quantiles": quantiles}))
+    jpred, ppred = _predictors(weights, checkpoint_path=str(ckpt))
+    faces = np.random.default_rng(7).integers(0, 256, (2 * T, SIZE, SIZE, 3), np.uint8)
+    ours = ppred._predict_pretrained(faces, "short", windows=2, n_extracted=5)
+    ref = jpred._predict_pretrained(faces, "short", windows=2, n_extracted=5)
+    ppred.close()
+    _assert_same(ours, ref)
+    return ours["windows"], ref["windows"]
+
+
+def test_cycled_alignment_note_matches_the_reference(weights, serve_env, tmp_path):
+    """ROADMAP Queue 3 ruling: the port keeps the reference's ``cycled``
+    note, which names dropped detections even where the clip was only
+    short."""
+    ours, ref = _advice_quirk_case(weights, serve_env, tmp_path,
+                                   np.linspace(0.0, 0.6, 11).tolist())
+    assert ours["temporal_alignment"] == ref["temporal_alignment"] == "cycled"
+    assert ours["note"] == ref["note"] and "dropped" in ours["note"]
+
+
+def test_unavailable_correction_method_matches_the_reference(weights, serve_env, tmp_path):
+    """ROADMAP Queue 3 ruling: with quantiles that leave the threshold as it
+    is (every real score below it), the port says ``unavailable`` as the
+    reference does, though quantiles exist."""
+    ours, ref = _advice_quirk_case(weights, serve_env, tmp_path,
+                                   np.linspace(0.0, 0.3, 11).tolist())
+    oc, rc = ours["threshold_correction"], ref["threshold_correction"]
+    assert oc == rc and oc["method"] == "unavailable" and oc["effective"] == oc["base"]
+
+
+@pytest.fixture(scope="module")
+def convnet_weights():
+    """A B0 detector tree and a B0 + resnet18 ensemble tree (32 px)."""
+    b0 = JaxDetector("efficientnet_b0")
+    ens = JaxEnsemble()
+    return {"pretrained": (b0, random_variables(b0, 8)),
+            "ensemble_pretrained": (ens, random_variables(ens, 9))}
+
+
+@pytest.mark.parametrize("model_type", ["pretrained", "ensemble_pretrained"])
+@pytest.mark.parametrize("packed_yuv", [False, True])
+def test_convnet_predictor_matches_jax(convnet_weights, serve_env, model_type, packed_yuv):
+    """B0, and the ensemble with the enhanced agent over its members'
+    logits: the same result dict as the JAX Predictor on the same crops."""
+    jmodel, variables = convnet_weights[model_type]
+    extractor = port_predict.CenterCropExtractor(SIZE)
+    ensemble = model_type == "ensemble_pretrained"
+    jpred = jax_predict.Predictor(jmodel, variables, model_type, extractor=extractor,
+                                  enhanced_agent=JaxAgent() if ensemble else None)
+    model = (EnsembleDetector(device="cpu") if ensemble
+             else BackboneDetector("efficientnet_b0", device="cpu"))
+    ppred = port_predict.Predictor(model, state_dict_from_jax(variables), model_type,
+                                   enhanced_agent=EnhancedDecisionAgent() if ensemble
+                                   else None, extractor=extractor, device="cpu")
+    rng = np.random.default_rng(10)
+    if packed_yuv:
+        faces = rng.integers(0, 256, (T, SIZE * SIZE * 3 // 2), np.uint8)
+        ours = ppred._predict_pretrained(faces, "clip", packed_yuv=True)
+        ref = jpred._predict_pretrained(faces, "clip", packed_yuv=True)
+    else:
+        faces = rng.integers(0, 256, (T, SIZE, SIZE, 3), np.uint8)
+        ours, ref = ppred.predict_faces(faces, "clip"), jpred.predict_faces(faces, "clip")
+    ppred.close()
+    oa, ra = ours.pop("enhanced_agent"), ref.pop("enhanced_agent")
+    _assert_same(dict(ours, enhanced_agent=None), dict(ref, enhanced_agent=None))
+    assert ours["description"] == ref["description"]
+    if not ensemble:
+        assert oa is ra is None
+        return
+    assert sorted(oa) == sorted(ra)
+    for key in ("is_fake", "alert_level", "explanation"):
+        assert oa[key] == ra[key], key
+    for key in ("ensemble_prob", "confidence", "uncertainty"):
+        assert oa[key] == pytest.approx(ra[key], abs=PROB_ATOL), key
+    serve_env.setenv("DISABLE_ENHANCED_AGENT", "1")
+    plain = ppred.predict_faces(rng.integers(0, 256, (T, SIZE, SIZE, 3), np.uint8), "c")
+    assert plain["enhanced_agent"] is None
+
+
+def test_agents_match_jax(tmp_path):
+    """The port's copies of the numpy agents decide as the JAX package's on
+    the same logits; ``InferenceAgent`` runs the port's detector from a
+    checkpoint."""
+    from deepfake_video_detection_tpu.agents import system as jax_system
+    from deepfake_video_detection_tpu_torch.agents import system
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import save_checkpoint
+
+    rng = np.random.default_rng(11)
+    for i in range(24):
+        ens, fs = rng.normal(size=2) * 2, rng.uniform(size=T)
+        members = [rng.normal(size=2) * 2 for _ in range(2 + i % 2)]
+        kw = dict(uncertainty=float(rng.uniform(0, 0.9)),
+                  decision_threshold=float(rng.uniform(0.3, 0.7)), fake_class_index=i % 2)
+        ours = EnhancedDecisionAgent().process_ensemble_output(ens, members, fs, "v", **kw)
+        ref = JaxAgent().process_ensemble_output(ens, members, fs, "v", **kw)
+        assert (ours.is_fake, ours.alert_level.name, ours.explanation) == \
+            (ref.is_fake, ref.alert_level.name, ref.explanation)
+        assert ours.confidence == pytest.approx(ref.confidence, abs=1e-12)
+        pred = {"video_id": "v", "probs": rng.dirichlet([1, 1]), "frame_scores": fs,
+                **({"pred_class": i % 2, "confidence": 0.8} if i % 3 else {})}
+        o, r = system.DecisionAgent().process(pred), jax_system.DecisionAgent().process(pred)
+        assert (o.is_fake, o.alert_level.name, o.explanation) == \
+            (r.is_fake, r.alert_level.name, r.explanation)
+
+    model = BackboneDetector("efficientnet_b0", device="cpu")
+    path = str(tmp_path / "b0.npz")
+    save_checkpoint(path, model.state_dict())
+    agent = system.InferenceAgent(path, device="cpu")
+    logits, scores = agent.process(rng.integers(0, 256, (1, T, SIZE, SIZE, 3), np.uint8))
+    assert logits.shape == (1, 2) and scores.shape == (1, T) and np.isfinite(logits).all()
 
 
 def test_windowed_threshold_matches_jax():
@@ -226,7 +353,7 @@ def test_serving_dtype_is_bf16_on_the_card_and_f32_on_the_cpu(monkeypatch):
 
 def test_unported_paths_raise(weights, serve_env, monkeypatch):
     model, sd = _port_model(weights[1])
-    for model_type in ("ensemble_pretrained", "cnn_lstm", "vit_gcn"):
+    for model_type in ("cnn_lstm", "vit_gcn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_predict.Predictor(model, sd, model_type, device="cpu")
     pred = port_predict.Predictor(model, sd, "pretrained", device="cpu")

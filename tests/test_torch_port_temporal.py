@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import torch
 
 from deepfake_video_detection_tpu.checkpoint.store import save_checkpoint as jax_save_checkpoint
+from deepfake_video_detection_tpu.checkpoint.store import (
+    save_torch_checkpoint as jax_save_torch_checkpoint)
 from deepfake_video_detection_tpu.data.dataset import VideoFacesDataset as JaxDataset
 from deepfake_video_detection_tpu.evals import evaluate as jax_evaluate
 from deepfake_video_detection_tpu.models import temporal_transformer as JT
@@ -292,8 +294,12 @@ def test_evaluator_matches_jax(clips, tmp_path):
     for flag in (["--from-videos"], ["--quantize", "int8"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             E.main(["--data_dir", clips, "--checkpoint", path, "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.load_any(str(tmp_path / "model.pt"))
+    # a reference .pt of the same weights reads as the native file does
+    pt = str(tmp_path / "model.pt")
+    jax_save_torch_checkpoint(pt, variables, layout="model_config", meta={"model_config": cfg})
+    sd_pt, meta_pt = E.load_any(pt)
+    assert sorted(sd_pt) == sorted(sd) and meta_pt["model_config"] == cfg
+    assert all(np.array_equal(sd_pt[k], sd[k]) for k in sd)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         E.build_model_from_checkpoint(sd, {}, "cnn_lstm", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):   # told by its keys
