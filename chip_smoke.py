@@ -9,9 +9,9 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 2. Build: every CUDA kernel of the port, from the sources in the checkout,
    one ``nvcc`` per source, all started together; the fused-normalize
    library is waited for at once and the conv-net phases (3-6) run while the
-   flash libraries compile. The bf16 flash kernels at d = 64 (every main
-   path), unsplit and split, and the split route's combine and reduce
-   kernels must spill nothing (``-Xptxas -v``).
+   flash libraries compile. The tensor-core flash kernels at d = 64 (every
+   main path): bf16 unsplit and split, f32 (3xTF32), and the split route's
+   combine and reduce kernels must spill nothing (``-Xptxas -v``).
 3. K1: the fused-normalize kernel's RGB and packed-YUV420 entries against
    their plain versions at the serving shapes, timed by events and by
    device, beside their bound and the plain versions' times.
@@ -33,14 +33,19 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    at the main paths' shapes and a few edge shapes, with the stated
    tolerance; times by CUDA events after warm-up (kernel, plain version,
    and the one PyTorch call that computes the same function, if any), and
-   for the flash kernels their device time under ``torch.profiler``, every
-   kernel of the call summed and each named (``kernel_device_ms_by_kernel``),
-   beside the library call's (``library_device_ms``) at N > 512. Each flash
-   source routes by dtype: bf16 to its tensor-core kernels, f32 to its
-   CUDA-core ones (``route``); bf16 at N > 512 takes the split route
-   (``splits`` > 1: split kernels, then the combine or reduce kernel);
-   every main-path case is bf16. Then the split sweep: the long-N calls'
-   device time at every split count, beside the policy's.
+   for the flash kernels their device time under ``torch.profiler`` (held
+   against CUDA events over calls queued back to back; null where the two
+   disagree; those events are ``kernel_queued_ms``, ``library_queued_ms``),
+   every kernel of the call summed and each named
+   (``kernel_device_ms_by_kernel``),
+   beside the library call's (``library_device_ms``) at N > 512 and on
+   every f32 row. Each flash source routes by dtype (``route``), both on the
+   tensor cores: bf16 to its bf16 kernels, f32 to its 3xTF32 ones (bound by
+   3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
+   f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
+   route (``splits`` > 1: split kernels, then the combine or reduce
+   kernel); every main-path case is bf16. Then the split sweep: the long-N
+   calls' device time at every split count, beside the policy's.
 8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
    generator, f32 params, bf16 activations) behind a ``Predictor`` with
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
@@ -52,7 +57,13 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
    checks the launch counts of the forward and backward kernels, the
    artefacts, one step through the kernels against the plain versions, and
-   serves the checkpoint it wrote; then times a train step.
+   serves the checkpoint it wrote; then times a train step. Then the f32
+   step, the training CLI's default without ``--bf16``
+   (``f32_training``): ViT-B/16 from ``train/cli.py::build_model``, one
+   ``Trainer`` step at 8 clips x 16 frames, 12 f32 forward and 12 f32
+   backward flash launches required, the step time, frames per second,
+   peak memory, its device time by kernel, and its loss and grad norm
+   through the kernels against the plain versions.
 10. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
@@ -67,7 +78,8 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
 11. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
-   each with its launches on every path), then the last line
+   each with its launches on every path and, for K2-K6, by route beside
+   its f32 row), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -92,7 +104,16 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bf16": 989e12,        # dense tensor-core bf16
-            "f32": 67e12}          # f32 on the CUDA cores
+            "f32": 67e12,          # f32 on the CUDA cores
+            "tf32x3": 495e12 / 3}  # f32-accurate products as 3xTF32 on the tensor cores
+# a profiler reading of device time is held against CUDA events over calls
+# queued back to back (_device_reading): the events add the card's gap
+# between two queued launches, at most LAUNCH_GAP_MS (an H100's is
+# kernel_queued_ms - kernel_device_ms a launch, PERF.md §6), and a reading
+# under DEVICE_FLOOR of what remains is taken as time the profiler lost (a
+# lost session reads about half)
+LAUNCH_GAP_MS = 0.002
+DEVICE_FLOOR = 0.75
 
 K1_SOURCE = "deepfake_video_detection_tpu_torch/csrc/normalize.cu"
 K2_SOURCE = "deepfake_video_detection_tpu_torch/csrc/flash_fwd.cu"
@@ -105,10 +126,14 @@ K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
 K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 
 # each flash source routes by dtype between two hand-written kernels
-ROUTES = {"bf16": "tensor-core bf16", "f32": "cuda-core f32"}
+ROUTES = {"bf16": "tensor-core bf16", "f32": "tensor-core 3xTF32"}
+# the flash kernels' bound by dtype: f32 is bound by the tensor cores' rate
+# for 3xTF32, the old CUDA-core figure is kept beside it (bound_ms_cuda_core)
+FLASH_PEAK = {"bf16": "bf16", "f32": "tf32x3"}
 MAIN_NOTES = ("main", "K3 main", "K5/K6 main")
 # f32 cases at the main paths' shapes: the training CLI's default without
-# --bf16 runs the CUDA-core kernels there (PERF.md's f32 rows)
+# --bf16 runs the 3xTF32 kernels there (PERF.md's f32 rows; the
+# f32_training phase is their path at N <= 512)
 F32_ROW = "f32 row: "
 
 # tolerances, with their reasons
@@ -125,6 +150,12 @@ K4_TOL_F32 = 1e-3           # atol = rtol, the JAX suite's gradient tolerance (s
 K4_TOL_FLOOR = 1e-4         # absolute floor: at N = 1 dQ, dK are 0 up to f32 residue
 STEP_TOL_LOSS = 1e-2        # one train step, kernels vs plain, relative: bf16
 STEP_TOL_NORM = 5e-2        # activations through 12 blocks round at other places
+# the f32 step, kernels vs plain, relative: f32 end to end, so only the
+# attention differs, its products 3xTF32 and its sums in another order
+# (~1e-5 of max |ref| a kernel call, PERF.md); a wrong kernel moves these by
+# whole percents
+F32_STEP_TOL_LOSS = 1e-4
+F32_STEP_TOL_NORM = 1e-3
 # the long-clip paths, kernels vs plain on the same backbone features: only
 # the 4 temporal blocks' attention differs, by bf16 rounding; each limit is
 # 5-15x the reading on an H100 (PERF.md), and a wrong kernel moves these
@@ -183,59 +214,117 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, kernels, iters: int = 20, parts=None):
-    """Mean device ms per call of the named ``kernels`` (substrings of the
-    kernel names), each launched once per call, under ``torch.profiler``
-    (CUDA activity only), over ``iters`` calls; ``parts``, a dict, receives
-    each kernel's share. Beside ``_time_ms`` it tells the device's share
-    from the host's: where the host enqueues slower than the card runs, the
-    events time the host. Each kernel's time is the mean over the records
-    the session holds: the profiler can drop some, so a session with fewer
-    than half of them is taken again, twice at most, then reported as None."""
+def _queued_ms(torch, fn, iters: int = 20):
+    """Mean ms per call by CUDA events with the host out of the way: the
+    card spins (``torch.cuda._sleep``) while the host queues all ``iters``
+    calls, so the events take them back to back: the device time of their
+    kernels plus the gaps between launches. None if the spin ended before
+    the host had queued them (``fn`` waits on the card), even at 16 times
+    the first spin."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4 * host_s * 2e9) + 1_000_000  # 4x the host's time at <= 2 GHz
     for _ in range(3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = prof.key_averages()
-        found = {k: [ev for ev in evs if k in ev.key] for k in kernels}
-        counts = {k: sum(ev.count for ev in e) for k, e in found.items()}
-        if all(2 * c >= iters for c in counts.values()):
-            ms = {k: sum(ev.self_device_time_total for ev in e) / counts[k] / 1e3
-                  for k, e in found.items()}
-            if parts is not None:
-                parts.update(ms)
-            return sum(ms.values())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()  # the card still spun when the last call was queued
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
     return None
 
 
-def _session_device_ms(torch, fn, iters: int = 20) -> float:
-    """Mean device ms per call of every kernel ``fn`` launches, under
-    ``torch.profiler``: for a library call, whose kernels are not ours to
-    name."""
-    fn()
-    torch.cuda.synchronize()
+def _profile(torch, fn, iters: int) -> dict:
+    """One ``torch.profiler`` session (CUDA activity only) of ``iters``
+    calls: each kernel's name -> (its records, its mean device ms a record)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()) / iters / 1e3
+    return {ev.key: (ev.count, ev.self_device_time_total / ev.count / 1e3)
+            for ev in prof.key_averages() if ev.self_device_time_total > 0}
+
+
+def _device_reading(torch, fn, iters: int, accept):
+    """``fn``'s kernels under ``torch.profiler``, held against
+    ``_queued_ms`` of the same calls. The profiler can drop records, and a
+    session may read every kernel at about half its time (PERF.md §6). So a
+    kernel's time a call is its mean over the records held times its
+    launches a call (its records per call, rounded, at least 1), and the
+    session's sum must agree with the queued events: at most their time
+    (plus 5 % and 1 µs of event resolution), at least ``DEVICE_FLOOR`` of
+    it less ``LAUNCH_GAP_MS`` a launch. Up to three sessions; returns the
+    first that agrees and that ``accept`` takes, as (``_profile``'s dict,
+    launches a call by kernel), else None."""
+    queued = _queued_ms(torch, fn, iters)
+    if queued is None:
+        return None
+    for _ in range(3):
+        recs = _profile(torch, fn, iters)
+        per_call = {k: max(1, round(n / iters)) for k, (n, _) in recs.items()}
+        total = sum(ms * per_call[k] for k, (_, ms) in recs.items())
+        floor = DEVICE_FLOOR * (queued - LAUNCH_GAP_MS * sum(per_call.values()))
+        if recs and accept(recs) and floor <= total <= 1.05 * queued + 1e-3:
+            return recs, per_call
+    return None
+
+
+def _device_ms(torch, fn, kernels, iters: int = 20, parts=None):
+    """Mean device ms per call of the named ``kernels`` (substrings of the
+    kernel names) over ``iters`` calls, checked as ``_device_reading`` says,
+    each named kernel with at least half its records (one a call); None
+    otherwise. ``parts``, a dict, receives each kernel's share. Beside
+    ``_time_ms`` it tells the device's share from the host's: where the host
+    enqueues slower than the card runs, the events time the host."""
+    def held(recs):
+        return all(2 * sum(n for key, (n, _) in recs.items() if k in key) >= iters
+                   for k in kernels)
+
+    got = _device_reading(torch, fn, iters, held)
+    if got is None:
+        return None
+    recs, per_call = got
+    ms = {k: sum(m * per_call[key] for key, (_, m) in recs.items() if k in key)
+          for k in kernels}
+    if parts is not None:
+        parts.update(ms)
+    return sum(ms.values())
+
+
+def _session_device_ms(torch, fn, iters: int = 20):
+    """Mean device ms per call of every kernel ``fn`` launches, checked as
+    ``_device_reading`` says (None otherwise): for a library call, whose
+    kernels are not ours to name."""
+    got = _device_reading(torch, fn, iters, bool)
+    if got is None:
+        return None
+    recs, per_call = got
+    return sum(ms * per_call[k] for k, (_, ms) in recs.items())
 
 
 def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
-    """The kernels one flash call launches, by name: f32 runs the CUDA-core
-    kernels, bf16 the tensor-core ones, unsplit (S = 1) or split with the
-    combine (forward) or reduce (backward) kernel."""
+    """The kernels one flash call launches, by name: f32 runs the 3xTF32
+    kernels, bf16 the bf16 ones, unsplit (S = 1) or split with the combine
+    (forward) or reduce (backward) kernel."""
     if direction == "fwd":
         if dtype == "f32":
-            return ["flash_fwd_kernel"]
+            return ["flash_fwd_tf32_kernel"]
         if splits == 1:
             return ["flash_fwd_bf16_kernel"]
         return ["flash_fwd_split_bf16_kernel", "flash_fwd_combine_kernel"]
     if dtype == "f32":
-        return ["flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"]
+        return ["flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"]
     if splits == 1:
         return ["flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"]
     return ["flash_bwd_dq_split_bf16_kernel", "flash_bwd_dkv_split_bf16_kernel",
@@ -266,17 +355,17 @@ def _ptxas_stats(log: str) -> list:
     return stats
 
 
-# the bf16 flash kernels, unsplit and split (templates on the padded head
-# dim), and the split route's combine and reduce kernels
-TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_bf16_kernel"
+# the tensor-core flash kernels, bf16 unsplit and split and f32 (templates
+# on the padded head dim), and the split route's combine and reduce kernels
+TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)_kernel"
                        r"|flash_(fwd_combine|bwd_reduce)_kernel")
-TC_KERNELS_D64 = 8
+TC_KERNELS_D64 = 11
 
 
 def check_build(build_log: dict) -> list:
-    """The bf16 flash kernels at d = 64 (every main path) and the split
-    route's combine and reduce kernels spill nothing; returns their ptxas
-    records."""
+    """The tensor-core flash kernels at d = 64 (every main path: bf16 and
+    the f32 training step) and the split route's combine and reduce kernels
+    spill nothing; returns their ptxas records."""
     logs = [build_log.get(os.path.basename(src), "") for src in (K2_SOURCE, K4_SOURCE)]
     if not all(logs):
         print("  ptxas: flash libraries built by an earlier run, no stats", flush=True)
@@ -285,15 +374,15 @@ def check_build(build_log: dict) -> list:
     for src, log in zip(("flash_fwd.cu", "flash_bwd.cu"), logs):
         for st in _ptxas_stats(log):
             m = TC_KERNEL.search(st["function"])
-            if m and ("Li64E" in st["function"] or m.group(3)):
+            if m and ("Li64E" in st["function"] or m.group(4)):
                 tc.append(dict(st, source=src, kernel=m.group(0)))
     for st in tc:
         print(f"  ptxas[{st['source']}] {st['kernel']}: {st['registers']} registers, "
               f"{st['spill_stores']} bytes spill stores", flush=True)
     _require(len(tc) == TC_KERNELS_D64,
-             f"expected {TC_KERNELS_D64} bf16 flash kernels at d = 64 in the ptxas logs, got {tc}")
+             f"expected {TC_KERNELS_D64} flash kernels at d = 64 in the ptxas logs, got {tc}")
     _require(all(st["spill_stores"] == 0 for st in tc),
-             f"a bf16 flash kernel spills at d = 64: {tc}")
+             f"a tensor-core flash kernel spills at d = 64: {tc}")
     return tc
 
 
@@ -392,6 +481,7 @@ def check_k2(torch, A, gen):
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
              (2, 4, 100, 80, torch.bfloat16, True, "d = 80"),
              (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
+             (2, 3, 77, 30, torch.float32, False, "d = 30: zero-padded copy to 32"),
              (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
              (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
              (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape")]
@@ -414,8 +504,8 @@ def check_k2(torch, A, gen):
         tol = BF16_TOL_REL * ref_max if name == "bf16" else K2_TOL_F32
         parts = {}
         itemsize = q.element_size()
-        nbytes = 4 * B * H * N * d * itemsize + 4 * B * H * N
-        bound, by = _bound_ms(nbytes, 4.0 * B * H * N * N * d, name)
+        nbytes, ops = 4 * B * H * N * d * itemsize + 4 * B * H * N, 4.0 * B * H * N * N * d
+        bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
                "dtype": name, "route": ROUTES[name], "splits": splits,
                "strided_qkv": strided, "note": note,
@@ -428,12 +518,17 @@ def check_k2(torch, A, gen):
                    torch, lambda: A.flash_attention_fwd(q, k, v),
                    _flash_kernels("fwd", name, splits), parts=parts),
                "kernel_device_ms_by_kernel": parts,
+               "kernel_queued_ms": _queued_ms(torch, lambda: A.flash_attention_fwd(q, k, v)),
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_plain(q, k, v)),
                "library_ms": _time_ms(
                    torch, lambda: F.scaled_dot_product_attention(q, k, v)),
                "bound_ms": bound, "bound_by": by}
-        if N > A._SHORT_MAX or note.startswith(F32_ROW):
+        if name == "f32":
+            rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
+        if N > A._SHORT_MAX or name == "f32":
             rec["library_device_ms"] = _session_device_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v))
+            rec["library_queued_ms"] = _queued_ms(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v))
         _emit(rec)
         _require(err <= tol, f"flash {rec['shape']} {name}: O err {err} > {tol}")
@@ -475,6 +570,7 @@ def check_k4(torch, A, gen):
              (4, 6, 197, 32, torch.float32, False, "d = 32"),
              (2, 4, 130, 256, torch.float32, False, "d = 256"),
              (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
+             (2, 3, 77, 30, torch.float32, False, "d = 30: zero-padded copy to 32"),
              (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
              (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
              (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape")]
@@ -517,8 +613,8 @@ def check_k4(torch, A, gen):
 
         parts = {}
         itemsize = q.element_size()
-        nbytes = 8 * B * H * N * d * itemsize + 4 * B * H * N
-        bound, by = _bound_ms(nbytes, 10.0 * B * H * N * N * d, name)
+        nbytes, ops = 8 * B * H * N * d * itemsize + 4 * B * H * N, 10.0 * B * H * N * N * d
+        bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_bwd", "shape": [B, H, N, d],
                "dtype": name, "route": ROUTES[name], "splits": splits,
                "strided": strided, "note": note,
@@ -530,13 +626,18 @@ def check_k4(torch, A, gen):
                "kernel_device_ms": _device_ms(torch, bwd, _flash_kernels("bwd", name, splits),
                                               parts=parts),
                "kernel_device_ms_by_kernel": parts,
+               "kernel_queued_ms": _queued_ms(torch, bwd),
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_bwd_plain(
                    q, k, v, out, lse, dout)),
                "library_ms": library_ms,
                "bound_ms": bound, "bound_by": by}
-        if N > A._SHORT_MAX or note.startswith(F32_ROW):
-            rec["library_device_ms"] = (_session_device_ms(torch, sdpa_fwd_bwd)
-                                        - _session_device_ms(torch, sdpa_fwd))
+        if name == "f32":
+            rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
+        if N > A._SHORT_MAX or name == "f32":
+            fb, fo = _session_device_ms(torch, sdpa_fwd_bwd), _session_device_ms(torch, sdpa_fwd)
+            rec["library_device_ms"] = None if fb is None or fo is None else fb - fo
+            qb, qo = _queued_ms(torch, sdpa_fwd_bwd), _queued_ms(torch, sdpa_fwd)
+            rec["library_queued_ms"] = None if qb is None or qo is None else qb - qo
         _emit(rec)
         _require(ok, f"flash bwd {rec['shape']} {name}: errors {errs}")
         _require(deterministic, f"flash bwd {rec['shape']} {name}: runs differ")
@@ -1025,6 +1126,7 @@ def train(torch, A, P, smi: str):
         trainer.train_step = recording_step
         setup_s = time.perf_counter() - t0
 
+        gc.collect()    # no garbage of an earlier phase in this one's peak
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts(A, P)
@@ -1114,10 +1216,114 @@ def train(torch, A, P, smi: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def train_f32(torch, A, P, smi: str):
+    """The training CLI's default dtype: ViT-B/16 from ``train/cli.py::
+    build_model`` without ``--bf16`` (f32 params and activations), one
+    ``Trainer`` step at 8 clips x 16 frames of 224 px (Adam, lr 1e-4,
+    augment on) on synthetic faces. Requires 12 f32 forward and 12 f32
+    backward flash launches a step (the 3xTF32 kernels), times the step
+    (CUDA events, 1 warm-up and 5 timed), takes one step's device time by
+    kernel, and holds one step's loss and grad norm through the kernels
+    against the plain versions. Returns (launches by kernel id, record)."""
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    n_clips, T, size, B = 8, 16, 224, 8
+    root = tempfile.mkdtemp(prefix="dfdt_f32_")
+    try:
+        data = os.path.join(root, "faces")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        _write_faces(data, n_clips, T, size)
+        ds = VideoFacesDataset(data, num_frames=T)
+        model, _, model_config = cli.build_model("pretrained", T,
+                                                 backbone="vit_base_patch16_224", bf16=False)
+        _require(model.compute_dtype == torch.float32
+                 and all(p.dtype == torch.float32 for p in model.parameters()),
+                 "the CLI's default model is not f32")
+        cfg = TrainerConfig(out_dir=os.path.join(root, "run"), epochs=1, batch_size=B,
+                            num_frames=T, lr=1e-4, optimizer="adam", schedule="step",
+                            loss="ce", balance="weights", grad_clip=None, augment=True,
+                            model_config=model_config)
+        trainer = Trainer(model, ds, ds, cfg, device="cuda")
+        state = trainer.init_state()
+        batch = next(iter(trainer._device_batches(ds, True)))
+        batch.pop("paths", None)
+        batch = trainer._prep_train(batch, torch.Generator(device="cuda").manual_seed(1))
+        _require(batch["frames"].dtype == torch.float32, f"frames {batch['frames'].dtype}")
+        step = trainer.train_step
+        setup_s = time.perf_counter() - t0
+
+        # one step (the warm-up): the launches of the path and peak memory
+        gc.collect()    # no garbage of an earlier phase in this one's peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(A, P)
+        state, metrics = step(state, batch, None)
+        torch.cuda.synchronize()
+        launches = _counts(A, P)
+        f32 = {"fwd": A.flash_attention_fwd.launches_f32,
+               "bwd": A.flash_attention_bwd.launches_f32}
+        peak_bytes = torch.cuda.max_memory_allocated()
+        depth = len(model.backbone.blocks)
+        want = {"K1": 0, "K1-YUV": 0, "K2": depth, "K3": 0, "K4": depth, "K5": 0, "K6": 0}
+        _require(launches == want and f32 == {"fwd": depth, "bwd": depth},
+                 f"f32 step launches {launches} ({f32} f32) != {want}, all f32")
+        _require(math.isfinite(float(metrics["loss"])), f"f32 step metrics {metrics}")
+
+        step_ms = _time_ms(torch, lambda: step(state, batch, None), iters=5, warmup=0)
+        breakdown = _kernel_breakdown(torch, lambda: step(state, batch, None), top=12)
+
+        # one step's loss and grad norm, kernels vs plain versions, on the
+        # same batch with the same dropout draws (no optimizer update)
+        params = list(model.parameters())
+
+        def loss_and_norm():
+            logits, _ = model(batch["frames"], train=True,
+                              generator=torch.Generator(device="cuda").manual_seed(2))
+            loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
+            grads = torch.autograd.grad(loss, params)
+            return float(loss.detach()), float(global_norm(grads))
+
+        loss_k, norm_k = loss_and_norm()
+        _reset_counts(A, P)
+        with _plain_attention(A):
+            loss_p, norm_p = loss_and_norm()
+        _require(not any(_counts(A, P).values()), f"the plain step launched {_counts(A, P)}")
+        d_loss = abs(loss_k - loss_p) / abs(loss_p)
+        d_norm = abs(norm_k - norm_p) / norm_p
+        rec = {"phase": "f32_training", "card": smi, "model": "vit_base_patch16_224",
+               "built_by": "train/cli.py::build_model, bf16=False", "params": "f32",
+               "activations": "f32", "batch_clips": B, "frames_per_clip": T,
+               "setup_s": setup_s, "launches": launches, "launches_f32": f32,
+               "step_ms": step_ms, "frames_per_s": B * T / step_ms * 1e3,
+               "max_memory_allocated_bytes": peak_bytes,
+               "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+               "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
+               "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
+               "step_tol": {"loss": F32_STEP_TOL_LOSS, "grad_norm": F32_STEP_TOL_NORM}}
+        _emit(rec)
+        _emit({"phase": "f32_training_device_time", "card": smi, **breakdown})
+        _require(d_loss <= F32_STEP_TOL_LOSS and d_norm <= F32_STEP_TOL_NORM,
+                 f"f32 step kernels vs plain: loss {loss_k} vs {loss_p}, "
+                 f"grad norm {norm_k} vs {norm_p}")
+        print(f"f32 training step {step_ms:.2f} ms ({B * T / step_ms * 1e3:.1f} frames/s), "
+              f"peak {peak_bytes / 2**30:.2f} GiB allocated, {breakdown['device_ms']:.2f} ms "
+              f"of device time on {smi}", flush=True)
+        return launches, rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
-        f.launches = f.launches_long = f.launches_split = 0
+        f.launches = f.launches_long = f.launches_split = f.launches_f32 = 0
 
 
 def _counts(A, P) -> dict:
@@ -1164,6 +1370,7 @@ def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda")
     trainer.train_step = recording_step
     setup_s = time.perf_counter() - t0
 
+    gc.collect()    # no garbage of an earlier phase in this one's peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(A, P)
@@ -1465,6 +1672,9 @@ def main() -> int:
              f"a kernel was not launched on the training path: {trained}")
     gc.collect()
     torch.cuda.empty_cache()
+    trained_f32, _ = timed("f32_training", train_f32, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -1477,15 +1687,24 @@ def main() -> int:
                          "K2": served["flash_attention_fwd"]},
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
+             "f32_training": trained_f32,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})
 
-    def entry(kid, name, source, replaces, case, note=None):
+    def entry(kid, name, source, replaces, case, note=None, f32_case=None):
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
         e = _summary_entry(name, source, replaces, case, sum(by_path.values()), case["tol"])
         e["id"], e["launches_by_path"] = kid, by_path
         e["tol_kind"] = case.get("tol_kind", "absolute")
+        if f32_case is not None:
+            # the f32 route's launches (its one path) beside the bf16 route's
+            f32 = by_path["f32_training"]
+            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
+            e["f32"] = {k: f32_case.get(k) for k in (
+                "shape", "max_abs_err", "tol", "kernel_ms", "kernel_device_ms", "plain_ms",
+                "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                "bound_ms_cuda_core")}
         if note:
             e["note"] = note
         _require(e["launches"] > 0, f"{kid} was launched on no path: {by_path}")
@@ -1493,6 +1712,10 @@ def main() -> int:
 
     k3_case = next(c for c in k2_cases if c["note"].startswith("K3 main"))
     k56_case = next(c for c in k4_cases if c["note"].startswith("K5/K6 main"))
+
+    def f32_row(cases, n):
+        return next(c for c in cases if c["note"].startswith(F32_ROW) and c["shape"][2] == n)
+
     both = ("ms is one backward call, both passes; the JAX package trains dense "
             "below N = 4096")
     kernels = [
@@ -1500,14 +1723,16 @@ def main() -> int:
         entry("K1-YUV", "fused_normalize_yuv", K1_SOURCE, K1_REPLACES, k1y_cases[0],
               "K1's packed-YUV420 entry: the JAX package has no kernel there (XLA fuses "
               "ops/yuv.py's colour matrix into K1's normalisation)"),
-        entry("K2", "flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0]),
+        entry("K2", "flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0],
+              f32_case=f32_row(k2_cases, 197)),
         entry("K3", "flash_attention_fwd", K2_SOURCE, K3_REPLACES, k3_case,
-              "N > 512: the streaming regime"),
-        entry("K4", "flash_attention_bwd", K4_SOURCE, K4_REPLACES, k4_cases[0]),
+              "N > 512: the streaming regime", f32_case=f32_row(k2_cases, 641)),
+        entry("K4", "flash_attention_bwd", K4_SOURCE, K4_REPLACES, k4_cases[0],
+              f32_case=f32_row(k4_cases, 197)),
         entry("K5", "flash_attention_bwd", K4_SOURCE, K5_REPLACES, k56_case,
-              f"dQ pass, N > 512; {both}"),
+              f"dQ pass, N > 512; {both}", f32_case=f32_row(k4_cases, 641)),
         entry("K6", "flash_attention_bwd", K4_SOURCE, K6_REPLACES, k56_case,
-              f"dK/dV pass, N > 512; {both}"),
+              f"dK/dV pass, N > 512; {both}", f32_case=f32_row(k4_cases, 641)),
     ]
     print(_smi(), flush=True)
     _emit({"kernels": kernels})

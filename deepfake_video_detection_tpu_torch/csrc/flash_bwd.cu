@@ -33,7 +33,7 @@
 // 989 TFLOP/s. Routed by dtype in dfdt_flash_bwd, and bf16 by the split
 // count S:
 //
-// bf16 (every path of the port on the card) runs flash_bwd_dq_bf16_kernel
+// bf16 (every path under --bf16) runs flash_bwd_dq_bf16_kernel
 // and flash_bwd_dkv_bf16_kernel on the tensor cores (S = 1: N <= 512, the
 // ViT blocks): blocks of 4 warps,
 // each warp owning 16 rows of the block's 64 (query rows in the dQ pass,
@@ -85,25 +85,34 @@
 // split dK/dV pass 168 (3), with the same shared memory as the unsplit
 // passes; the reduce 46 registers, none.
 //
-// f32 (the CLI's default without --bf16, and the f32 tests, which need
-// atol = rtol = 1e-3) runs flash_bwd_dq_kernel and flash_bwd_dkv_kernel:
-// the TPU kernel's f32 arithmetic on the CUDA cores (67 TFLOP/s f32; TF32
-// tensor cores would not hold it), bound in practice by their FMAs and
-// shared-memory reads. Layout of the work, in both: 256 threads as a
-// 16 x 16 grid; thread (ty, tx) owns tile rows ty + 16i and tile columns
-// tx + 16j of every score tile, and rows ty + 16i with head-dim columns
-// tx + 16jj of its accumulators. Tiles are staged as f32 in shared memory
-// with rows padded by one float (column walks hit distinct banks) and P/dS
-// rows padded to BM + 16 floats (the two half-warps of a warp land 16 banks
-// apart). The head dim is a template on its padded width (32/64/128/256,
-// zero-filled columns); the tile height BM is 64, or 32 at d = 256 so the
-// four staged tiles fit (144 KB of dynamic shared memory, raised with
-// cudaFuncSetAttribute).
+// f32 (the training CLI's default without --bf16; the f32 gate is atol =
+// rtol = 1e-3) runs flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel
+// at every N (f32 has no split route): K4's regime and, at N > 512, K5's
+// and K6's. The same two passes as the bf16 ones (blocks of 4 warps of 16
+// rows, 64-row blocks, row tile fastest, D fused into the dQ pass, a 2-stage
+// cp.async ring of 32-row streamed tiles, 16 above d = 128; P and dS formed
+// on the accumulator fragments and fed to the next product with no shared
+// memory; no atomics, so reruns are bit-identical), with every product on
+// the tensor cores as 3xTF32 (mma_tf32.cuh): each f32 operand split into
+// two tf32 terms, three mma.m16n8k8 tf32 products for one f32 product, f32
+// sums. What bounds it on an H100: at (128, 12, 197, 64) it moves ~621 MB
+// (0.185 ms at 3.35 TB/s) and does 38.2 GFLOP, x 3 at 495 TFLOP/s tf32 =
+// 0.231 ms: operations. In practice instruction issue bounds it, as the
+// forward (mma_tf32.cuh: the splits, three mma.sync a product; the split by
+// truncation and integer rounding in place of cvt.rna.tf32.f32 took 35 %
+// off). f32 tiles
+// sit in shared memory in rows padded to DP + 4 floats (DP = d rounded up
+// to 32, 64, 128 or 256); operands stored [n][k] (K for Q K^T, Q and dO in
+// the dK/dV pass's S^T and dP^T) load by ldmatrix on f32 rows, operands
+// stored [k][n] (K for dS K, dO for P^T dO, Q for dS^T Q) by 32-bit loads
+// in the relabelled k order of the accumulator fragments. Dynamic shared
+// memory (128 + 4 BN) (DP + 4) * 4 bytes plus the f32 rows: 69,888 (dQ)
+// and 70,144 (dK/dV) at d = 64. d must be a multiple of 4 with 16-byte
+// aligned rows (the wrapper's zero-padded copy otherwise).
 //
-// f32 has no split route: at N > 512 its grid is as short of blocks as the
-// bf16 one was. Both take element strides for the B, H and N axes (the last
-// axis contiguous), so dO goes in as the strided view autograd hands over
-// and q, k, v as views of a fused QKV projection.
+// Both dtypes take element strides for the B, H and N axes (the last axis
+// contiguous), so dO goes in as the strided view autograd hands over and
+// q, k, v as views of a fused QKV projection.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,334 +120,13 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 struct Strides {
   long long b, h, n;
 };
-
-// the CUDA-core kernels are templates on the element type; only f32 is
-// instantiated (bf16 runs on the tensor-core kernels)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// tile height for a padded head dim: 64 rows, or 32 at d = 256
-template <int DP> struct Tile {
-  static constexpr int BM = DP > 128 ? 32 : 64;
-};
-
-template <int DP>
-constexpr size_t dq_smem_bytes() {
-  constexpr int BM = Tile<DP>::BM;
-  return sizeof(float) * (4 * BM * (DP + 1) + BM * (BM + 16) + 2 * BM);
-}
-
-template <int DP>
-constexpr size_t dkv_smem_bytes() {
-  constexpr int BM = Tile<DP>::BM;
-  return sizeof(float) * (4 * BM * (DP + 1) + 2 * BM * (BM + 16) + 2 * BM);
-}
-
-// Stage rows [row0, row0 + BM) of one (b, h) slice into shared memory as f32
-// (row stride DP + 1), zero-filling rows >= n and columns >= d.
-template <typename T, int DP, int BM>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          long long row_stride, int row0, int n, int d) {
-  for (int idx = threadIdx.x; idx < BM * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx % DP;
-    const int gr = row0 + r;
-    float val = 0.f;
-    if (gr < n && c < d) val = to_f32(src[gr * row_stride + c]);
-    dst[r * (DP + 1) + c] = val;
-  }
-}
-
-// Stage BM entries of a contiguous per-row f32 vector, zero past n.
-template <int BM>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                          int row0, int n) {
-  for (int r = threadIdx.x; r < BM; r += kThreads) dst[r] = row0 + r < n ? src[row0 + r] : 0.f;
-}
-
-// dQ pass. One block per (BM-row query tile, b*h): D for the tile's rows,
-// then a walk over the K/V tiles accumulating dQ = sum dS K * scale.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const T* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ dvec, T* __restrict__ dq,
-                    Strides sq, Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
-                    int H, int N, int d, float scale) {
-  constexpr int BM = Tile<DP>::BM;
-  constexpr int LD = DP + 1;
-  constexpr int PS = BM + 16;
-  constexpr int R = BM / 16;     // tile rows (and score columns) per thread
-  constexpr int CPT = DP / 16;   // accumulator columns per thread
-  constexpr int TPR = kThreads / BM;  // threads per row in the D reduction
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + BM * LD;
-  float* sK = sdO + BM * LD;
-  float* sV = sK + BM * LD;
-  float* sS = sV + BM * LD;
-  float* sL = sS + BM * PS;
-  float* sD = sL + BM;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int row0 = blockIdx.y * BM;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  load_tile<T, DP, BM>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
-  load_tile<T, DP, BM>(sdO, dout + b * sdo.b + h * sdo.h, sdo.n, row0, N, d);
-  load_tile<T, DP, BM>(sK, o + b * so.b + h * so.h, so.n, row0, N, d);  // O, for D
-  load_rows<BM>(sL, lse + (long long)bh * N, row0, N);
-  __syncthreads();
-
-  // D = rowsum(dO * O): TPR consecutive lanes per row, reduced by shuffles
-  {
-    const int r = threadIdx.x / TPR;
-    const int lane = threadIdx.x % TPR;
-    float part = 0.f;
-    for (int c = lane; c < DP; c += TPR) part = fmaf(sdO[r * LD + c], sK[r * LD + c], part);
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) {
-      sD[r] = part;
-      if (row0 + r < N) dvec[(long long)bh * N + row0 + r] = part;
-    }
-  }
-  __syncthreads();
-
-  float acc[R][CPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = 0.f;
-
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const int n_tiles = (N + BM - 1) / BM;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int key0 = t * BM;
-    load_tile<T, DP, BM>(sK, kb, sk.n, key0, N, d);
-    load_tile<T, DP, BM>(sV, vb, sv.n, key0, N, d);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this thread's R x R (rows x keys)
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      float qv[R], dov[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * LD + c];
-        dov[i] = sdO[(ty + 16 * i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = sK[(tx + 16 * j) * LD + c];
-        vv[j] = sV[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-
-    // dS = P * (dP - D), P = exp(S * scale - L), P = 0 on keys >= N
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = tx + 16 * j;
-        const float p = key0 + col < N ? expf(s[i][j] * scale - sL[r]) : 0.f;
-        sS[r * PS + col] = p * (dp[i][j] - sD[r]);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K over the valid keys of the tile
-    const int keys = min(BM, N - key0);
-    for (int kk = 0; kk < keys; ++kk) {
-      float dsv[R], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = sS[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) kv[jj] = sK[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = fmaf(dsv[i], kv[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-
-  T* dqb = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int gr = row0 + ty + 16 * i;
-    if (gr >= N) continue;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < d) dqb[gr * sdq.n + c] = from_f32<T>(acc[i][jj] * scale);
-    }
-  }
-}
-
-// dK/dV pass. One block per (BM-key tile, b*h): a walk over the Q/dO tiles
-// accumulating dV = sum P^T dO and dK = sum dS^T Q * scale.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv,
-                     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                     int H, int N, int d, float scale) {
-  constexpr int BM = Tile<DP>::BM;
-  constexpr int LD = DP + 1;
-  constexpr int PS = BM + 16;
-  constexpr int R = BM / 16;
-  constexpr int CPT = DP / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BM * LD;
-  float* sQ = sV + BM * LD;
-  float* sdO = sQ + BM * LD;
-  float* sP = sdO + BM * LD;
-  float* sdS = sP + BM * PS;
-  float* sL = sdS + BM * PS;
-  float* sD = sL + BM;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int key0 = blockIdx.y * BM;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  load_tile<T, DP, BM>(sK, k + b * sk.b + h * sk.h, sk.n, key0, N, d);
-  load_tile<T, DP, BM>(sV, v + b * sv.b + h * sv.h, sv.n, key0, N, d);
-
-  float acc_dk[R][CPT], acc_dv[R][CPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc_dk[i][jj] = acc_dv[i][jj] = 0.f;
-
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lb = lse + (long long)bh * N;
-  const float* db = dvec + (long long)bh * N;
-  const int n_tiles = (N + BM - 1) / BM;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * BM;
-    load_tile<T, DP, BM>(sQ, qb, sq.n, q0, N, d);
-    load_tile<T, DP, BM>(sdO, dob, sdo.n, q0, N, d);
-    load_rows<BM>(sL, lb, q0, N);
-    load_rows<BM>(sD, db, q0, N);
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this thread's R x R (keys x rows)
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      float kv[R], vv[R], qv[R], dov[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kv[i] = sK[(ty + 16 * i) * LD + c];
-        vv[i] = sV[(ty + 16 * i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * LD + c];
-        dov[j] = sdO[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], dov[j], dp[i][j]);
-        }
-    }
-
-    // P^T and dS^T; P = 0 on query rows >= N (their L is not a logsumexp)
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = tx + 16 * j;
-        const float p = q0 + col < N ? expf(s[i][j] * scale - sL[col]) : 0.f;
-        sP[r * PS + col] = p;
-        sdS[r * PS + col] = p * (dp[i][j] - sD[col]);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q over the valid rows of the tile
-    const int rows = min(BM, N - q0);
-    for (int qq = 0; qq < rows; ++qq) {
-      float pv[R], dsv[R], dov[CPT], qv[CPT];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pv[i] = sP[(ty + 16 * i) * PS + qq];
-        dsv[i] = sdS[(ty + 16 * i) * PS + qq];
-      }
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) {
-        dov[jj] = sdO[qq * LD + tx + 16 * jj];
-        qv[jj] = sQ[qq * LD + tx + 16 * jj];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) {
-          acc_dv[i][jj] = fmaf(pv[i], dov[jj], acc_dv[i][jj]);
-          acc_dk[i][jj] = fmaf(dsv[i], qv[jj], acc_dk[i][jj]);
-        }
-    }
-    __syncthreads();
-  }
-
-  T* dkb = dk + b * sdk.b + h * sdk.h;
-  T* dvb = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int gr = key0 + ty + 16 * i;
-    if (gr >= N) continue;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < d) {
-        dkb[gr * sdk.n + c] = from_f32<T>(acc_dk[i][jj] * scale);
-        dvb[gr * sdv.n + c] = from_f32<T>(acc_dv[i][jj]);
-      }
-    }
-  }
-}
 
 // ---- bf16: the tensor-core kernels ----
 
@@ -696,8 +384,8 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a) {
   if (!active) return;
   const float one[2] = {1.f, 1.f};
   if constexpr (SPLIT)
-    dfdt::store_rows_f32<DP>(a.part + ((long long)bh * a.splits + w.s) * N * d, acc, one, wrow0,
-                             N, d, lane);
+    dfdt::store_rows_f32<DP>(a.part + ((long long)bh * a.splits + w.s) * N * d, d, acc, one,
+                             wrow0, N, d, lane);
   else
     store_rows<DP>(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.n, acc, a.scale, wrow0, N, d, lane);
 }
@@ -822,8 +510,8 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a) {
   if constexpr (SPLIT) {
     const float one[2] = {1.f, 1.f};
     float* dst = a.part + a.plane + ((long long)bh * a.splits + w.s) * N * d;
-    dfdt::store_rows_f32<DP>(dst, acc_dk, one, wkey0, N, d, lane);
-    dfdt::store_rows_f32<DP>(dst + a.plane, acc_dv, one, wkey0, N, d, lane);
+    dfdt::store_rows_f32<DP>(dst, d, acc_dk, one, wkey0, N, d, lane);
+    dfdt::store_rows_f32<DP>(dst + a.plane, d, acc_dv, one, wkey0, N, d, lane);
   } else {
     store_rows<DP>(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.n, acc_dk, a.scale, wkey0, N, d,
                    lane);
@@ -977,53 +665,366 @@ inline bool tc_aligned(const void* p, Strides s, int d) {
          s.h % 8 == 0 && s.n % 8 == 0;
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* dvec, void* dq, void* dk, void* dv,
-                   const Strides* st, int B, int H, int N, int d, float scale,
-                   cudaStream_t stream) {
-  constexpr int BM = Tile<DP>::BM;
-  constexpr size_t smem_dq = dq_smem_bytes<DP>();
-  constexpr size_t smem_dkv = dkv_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_dq);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((N + BM - 1) / BM));
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem_dq, stream>>>(
-      tq, tk, tv, static_cast<const T*>(o), tdo, lse, dvec, static_cast<T*>(dq),
-      st[0], st[1], st[2], st[3], st[4], st[5], H, N, d, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem_dkv, stream>>>(
-      tq, tk, tv, tdo, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv),
-      st[0], st[1], st[2], st[4], st[6], st[7], H, N, d, scale);
-  return cudaGetLastError();
+// ---- f32: the 3xTF32 tensor-core kernels ----
+
+template <int DP> struct TfBwd {
+  static constexpr int THREADS = 128;             // 4 warps of 16 rows
+  static constexpr int ROWS = 64;                 // rows a block owns
+  static constexpr int BN = DP <= 128 ? 32 : 16;  // rows per streamed tile
+  static constexpr int LD = DP + 4;               // floats per shared-memory row
+  static constexpr size_t tiles = sizeof(float) * (2 * ROWS + 4 * BN) * LD;
+  static constexpr size_t dq_smem = tiles + sizeof(float) * ROWS;
+  static constexpr size_t dkv_smem = tiles + sizeof(float) * 4 * BN;
+};
+
+// S = A0 B0^T and T = A1 B1^T for one warp in f32 by 3xTF32: A0, A1 the
+// warp's 16 rows at a0/a1 (a_off_f32 layout), B0, B1 the streamed tile's
+// rows at b0/b1 (bn_off_f32 layout). The k-steps run outermost, so each A
+// fragment is split once a tile. LAST as in two_products.
+template <int DP, int BN, bool LAST>
+__device__ __forceinline__ void two_products_tf32(float (&s)[BN / 8][4], float (&t)[BN / 8][4],
+                                                  uint32_t a0, uint32_t a1, uint32_t b0,
+                                                  uint32_t b1, int live) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DP / 8; ++kd) {
+    uint32_t r0[4], r1[4];
+    dfdt::ldsm_x4(r0, a0 + kd * 32);
+    dfdt::ldsm_x4(r1, a1 + kd * 32);
+    dfdt::FragA x0, x1;
+    dfdt::split_a(x0, r0);
+    dfdt::split_a(x1, r1);
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      if (!LAST || np * 16 < live) {
+        uint32_t y0[4], y1[4];
+        dfdt::ldsm_x4(y0, b0 + 4 * (np * 16 * LD + kd * 8));
+        dfdt::ldsm_x4(y1, b1 + 4 * (np * 16 * LD + kd * 8));
+        dfdt::FragB f;
+        dfdt::split_b(f, __uint_as_float(y0[0]), __uint_as_float(y0[1]));
+        dfdt::mma_3xtf32(s[2 * np], x0, f);
+        dfdt::split_b(f, __uint_as_float(y0[2]), __uint_as_float(y0[3]));
+        dfdt::mma_3xtf32(s[2 * np + 1], x0, f);
+        dfdt::split_b(f, __uint_as_float(y1[0]), __uint_as_float(y1[1]));
+        dfdt::mma_3xtf32(t[2 * np], x1, f);
+        dfdt::split_b(f, __uint_as_float(y1[2]), __uint_as_float(y1[3]));
+        dfdt::mma_3xtf32(t[2 * np + 1], x1, f);
+      }
+    }
+  }
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* dvec, void* dq, void* dk,
-                       void* dv, const Strides* st, int B, int H, int N, int d, float scale,
-                       cudaStream_t s) {
-  if (d <= 32) return launch<T, 32>(q, k, v, o, dout, lse, dvec, dq, dk, dv, st, B, H, N, d, scale, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, st, B, H, N, d, scale, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, st, B, H, N, d, scale, s);
-  return launch<T, 256>(q, k, v, o, dout, lse, dvec, dq, dk, dv, st, B, H, N, d, scale, s);
+// acc += X Y for one warp in f32 by 3xTF32: X is 16 x BN, the C fragments
+// x (relabelled k order); Y the streamed tile stored [k][n] at y
+// (bk_off_f32 added), read by 32-bit loads. LAST as in product_into.
+template <int DP, int BN, bool LAST>
+__device__ __forceinline__ void product_into_tf32(float (&acc)[DP / 8][4],
+                                                  const float (&x)[BN / 8][4], const float* y,
+                                                  int live) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    if (!LAST || kk * 8 < live) {
+      dfdt::FragA a;
+      dfdt::c_to_a_tf32<BN / 8>(a, x, kk);
+#pragma unroll
+      for (int jd = 0; jd < DP / 8; ++jd) {
+        dfdt::FragB b;
+        dfdt::load_b_kn<LD>(b, y, kk, jd);
+        dfdt::mma_3xtf32(acc[jd], a, b);
+      }
+    }
+  }
+}
+
+// The dQ pass in f32 (both passes are compiled for 1 block per SM: with no
+// minimum, ptxas held the dK/dV pass to 168 registers at d = 64 and spilled).
+// One block per (64-row query tile, b*h), row tile
+// fastest: D for the tile's rows, then a walk over every K/V tile
+// accumulating dQ = sum dS K, written times the scale.
+template <int DP>
+__global__ void __launch_bounds__(TfBwd<DP>::THREADS, 1)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ dvec, float* __restrict__ dq, Strides sq,
+                         Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq, int H,
+                         int N, int d, float scale) {
+  using C = TfBwd<DP>;
+  constexpr int BN = C::BN, LD = C::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sdO = sQ + C::ROWS * LD;
+  float* sK = sdO + C::ROWS * LD;  // two stages
+  float* sV = sK + 2 * BN * LD;    // two stages
+  float* sD = sV + 2 * BN * LD;
+
+  const dfdt::Work w = dfdt::block_work<C::ROWS, BN>(N, 1);
+  const int bh = w.bh;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int row0 = w.row0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wrow0 = row0 + warp * 16;
+  const bool active = wrow0 < N;
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N,
+                                                    d);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sdO, dob, sdo.n, row0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
+  dfdt::cp_async_commit();
+
+  // D = rowsum(dO * O): two lanes per row, 16-byte reads
+  {
+    const int r = threadIdx.x / 2;
+    const int gr = row0 + r;
+    float part = 0.f;
+    if (gr < N) {
+      const float* orow = o + b * so.b + h * so.h + gr * so.n;
+      const float* drow = dob + gr * sdo.n;
+      for (int c = (threadIdx.x % 2) * 4; c < d; c += 8) {
+        const float4 x = *reinterpret_cast<const float4*>(orow + c);
+        const float4 y = *reinterpret_cast<const float4*>(drow + c);
+        part = fmaf(x.x, y.x, part);
+        part = fmaf(x.y, y.y, part);
+        part = fmaf(x.z, y.z, part);
+        part = fmaf(x.w, y.w, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (threadIdx.x % 2 == 0) {
+      sD[r] = part;
+      if (gr < N) dvec[(long long)bh * N + gr] = part;
+    }
+  }
+
+  const float sl2 = scale * kLog2e;
+  float lrow[2], drow[2] = {0.f, 0.f};  // lse (log2 units) and D of rows g, g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = wrow0 + lane / 4 + 8 * i;
+    lrow[i] = gr < N ? lse[(long long)bh * N + gr] * kLog2e : 0.f;
+  }
+  float acc[DP / 8][4] = {};
+  const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
+  const uint32_t wdO = dfdt::smem_u32(sdO + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
+  const int n_tiles = (N + BN - 1) / BN;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
+                                                   (t + 1) * BN, N, d);
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
+                                                   (t + 1) * BN, N, d);
+      dfdt::cp_async_commit();
+      dfdt::cp_async_wait<1>();
+    } else {
+      dfdt::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      if (t == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) drow[i] = sD[warp * 16 + lane / 4 + 8 * i];
+      }
+      const int key0 = t * BN;
+      const int kv = min(BN, N - key0);
+      float* tK = sK + st * BN * LD;
+      const uint32_t uK = dfdt::smem_u32(tK);
+      const uint32_t uV = dfdt::smem_u32(sV + st * BN * LD);
+      // LAST: the tile that holds key N - 1 (masked, with skips)
+      auto step = [&](auto last) {
+        constexpr bool LAST = decltype(last)::value;
+        // S = Q K^T, dP = dO V^T
+        float s[BN / 8][4], dp[BN / 8][4];
+        two_products_tf32<DP, BN, LAST>(s, dp, wQ, wdO, uK + dfdt::bn_off_f32<LD>(lane),
+                                        uV + dfdt::bn_off_f32<LD>(lane), kv);
+        // dS = P (dP - D), P = exp(S scale - L) and 0 on keys >= N
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool live = !LAST || key0 + j * 8 + 2 * (lane % 4) + (e & 1) < N;
+            const float p = live ? exp2f(fmaf(s[j][e], sl2, -lrow[e >> 1])) : 0.f;
+            s[j][e] = p * (dp[j][e] - drow[e >> 1]);
+          }
+        // dQ += dS K
+        product_into_tf32<DP, BN, LAST>(acc, s, tK + dfdt::bk_off_f32<LD>(lane), kv);
+      };
+      if (kv == BN)
+        step(std::false_type{});
+      else
+        step(std::true_type{});
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+  const float mul[2] = {scale, scale};
+  dfdt::store_rows_f32<DP>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, mul, wrow0, N, d,
+                                   lane);
+}
+
+// The dK/dV pass in f32. One block per (64-key tile, b*h), row tile
+// fastest: a walk over every Q/dO tile (with its lse and D rows)
+// accumulating dV = sum P^T dO and dK = sum dS^T Q (written times the
+// scale); P = 0 on query rows >= N.
+template <int DP>
+__global__ void __launch_bounds__(TfBwd<DP>::THREADS, 1)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dvec,
+                          float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+                          Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
+                          int N, int d, float scale) {
+  using C = TfBwd<DP>;
+  constexpr int BN = C::BN, LD = C::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + C::ROWS * LD;
+  float* sQ = sV + C::ROWS * LD;  // two stages
+  float* sdO = sQ + 2 * BN * LD;  // two stages
+  float* sL = sdO + 2 * BN * LD;  // two stages
+  float* sD = sL + 2 * BN;        // two stages
+
+  const dfdt::Work w = dfdt::block_work<C::ROWS, BN>(N, 1);
+  const int bh = w.bh;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int key0 = w.row0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wkey0 = key0 + warp * 16;
+  const bool active = wkey0 < N;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lb = lse + (long long)bh * N;
+  const float* db = dvec + (long long)bh * N;
+  // query tile `tile` (its Q, dO, lse and D rows) into stage `st`
+  auto load_queries = [&](int tile, int st) {
+    const int q0 = tile * BN;
+    dfdt::tile_async<DP, LD, BN, C::THREADS>(sQ + st * BN * LD, qb, sq.n, q0, N, d);
+    dfdt::tile_async<DP, LD, BN, C::THREADS>(sdO + st * BN * LD, dob, sdo.n, q0, N, d);
+    for (int i = threadIdx.x; i < 2 * BN; i += C::THREADS) {
+      const int r = i % BN;
+      const bool ok = q0 + r < N;
+      const float* src = i < BN ? lb : db;
+      dfdt::cp_async4((i < BN ? sL : sD) + st * BN + r, ok ? src + q0 + r : src, ok);
+    }
+  };
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sK, k + b * sk.b + h * sk.h, sk.n, key0, N,
+                                                    d);
+  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sV, v + b * sv.b + h * sv.h, sv.n, key0, N,
+                                                    d);
+  load_queries(0, 0);
+  dfdt::cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float acc_dk[DP / 8][4] = {}, acc_dv[DP / 8][4] = {};
+  const uint32_t wK = dfdt::smem_u32(sK + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
+  const uint32_t wV = dfdt::smem_u32(sV + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
+  const int n_tiles = (N + BN - 1) / BN;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      load_queries(t + 1, st ^ 1);
+      dfdt::cp_async_commit();
+      dfdt::cp_async_wait<1>();
+    } else {
+      dfdt::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const int q0 = t * BN;
+      const int qv = min(BN, N - q0);
+      const float* tQ = sQ + st * BN * LD;
+      const float* tdO = sdO + st * BN * LD;
+      const float* tL = sL + st * BN;
+      const float* tD = sD + st * BN;
+      // LAST: the tile that holds query row N - 1 (masked, with skips)
+      auto step = [&](auto last) {
+        constexpr bool LAST = decltype(last)::value;
+        // S^T = K Q^T, dP^T = V dO^T
+        float s[BN / 8][4], dp[BN / 8][4];
+        two_products_tf32<DP, BN, LAST>(s, dp, wK, wV,
+                                        dfdt::smem_u32(tQ) + dfdt::bn_off_f32<LD>(lane),
+                                        dfdt::smem_u32(tdO) + dfdt::bn_off_f32<LD>(lane), qv);
+        // P^T (0 on query rows >= N: their lse is not a logsumexp) and dS^T
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * 8 + 2 * (lane % 4) + (e & 1);
+            const float p = !LAST || q0 + col < N
+                                ? exp2f(fmaf(s[j][e], sl2, -tL[col] * kLog2e))
+                                : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - tD[col]);
+          }
+        // dV += P^T dO, dK += dS^T Q
+        product_into_tf32<DP, BN, LAST>(acc_dv, s, tdO + dfdt::bk_off_f32<LD>(lane), qv);
+        product_into_tf32<DP, BN, LAST>(acc_dk, dp, tQ + dfdt::bk_off_f32<LD>(lane), qv);
+      };
+      if (qv == BN)
+        step(std::false_type{});
+      else
+        step(std::true_type{});
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+  const float mul_dk[2] = {scale, scale}, one[2] = {1.f, 1.f};
+  dfdt::store_rows_f32<DP>(dk + b * sdk.b + h * sdk.h, sdk.n, acc_dk, mul_dk, wkey0, N,
+                                   d, lane);
+  dfdt::store_rows_f32<DP>(dv + b * sdv.b + h * sdv.h, sdv.n, acc_dv, one, wkey0, N, d,
+                                   lane);
+}
+
+// st: (b, h, n) strides of q, k, v, o, dout, dq, dk, dv
+template <int DP>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, const float* o,
+                        const float* dout, const float* lse, float* dvec, float* dq, float* dk,
+                        float* dv, const Strides* st, int B, int H, int N, int d, float scale,
+                        cudaStream_t stream) {
+  using C = TfBwd<DP>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::dq_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkv_smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((N + C::ROWS - 1) / C::ROWS);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dq_tf32_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dq_smem, stream>>>(
+      q, k, v, o, dout, lse, dvec, dq, st[0], st[1], st[2], st[3], st[4], st[5], H, N, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_tf32_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dkv_smem, stream>>>(
+      q, k, v, dout, lse, dvec, dk, dv, st[0], st[1], st[2], st[4], st[6], st[7], H, N, d, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 24 element strides, (b, h, n) for q, k, v, o, dout, dq, dk, dv in
 // that order. lse and dvec (scratch for D) are contiguous f32 (B, H, N).
-// bf16 goes to the tensor-core kernels, f32 to the CUDA-core ones. splits:
+// bf16 goes to the bf16 tensor-core kernels, f32 to the 3xTF32 ones; both
+// take 16-byte rows of q, k, v, o, dout (cudaErrorMisalignedAddress
+// otherwise). splits:
 // 1, or (bf16 only) the splits S of the split route, with `scratch` the
 // caller's f32 buffer of 3*S*B*H*N*d elements for the partials.
 extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -1039,13 +1040,26 @@ extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dvv = static_cast<float*>(dvec);
-  if (!is_bf16)
-    return (int)dispatch_d<float>(q, k, v, o, dout, l, dvv, dq, dk, dv, st, B, H, N, d, scale, s);
   const void* ins[5] = {q, k, v, o, dout};
   for (int i = 0; i < 5; ++i)
-    if (!tc_aligned(ins[i], st[i], d)) return (int)cudaErrorMisalignedAddress;
+    if (is_bf16 ? !tc_aligned(ins[i], st[i], d) : !dfdt::f32_aligned(ins[i], st[i], d))
+      return (int)cudaErrorMisalignedAddress;
   for (int i = 5; i < 8; ++i)
     if (st[i].b % 2 || st[i].h % 2 || st[i].n % 2) return (int)cudaErrorMisalignedAddress;
+  if (!is_bf16) {
+    using F = const float*;
+    F fq = static_cast<F>(q), fk = static_cast<F>(k), fv = static_cast<F>(v),
+      fo = static_cast<F>(o), fdo = static_cast<F>(dout);
+    float *fdq = static_cast<float*>(dq), *fdk = static_cast<float*>(dk),
+          *fdv = static_cast<float*>(dv);
+#define DFDT_BWD_TF32(DP) \
+  launch_tf32<DP>(fq, fk, fv, fo, fdo, l, dvv, fdq, fdk, fdv, st, B, H, N, d, scale, s)
+    if (d <= 32) return (int)DFDT_BWD_TF32(32);
+    if (d <= 64) return (int)DFDT_BWD_TF32(64);
+    if (d <= 128) return (int)DFDT_BWD_TF32(128);
+    return (int)DFDT_BWD_TF32(256);
+#undef DFDT_BWD_TF32
+  }
   using T = __nv_bfloat16;
   const BwdArgs a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                   static_cast<const T*>(o), static_cast<const T*>(dout), l, dvv,

@@ -10,7 +10,7 @@
 //
 // Routed by dtype in dfdt_flash_fwd, and bf16 by the split count S:
 //
-// bf16 (every path of the port on the card: bf16 activations) runs
+// bf16 (serving, and every path under --bf16: bf16 activations) runs
 // flash_fwd_bf16_kernel on the tensor cores (S = 1: N <= 512, the ViT
 // blocks). What bounds it on an H100: by
 // the roofline, bytes. At the ViT-B/16 training shape (128, 12, 197, 64)
@@ -69,29 +69,37 @@
 // registers (3 blocks per SM) and the same 46,080 bytes of shared memory;
 // the combine 54 registers, none.
 //
-// f32 (the CLI's default without --bf16, and the f32 tests, which need 1e-4
-// absolute) runs flash_fwd_kernel: the TPU kernel's f32 arithmetic on the
-// CUDA cores (67 TFLOP/s f32; TF32 tensor cores would not hold 1e-4),
-// bound in practice by its own FMAs and shared-memory reads. Its design:
-// one block of 256 threads per (64-row query tile, batch*head). The
-// grid is (B*H, ceil(N/64)). The Q tile is staged once in shared memory,
-// pre-scaled by 1/sqrt(d) as the TPU kernel does; the block then walks
-// 64-row K/V tiles through shared memory with the online-softmax recurrence
-// (running max m, sum l and accumulator, all in f32 registers). Threads form
-// a 16 x 16 grid: thread (ty, tx) owns query rows ty + 16i and keys tx + 16j
-// (i, j < 4) of each score tile, and the same rows with head-dim columns
-// tx + 16jj of the accumulator, so each shared-memory read feeds 4 FMAs. Row
-// max and sum are reduced over the 16 tx lanes of a half-warp by shuffles. P
-// goes through shared memory into the P.V product. Q and K rows are padded by
-// one float and P rows to 80 floats, so the column walks hit distinct banks.
-// The head dim is a template on its padded width (32/64/128/256, zero-filled
-// columns), so any d <= 256 is taken; the tiles live in dynamic shared memory
-// (69 KB at d = 64, 213 KB at d = 256) raised with cudaFuncSetAttribute.
+// f32 (the training CLI's and the evaluator's default without --bf16; the
+// f32 gates are 1e-4 absolute on O, 1e-3 on lse) runs flash_fwd_tf32_kernel
+// at every N (f32 has no split route): K2's regime and, at N > 512, K3's.
+// Every product runs on the tensor cores as 3xTF32 (mma_tf32.cuh): each f32
+// operand split into two tf32 terms, three mma.m16n8k8 tf32 products for
+// one f32 product, f32 sums, so O keeps the error of f32 arithmetic (one
+// tf32 term misses 1e-4). What bounds it on an H100: at (128, 12, 197, 64)
+// it moves 311 MB (0.093 ms at 3.35 TB/s) and does 15.3 GFLOP, x 3 at
+// 495 TFLOP/s tf32 = 0.093 ms: both alike. In practice it is bound by
+// instruction issue: each operand element is split in registers (big
+// truncated, a subtraction, small rounded by two integer operations: four
+// instructions; cvt.rna.tf32.f32 for both terms, five each after ptxas,
+// took 47 % more time), and every product is three mma.sync. Design: the bf16 kernel's (4 warps of
+// 16 query rows, 64-row blocks, row tile fastest, the online softmax on the
+// C fragments by the same softmax_tile), with f32 tiles in shared memory,
+// rows padded to DP + 4 floats (DP = d rounded up to 32, 64, 128 or 256;
+// conflict-free for both kinds of read below): the Q tile once, K/V tiles of
+// 32 keys through a 2-stage 16-byte cp.async ring (64-key tiles took 2 blocks
+// an SM and were slower). Q and K fragments load by ldmatrix on f32 rows
+// with no transpose; V's by 32-bit loads, since ldmatrix.trans would cut
+// each f32 word in half. P goes from the accumulators into P.V as its A
+// operand with no shared memory: accumulator column 2t is taken as k = t and
+// 2t + 1 as k = t + 4, and V's rows are read in that order. Dynamic shared
+// memory (64 + 4 * 32) (DP + 4) * 4 bytes: 52,224 at d = 64. d must be a
+// multiple of 4 with 16-byte aligned rows (the wrapper's zero-padded copy
+// otherwise).
 //
 // Both: there is no grouping of heads per program (_short_group): it existed
 // because a TPU grid runs in sequence, while this grid fills the 132 SMs in
-// parallel (f32 has no split route: at N > 512 its grid is as short of
-// blocks as the bf16 one was). Q, K and V take element strides for the B, H
+// parallel (at N > 512 the f32 grid is as short of blocks as the bf16 one
+// was before its split route). Q, K and V take element strides for the B, H
 // and N axes (the last axis is contiguous), so the q/k/v views of a fused
 // QKV projection go in without a copy; O is written through strides as well.
 
@@ -99,167 +107,16 @@
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kThreads = 256;
-constexpr int kPStride = 80;  // floats per P row: the two half-warps land 16 banks apart
 constexpr float kNegBig = -1e30f;
 
 struct Strides {
   long long b, h, n;
 };
-
-// the CUDA-core kernels are templates on the element type; only f32 is
-// instantiated (bf16 runs on the tensor-core kernels)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * kBlockM * (DP + 1) + kBlockN * DP + kBlockM * kPStride);
-}
-
-// Stage rows [row0, row0 + 64) of one (b, h) slice into shared memory as f32,
-// zero-filling rows >= n and columns >= d, times `mul`.
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          long long row_stride, int row0, int n, int d,
-                                          float mul) {
-  for (int idx = threadIdx.x; idx < kBlockM * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx % DP;
-    const int gr = row0 + r;
-    float val = 0.f;
-    if (gr < n && c < d) val = to_f32(src[gr * row_stride + c]) * mul;
-    dst[r * LD + c] = val;
-  }
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
-                 Strides sv, Strides so, int H, int N, int d, float scale) {
-  constexpr int QS = DP + 1;  // padded row stride of sQ and sK
-  constexpr int CPT = DP / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBlockM * QS;
-  float* sV = sK + kBlockN * QS;
-  float* sP = sV + kBlockN * DP;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int row0 = blockIdx.y * kBlockM;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  load_tile<T, DP, QS>(sQ, qb, sq.n, row0, N, d, scale);
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int n_tiles = (N + kBlockN - 1) / kBlockN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int key0 = t * kBlockN;
-    load_tile<T, DP, QS>(sK, kb, sk.n, key0, N, d, 1.f);
-    load_tile<T, DP, DP>(sV, vb, sv.n, key0, N, d, 1.f);
-    __syncthreads();
-
-    // S = (Q * scale) K^T for this thread's 4 x 4 rows x keys
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DP; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * QS + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * QS + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // online softmax over this tile's keys, row by row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegBig;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (key0 + tx + 16 * j >= N) s[i][j] = kNegBig;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        sP[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V over the valid keys of the tile
-    const int keys = min(kBlockN, N - key0);
-    for (int kk = 0; kk < keys; ++kk) {
-      float pv[4], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kPStride + kk];
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) vv[jj] = sV[kk * DP + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
-    }
-    __syncthreads();
-  }
-
-  T* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + ty + 16 * i;
-    if (gr >= N) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < d) ob[gr * so.n + c] = from_f32<T>(acc[i][jj] / l_safe);
-    }
-    if (tx == 0) lse[(long long)bh * N + gr] = m[i] + logf(l_safe);
-  }
-}
 
 // ---- bf16: the tensor-core kernel ----
 
@@ -273,6 +130,46 @@ template <int DP> struct TcFwd {
   static constexpr int LD = DP + 8;               // bf16 per shared-memory row
   static constexpr size_t smem = sizeof(__nv_bfloat16) * (BM + 4 * BN) * LD;
 };
+
+// The online-softmax update of one tile for one warp, on the C fragments
+// s of its scores (both dtypes' tile bodies): LAST masks keys >= N to -1e30;
+// the max is taken on the raw scores (sl2 > 0) and the scale folds into the
+// exponent's FMA; m (log2 units), l and acc are rescaled, and s becomes P.
+template <int NT, int DP, bool LAST>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[DP / 8][4],
+                                             float (&m)[2], float (&l)[2], int key0, int N,
+                                             float sl2, int tq) {
+  float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (LAST && key0 + j * 8 + 2 * tq + (e & 1) >= N) s[j][e] = kNegBig;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * sl2);  // log2 units
+    alpha[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(s[j][e], sl2, -m[e >> 1]));
+      s[j][e] = p;
+      l[e >> 1] += p;
+    }
+#pragma unroll
+  for (int jd = 0; jd < DP / 8; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+}
 
 // One K/V tile for one warp: S = Q K^T, the online-softmax update of m, l
 // and acc, and acc += P V. LAST (the tile that holds key N - 1) masks keys
@@ -301,38 +198,7 @@ __device__ __forceinline__ void fwd_tile(float (&acc)[DP / 8][4], float (&m)[2],
     }
   }
 
-  // online softmax on the fragments: the max is taken on the raw scores
-  // (sl2 > 0), and the scale folds into the exponent's FMA
-  float mx[2] = {kNegBig, kNegBig};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (LAST && key0 + j * 8 + 2 * tq + (e & 1) >= N) s[j][e] = kNegBig;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-  float alpha[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i] * sl2);  // log2 units
-    alpha[i] = exp2f(m[i] - m_new);
-    m[i] = m_new;
-    l[i] *= alpha[i];
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(fmaf(s[j][e], sl2, -m[e >> 1]));
-      s[j][e] = p;
-      l[e >> 1] += p;
-    }
-#pragma unroll
-  for (int jd = 0; jd < 2 * KD; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+  softmax_tile<NT, DP, LAST>(s, acc, m, l, key0, N, sl2, tq);
 
   // acc += P V, P split in registers into two bf16 A operands (hi + lo)
 #pragma unroll
@@ -448,7 +314,7 @@ __device__ __forceinline__ void fwd_block(const FwdArgs& a) {
   const int wrow0 = row0 + warp * 16;
   if constexpr (SPLIT) {
     const long long plane = ((long long)w.bh * a.splits + w.s) * N;
-    dfdt::store_rows_f32<DP>(a.part_o + plane * d, acc, inv, wrow0, N, d, lane);
+    dfdt::store_rows_f32<DP>(a.part_o + plane * d, d, acc, inv, wrow0, N, d, lane);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int gr = wrow0 + g + 8 * i;
@@ -577,36 +443,167 @@ inline bool tc_aligned(const void* p, Strides s, int d) {
          s.h % 8 == 0 && s.n % 8 == 0;
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int N,
-                   int d, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((N + kBlockM - 1) / kBlockM));
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, sq, sk, sv, so, H, N, d, scale);
-  return cudaGetLastError();
+// ---- f32: the 3xTF32 tensor-core kernel ----
+
+template <int DP> struct TfFwd {
+  static constexpr int THREADS = 128;  // 4 warps of 16 query rows
+  static constexpr int BM = 64;        // query rows per block
+  static constexpr int BN = 32;        // keys per K/V tile (64 was slower)
+  static constexpr int LD = DP + 4;    // floats per shared-memory row
+  static constexpr size_t smem = sizeof(float) * (BM + 4 * BN) * LD;
+};
+
+// One K/V tile for one warp, in f32 by 3xTF32 (mma_tf32.cuh): S = Q K^T,
+// the online-softmax update, acc += P V. LAST as in fwd_tile.
+template <int DP, int BN, bool LAST>
+__device__ __forceinline__ void fwd_tile_tf32(float (&acc)[DP / 8][4], float (&m)[2],
+                                              float (&l)[2], uint32_t wQ, uint32_t tK,
+                                              const float* tV, int key0, int N, float sl2,
+                                              int tq) {
+  constexpr int LD = DP + 4, NT = BN / 8;
+  const int kv = LAST ? N - key0 : BN;  // live keys of this tile
+
+  // S = Q K^T, the k-steps outermost so each Q fragment is split once a tile
+  float s[NT][4] = {};
+#pragma unroll
+  for (int kd = 0; kd < DP / 8; ++kd) {
+    uint32_t r[4];
+    dfdt::ldsm_x4(r, wQ + kd * 32);
+    dfdt::FragA a;
+    dfdt::split_a(a, r);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      if (!LAST || np * 16 < kv) {
+        uint32_t bk[4];
+        dfdt::ldsm_x4(bk, tK + 4 * (np * 16 * LD + kd * 8));
+        dfdt::FragB b0, b1;
+        dfdt::split_b(b0, __uint_as_float(bk[0]), __uint_as_float(bk[1]));
+        dfdt::split_b(b1, __uint_as_float(bk[2]), __uint_as_float(bk[3]));
+        dfdt::mma_3xtf32(s[2 * np], a, b0);
+        dfdt::mma_3xtf32(s[2 * np + 1], a, b1);
+      }
+    }
+  }
+
+  softmax_tile<NT, DP, LAST>(s, acc, m, l, key0, N, sl2, tq);
+
+  // acc += P V: P from the accumulators in the relabelled k order, V's B
+  // fragments by 32-bit reads of rows 2t and 2t + 1
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    if (!LAST || kk * 8 < kv) {
+      dfdt::FragA a;
+      dfdt::c_to_a_tf32<NT>(a, s, kk);
+#pragma unroll
+      for (int jd = 0; jd < DP / 8; ++jd) {
+        dfdt::FragB b;
+        dfdt::load_b_kn<LD>(b, tV, kk, jd);
+        dfdt::mma_3xtf32(acc[jd], a, b);
+      }
+    }
+  }
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-                       Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                       int N, int d, float scale, cudaStream_t stream) {
-  if (d <= 32) return launch<T, 32>(q, k, v, o, lse, sq, sk, sv, so, B, H, N, d, scale, stream);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, lse, sq, sk, sv, so, B, H, N, d, scale, stream);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, lse, sq, sk, sv, so, B, H, N, d, scale, stream);
-  return launch<T, 256>(q, k, v, o, lse, sq, sk, sv, so, B, H, N, d, scale, stream);
+// One block per (64-row query tile, b*h), row tile fastest: Q once, then
+// every K/V tile through the 2-stage cp.async ring; O and lse in f32.
+template <int DP>
+__global__ void __launch_bounds__(TfFwd<DP>::THREADS)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
+                      int H, int N, int d, float scale) {
+  using C = TfFwd<DP>;
+  constexpr int BN = C::BN, LD = C::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + C::BM * LD;   // two stages
+  float* sV = sK + 2 * BN * LD;  // two stages
+
+  const dfdt::Work w = dfdt::block_work<C::BM, BN>(N, 1);
+  const int b = w.bh / H;
+  const int h = w.bh % H;
+  const int row0 = w.row0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tq = lane % 4;
+  const bool active = row0 + warp * 16 < N;
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  dfdt::tile_async<DP, LD, C::BM, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
+  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
+  dfdt::cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  float m[2] = {kNegBig, kNegBig};  // running max, log2 units, rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's part of the running sum
+  float acc[DP / 8][4] = {};
+  const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
+  const int n_tiles = (N + BN - 1) / BN;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
+                                                   (t + 1) * BN, N, d);
+      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
+                                                   (t + 1) * BN, N, d);
+      dfdt::cp_async_commit();
+      dfdt::cp_async_wait<1>();
+    } else {
+      dfdt::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const uint32_t tK = dfdt::smem_u32(sK + st * BN * LD) + dfdt::bn_off_f32<LD>(lane);
+      const float* tV = sV + st * BN * LD + dfdt::bk_off_f32<LD>(lane);
+      if ((t + 1) * BN <= N)
+        fwd_tile_tf32<DP, BN, false>(acc, m, l, wQ, tK, tV, t * BN, N, sl2, tq);
+      else
+        fwd_tile_tf32<DP, BN, true>(acc, m, l, wQ, tK, tV, t * BN, N, sl2, tq);
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+
+  const int wrow0 = row0 + warp * 16;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l_safe;
+    const int gr = wrow0 + lane / 4 + 8 * i;
+    if (gr < N && tq == 0) lse[(long long)w.bh * N + gr] = m[i] * kLn2 + logf(l_safe);
+  }
+  dfdt::store_rows_f32<DP>(o + b * so.b + h * so.h, so.n, acc, inv, wrow0, N, d, lane);
+}
+
+// q, k, v, o: (b, h, n) strides in st[0..3]
+template <int DP>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
+                        const Strides* st, int B, int H, int N, int d, float scale,
+                        cudaStream_t stream) {
+  using C = TfFwd<DP>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((N + C::BM - 1) / C::BM);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_tf32_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
+      q, k, v, o, lse, st[0], st[1], st[2], st[3], H, N, d, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 element strides, (b, h, n) for q, k, v and o in that order.
-// bf16 goes to the tensor-core kernels, f32 to the CUDA-core one. splits:
+// bf16 goes to the bf16 tensor-core kernels, f32 to the 3xTF32 one; both
+// take 16-byte rows (cudaErrorMisalignedAddress otherwise). splits:
 // 1, or (bf16 only) the key splits S of the split route, with `scratch` the
 // caller's f32 buffer of S*B*H*N*(d + 1) elements for the partials.
 extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -622,7 +619,19 @@ extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void*
   const Strides so{strides[9], strides[10], strides[11]};
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (!is_bf16) return (int)dispatch_d<float>(q, k, v, o, l, sq, sk, sv, so, B, H, N, d, scale, s);
+  if (!is_bf16) {
+    if (!dfdt::f32_aligned(q, sq, d) || !dfdt::f32_aligned(k, sk, d) ||
+        !dfdt::f32_aligned(v, sv, d) || so.b % 2 || so.h % 2 || so.n % 2)
+      return (int)cudaErrorMisalignedAddress;
+    const Strides st[4] = {sq, sk, sv, so};
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+                *fv = static_cast<const float*>(v);
+    float* fo = static_cast<float*>(o);
+    if (d <= 32) return (int)launch_tf32<32>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
+    if (d <= 64) return (int)launch_tf32<64>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
+    if (d <= 128) return (int)launch_tf32<128>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
+    return (int)launch_tf32<256>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
+  }
   if (!tc_aligned(q, sq, d) || !tc_aligned(k, sk, d) || !tc_aligned(v, sv, d) ||
       so.b % 2 || so.h % 2 || so.n % 2)
     return (int)cudaErrorMisalignedAddress;

@@ -134,17 +134,18 @@ __device__ __forceinline__ uint32_t bk_off(int lane) {
   return 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8);
 }
 
-// Rows [row0, row0 + ROWS) of one (b, h) slice, bf16 columns [0, DP), into
-// shared memory (row stride LD) by 16-byte cp.async: rows >= n and columns
-// >= d (d a multiple of 8) are zero-filled. Rows in global memory must be
-// 16-byte aligned.
-template <int DP, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, long long row_stride,
+// Rows [row0, row0 + ROWS) of one (b, h) slice, columns [0, DP) of T (bf16
+// or f32), into shared memory (row stride LD) by 16-byte cp.async: rows >= n
+// and columns >= d (d a multiple of 16 bytes' worth) are zero-filled. Rows in
+// global memory must be 16-byte aligned.
+template <int DP, int LD, int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src, long long row_stride,
                                            int row0, int n, int d) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks per row
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = DP / EPC;        // chunks per row
   for (int idx = threadIdx.x; idx < ROWS * CPR; idx += THREADS) {
     const int r = idx / CPR;
-    const int c = (idx % CPR) * 8;
+    const int c = (idx % CPR) * EPC;
     const int gr = row0 + r;
     const bool ok = gr < n && c < d;
     cp_async16(dst + r * LD + c, ok ? src + gr * row_stride + c : src, ok);
@@ -176,10 +177,12 @@ __device__ __forceinline__ Work block_work(int n, int splits) {
   return w;
 }
 
-// Write a warp's 16 x DP accumulator, row i times mul[i], as f32 rows of
-// width d (a multiple of 8) into a partial, rows < n and columns < d.
+// Write a warp's 16 x DP accumulator, row i times mul[i], as f32 rows (row
+// stride row_stride: d for a split's partial, the caller's for an f32
+// output), rows < n and columns < d (d even).
 template <int DP>
-__device__ __forceinline__ void store_rows_f32(float* dst, const float (&acc)[DP / 8][4],
+__device__ __forceinline__ void store_rows_f32(float* dst, long long row_stride,
+                                               const float (&acc)[DP / 8][4],
                                                const float (&mul)[2], int row0, int n, int d,
                                                int lane) {
 #pragma unroll
@@ -190,7 +193,7 @@ __device__ __forceinline__ void store_rows_f32(float* dst, const float (&acc)[DP
     for (int jd = 0; jd < DP / 8; ++jd) {
       const int c = jd * 8 + 2 * (lane % 4);
       if (c < d)
-        *reinterpret_cast<float2*>(dst + (long long)gr * d + c) =
+        *reinterpret_cast<float2*>(dst + gr * row_stride + c) =
             make_float2(acc[jd][2 * i] * mul[i], acc[jd][2 * i + 1] * mul[i]);
     }
   }

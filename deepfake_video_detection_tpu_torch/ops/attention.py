@@ -9,14 +9,16 @@ On CUDA tensors :func:`flash_attention_fwd` launches ``csrc/flash_fwd.cu``,
 which streams key tiles with an online softmax, and
 :func:`flash_attention_bwd` launches ``csrc/flash_bwd.cu``, a dQ pass and a
 dK/dV pass (FlashAttention-2) that stream row tiles. Each kernel streams
-over any N, so each covers both TPU regimes. Each source routes by dtype:
-bf16 runs on the tensor cores (bf16 products, f32 sums), f32 on the CUDA
-cores in full f32. The tensor-core kernels take rows of 16-byte multiples;
-for a bf16 input whose rows are not (d not a multiple of 8, a stride not a
-multiple of 8 elements, or unaligned data), the wrapper hands the kernel a
-contiguous copy zero-padded to the next multiple of 8 in d, with the scale
-of the true d, and slices the result back. On CPU tensors each wrapper
-takes its plain version, a dense f32 computation.
+over any N, so each covers both TPU regimes. Each source routes by dtype,
+both routes on the tensor cores: bf16 as bf16 products with f32 sums, f32
+as 3xTF32 (each f32 operand split into two tf32 terms, three products in
+place of one, f32 sums: the error of a plain f32 product). The kernels take
+rows of 16-byte multiples; for an input whose rows are not (d not a
+multiple of 8 bf16 or 4 f32 elements, a B/H/N stride not a multiple of as
+many elements, or unaligned data), the wrapper hands the kernel a
+contiguous copy zero-padded to that multiple in d, with the scale of the
+true d, and slices the result back. On CPU tensors each wrapper takes its
+plain version, a dense f32 computation.
 
 The split route (bf16 at N > 512, the regime of the TPU's streaming
 kernels K3, K5 and K6). One block per (64-row tile, head) leaves most of
@@ -217,18 +219,23 @@ def _heads_view(B: int, H: int, N: int, d: int, like: torch.Tensor) -> torch.Ten
                        device=like.device).permute(0, 2, 1, 3)
 
 
+def _row_elems(t: torch.Tensor) -> int:
+    """Elements in 16 bytes of ``t``'s dtype: 8 bf16, 4 f32."""
+    return 16 // t.element_size()
+
+
 def _tc_aligned(*ts: torch.Tensor) -> bool:
-    """Whether the tensor-core kernels take these bf16 tensors as they are:
-    d a multiple of 8, B/H/N strides multiples of 8 elements, data 16-byte
-    aligned."""
-    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
+    """Whether the kernels take these tensors as they are: d and the B/H/N
+    strides multiples of 16 bytes' worth of elements (8 bf16, 4 f32), data
+    16-byte aligned."""
+    return all(t.shape[-1] % _row_elems(t) == 0 and t.data_ptr() % 16 == 0
+               and all(st % _row_elems(t) == 0 for st in t.stride()[:3]) for t in ts)
 
 
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t``, its last axis zero-padded to a multiple
-    of 8."""
-    return torch.nn.functional.pad(t, (0, -t.shape[-1] % 8)).contiguous()
+    of 16 bytes' worth of elements."""
+    return torch.nn.functional.pad(t, (0, -t.shape[-1] % _row_elems(t))).contiguous()
 
 
 def _strides(*ts: torch.Tensor):
@@ -251,7 +258,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     B, H, N, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
-    padded = bf16 and not _tc_aligned(q, k, v)
+    padded = not _tc_aligned(q, k, v)
     if padded:
         q, k, v = (_pad_head_dim(t) for t in (q, k, v))
     dp = q.shape[-1]
@@ -271,6 +278,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         flash_attention_fwd.launches += 1
         flash_attention_fwd.launches_long += int(N > _SHORT_MAX)
         flash_attention_fwd.launches_split += int(splits > 1)
+        flash_attention_fwd.launches_f32 += int(not bf16)
     return (out[..., :d] if padded else out), lse
 
 
@@ -297,7 +305,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, N, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
-    padded = bf16 and not _tc_aligned(q, k, v, out, dout)
+    padded = not _tc_aligned(q, k, v, out, dout)
     if padded:
         q, k, v, out, dout = (_pad_head_dim(t) for t in (q, k, v, out, dout))
     dp = q.shape[-1]
@@ -319,6 +327,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention_bwd.launches += 1
         flash_attention_bwd.launches_long += int(N > _SHORT_MAX)
         flash_attention_bwd.launches_split += int(splits > 1)
+        flash_attention_bwd.launches_f32 += int(not bf16)
     if padded:
         return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
@@ -329,9 +338,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ``launches_long`` counts the launches at N > 512, the regime of the JAX
 # package's streaming kernels (K3 forward, K5/K6 backward);
 # ``launches_split`` those that took the split route (S > 1, with its
-# combine or reduce kernel); ``launches`` counts them all.
+# combine or reduce kernel); ``launches_f32`` those of f32 inputs (the
+# 3xTF32 kernels); ``launches`` counts them all.
 for _f in (flash_attention_fwd, flash_attention_bwd):
-    _f.launches = _f.launches_long = _f.launches_split = 0
+    _f.launches = _f.launches_long = _f.launches_split = _f.launches_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):

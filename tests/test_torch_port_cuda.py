@@ -84,6 +84,10 @@ def test_fused_normalize_yuv_kernel_matches_plain(shape, dtype):
     (128, 12, 197, 64, torch.bfloat16, True),     # ViT-B/16 training, 8 x 16 frames
     (2, 4, 130, 256, torch.bfloat16, False),
     (3, 2, 17, 128, torch.bfloat16, False),
+    (2, 3, 77, 30, torch.float32, False),         # f32 d not a multiple of 4: padded copy
+    (16, 12, 1, 64, torch.float32, False),
+    (1, 4, 4097, 64, torch.float32, True),        # f32 at long N: unsplit
+    (128, 12, 197, 64, torch.float32, True),      # the training CLI's default step
 ])
 def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
@@ -93,11 +97,14 @@ def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
     else:
         q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dtype)
                    for _ in range(3))
-    before = A.flash_attention_fwd.launches
-    long_before = A.flash_attention_fwd.launches_long
+    f = A.flash_attention_fwd
+    before = (f.launches, f.launches_long, f.launches_f32, f.launches_split)
     out, lse = A.flash_attention_fwd(q, k, v)
-    assert A.flash_attention_fwd.launches == before + 1
-    assert A.flash_attention_fwd.launches_long == long_before + (N > 512)
+    f32 = dtype == torch.float32
+    assert (f.launches, f.launches_long, f.launches_f32) == (
+        before[0] + 1, before[1] + (N > 512), before[2] + f32)
+    if f32:                                       # f32 has no split route
+        assert f.launches_split == before[3]
     ref, ref_lse = A.flash_attention_plain(q, k, v)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert out.shape == (B, H, N, d) and out.dtype == dtype
@@ -136,15 +143,22 @@ def _bwd_inputs(gen, B, H, N, d, dtype, strided):
     (128, 12, 197, 64, torch.bfloat16, True),     # ViT-B/16 training, 8 x 16 frames
     (2, 4, 130, 256, torch.bfloat16, False),
     (3, 2, 17, 128, torch.bfloat16, False),
+    (2, 3, 77, 30, torch.float32, False),         # f32 d not a multiple of 4: padded copy
+    (16, 12, 1, 64, torch.float32, False),
+    (1, 4, 4097, 64, torch.float32, True),        # f32 at long N: unsplit
+    (128, 12, 197, 64, torch.float32, True),      # the training CLI's default step
 ])
 def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
     q, k, v, out, lse, dout = _bwd_inputs(gen, B, H, N, d, dtype, strided)
-    before = A.flash_attention_bwd.launches
-    long_before = A.flash_attention_bwd.launches_long
+    f = A.flash_attention_bwd
+    before = (f.launches, f.launches_long, f.launches_f32, f.launches_split)
     got = A.flash_attention_bwd(q, k, v, out, lse, dout)
-    assert A.flash_attention_bwd.launches == before + 1
-    assert A.flash_attention_bwd.launches_long == long_before + (N > 512)
+    f32 = dtype == torch.float32
+    assert (f.launches, f.launches_long, f.launches_f32) == (
+        before[0] + 1, before[1] + (N > 512), before[2] + f32)
+    if f32:                                       # f32 has no split route
+        assert f.launches_split == before[3]
     ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout)
     for g, r in zip(got, ref):
         assert g.shape == (B, H, N, d) and g.dtype == dtype
@@ -159,8 +173,10 @@ def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
 
 
 @pytest.mark.parametrize("shape,dtype", [
-    ((2, 4, 150, 64), torch.float32),             # the CUDA-core kernels
-    ((16, 12, 197, 64), torch.bfloat16),          # the tensor-core kernels
+    ((2, 4, 150, 64), torch.float32),             # the 3xTF32 kernels
+    ((16, 12, 197, 64), torch.float32),           # the 3xTF32 kernels, ViT-B/16 training
+    ((1, 4, 4097, 64), torch.float32),            # the 3xTF32 kernels at long N, unsplit
+    ((16, 12, 197, 64), torch.bfloat16),          # the bf16 kernels
     ((1, 4, 641, 64), torch.bfloat16),            # the split route, long-clip training
 ])
 def test_flash_kernel_is_differentiable_and_deterministic(shape, dtype):
@@ -184,6 +200,25 @@ def test_flash_kernel_is_differentiable_and_deterministic(shape, dtype):
             assert err <= 2e-2 * float(r.float().abs().max())
         else:
             assert torch.allclose(a, r, atol=1e-3, rtol=1e-3)
+
+
+def test_f32_kernels_propagate_nan():
+    """A NaN made by the card's arithmetic (0x7fffffff, which rounding to
+    nearest by integer operations would turn into -0) in one query row: the
+    3xTF32 kernels give O and the gradients NaN exactly where the plain
+    versions do. (lse of that row stays finite in both dtypes' kernels: l is
+    guarded by fmaxf(l, 1e-30), which drops a NaN.)"""
+    gen = _cuda_generator()
+    q, k, v, _, _, dout = _bwd_inputs(gen, 2, 3, 150, 64, torch.float32, False)
+    q = q.clone()
+    q[0, 1, 5, 3] = torch.zeros((), device="cuda") / 0
+    out, lse = A.flash_attention_fwd(q, k, v)
+    ref, _ = A.flash_attention_plain(q, k, v)
+    assert bool(out[0, 1, 5].isnan().all()) and torch.equal(out.isnan(), ref.isnan())
+    got = A.flash_attention_bwd(q, k, v, out, lse, dout)
+    for g, r in zip(got, A.flash_attention_bwd_plain(q, k, v, out, lse, dout)):
+        assert torch.equal(g.isnan(), r.isnan())
+        assert bool(g.isnan().any())
 
 
 @pytest.mark.parametrize("B,H,N,d", [
