@@ -57,14 +57,31 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
    checks the launch counts of the forward and backward kernels, the
    artefacts, one step through the kernels against the plain versions, and
-   serves the checkpoint it wrote; then times a train step. Then the f32
-   step, the training CLI's default without ``--bf16``
-   (``f32_training``): ViT-B/16 from ``train/cli.py::build_model``, one
-   ``Trainer`` step at 8 clips x 16 frames, 12 f32 forward and 12 f32
-   backward flash launches required, the step time, frames per second,
-   peak memory, its device time by kernel, and its loss and grad norm
-   through the kernels against the plain versions.
-10. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
+   serves the checkpoint it wrote; then times a train step. Then an f32
+   step, the training CLI's default dtype (no ``--bf16``) on the
+   ``pretrained`` ViT-B/16 model (``f32_training``): ViT-B/16 from
+   ``train/cli.py::build_model``, one ``Trainer`` step at 8 clips x 16
+   frames, 12 f32 forward and 12 f32 backward flash launches required, the
+   step time, frames per second, peak memory, its device time by kernel,
+   and its loss and grad norm through the kernels against the plain
+   versions.
+10. The legacy families (``legacy``), on 10 synthetic clips of 16 frames
+   at 224 px from seed 0. (a) The training CLI's default invocation,
+   ``train/cli.py main(["--data_dir", D, "--epochs", "1"])``: the
+   frame-graph detector over ViT-Tiny (192 wide, 12 blocks, 3 heads), f32,
+   batch 8 x 16 frames, lr 1e-3, one epoch; its launch counts (all f32);
+   then one ``Trainer`` step of that model: 12 f32 forward and 12 f32
+   backward flash launches, step ms, frames/s, peak memory, device time by
+   kernel, loss and grad norm against the plain versions. (b) The loader
+   serves that checkpoint through ``Predictor(model_type="vit_gcn")`` in
+   bf16: K2-bf16 launches, ``prob_fake`` against the plain versions.
+   (c) A full-size CNN+LSTM (random weights, BN stats from U(0.5, 1.5))
+   saved as a reference ``.pt``, picked by the loader at match ratio 1.0
+   and served. (d) The evaluator CLI scores the vit_gcn checkpoint and a
+   logic-RNN ``.npz``: K1 and K2 launches, CSV rows. (e) ``cli_vit_gnn``
+   trains ViT-S/16 + GNN (K2 and K4 f32 at (16, 6, 197, 64)) and
+   ``infer_vit_gnn`` classifies one face stack, against the plain versions.
+11. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
@@ -77,9 +94,10 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-11. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+12. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
-   its f32 row), then the last line
+   its f32 row; K2 and K4 with their cases at the legacy phase's shapes),
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
@@ -131,9 +149,9 @@ ROUTES = {"bf16": "tensor-core bf16", "f32": "tensor-core 3xTF32"}
 # for 3xTF32, the old CUDA-core figure is kept beside it (bound_ms_cuda_core)
 FLASH_PEAK = {"bf16": "bf16", "f32": "tf32x3"}
 MAIN_NOTES = ("main", "K3 main", "K5/K6 main")
-# f32 cases at the main paths' shapes: the training CLI's default without
-# --bf16 runs the 3xTF32 kernels there (PERF.md's f32 rows; the
-# f32_training phase is their path at N <= 512)
+# f32 cases at the main paths' shapes: the training CLI's default dtype
+# (no --bf16) runs the 3xTF32 kernels there (PERF.md's f32 rows; the
+# f32_training phase, ViT-B/16, is their path at N <= 512)
 F32_ROW = "f32 row: "
 
 # tolerances, with their reasons
@@ -173,6 +191,18 @@ ROUNDS = 3    # rounds of each concurrent measurement
 # the agent's payload keys (JAX serve/predict.py:569-576)
 AGENT_KEYS = ("is_fake", "ensemble_prob", "confidence", "alert_level", "uncertainty",
               "explanation")
+
+# the legacy phase: the training CLI's default model (vit_gcn over
+# ViT-Tiny, f32, batch 8 x 16 frames, lr 1e-3) on 10 synthetic clips (8
+# train, 2 validation) of 16 frames at 224 px; its checkpoint served in
+# bf16 and evaluated; a full-size CNN+LSTM served; the ViT-GNN CLIs
+LEGACY = {"vit": "vit_tiny_patch16_224", "depth": 12, "clips": 10, "frames": 16,
+          "size": 224, "batch": 8, "lr": 1e-3, "bn_seed": 0, "gnn_epochs": 2}
+# the legacy Predictor path's result keys (JAX serve/predict.py:690-700)
+LEGACY_KEYS = ("prediction", "verdict_yes_no", "description", "pred_class", "confidence",
+               "prob_real", "prob_fake", "num_faces", "threshold")
+# the kernel cases at the legacy phase's shapes (3 or 6 heads)
+LEGACY_ROW = "legacy: "
 
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
@@ -484,7 +514,11 @@ def check_k2(torch, A, gen):
              (2, 3, 77, 30, torch.float32, False, "d = 30: zero-padded copy to 32"),
              (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
              (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
-             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape")]
+             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape"),
+             (128, 3, 197, 64, torch.float32, True,
+              LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
+             (16, 3, 197, 64, torch.bfloat16, True, LEGACY_ROW + "vit_gcn serving, one clip"),
+             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer")]
     for B, H, N, d, dt, strided, note in specs:
         if strided:
             qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
@@ -525,7 +559,7 @@ def check_k2(torch, A, gen):
                "bound_ms": bound, "bound_by": by}
         if name == "f32":
             rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
-        if N > A._SHORT_MAX or name == "f32":
+        if N > A._SHORT_MAX or name == "f32" or note.startswith(LEGACY_ROW):
             rec["library_device_ms"] = _session_device_ms(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v))
             rec["library_queued_ms"] = _queued_ms(
@@ -573,7 +607,10 @@ def check_k4(torch, A, gen):
              (2, 3, 77, 30, torch.float32, False, "d = 30: zero-padded copy to 32"),
              (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
              (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
-             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape")]
+             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape"),
+             (128, 3, 197, 64, torch.float32, True,
+              LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
+             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer")]
     for B, H, N, d, dt, strided, note in specs:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
         name = "bf16" if dt == torch.bfloat16 else "f32"
@@ -1217,9 +1254,10 @@ def train(torch, A, P, smi: str):
 
 
 def train_f32(torch, A, P, smi: str):
-    """The training CLI's default dtype: ViT-B/16 from ``train/cli.py::
-    build_model`` without ``--bf16`` (f32 params and activations), one
-    ``Trainer`` step at 8 clips x 16 frames of 224 px (Adam, lr 1e-4,
+    """The training CLI's default dtype on the ``pretrained`` model (the
+    CLI's default model, vit_gcn, is the legacy phase's): ViT-B/16 from
+    ``train/cli.py::build_model`` without ``--bf16`` (f32 params and
+    activations), one ``Trainer`` step at 8 clips x 16 frames of 224 px (Adam, lr 1e-4,
     augment on) on synthetic faces. Requires 12 f32 forward and 12 f32
     backward flash launches a step (the 3xTF32 kernels), times the step
     (CUDA events, 1 warm-up and 5 timed), takes one step's device time by
@@ -1316,6 +1354,322 @@ def train_f32(torch, A, P, smi: str):
               f"peak {peak_bytes / 2**30:.2f} GiB allocated, {breakdown['device_ms']:.2f} ms "
               f"of device time on {smi}", flush=True)
         return launches, rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _f32_counts(A) -> dict:
+    """f32 launches since the last reset at N <= 512 (K2, K4); every f32
+    call on the legacy paths is at N = 197."""
+    fwd, bwd = A.flash_attention_fwd, A.flash_attention_bwd
+    return {"K2": fwd.launches_f32, "K4": bwd.launches_f32}
+
+
+def _want(**kw) -> dict:
+    return {k: kw.get(k.replace("-", "_"), 0)
+            for k in ("K1", "K1-YUV", "K2", "K3", "K4", "K5", "K6")}
+
+
+def legacy_train(torch, A, P, smi: str, root: str, data: str):
+    """(a) The training CLI's default invocation over ``data``: vit_gcn,
+    ViT-Tiny at full width and depth, f32, batch 8 x 16 frames, lr 1e-3,
+    one epoch (run from ``root``, so its ``checkpoints/`` lands there).
+    Then one ``Trainer`` step of the same model: its launches (12 f32
+    forward and 12 f32 backward flash calls), time, frames/s, peak memory,
+    device time by kernel, and its loss and grad norm through the kernels
+    against the plain versions. Returns (path launches, f32 launches,
+    record, the best checkpoint's path)."""
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    T, B = LEGACY["frames"], LEGACY["batch"]
+    cwd = os.getcwd()
+    gc.collect()
+    torch.cuda.synchronize()
+    _reset_counts(A, P)
+    t = time.perf_counter()
+    os.chdir(root)
+    try:
+        _require(cli.main(["--data_dir", data, "--epochs", "1"]) == 0,
+                 "the training CLI exited non-zero")
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    launches, f32 = _counts(A, P), _f32_counts(A)
+    out = os.path.join(root, "checkpoints")
+    for name in ("checkpoint_best.npz", "training_history.csv", "preds_epoch_0.csv"):
+        _require(os.path.exists(os.path.join(out, name)), f"the CLI wrote no {name}")
+    ds = VideoFacesDataset(data, num_frames=T)
+    train_ds, val_ds = ds.split(0.2)
+    steps, val_batches = -(-len(train_ds) // B), -(-len(val_ds) // B)
+    depth = LEGACY["depth"]
+    want = _want(K2=depth * (steps + val_batches), K4=depth * steps)
+    _require(launches == want and f32 == {"K2": want["K2"], "K4": want["K4"]},
+             f"CLI launches {launches} ({f32} f32) != {want}, all f32")
+
+    # one step of the CLI's model and trainer settings
+    model, adjacency, model_config = cli.build_model("vit_gcn", T)
+    _require(model.compute_dtype == torch.float32 and adjacency == "chain"
+             and model.vit.embed_dim == 192 and len(model.vit.blocks) == depth
+             and model.vit.num_heads == 3, "the CLI's default model is not ViT-Tiny + GCN, f32")
+    cfg = TrainerConfig(out_dir=os.path.join(root, "step"), epochs=1, batch_size=B,
+                        num_frames=T, lr=LEGACY["lr"], optimizer="adam", schedule="step",
+                        loss="ce", balance="weights", grad_clip=None, adjacency=adjacency,
+                        model_config=model_config)
+    trainer = Trainer(model, train_ds, val_ds, cfg, device="cuda")
+    state = trainer.init_state()
+    batch = next(iter(trainer._device_batches(train_ds, True)))
+    batch.pop("paths", None)
+    batch = trainer._prep_train(batch, torch.Generator(device="cuda").manual_seed(1))
+    _require(tuple(batch["adjacency"].shape) == (B, T, T), "no adjacency in the batch")
+    step = trainer.train_step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(A, P)
+    state, metrics = step(state, batch, None)
+    torch.cuda.synchronize()
+    step_launches, step_f32 = _counts(A, P), _f32_counts(A)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    _require(step_launches == _want(K2=depth, K4=depth)
+             and step_f32 == {"K2": depth, "K4": depth},
+             f"vit_gcn step launches {step_launches} ({step_f32} f32)")
+    _require(math.isfinite(float(metrics["loss"])), f"vit_gcn step metrics {metrics}")
+    step_ms = _time_ms(torch, lambda: step(state, batch, None), iters=5, warmup=1)
+    breakdown = _kernel_breakdown(torch, lambda: step(state, batch, None), top=12)
+
+    params = list(model.parameters())
+
+    def loss_and_norm():
+        logits = model(batch["frames"], batch["adjacency"], train=True,
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+        loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
+        return float(loss.detach()), float(global_norm(torch.autograd.grad(loss, params)))
+
+    loss_k, norm_k = loss_and_norm()
+    _reset_counts(A, P)
+    with _plain_attention(A):
+        loss_p, norm_p = loss_and_norm()
+    _require(not any(_counts(A, P).values()), f"the plain step launched {_counts(A, P)}")
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    d_norm = abs(norm_k - norm_p) / norm_p
+    rec = {"phase": "legacy_training", "card": smi, "model": "vit_gcn",
+           "vit_variant": LEGACY["vit"], "built_by": "train/cli.py main, default flags",
+           "params": "f32", "activations": "f32", "batch_clips": B, "frames_per_clip": T,
+           "cli_wall_s": cli_s, "train_steps": steps, "val_batches": val_batches,
+           "launches": launches, "launches_f32": f32, "step_launches": step_launches,
+           "step_ms": step_ms, "frames_per_s": B * T / step_ms * 1e3,
+           "max_memory_allocated_bytes": peak_bytes,
+           "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+           "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
+           "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
+           "step_tol": {"loss": F32_STEP_TOL_LOSS, "grad_norm": F32_STEP_TOL_NORM}}
+    _emit(rec)
+    _emit({"phase": "legacy_training_device_time", "card": smi, **breakdown})
+    _require(d_loss <= F32_STEP_TOL_LOSS and d_norm <= F32_STEP_TOL_NORM,
+             f"vit_gcn step kernels vs plain: loss {loss_k} vs {loss_p}, "
+             f"grad norm {norm_k} vs {norm_p}")
+    print(f"vit_gcn training step {step_ms:.2f} ms ({B * T / step_ms * 1e3:.1f} frames/s), "
+          f"peak {peak_bytes / 2**30:.2f} GiB allocated, {breakdown['device_ms']:.2f} ms of "
+          f"device time on {smi}", flush=True)
+    return launches, f32, rec, os.path.join(out, "checkpoint_best.npz")
+
+
+def _legacy_result(res: dict, what: str) -> None:
+    _require(isinstance(res, dict) and not res.get("abstained")
+             and sorted(res) == sorted(LEGACY_KEYS), f"{what}: {res}")
+    _require(isinstance(res["prob_fake"], float) and 0.0 <= res["prob_fake"] <= 1.0,
+             f"{what}: prob_fake {res['prob_fake']}")
+
+
+def legacy_serve(torch, A, P, smi: str, root: str, data: str, ckpt: str):
+    """(b) The loader serves the CLI's checkpoint through
+    ``Predictor(model_type="vit_gcn")`` in bf16: K2-bf16 launches and
+    ``prob_fake`` against the plain versions. (c) A full-size CNN+LSTM
+    (random weights, BN stats from U(0.5, 1.5)) saved as a reference
+    ``.pt``, picked by the loader at match ratio 1.0 and served. Returns
+    (path launches, f32 launches, record)."""
+    from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
+    from deepfake_video_detection_tpu_torch.serve.loader import load_model
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+
+    T, size = LEGACY["frames"], LEGACY["size"]
+    faces = [np.load(os.path.join(data, f))["faces"] for f in sorted(os.listdir(data))[:4]]
+    os.environ.update({"FACE_SIZE": str(size), "DETECT_ABSTAIN_CONF": "0"})
+    pt = os.path.join(root, "cnn_lstm", "checkpoint_best.pt")
+    os.makedirs(os.path.dirname(pt))
+    ref_model = CNNLSTMHybrid(device="cuda", generator=torch.Generator().manual_seed(0))
+    _randomize_bn(torch, ref_model, LEGACY["bn_seed"])
+    torch.save({"model_state": {k: v.cpu() for k, v in ref_model.state_dict().items()},
+                "model_config": {"model_type": "cnn_lstm"}}, pt)
+    del ref_model
+    out, launches, f32 = {}, {}, {}
+    try:
+        for family, path in (("vit_gcn", ckpt), ("cnn_lstm", pt)):
+            t = time.perf_counter()
+            model, variables, stats = load_model(path, device="cuda")
+            load_s = time.perf_counter() - t
+            _require(stats["model_type"] == family and stats["match_ratio"] == 1.0,
+                     f"load_model({path}) chose {stats}")
+            _require(model.compute_dtype == torch.bfloat16,
+                     f"{family} serves {model.compute_dtype}")
+            pred = Predictor(model, variables, family, checkpoint_path=path, device="cuda")
+            _require(pred.warmup_done.wait(timeout=300), f"{family} warmup did not finish")
+            _require(pred.warmup_error is None, f"{family} warmup failed: {pred.warmup_error!r}")
+            torch.cuda.synchronize()
+            _reset_counts(A, P)
+            res = [pred.predict_faces(f, video_id=f"{family}{i}") for i, f in enumerate(faces)]
+            torch.cuda.synchronize()
+            launches[family], f32[family] = _counts(A, P), _f32_counts(A)
+            for i, r in enumerate(res):
+                _legacy_result(r, f"{family} request {i}")
+            depth = LEGACY["depth"] if family == "vit_gcn" else 0
+            _require(launches[family] == _want(K2=depth * len(faces))
+                     and f32[family] == {"K2": 0, "K4": 0},
+                     f"{family} serving launches {launches[family]} ({f32[family]} f32)")
+            x = torch.from_numpy(faces[0][None]).cuda()
+            with _plain_attention(A):
+                p_plain = float(pred._forward_legacy(x)[0, 1])
+            diff = abs(p_plain - res[0]["prob_fake"])
+            _require(diff <= PROB_TOL, f"{family} prob_fake kernels vs plain differ by {diff}")
+            fwd_ms = _time_ms(torch, lambda: pred._forward_legacy(x), iters=5, warmup=1)
+            pred.close()
+            out[family] = {"file": os.path.basename(path), "load_s": load_s,
+                           "stats": {k: stats[k] for k in ("model_type", "match_ratio",
+                                                            "matched")},
+                           "launches": launches[family],
+                           "prob_fake_kernels": res[0]["prob_fake"],
+                           "prob_fake_plain": p_plain, "prob_fake_abs_diff": diff,
+                           "prob_tol": PROB_TOL, "forward_ms_1clip": fwd_ms,
+                           "verdicts": [r["prediction"] for r in res]}
+            del model, variables, pred
+    finally:
+        os.environ.pop("DETECT_ABSTAIN_CONF", None)
+    rec = {"phase": "legacy_serving", "card": smi, "activations": "bf16",
+           "frames_per_clip": T, "cases": out}
+    _emit(rec)
+    total = {k: launches["vit_gcn"][k] + launches["cnn_lstm"][k] for k in launches["vit_gcn"]}
+    return total, {"K2": 0, "K4": 0}, rec
+
+
+def legacy_evaluate(torch, A, P, smi: str, root: str, data: str, ckpt: str):
+    """(d) The evaluator CLI over the vit_gcn checkpoint and over a logic
+    RNN ``.npz`` (``create_model``'s sizes, random weights; the pipeline's
+    ViT-Tiny extractor is fresh): K1 and K2 launches and the CSV rows.
+    Returns (path launches, f32 launches, record)."""
+    import csv
+
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import save_checkpoint
+    from deepfake_video_detection_tpu_torch.evals import evaluate as E
+    from deepfake_video_detection_tpu_torch.models.logic_rnn import create_model
+
+    T, B = LEGACY["frames"], LEGACY["batch"]
+    rnn_path = os.path.join(root, "logic_rnn.npz")
+    save_checkpoint(rnn_path, create_model(device="cuda").state_dict())
+    n_clips = len(os.listdir(data))
+    forwards = -(-n_clips // B)
+    depth = LEGACY["depth"]
+    out, total, total_f32 = {}, None, {"K2": 0, "K4": 0}
+    for family, path in (("vit_gcn", ckpt), ("rnn", rnn_path)):
+        out_csv = os.path.join(root, f"evaluation_{family}.csv")
+        _reset_counts(A, P)
+        t = time.perf_counter()
+        _require(E.main(["--data_dir", data, "--checkpoint", path, "--num_frames", str(T),
+                         "--batch_size", str(B), "--out_csv", out_csv]) == 0,
+                 f"the evaluator exited non-zero on {family}")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        launches, f32 = _counts(A, P), _f32_counts(A)
+        want = _want(K1=forwards, K2=depth * forwards)
+        _require(launches == want and f32 == {"K2": want["K2"], "K4": 0},
+                 f"{family} evaluation launches {launches} ({f32} f32) != {want}")
+        with open(out_csv) as f:
+            rows = list(csv.DictReader(f))
+        _require(len(rows) == n_clips and all(0.0 <= float(r["prob_fake"]) <= 1.0
+                                              for r in rows), f"{family} CSV rows {rows}")
+        out[family] = {"wall_s": wall_s, "launches": launches, "csv_rows": len(rows),
+                       "prob_fake": [float(r["prob_fake"]) for r in rows]}
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+        total_f32 = {k: total_f32[k] + f32[k] for k in total_f32}
+    rec = {"phase": "legacy_evaluation", "card": smi, "activations": "f32", "clips": n_clips,
+           "batch_clips": B, "frames_per_clip": T, "cases": out}
+    _emit(rec)
+    return total, total_f32, rec
+
+
+def legacy_vit_gnn(torch, A, P, smi: str, root: str, data: str):
+    """(e) ``cli_vit_gnn`` trains ViT-S/16 + GNN (16 synthetic images,
+    AdamW, 2 epochs) and ``infer_vit_gnn`` classifies one face stack: K2
+    and K4 f32 launches at (16, 6, 197, 64), the checkpoint's class
+    probabilities against the plain versions. Returns (path launches, f32
+    launches, record)."""
+    from deepfake_video_detection_tpu_torch.evals import infer_vit_gnn
+    from deepfake_video_detection_tpu_torch.train import cli_vit_gnn
+
+    epochs, depth = LEGACY["gnn_epochs"], 12
+    ckpt = os.path.join(root, "vit_gnn_ckpt.npz")
+    _reset_counts(A, P)
+    t = time.perf_counter()
+    _require(cli_vit_gnn.main(["--epochs", str(epochs), "--out", ckpt]) == 0,
+             "cli_vit_gnn exited non-zero")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_launches, train_f32 = _counts(A, P), _f32_counts(A)
+    want = _want(K2=depth * epochs, K4=depth * epochs)
+    _require(train_launches == want and train_f32 == {"K2": want["K2"], "K4": want["K4"]},
+             f"cli_vit_gnn launches {train_launches} ({train_f32} f32) != {want}")
+    clip = os.path.join(data, sorted(os.listdir(data))[0])
+    _reset_counts(A, P)
+    probs = infer_vit_gnn.classify(clip, ckpt)
+    torch.cuda.synchronize()
+    infer_launches, infer_f32 = _counts(A, P), _f32_counts(A)
+    _require(infer_launches == _want(K2=depth) and infer_f32 == {"K2": depth, "K4": 0},
+             f"infer_vit_gnn launches {infer_launches} ({infer_f32} f32)")
+    _require(infer_vit_gnn.main([clip, "--checkpoint", ckpt]) == 0, "infer_vit_gnn failed")
+    with _plain_attention(A):
+        probs_plain = infer_vit_gnn.classify(clip, ckpt)
+    diff = float(np.abs(probs - probs_plain).max())
+    _require(np.isfinite(probs).all() and diff <= PROB_TOL,
+             f"ViT-GNN probabilities kernels {probs} vs plain {probs_plain}")
+    rec = {"phase": "legacy_vit_gnn", "card": smi, "model": "vit_small_patch16_224 + GNN",
+           "samples": 16, "epochs": epochs, "train_wall_s": train_s,
+           "launches": {"train": train_launches, "infer": infer_launches},
+           "probs_kernels": probs.tolist(), "probs_plain": probs_plain.tolist(),
+           "probs_abs_diff": diff, "prob_tol": PROB_TOL}
+    _emit(rec)
+    launches = {k: train_launches[k] + infer_launches[k] for k in train_launches}
+    return launches, {k: train_f32[k] + infer_f32[k] for k in train_f32}, rec
+
+
+def legacy(torch, A, P, smi: str):
+    """The legacy phase, (a)-(e), on one synthetic set of 10 clips x 16
+    frames at 224 px from seed 0 (8 train, 2 validation). Returns
+    (launches by path, f32 launches by path)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="dfdt_legacy_")
+    try:
+        data = os.path.join(root, "faces")
+        os.makedirs(data)
+        _write_faces(data, LEGACY["clips"], LEGACY["frames"], LEGACY["size"])
+        paths, f32 = {}, {}
+        t = time.perf_counter()
+        paths["legacy_training"], f32["legacy_training"], _, ckpt = legacy_train(
+            torch, A, P, smi, root, data)
+        seconds = {"training": time.perf_counter() - t}
+        for name, fn, args in (("legacy_serving", legacy_serve, (ckpt,)),
+                               ("legacy_evaluation", legacy_evaluate, (ckpt,)),
+                               ("legacy_vit_gnn", legacy_vit_gnn, ())):
+            t = time.perf_counter()
+            paths[name], f32[name], _ = fn(torch, A, P, smi, root, data, *args)
+            seconds[name] = time.perf_counter() - t
+            gc.collect()
+        _emit({"phase": "legacy_seconds", **seconds})
+        return paths, f32
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1675,6 +2029,12 @@ def main() -> int:
     trained_f32, _ = timed("f32_training", train_f32, torch, A, P, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    legacy_paths, legacy_f32 = timed("legacy", legacy, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # f32 launches by path (every other launch is bf16)
+    f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
+                 **legacy_f32}
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -1688,23 +2048,29 @@ def main() -> int:
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
+             **legacy_paths,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})
 
-    def entry(kid, name, source, replaces, case, note=None, f32_case=None):
+    case_keys = ("shape", "max_abs_err", "tol", "kernel_ms", "kernel_device_ms", "plain_ms",
+                 "library_ms", "library_device_ms", "bound_ms", "bound_by",
+                 "bound_ms_cuda_core")
+
+    def entry(kid, name, source, replaces, case, note=None, f32_case=None, legacy_cases=()):
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
         e = _summary_entry(name, source, replaces, case, sum(by_path.values()), case["tol"])
         e["id"], e["launches_by_path"] = kid, by_path
         e["tol_kind"] = case.get("tol_kind", "absolute")
         if f32_case is not None:
-            # the f32 route's launches (its one path) beside the bf16 route's
-            f32 = by_path["f32_training"]
+            # the f32 route's launches beside the bf16 route's
+            f32 = sum(c.get(kid, 0) for c in f32_paths.values())
             e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
-            e["f32"] = {k: f32_case.get(k) for k in (
-                "shape", "max_abs_err", "tol", "kernel_ms", "kernel_device_ms", "plain_ms",
-                "library_ms", "library_device_ms", "bound_ms", "bound_by",
-                "bound_ms_cuda_core")}
+            e["f32"] = {k: f32_case.get(k) for k in case_keys}
+        if legacy_cases:
+            # the legacy phase's shapes: 3 or 6 heads
+            e["legacy"] = [{"dtype": c["dtype"], "note": c["note"],
+                            **{k: c.get(k) for k in case_keys}} for c in legacy_cases]
         if note:
             e["note"] = note
         _require(e["launches"] > 0, f"{kid} was launched on no path: {by_path}")
@@ -1716,6 +2082,9 @@ def main() -> int:
     def f32_row(cases, n):
         return next(c for c in cases if c["note"].startswith(F32_ROW) and c["shape"][2] == n)
 
+    def legacy_rows(cases):
+        return [c for c in cases if c["note"].startswith(LEGACY_ROW)]
+
     both = ("ms is one backward call, both passes; the JAX package trains dense "
             "below N = 4096")
     kernels = [
@@ -1724,11 +2093,11 @@ def main() -> int:
               "K1's packed-YUV420 entry: the JAX package has no kernel there (XLA fuses "
               "ops/yuv.py's colour matrix into K1's normalisation)"),
         entry("K2", "flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0],
-              f32_case=f32_row(k2_cases, 197)),
+              f32_case=f32_row(k2_cases, 197), legacy_cases=legacy_rows(k2_cases)),
         entry("K3", "flash_attention_fwd", K2_SOURCE, K3_REPLACES, k3_case,
               "N > 512: the streaming regime", f32_case=f32_row(k2_cases, 641)),
         entry("K4", "flash_attention_bwd", K4_SOURCE, K4_REPLACES, k4_cases[0],
-              f32_case=f32_row(k4_cases, 197)),
+              f32_case=f32_row(k4_cases, 197), legacy_cases=legacy_rows(k4_cases)),
         entry("K5", "flash_attention_bwd", K4_SOURCE, K5_REPLACES, k56_case,
               f"dQ pass, N > 512; {both}", f32_case=f32_row(k4_cases, 641)),
         entry("K6", "flash_attention_bwd", K4_SOURCE, K6_REPLACES, k56_case,

@@ -1,28 +1,33 @@
 """Evaluation CLI on one CUDA card.
 
-Counterpart of ``deepfake_video_detection_tpu/evals/evaluate.py`` for the
-pretrained detector and the temporal transformer:
+Counterpart of ``deepfake_video_detection_tpu/evals/evaluate.py``:
 
     python -m deepfake_video_detection_tpu_torch.evals.evaluate --data_dir faces/ \\
         --checkpoint ckpt/checkpoint_best.npz --num_frames 1024 --batch_size 2 --bf16
 
 Loads a native ``.npz`` or a reference ``.pt`` checkpoint
 (``checkpoint/store.py::load_any``), rebuilds the model from its embedded
-``model_config`` with the JAX evaluator's architecture inference (the
-temporal ``d_model`` from ``cls_token`` or ``proj.weight``, the depth from
-the ``blocks.*`` keys, pipeline-layout checkpoints renumbered to the loop
-layout), loads the weights shape-filtered, runs batched inference over a
-``VideoFacesDataset`` and prints the metric set (accuracy, precision,
-recall, F1, report, confusion matrix, AUC; ``--sweep`` for the threshold
-sweep), writing ``path,label,prob_fake,pred`` rows to a CSV.
+``model_config`` or, without one, by the JAX evaluator's key patterns
+(ensemble members, ``logic_cells.``, ``vit.``/``gcn.``, ``cnn.``, else the
+pretrained detector) and architecture inference: the ViT variant from the
+embedding width, the logic RNN's sizes from its gates, the temporal
+``d_model`` from ``cls_token`` or ``proj.weight`` and its depth from the
+``blocks.*`` keys (pipeline-layout checkpoints renumbered to the loop
+layout). It loads the weights shape-filtered, runs batched inference over a
+``VideoFacesDataset`` (the frame-graph detector with the normalised chain
+adjacency over the clip's frames) and prints the metric set (accuracy,
+precision, recall, F1, report, confusion matrix, AUC; ``--sweep`` for the
+threshold sweep), writing ``path,label,prob_fake,pred`` rows to a CSV.
 
 On the card each batch is normalised by the fused-normalize kernel (K1)
 into the compute dtype, as serving does, and the whole forward runs under
-``torch.inference_mode()``; a long clip's temporal blocks run the flash
-kernel in its streaming regime (N > 512). Not ported, each raising
-``NotImplementedError`` with its ROADMAP item: the other model families
-(ensembles, rnn, vit_gcn, cnn_lstm: item 16), ``--from-videos`` and
-``--quantize int8``.
+``torch.inference_mode()``; every ViT block runs the flash kernel, a long
+clip's temporal blocks in its streaming regime (N > 512). The ``rnn``
+family's checkpoint holds only the logic RNN: its ViT-Tiny frame encoder is
+freshly initialised (from a generator seeded 0; the JAX package draws it
+from ``PRNGKey(0)``, so the two packages' numbers differ), as in the
+reference. ``--from-videos`` and ``--quantize int8`` are not ported, each
+raising ``NotImplementedError`` with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,21 +35,113 @@ from __future__ import annotations
 import argparse
 import csv
 import os
-import re
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
-from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import import_into_model
+from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import (
+    import_into_model, infer_ensemble_count)
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.data.loader import Loader, prefetch_to_device
 from deepfake_video_detection_tpu_torch.evals.metrics import full_metrics, threshold_sweep
-from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+from deepfake_video_detection_tpu_torch.models.backbone_detector import (
+    BackboneDetector, EnsembleDetector)
+from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
+from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
+from deepfake_video_detection_tpu_torch.models.logic_rnn import LogicRNNLSTM
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector, infer_mlp_kwargs, normalize_state_dict)
+from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+from deepfake_video_detection_tpu_torch.nn import init as I
+from deepfake_video_detection_tpu_torch.nn import layers as L
 from deepfake_video_detection_tpu_torch.ops.preprocess import fused_normalize
+from deepfake_video_detection_tpu_torch.utils.device import resolve_device
+from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
+
+# embed-dim → timm ViT variant
+_EMBED_TO_VIT = {192: "vit_tiny_patch16_224", 384: "vit_small_patch16_224",
+                 768: "vit_base_patch16_224", 1024: "vit_large_patch16_224"}
+
+
+def infer_vit_variant_from_state_dict(sd: Mapping[str, Any]) -> str:
+    """The ViT variant told by the width of ``cls_token``/``pos_embed``,
+    else of the patch embedding; ViT-B/16 when neither is there."""
+    for key in sd:
+        if key.endswith("cls_token") or key.endswith("pos_embed"):
+            return _EMBED_TO_VIT.get(int(np.shape(sd[key])[-1]), "vit_base_patch16_224")
+    for key in sd:
+        if "patch_embed.proj.weight" in key:
+            return _EMBED_TO_VIT.get(int(np.shape(sd[key])[0]), "vit_base_patch16_224")
+    return "vit_base_patch16_224"
+
+
+def infer_logic_rnn_dims(sd: Mapping[str, Any]) -> Tuple[int, int, int]:
+    """``(input_size, hidden_size, num_layers)`` from ``logic_cells.*``
+    shapes."""
+    layers = set()
+    input_size = hidden_size = None
+    for k, v in sd.items():
+        if ".and_gate.weight" in k and k.startswith("logic_cells."):
+            idx = int(k.split(".")[1])
+            layers.add(idx)
+            if idx == 0:
+                hidden_size = int(np.shape(v)[0])
+                input_size = int(np.shape(v)[1]) - hidden_size
+    if hidden_size is None:
+        raise ValueError("not a LogicRNN checkpoint")
+    return input_size, hidden_size, max(layers) + 1
+
+
+class RNNVideoPipeline(nn.Module):
+    """ViT per-frame CLS features (a linear projection where its width is
+    not the RNN's input size) → ``LogicRNNLSTM``; the sigmoid probability
+    comes back as 2-class log-probabilities, so that a softmax downstream
+    returns it. f32 throughout, as in the JAX pipeline."""
+
+    def __init__(self, rnn: LogicRNNLSTM, vit_variant: str = "vit_tiny_patch16_224",
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator or torch.Generator().manual_seed(0)
+        dev = resolve_device(device)
+        self.compute_dtype = torch.float32
+        self.rnn = rnn.to(dev)
+        self.vit = VisionTransformer(variant=vit_variant, num_classes=0, device=dev,
+                                     generator=g)
+        self.needs_proj = self.vit.feature_dim != rnn.input_size
+        if self.needs_proj:
+            self.proj = torch.nn.utils.skip_init(nn.Linear, self.vit.feature_dim,
+                                                 rnn.input_size, device=dev,
+                                                 dtype=torch.float32)
+            with torch.no_grad():
+                self.proj.weight.copy_(I.kaiming_uniform(self.proj.weight.shape, g))
+                self.proj.bias.zero_()
+
+    def forward(self, frames: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, T = frames.shape[0], frames.shape[1]
+        feats = self.vit(frames.reshape((B * T,) + tuple(frames.shape[2:])))
+        if self.needs_proj:
+            feats = L.linear(feats, self.proj.weight, self.proj.bias)
+        prob_fake = self.rnn(feats.reshape(B, T, -1))
+        probs2 = torch.cat([1.0 - prob_fake, prob_fake], dim=-1)
+        return torch.log(torch.clamp(probs2, 1e-8, 1.0))
+
+
+def _model_type_from_keys(sd: Mapping[str, Any]) -> str:
+    """The JAX evaluator's key patterns."""
+    if infer_ensemble_count(sd) > 0:
+        return "ensemble"
+    if any(k.startswith("logic_cells.") for k in sd):
+        return "rnn"
+    if any(k.startswith(("vit.", "gcn.")) for k in sd):
+        return "vit_gcn"
+    if any(k.startswith("cnn.") for k in sd):
+        return "cnn_lstm"
+    return "pretrained"
+
 
 def build_model_from_checkpoint(sd: Mapping[str, Any], meta: Mapping[str, Any],
                                 model_type: str,
@@ -53,21 +150,27 @@ def build_model_from_checkpoint(sd: Mapping[str, Any], meta: Mapping[str, Any],
     """``(model, report, model_type)``: the model rebuilt from a
     checkpoint's flat torch-layout state dict and meta, its weights loaded
     (``report`` from :func:`import_into_model`). ``compute_dtype``: the
-    activations' dtype (params stay f32)."""
+    activations' dtype (params stay f32; the rnn pipeline stays f32)."""
     cfg = meta.get("model_config") or {}
     kw = {"compute_dtype": compute_dtype or torch.float32, "device": device}
-    mt = model_type or cfg.get("model_type", "")
-    if not mt:
-        # the keys by which the JAX evaluator tells the ensemble, rnn,
-        # vit_gcn and cnn_lstm families from a plain detector
-        other = re.compile(r"(models\.\d+|logic_cells|vit|gcn|cnn)\.")
-        mt = ("ensemble, rnn, vit_gcn or cnn_lstm" if any(other.match(k) for k in sd)
-              else "pretrained")
-    if mt not in ("pretrained", "temporal", "temporal_transformer"):
-        raise NotImplementedError(f"model type {mt!r} is not ported to the evaluator "
-                                  f"yet (ROADMAP Queue 1 item 16)")
-    if mt in ("temporal", "temporal_transformer"):
-        sd = normalize_state_dict(dict(sd))
+    sd = dict(sd)
+    mt = model_type or cfg.get("model_type", "") or _model_type_from_keys(sd)
+    if mt in ("vit_gcn", "gcn"):
+        variant = cfg.get("vit_variant") or infer_vit_variant_from_state_dict(sd)
+        model = FrameGraphDetector(vit_variant=variant, **kw)
+    elif mt == "cnn_lstm":
+        model = CNNLSTMHybrid(**kw)
+    elif mt in ("rnn", "logic_rnn"):
+        i, h, n = infer_logic_rnn_dims(sd)
+        model = RNNVideoPipeline(LogicRNNLSTM(input_size=i, hidden_size=h, num_layers=n,
+                                              device=device), device=device)
+        # the checkpoint holds only the RNN: its keys go under ``rnn.``
+        sd = {f"rnn.{k}": v for k, v in sd.items()}
+    elif mt == "ensemble":
+        backbones = cfg.get("backbones") or ["efficientnet_b0"] * infer_ensemble_count(sd)
+        model = EnsembleDetector(backbones, **kw)
+    elif mt in ("temporal", "temporal_transformer"):
+        sd = normalize_state_dict(sd)
         use_cls = "cls_token" in sd
         if use_cls:
             d_model = int(np.shape(sd["cls_token"])[-1])
@@ -88,15 +191,25 @@ def build_model_from_checkpoint(sd: Mapping[str, Any], meta: Mapping[str, Any],
 
 
 def evaluate_dataset(model: torch.nn.Module, ds: Any, batch_size: int = 8,
-                     fake_index: int = 1):
+                     fake_index: int = 1, model_type: str = ""):
     """Inference over the dataset on the model's device; returns
-    ``(paths, labels, prob_fake)`` for the valid rows."""
+    ``(paths, labels, prob_fake)`` for the valid rows. ``model_type``
+    ``vit_gcn`` (or ``gcn``) passes the normalised chain adjacency over
+    ``ds.num_frames`` frames."""
     device = next(model.parameters()).device
     compute_dtype = getattr(model, "compute_dtype", torch.float32)
+    adjacency = None
+    if model_type in ("vit_gcn", "gcn"):
+        adjacency = normalize_adjacency(chain_adjacency(ds.num_frames)).to(device)
 
     @torch.inference_mode()
     def forward(frames_u8: torch.Tensor) -> torch.Tensor:
-        logits, _ = model(fused_normalize(frames_u8, out_dtype=compute_dtype))
+        x = fused_normalize(frames_u8, out_dtype=compute_dtype)
+        if adjacency is not None:
+            out = model(x, adjacency.expand(x.shape[0], -1, -1))
+        else:
+            out = model(x)
+        logits = out[0] if isinstance(out, tuple) else out
         return torch.softmax(logits.to(torch.float32), dim=-1)
 
     paths_all, labels_all, probs_all = [], [], []
@@ -114,8 +227,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Evaluate a checkpoint on a faces dataset (CUDA)")
     ap.add_argument("--data_dir", required=True)
     ap.add_argument("--checkpoint", required=True)
-    ap.add_argument("--model", default="", help="pretrained|temporal "
-                                                "(default: infer from checkpoint)")
+    ap.add_argument("--model", default="",
+                    help="vit_gcn|cnn_lstm|rnn|pretrained|ensemble|temporal "
+                         "(default: infer from checkpoint)")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--num_frames", type=int, default=16)
     ap.add_argument("--threshold", type=float, default=0.5)
@@ -149,7 +263,7 @@ def main(argv=None) -> int:
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)
     paths, labels, prob_fake = evaluate_dataset(model, ds, args.batch_size,
-                                                args.fake_index)
+                                                args.fake_index, mt)
 
     m = full_metrics(labels, prob_fake, args.threshold, args.fake_index)
     print(m.pop("report"))

@@ -13,7 +13,9 @@ Batch norm keeps the JAX tree's names and nothing else: ``weight`` and
 ``bias`` parameters, ``running_mean`` and ``running_var`` buffers, no
 ``num_batches_tracked``, so a JAX tree crosses through
 ``checkpoint.bridge.state_dict_from_jax`` into ``load_state_dict(strict=True)``.
-In training the running stats are updated in place. Drop-path draws from the
+In training the running stats are updated in place, once a forward
+(not again when ``torch.utils.checkpoint`` recomputes it:
+``nn.layers.frozen_running_stats``). Drop-path draws from the
 generator passed to ``forward``; its rate grows linearly over the blocks.
 """
 
@@ -106,7 +108,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y, (mean, var) = L.batch_norm(x, self.weight, self.bias, self.running_mean,
                                       self.running_var, train, self.eps, self.momentum)
-        if train:
+        if train and not L.running_stats_frozen():
             with torch.no_grad():
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)

@@ -5,7 +5,8 @@ four ``_VARIANTS`` and timm's parameter names (``cls_token``, ``pos_embed``,
 ``patch_embed.proj``, ``blocks.N.attn.qkv`` …), so a JAX tree loads with
 ``load_state_dict(strict=True)`` after ``checkpoint.bridge``. Input is NHWC
 ``(B, H, W, 3)``; the output is the post-norm CLS embedding
-(``num_classes=0``, the backbone mode) or the head's logits.
+(``num_classes=0``, the backbone mode), the head's logits, or with
+``return_tokens`` the post-norm patch tokens (the ViT-GNN's graph nodes).
 
 Parameters are f32, as in the JAX package; ``compute_dtype`` (bf16 on the
 card) is the activations' dtype, and each op casts its weights to it
@@ -162,10 +163,12 @@ class VisionTransformer(nn.Module):
             self.head.bias.copy_(I.zeros(self.num_classes))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``x``: (B, H, W, 3) NHWC. Returns CLS features (B, D), or logits.
-        ``train`` and ``generator`` are taken as every backbone takes them;
-        the ViT draws nothing."""
+                generator: Optional[torch.Generator] = None,
+                return_tokens: bool = False) -> torch.Tensor:
+        """``x``: (B, H, W, 3) NHWC. Returns CLS features (B, D), or logits,
+        or with ``return_tokens`` the post-norm patch tokens (B, N, D)
+        without CLS. ``train`` and ``generator`` are taken as every backbone
+        takes them; the ViT draws nothing."""
         x = x.to(self.compute_dtype)
         y = self.patch_embed(x)
         cls = self.cls_token.to(y.dtype).expand(y.shape[0], -1, -1)
@@ -173,6 +176,8 @@ class VisionTransformer(nn.Module):
         for blk in self.blocks:
             y = blk(y)
         y = L.layer_norm(y, self.norm.weight, self.norm.bias, self.ln_eps)
+        if return_tokens:
+            return y[:, 1:, :]
         feats = y[:, 0, :]
         if self.head is not None:
             feats = L.linear(feats, self.head.weight, self.head.bias)

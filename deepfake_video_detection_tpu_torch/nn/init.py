@@ -101,3 +101,16 @@ def zeros(shape: Union[int, Shape]) -> torch.Tensor:
 
 def ones(shape: Union[int, Shape]) -> torch.Tensor:
     return torch.ones(shape)
+
+
+def default_linear(d_in: int, d_out: int, generator: torch.Generator, device
+                   ) -> torch.nn.Linear:
+    """An f32 ``nn.Linear`` on ``device`` with torch's default init
+    (kaiming_uniform weight, U(±1/sqrt(fan_in)) bias), drawn from
+    ``generator``: the JAX legacy models' ``_lin_init``."""
+    lin = torch.nn.utils.skip_init(torch.nn.Linear, d_in, d_out, device=device,
+                                   dtype=torch.float32)
+    with torch.no_grad():
+        lin.weight.copy_(kaiming_uniform((d_out, d_in), generator))
+        lin.bias.copy_(uniform_bias((d_out,), d_in, generator))
+    return lin

@@ -1,7 +1,8 @@
 """Functional layers with the JAX package's numerics and layouts.
 
 Counterpart of ``deepfake_video_detection_tpu/nn/layers.py`` for what the
-ViT, EfficientNet, ResNet, tinyconv and temporal-transformer paths need.
+ViT, EfficientNet, ResNet, tinyconv, temporal-transformer and legacy
+(CNN+LSTM, logic RNN, graph) paths need.
 Activations are channel-last (NHWC) at the public functions, as in the JAX
 package; weights are torch's (``(out, in)`` linears, OIHW convs). Each
 function casts its weights to the activation's dtype, as the JAX layers
@@ -21,7 +22,9 @@ input through its plain version.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import contextlib
+import contextvars
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +81,25 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return torch.addcmul(shift.to(x.dtype), x, inv.to(x.dtype)), new_stats
 
 
+_FROZEN_STATS = contextvars.ContextVar("frozen_running_stats", default=False)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(frozen: bool = True) -> Iterator[None]:
+    """Within this context batch-norm modules leave their running stats as
+    they are in training: a forward that ``torch.utils.checkpoint`` runs
+    again in the backward must not apply the momentum update twice."""
+    token = _FROZEN_STATS.set(frozen)
+    try:
+        yield
+    finally:
+        _FROZEN_STATS.reset(token)
+
+
+def running_stats_frozen() -> bool:
+    return _FROZEN_STATS.get()
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis, computed in f32, returned in x's dtype."""
@@ -130,6 +152,45 @@ def drop_path(x: torch.Tensor, rate: float, train: bool,
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def lstm(x: torch.Tensor,
+         layers: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
+         dropout_rate: float = 0.0, train: bool = False,
+         generator: Optional[torch.Generator] = None
+         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Multi-layer LSTM matching ``torch.nn.LSTM(batch_first=True)``, gate
+    order i, f, g, o. ``layers``: per layer ``(weight_ih (4H, in),
+    weight_hh (4H, H), bias_ih, bias_hh)``; ``x``: (B, T, F).
+
+    As in the JAX layer, the input projection over the whole sequence is one
+    matmul with ``bias_ih + bias_hh`` added in f32, and the recurrent product
+    and the cell run per step in f32. Between layers, dropout at
+    ``dropout_rate`` when ``train`` and a ``generator`` is given (the JAX
+    layer drops only with an rng). Returns ``(outputs (B, T, H) in x's
+    dtype, (h_n (L, B, H), c_n (L, B, H)) f32)``."""
+    B = x.shape[0]
+    h_ns, c_ns = [], []
+    for k, (w_ih, w_hh, b_ih, b_hh) in enumerate(layers):
+        H = w_hh.shape[1]
+        zx = F.linear(x, w_ih.to(x.dtype)).to(torch.float32) \
+            + (b_ih.to(torch.float32) + b_hh.to(torch.float32))
+        w_hh32 = w_hh.to(torch.float32)
+        h = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+        c = torch.zeros_like(h)
+        ys = []
+        for t in range(zx.shape[1]):
+            z = zx[:, t] + F.linear(h, w_hh32)
+            i, f, g, o = z.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            ys.append(h)
+        x = torch.stack(ys, dim=1).to(x.dtype)
+        h_ns.append(h)
+        c_ns.append(c)
+        if k < len(layers) - 1 and generator is not None:
+            x = dropout(x, dropout_rate, train, generator)
+    return x, (torch.stack(h_ns), torch.stack(c_ns))
 
 
 def multi_head_attention(x: torch.Tensor, qkv_weight: torch.Tensor,

@@ -18,10 +18,12 @@ Counterpart of ``deepfake_video_detection_tpu/serve/loader.py``:
   ``training_history.csv`` metric as tiebreak, a penalty for an extreme
   calibrated threshold), ``MODEL_URL`` download and ``MODEL_PATH``.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item: the
-``cnn_lstm`` and ``vit_gcn`` families (item 12), ``QUANTIZE=int8`` (item 13),
-and the temporal transformer's MoE checkpoints (item 18, raised by the
-model's constructor).
+The candidates by family: the temporal transformer, the CNN+LSTM (keys
+``cnn.``), the frame-graph detector (keys ``gcn.``; its ViT variant told by
+the embedding width), ensembles (``models.<i>.``) and the single-backbone
+detector. Not ported, each raising ``NotImplementedError`` with its ROADMAP
+item: ``QUANTIZE=int8`` (item 13) and the temporal transformer's MoE
+checkpoints (item 18, raised by the model's constructor).
 """
 
 from __future__ import annotations
@@ -42,8 +44,12 @@ from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
 from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import (
     canonicalize_detector_keys, detect_fake_index, import_into_model,
     infer_ensemble_count)
+from deepfake_video_detection_tpu_torch.evals.evaluate import (
+    infer_vit_variant_from_state_dict)
 from deepfake_video_detection_tpu_torch.models.backbone_detector import (
     BackboneDetector, EnsembleDetector)
+from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
+from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector, infer_mlp_kwargs, normalize_state_dict)
 from deepfake_video_detection_tpu_torch.nn import init as I
@@ -173,10 +179,15 @@ def load_model(path: str, model_type: Optional[str] = None, device: Any = "cuda"
             TemporalTransformerDetector(name, device="meta", **kw)
         candidates.append(("temporal", lambda d, name=name, kw=kw:
                            TemporalTransformerDetector(name, device=d, **kw), sd))
-    elif requested in ("cnn_lstm", "vit_gcn", "gcn") or (
-            requested is None and any(k.startswith(("cnn.", "gcn.")) for k in sd)):
-        raise NotImplementedError(f"{fname}: the cnn_lstm and vit_gcn families are not "
-                                  f"ported yet (ROADMAP Queue 1 item 12)")
+    elif requested == "cnn_lstm" or (requested is None
+                                     and any(k.startswith("cnn.") for k in sd)):
+        candidates.append(("cnn_lstm", lambda d: CNNLSTMHybrid(compute_dtype=cdt, device=d),
+                           sd))
+    elif requested in ("vit_gcn", "gcn") or (requested is None
+                                             and any(k.startswith("gcn.") for k in sd)):
+        variant = cfg.get("vit_variant") or infer_vit_variant_from_state_dict(sd)
+        candidates.append(("vit_gcn", lambda d: FrameGraphDetector(
+            vit_variant=variant, compute_dtype=cdt, device=d), sd))
     elif n_members > 0:
         combos = []
         if cfg.get("backbones"):

@@ -1,5 +1,6 @@
-"""Serving inference engine for the pretrained detector, its ensemble and
-the temporal transformer, on one CUDA card.
+"""Serving inference engine for the pretrained detector, its ensemble, the
+temporal transformer and the legacy CNN+LSTM and frame-graph detectors, on
+one CUDA card.
 
 Counterpart of ``deepfake_video_detection_tpu/serve/predict.py`` for
 ``model_type="pretrained"`` (a single ``BackboneDetector``: EfficientNet,
@@ -21,13 +22,22 @@ Result keys: prediction, verdict_yes_no, description, pred_class,
 confidence, prob_real, prob_fake, num_faces, threshold, enhanced_agent,
 frame_scores (+ windows, abstained).
 
+``model_type="cnn_lstm"`` and ``"vit_gcn"`` (``models/cnn_lstm.py``,
+``models/gcn.py``) take the JAX package's legacy path
+(:meth:`Predictor._predict_legacy`): the crops padded or sampled to 16
+frames and scaled by 1/255 (these models trained on [0, 1] frames, without
+ImageNet statistics), the frame graph the normalised chain over the 16
+frames, one forward a request (no micro-batching), the threshold from
+``DETECT_FAKE_THRESHOLD`` (0.5) and the borderline and low-confidence
+abstains, with the JAX package's result keys for that path.
+
 On CUDA the RGB forward runs the fused-normalize kernel (K1), the
 packed-YUV forward K1's YUV420 entry (colour matrix and normalisation in one
 pass), and every ViT and temporal block the flash-attention kernel (K2; a
 window holds at most 64 frames, so the temporal blocks attend over N ≤ 65
 tokens here); the conv nets run cuDNN convolutions, channels-last. Video
-decoding and face detection (``predict_video``, ROADMAP item 7), the legacy
-model types (item 12) and saliency (item 13) come with later slices.
+decoding and face detection (``predict_video``, ROADMAP item 7) and
+saliency (item 13) come with later slices.
 """
 
 from __future__ import annotations
@@ -41,16 +51,21 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from deepfake_video_detection_tpu_torch.data.dataset import pad_or_sample_frames
 from deepfake_video_detection_tpu_torch.ops.preprocess import (
     fused_normalize, fused_normalize_yuv)
 from deepfake_video_detection_tpu_torch.serve.batcher import MicroBatcher, to_host
 from deepfake_video_detection_tpu_torch.utils.config import env_bool, env_float, env_int
 from deepfake_video_detection_tpu_torch.utils.device import (  # noqa: F401
     resolve_device, serving_dtype)
+from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
 
 logger = logging.getLogger(__name__)
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
+_PRETRAINED_TYPES = ("pretrained", "ensemble_pretrained", "temporal")
+_LEGACY_TYPES = ("cnn_lstm", "vit_gcn")
+LEGACY_FRAMES = 16     # the legacy models' clip length
 
 
 def _get_fake_class_index(num_classes: int = 2) -> int:
@@ -140,6 +155,25 @@ def make_forward_fns(model: torch.nn.Module, is_ensemble: bool, face_size: int):
     return fwd, fwd_yuv
 
 
+def make_legacy_forward(model: torch.nn.Module, model_type: str, device: Any):
+    """The legacy serving forward: uint8 RGB clips (B, 16, H, W, 3) on the
+    device → f32 class probabilities (B, C). Frames scaled by 1/255; the
+    frame-graph detector gets the normalised chain adjacency over the 16
+    frames."""
+    adjacency = None
+    if model_type == "vit_gcn":
+        adjacency = normalize_adjacency(chain_adjacency(LEGACY_FRAMES)).to(device)
+
+    @torch.inference_mode()
+    def fwd(frames_u8: torch.Tensor) -> torch.Tensor:
+        x = frames_u8.to(torch.float32) / 255.0
+        logits = model(x) if adjacency is None else \
+            model(x, adjacency.expand(x.shape[0], -1, -1))
+        return torch.softmax(logits.to(torch.float32), dim=-1)
+
+    return fwd
+
+
 class CenterCropExtractor:
     """Stand-in for the JAX package's ``FaceExtractor`` until the extraction
     slice: carries the three attributes the Predictor reads."""
@@ -165,9 +199,8 @@ class Predictor:
         an ``agents.enhanced.EnhancedDecisionAgent``, consulted for
         ensembles. ``extractor``: any object with ``face_size``,
         ``detector`` and ``keep_all``."""
-        if model_type not in ("pretrained", "ensemble_pretrained", "temporal"):
-            raise NotImplementedError(f"model_type {model_type!r} {_NOT_PORTED} "
-                                      f"(item 12: the legacy families)")
+        if model_type not in _PRETRAINED_TYPES + _LEGACY_TYPES:
+            raise ValueError(f"unknown model_type {model_type!r}")
         self.device = resolve_device(device)
         if variables is not None:
             model.load_state_dict(variables, strict=True)
@@ -177,15 +210,20 @@ class Predictor:
         self.enhanced_agent = enhanced_agent
         self.extractor = extractor or CenterCropExtractor()
 
-        is_ensemble = model_type == "ensemble_pretrained" or hasattr(model, "members")
-        size = self.extractor.face_size
-        self._forward, self._forward_yuv = make_forward_fns(self.model, is_ensemble, size)
+        self._batcher = None
+        if model_type in _LEGACY_TYPES:
+            self._forward_legacy = make_legacy_forward(self.model, model_type, self.device)
+        else:
+            is_ensemble = model_type == "ensemble_pretrained" or hasattr(model, "members")
+            size = self.extractor.face_size
+            self._forward, self._forward_yuv = make_forward_fns(self.model, is_ensemble,
+                                                                size)
 
         # dynamic micro-batching: concurrent requests coalesce into one
         # batched device step. The item functions are bound once so the
-        # batcher can group calls by function identity.
-        self._batcher = None
-        if env_bool("SERVE_MICROBATCH", True):
+        # batcher can group calls by function identity. The legacy path
+        # runs one forward a request, as in the JAX package.
+        if model_type not in _LEGACY_TYPES and env_bool("SERVE_MICROBATCH", True):
             self._batcher = MicroBatcher(
                 max_batch=max(1, env_int("SERVE_MICROBATCH_MAX", 16)),
                 max_wait_s=env_float("SERVE_MICROBATCH_WAIT_MS", 4.0) / 1e3)
@@ -211,10 +249,16 @@ class Predictor:
     def warmup(self) -> None:
         """Run the RGB and the packed-YUV forward once at every batch shape
         serving can produce: batch 1, the windowed scan's W, and every
-        micro-batch bucket."""
+        micro-batch bucket (the legacy path: its one shape, a 16-frame
+        clip)."""
         try:
             T = max(1, min(64, env_int("MAX_FRAMES", 8)))
             size = self.extractor.face_size
+            if self.model_type in _LEGACY_TYPES:
+                frames = torch.zeros((1, LEGACY_FRAMES, size, size, 3), dtype=torch.uint8,
+                                     device=self.device)
+                to_host(self._forward_legacy(frames))
+                return
             windows = max(1, min(64, env_int("SERVE_WINDOWS", 1)))
             batch_sizes = [1]
             if windows > 1:
@@ -250,7 +294,56 @@ class Predictor:
         (T, H, W, 3) uint8 RGB."""
         if explain:
             raise NotImplementedError(f"saliency (explain) {_NOT_PORTED} (item 13)")
+        if self.model_type in _LEGACY_TYPES:
+            return self._predict_legacy(faces)
         return self._predict_pretrained(faces, video_id)
+
+    def _predict_legacy(self, faces: np.ndarray) -> Dict[str, Any]:
+        """The JAX package's legacy policy over the CNN+LSTM or frame-graph
+        detector's 16-frame probabilities."""
+        abstain_conf = env_float("DETECT_ABSTAIN_CONF", 0.60)
+        abstain_margin = max(0.0, min(0.5, env_float("DETECT_ABSTAIN_MARGIN", 0.0)))
+        num_faces = int(faces.shape[0])
+        faces = pad_or_sample_frames(np.asarray(faces), LEGACY_FRAMES)
+        probs = to_host(self._forward_legacy(self._to_device(faces[None])))[0]
+        fake_idx = _get_fake_class_index(probs.shape[0])
+        real_idx = 1 - fake_idx if probs.shape[0] == 2 else 0
+        prob_fake = float(probs[fake_idx])
+        prob_real = float(probs[real_idx])
+        thr = float(_detection_threshold(0.5))
+        is_fake = prob_fake >= thr
+        pred_class = 1 if is_fake else 0
+        confidence = prob_fake if is_fake else prob_real
+
+        if abstain_margin > 0.0 and abs(prob_fake - thr) <= abstain_margin:
+            return {"prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                    "description": (
+                        f"Borderline score (prob_fake={prob_fake * 100:.1f}%, "
+                        f"thr={thr:.2f} ± {abstain_margin:.2f}). Manual review "
+                        f"recommended."),
+                    "pred_class": None, "confidence": float(confidence),
+                    "prob_real": prob_real, "prob_fake": prob_fake,
+                    "num_faces": num_faces, "threshold": thr, "abstained": True}
+        if confidence < abstain_conf:
+            # as in the JAX package, this branch carries no threshold
+            return {"prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                    "description": (
+                        f"Low confidence ({confidence * 100:.1f}%). This video "
+                        f"may be out-of-domain. Manual review recommended."),
+                    "pred_class": None, "confidence": float(confidence),
+                    "prob_real": prob_real, "prob_fake": prob_fake,
+                    "num_faces": num_faces, "abstained": True}
+        return {
+            "prediction": "Deepfake" if pred_class == 1 else "Real",
+            "verdict_yes_no": "Yes" if pred_class == 1 else "No",
+            "description": ("Detected indicators of synthetic manipulation in "
+                            "facial frames." if pred_class == 1 else
+                            "No strong signs of manipulation detected; appears "
+                            "authentic."),
+            "pred_class": pred_class, "confidence": float(confidence),
+            "prob_real": prob_real, "prob_fake": prob_fake,
+            "num_faces": num_faces, "threshold": thr,
+        }
 
     def _predict_pretrained(self, faces: np.ndarray, video_id: str,
                             packed_yuv: bool = False, windows: int = 1,

@@ -1,9 +1,12 @@
 """Training CLI on one CUDA card.
 
 Counterpart of ``deepfake_video_detection_tpu/train/cli.py`` for the
-pretrained detector and the temporal transformer, each with a ViT or the
-``tinyconv`` backbone:
+frame-graph detector (``vit_gcn``, the default: ViT-Tiny + GCN over the
+normalised chain graph of a clip's frames), the CNN+LSTM (``cnn_lstm``),
+and the pretrained detector and the temporal transformer, each with a ViT
+or the ``tinyconv`` backbone:
 
+    python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/
     python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
         --model pretrained --backbone vit_base_patch16_224 --bf16
     python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
@@ -13,7 +16,7 @@ pretrained detector and the temporal transformer, each with a ViT or the
 80/20 split of the ``.npz`` face stacks in ``--data_dir``, class balancing
 (``--balance``), Adam + StepLR(5, 0.5), per-epoch and best-by-F1
 checkpoints, ``preds_epoch_N.csv``, ``--resume``, ``--smoke``. ``--bf16``
-means bf16 activations with f32 params. The JAX CLI's other model families,
+means bf16 activations with f32 params. B0 and ResNet backbones,
 ``--from-videos``, ``--progressive``, ``--steps_per_call > 1``,
 ``--torch-export`` and the parallelism flags are not ported; each raises
 ``NotImplementedError`` naming its ROADMAP item. The temporal model takes
@@ -28,6 +31,8 @@ import torch
 
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
+from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector)
 from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -36,21 +41,25 @@ from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerCon
 def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16_224",
                 backbone: str = "efficientnet_b0", temporal_kwargs: dict = None,
                 bf16: bool = False, device="cuda", seed: int = 0):
-    """``(model, adjacency, model_config)`` as in the JAX CLI, for
+    """``(model, adjacency, model_config)`` as in the JAX CLI: ``vit_gcn``
+    (a ``vit_variant`` ViT, the chain adjacency), ``cnn_lstm``, and
     ``pretrained`` and ``temporal`` with a ViT or ``tinyconv`` backbone;
     ``temporal_kwargs``: the temporal model's sizes (``d_model``, ``depth``,
     ``num_heads``). Weights from a generator seeded ``seed``."""
     name = name.lower()
+    kw = {"compute_dtype": torch.bfloat16 if bf16 else torch.float32,
+          "device": device, "generator": torch.Generator().manual_seed(seed)}
+    if name in ("vit_gcn", "gcn"):
+        return (FrameGraphDetector(vit_variant=vit_variant, **kw), "chain",
+                {"model_type": "vit_gcn", "vit_variant": vit_variant})
+    if name in ("cnn_lstm", "cnnlstm"):
+        return CNNLSTMHybrid(**kw), None, {"model_type": "cnn_lstm"}
     if name not in ("pretrained", "backbone", "temporal", "temporal_transformer"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP Queue 1: slice 3 for "
-            f"vit_gcn and cnn_lstm)")
+        raise ValueError(f"unknown model {name!r}")
     if not backbone.lower().startswith(("vit", "tinyconv")):
         raise NotImplementedError(
             f"training the {backbone!r} backbone is not ported yet (ROADMAP Queue 1 "
             f"items 14-15; the port serves it: serve/loader.py)")
-    kw = {"compute_dtype": torch.bfloat16 if bf16 else torch.float32,
-          "device": device, "generator": torch.Generator().manual_seed(seed)}
     if name in ("pretrained", "backbone"):
         return (BackboneDetector(backbone, **kw), None,
                 {"model_type": "pretrained", "backbone": backbone})

@@ -4,8 +4,8 @@ and the step counter.
 Counterpart of ``deepfake_video_detection_tpu/train/state.py``. The JAX
 state is an immutable pytree of params, model state, optimizer state and
 step; here the parameters are the model's own tensors, updated in place,
-and the ViT detector has no buffers (no BatchNorm), so there is no
-separate model state.
+and the model state (batch norm's running stats) is the model's buffers,
+updated in place by its training forward.
 """
 
 from __future__ import annotations

@@ -8,7 +8,11 @@ stay tensors on the device until the caller reads them.
 
 ``remat=True`` recomputes the forward in the backward
 (``torch.utils.checkpoint``) as ``jax.checkpoint`` does; dropout draws are
-replayed by restoring the generator's state at the start of the forward.
+replayed by restoring the generator's state at the start of the forward,
+and batch norm's running stats, which the JAX step threads through as new
+model state computed once, are left alone by the recomputation
+(``nn.layers.frozen_running_stats``). A batch with ``adjacency`` (the graph
+models) passes it as the model's second argument.
 """
 
 from __future__ import annotations
@@ -18,26 +22,34 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deepfake_video_detection_tpu_torch.nn.layers import frozen_running_stats
 from deepfake_video_detection_tpu_torch.train.optim import Optimizer
 from deepfake_video_detection_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
 
 
-def _forward(model, frames: torch.Tensor, train: bool,
+def _forward(model, batch: dict, train: bool,
              generator: Optional[torch.Generator], remat: bool) -> torch.Tensor:
-    """The model's logits (the first output of a ``(logits, ...)`` tuple)."""
+    """The model's logits (the first output of a ``(logits, ...)`` tuple)
+    on ``batch["frames"]`` (and ``batch["adjacency"]`` when present)."""
+    inputs = (batch["frames"],) + ((batch["adjacency"],) if "adjacency" in batch else ())
     if not remat:
-        out = model(frames, train=train, generator=generator)
+        out = model(*inputs, train=train, generator=generator)
     else:
         gen_state = generator.get_state() if generator is not None else None
+        runs = []
 
-        def run(x):
+        def run(*xs):
             if gen_state is not None:
                 generator.set_state(gen_state)
-            return model(x, train=train, generator=generator)
+            runs.append(None)
+            # the forward updates batch norm's running stats; its
+            # recomputation in the backward must not update them again
+            with frozen_running_stats(len(runs) > 1):
+                return model(*xs, train=train, generator=generator)
 
-        out = checkpoint(run, frames, use_reentrant=False)
+        out = checkpoint(run, *inputs, use_reentrant=False)
     return out[0] if isinstance(out, tuple) else out
 
 
@@ -61,13 +73,14 @@ def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
                                   Tuple[TrainState, Metrics]]:
     """``step(state, batch, generator) -> (state, metrics)``. ``batch``:
     ``frames`` (B, T, H, W, C) normalised, ``labels`` (B,), optionally
-    ``valid`` (B,) bool, all on the model's device. ``generator`` drives
+    ``valid`` (B,) bool and ``adjacency`` (B, T, T), all on the model's
+    device. ``generator`` drives
     dropout. The state is updated in place and returned."""
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
         params = state.params
-        logits = _forward(model, batch["frames"], True, generator, remat)
+        logits = _forward(model, batch, True, generator, remat)
         valid = batch.get("valid")
         loss = loss_fn(logits, batch["labels"], sample_mask=valid)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
@@ -121,7 +134,7 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
             b = {k: v[i] for k, v in batches.items()}
             if prep is not None:
                 b = prep(b, generator)
-            logits = _forward(model, b["frames"], True, generator, remat)
+            logits = _forward(model, b, True, generator, remat)
             mean_k = loss_fn(logits, b["labels"], sample_mask=b.get("valid"))
             g = torch.autograd.grad(mean_k * scale[i], list(params.values()),
                                     allow_unused=True)
@@ -145,8 +158,7 @@ def make_eval_step(model: Any) -> Callable[[dict], Metrics]:
 
     @torch.inference_mode()
     def step(batch: dict):
-        out = model(batch["frames"], train=False)
-        logits = out[0] if isinstance(out, tuple) else out
+        logits = _forward(model, batch, False, None, False)
         return {"logits": logits,
                 "probs": torch.softmax(logits.to(torch.float32), dim=-1)}
 

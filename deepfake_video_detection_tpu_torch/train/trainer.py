@@ -13,7 +13,10 @@ interrupt checkpoint.
 Per step: the loader's uint8 batch goes to the card through pinned memory,
 is augmented and normalised there (``data/augment.py``), and one train step
 (``train/steps.py``) runs forward, loss, backward (the flash backward kernel
-in every ViT block) and the optimizer update.
+in every ViT block) and the optimizer update. Graph models get the
+normalised chain (or full) adjacency over the clip's frames with every
+batch (``adjacency``); batch-norm models (the CNN+LSTM) update their
+running stats once a step, ``remat`` or not.
 
 Differences from the JAX trainer: the model arrives with its weights
 (initialised from a generator when it was built), so :meth:`init_state`
@@ -21,8 +24,8 @@ builds the optimizer state around them instead of re-initialising from
 ``seed``; random draws (augment, dropout) come from a ``torch.Generator``
 seeded per epoch as the JAX keys are, so they are seeded but not the same
 numbers. Not ported (each raises ``NotImplementedError``): meshes and
-parallel plans, ``steps_per_call > 1``, graph adjacency, ``.pt`` warm starts
-and ``keep_torch_export``.
+parallel plans, ``steps_per_call > 1``, ``.pt`` warm starts and
+``keep_torch_export``.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from deepfake_video_detection_tpu_torch.train.state import TrainState
 from deepfake_video_detection_tpu_torch.train.steps import (
     make_accum_step, make_eval_step, make_train_step)
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
+from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
 
@@ -100,7 +104,7 @@ class TrainerConfig:
     keep_torch_export: bool = False   # not ported
     seed: int = 42
     smoke: bool = False
-    adjacency: Optional[str] = None   # not ported (graph models)
+    adjacency: Optional[str] = None   # None | chain | full: for graph models
     augment: bool = True
     normalize: str = "imagenet"       # imagenet | clip | unit (x/255 only)
     compute_dtype: str = "float32"
@@ -127,8 +131,6 @@ class Trainer:
             raise NotImplementedError(f"meshes and parallel plans {_NOT_PORTED}")
         if config.steps_per_call > 1:
             raise NotImplementedError(f"steps_per_call > 1 {_NOT_PORTED}")
-        if config.adjacency:
-            raise NotImplementedError(f"graph adjacency {_NOT_PORTED}")
         if config.keep_torch_export:
             raise NotImplementedError(f"keep_torch_export {_NOT_PORTED}")
         self.device = resolve_device(device)
@@ -188,10 +190,25 @@ class Trainer:
                                           remat=config.remat)
         self.eval_step = make_eval_step(model)
 
-        # ---- device-side batch transform: augment (train) + normalise ----
+        # ---- adjacency (graph models): a fixed graph over the T frames ----
+        self._adjacency = None
+        if config.adjacency:
+            T = config.num_frames
+            A = chain_adjacency(T) if config.adjacency == "chain" else \
+                np.ones((T, T), np.float32)
+            self._adjacency = normalize_adjacency(A).to(self.device)
+
+        # ---- device-side batch transform: augment (train) + normalise,
+        # and the adjacency of each clip ----
         aug_cfg = AugmentConfig()
         norm = {"clip": clip_normalize, "unit": _unit}.get(config.normalize,
                                                            imagenet_normalize)
+
+        def _with_adjacency(batch):
+            if self._adjacency is None:
+                return batch
+            B, T = batch["frames"].shape[:2]
+            return dict(batch, adjacency=self._adjacency.expand(B, T, T))
 
         def _prep_train(batch, generator):
             if config.augment:
@@ -199,10 +216,11 @@ class Trainer:
                               / 255.0, scaled=True)
             else:
                 frames = norm(batch["frames"])
-            return dict(batch, frames=frames)
+            return _with_adjacency(dict(batch, frames=frames))
 
         self._prep_train = _prep_train
-        self._prep_eval = lambda batch: dict(batch, frames=norm(batch["frames"]))
+        self._prep_eval = lambda batch: _with_adjacency(
+            dict(batch, frames=norm(batch["frames"])))
 
         # ---- gradient accumulation: exact big-batch steps, 1/a the memory --
         self.accum_step = None

@@ -87,7 +87,10 @@ def test_fused_normalize_yuv_kernel_matches_plain(shape, dtype):
     (2, 3, 77, 30, torch.float32, False),         # f32 d not a multiple of 4: padded copy
     (16, 12, 1, 64, torch.float32, False),
     (1, 4, 4097, 64, torch.float32, True),        # f32 at long N: unsplit
-    (128, 12, 197, 64, torch.float32, True),      # the training CLI's default step
+    (128, 12, 197, 64, torch.float32, True),      # f32 ViT-B/16 step, 8 x 16 frames
+    (128, 3, 197, 64, torch.float32, True),       # the training CLI's default: vit_gcn
+    (16, 3, 197, 64, torch.bfloat16, True),       # vit_gcn serving, 16 frames
+    (16, 6, 197, 64, torch.float32, True),        # the ViT-GNN CLIs, 16 images
 ])
 def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
@@ -146,7 +149,9 @@ def _bwd_inputs(gen, B, H, N, d, dtype, strided):
     (2, 3, 77, 30, torch.float32, False),         # f32 d not a multiple of 4: padded copy
     (16, 12, 1, 64, torch.float32, False),
     (1, 4, 4097, 64, torch.float32, True),        # f32 at long N: unsplit
-    (128, 12, 197, 64, torch.float32, True),      # the training CLI's default step
+    (128, 12, 197, 64, torch.float32, True),      # f32 ViT-B/16 step, 8 x 16 frames
+    (128, 3, 197, 64, torch.float32, True),       # the training CLI's default: vit_gcn
+    (16, 6, 197, 64, torch.float32, True),        # the ViT-GNN trainer, 16 images
 ])
 def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
@@ -293,6 +298,41 @@ def test_small_detector_on_cuda_matches_plain_versions():
                                lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
             ref, _ = model(P.fused_normalize_plain(x, torch.float32))
     assert float((logits - ref).abs().max()) <= 1e-3
+
+
+def test_frame_graph_detector_on_cuda_matches_plain_versions():
+    """A two-block ViT-Tiny + GCN at 64 px, f32: logits and one backward's
+    gradients through the f32 flash kernels vs the plain versions."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
+    from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+    from deepfake_video_detection_tpu_torch.utils.graph import (
+        chain_adjacency, normalize_adjacency)
+
+    gen = _cuda_generator()
+    model = FrameGraphDetector(vit_variant="vit_tiny_patch16_224", img_size=64,
+                               device="cuda")
+    model.vit = VisionTransformer("vit_tiny_patch16_224", img_size=64, depth=2,
+                                  device="cuda")
+    x = torch.randn((2, 4, 64, 64, 3), device="cuda", generator=gen)
+    adj = normalize_adjacency(chain_adjacency(4)).cuda().expand(2, 4, 4)
+    params = list(model.parameters())
+
+    def run():
+        logits = model(x, adj)
+        return logits, torch.autograd.grad(logits.square().sum(), params)
+
+    before = (A.flash_attention_fwd.launches_f32, A.flash_attention_bwd.launches_f32)
+    logits, grads = run()
+    assert (A.flash_attention_fwd.launches_f32, A.flash_attention_bwd.launches_f32) == (
+        before[0] + 2, before[1] + 2)
+    with mock.patch.object(A, "flash_attention",
+                           lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+        ref, ref_grads = run()
+    assert float((logits - ref).detach().abs().max()) <= 1e-3
+    for g, r in zip(grads, ref_grads):
+        assert torch.allclose(g, r, atol=1e-3, rtol=1e-3)
 
 
 def test_long_clip_temporal_model_on_cuda_matches_plain_versions():

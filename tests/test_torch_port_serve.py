@@ -353,9 +353,10 @@ def test_serving_dtype_is_bf16_on_the_card_and_f32_on_the_cpu(monkeypatch):
 
 def test_unported_paths_raise(weights, serve_env, monkeypatch):
     model, sd = _port_model(weights[1])
-    for model_type in ("cnn_lstm", "vit_gcn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_predict.Predictor(model, sd, model_type, device="cpu")
+    # cnn_lstm and vit_gcn are served (test_torch_port_legacy.py); an
+    # unknown model type raises
+    with pytest.raises(ValueError, match="model_type"):
+        port_predict.Predictor(model, sd, "logic_rnn", device="cpu")
     pred = port_predict.Predictor(model, sd, "pretrained", device="cpu")
     with pytest.raises(NotImplementedError):
         pred.predict_video("clip.mp4")

@@ -317,8 +317,8 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, npz_dir, tmp_path
         Trainer(model, ds, ds, TrainerConfig(out_dir=str(tmp_path)))
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(model, None, "pretrained")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.build_model("vit_gcn", 4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):   # the CLI's default model
+        cli.build_model("vit_gcn", 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.build_model("pretrained", 4, backbone="efficientnet_b0", device="cpu")
 
