@@ -81,7 +81,24 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    logic-RNN ``.npz``: K1 and K2 launches, CSV rows. (e) ``cli_vit_gnn``
    trains ViT-S/16 + GNN (K2 and K4 f32 at (16, 6, 197, 64)) and
    ``infer_vit_gnn`` classifies one face stack, against the plain versions.
-11. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
+11. Conv-net training (``convnet_training``), on 10 synthetic clips of 16
+   frames at 224 px from seed 0, at torch's own TF32 flags (what the
+   training CLIs run with; both flags on each line). (a) ``--model
+   pretrained`` at its default backbone, EfficientNet-B0, f32 and
+   ``--bf16``: one ``Trainer`` step of 8 clips x 16 frames timed (mean of
+   10), frames/s, peak memory, device time by kernel; ResNet-50 timed over
+   3 steps. (b) One B0 step of 2 clips x 4 frames on the card and on the
+   CPU from the same weights and batch: loss, grad norm and BN running
+   stats within the tolerance the TF32 flags set, at the CLI's flags and
+   with TF32 off. (c) ``cli_ensemble.main`` at its defaults (B0 +
+   resnet18) with ``--torch-export`` for one epoch: the loader reads its
+   ``.npz`` and ``.pt`` at match ratio 1.0, and a ``Predictor`` serves two
+   packed-YUV420 clips (K1-YUV) at the calibration file's threshold. (d)
+   ``--model temporal`` at the CLI's defaults over B0 (N = 17): a timed
+   step, its 4 + 4 f32 flash launches, device time by kernel, loss and
+   grad norm against the plain versions. (e) A ``.pt`` resume through the
+   CLI and a ``.pt`` warm start through ``Trainer``, one epoch each.
+12. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
@@ -94,9 +111,10 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-12. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+13. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
-   its f32 row; K2 and K4 with their cases at the legacy phase's shapes),
+   its f32 row; K2 and K4 with their cases at the legacy phase's shapes
+   and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -203,6 +221,23 @@ LEGACY_KEYS = ("prediction", "verdict_yes_no", "description", "pred_class", "con
                "prob_real", "prob_fake", "num_faces", "threshold")
 # the kernel cases at the legacy phase's shapes (3 or 6 heads)
 LEGACY_ROW = "legacy: "
+
+# the conv-net training phase: 10 synthetic clips x 16 frames at 224 px (8
+# train, 2 validation); the training CLI's defaults (batch 8 x 16 frames; the
+# temporal model d_model 256, 4 blocks, 4 heads: N = 17); one B0 step of 2
+# clips x 4 frames on the card and on the CPU; two clips served
+CONVTRAIN = {"clips": 10, "frames": 16, "size": 224, "batch": 8, "cmp_clips": 2,
+             "cmp_frames": 4, "serve_clips": 2, "d_model": 256, "depth": 4, "num_heads": 4}
+# the kernel cases at the temporal model's shape over B0 (N = 17, 4 heads)
+CONV_ROW = "convnet: "
+# one B0 train step, card vs CPU, by the card's TF32 flags: relative
+# differences of the loss, the grad norm and the BN running stats
+# (bn_stats_rel_diff: a mean by the channel's std, a variance by itself).
+# f32: cuDNN's and the CPU's conv sums in other orders, through 16 blocks
+# of train-mode BN; TF32 (cuDNN's default for convolutions): 10-bit
+# products in every conv
+CPU_TOL = {"f32": {"loss": 1e-4, "grad_norm": 1e-3, "bn_stats": 1e-3},
+           "tf32": {"loss": 1e-2, "grad_norm": 5e-2, "bn_stats": 5e-2}}
 
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
@@ -518,7 +553,10 @@ def check_k2(torch, A, gen):
              (128, 3, 197, 64, torch.float32, True,
               LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
              (16, 3, 197, 64, torch.bfloat16, True, LEGACY_ROW + "vit_gcn serving, one clip"),
-             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer")]
+             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer"),
+             (8, 4, 17, 64, torch.float32, True,
+              CONV_ROW + "the training CLI's --model temporal step over B0"),
+             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16")]
     for B, H, N, d, dt, strided, note in specs:
         if strided:
             qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
@@ -559,7 +597,7 @@ def check_k2(torch, A, gen):
                "bound_ms": bound, "bound_by": by}
         if name == "f32":
             rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
-        if N > A._SHORT_MAX or name == "f32" or note.startswith(LEGACY_ROW):
+        if N > A._SHORT_MAX or name == "f32" or note.startswith((LEGACY_ROW, CONV_ROW)):
             rec["library_device_ms"] = _session_device_ms(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v))
             rec["library_queued_ms"] = _queued_ms(
@@ -610,7 +648,10 @@ def check_k4(torch, A, gen):
              (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape"),
              (128, 3, 197, 64, torch.float32, True,
               LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
-             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer")]
+             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer"),
+             (8, 4, 17, 64, torch.float32, True,
+              CONV_ROW + "the training CLI's --model temporal step over B0"),
+             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16")]
     for B, H, N, d, dt, strided, note in specs:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
         name = "bf16" if dt == torch.bfloat16 else "f32"
@@ -670,7 +711,7 @@ def check_k4(torch, A, gen):
                "bound_ms": bound, "bound_by": by}
         if name == "f32":
             rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
-        if N > A._SHORT_MAX or name == "f32":
+        if N > A._SHORT_MAX or name == "f32" or note.startswith(CONV_ROW):
             fb, fo = _session_device_ms(torch, sdpa_fwd_bwd), _session_device_ms(torch, sdpa_fwd)
             rec["library_device_ms"] = None if fb is None or fo is None else fb - fo
             qb, qo = _queued_ms(torch, sdpa_fwd_bwd), _queued_ms(torch, sdpa_fwd)
@@ -1674,6 +1715,358 @@ def legacy(torch, A, P, smi: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _convnet_step_setup(torch, data: str, out: str, model_name: str, backbone: str,
+                        bf16: bool, temporal_kwargs=None):
+    """A ``Trainer`` with the training CLI's settings (Adam, lr 1e-3, step
+    schedule, class weights, no clip, augment on) around
+    ``train/cli.py::build_model(model_name, backbone=...)``, its initial
+    state and one augmented batch of ``CONVTRAIN["batch"]`` clips."""
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    T, B = CONVTRAIN["frames"], CONVTRAIN["batch"]
+    ds = VideoFacesDataset(data, num_frames=T)
+    model, _, model_config = cli.build_model(model_name, T, backbone=backbone, bf16=bf16,
+                                             temporal_kwargs=temporal_kwargs)
+    _require(all(p.dtype == torch.float32 for p in model.parameters()), "params are not f32")
+    cfg = TrainerConfig(out_dir=out, epochs=1, batch_size=B, num_frames=T, lr=1e-3,
+                        optimizer="adam", schedule="step", loss="ce", balance="weights",
+                        grad_clip=None, augment=True, model_config=model_config)
+    trainer = Trainer(model, ds, ds, cfg, device="cuda")
+    batch = next(iter(trainer._device_batches(ds, True)))
+    batch.pop("paths", None)
+    batch = trainer._prep_train(batch, torch.Generator(device="cuda").manual_seed(1))
+    return model, model_config, trainer, trainer.init_state(), batch
+
+
+def _timed_step(torch, A, P, trainer, state, batch, iters: int, breakdown: bool):
+    """One warm-up step (its launches and peak memory), then the mean of
+    ``iters`` steps by CUDA events and, with ``breakdown``, one step's
+    device time by kernel (``_kernel_breakdown``)."""
+    step = trainer.train_step
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    gc.collect()    # no garbage of an earlier phase in this one's peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(A, P)
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches, f32 = _counts(A, P), _f32_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    _require(math.isfinite(float(metrics["loss"])) and math.isfinite(
+        float(metrics["grad_norm"])), f"step metrics {metrics}")
+    ms = _time_ms(torch, lambda: step(state, batch, gen), iters=iters, warmup=1)
+    rec = {"launches": launches, "launches_f32": f32, "step_ms": ms,
+           "frames_per_s": batch["frames"].shape[0] * batch["frames"].shape[1] / ms * 1e3,
+           "max_memory_allocated_bytes": peak, "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"])}
+    if breakdown:
+        rec["device_time"] = _kernel_breakdown(torch, lambda: step(state, batch, gen), top=12)
+    return state, rec
+
+
+def convnet_steps(torch, A, P, smi: str, root: str, data: str, flags: dict):
+    """(a) The training CLI's ``--model pretrained`` at its default backbone,
+    EfficientNet-B0, f32 and ``--bf16``: one ``Trainer`` step of 8 clips x
+    16 frames at 224 px, timed (mean of 10 after a warm-up), frames/s, peak
+    memory, device time by kernel; ResNet-50 the same, timed over 3 steps.
+    No flash kernel may launch. Returns the records."""
+    recs = {}
+    for name, backbone, bf16, iters in (("b0_f32", "efficientnet_b0", False, 10),
+                                        ("b0_bf16", "efficientnet_b0", True, 10),
+                                        ("resnet50_f32", "resnet50", False, 3)):
+        model, cfg, trainer, state, batch = _convnet_step_setup(
+            torch, data, os.path.join(root, name), "pretrained", backbone, bf16)
+        state, rec = _timed_step(torch, A, P, trainer, state, batch, iters,
+                                 breakdown=name != "resnet50_f32")
+        _require(not any(rec["launches"].values()), f"{name} launched {rec['launches']}")
+        breakdown = rec.pop("device_time", None)
+        rec = {"phase": "convnet_training", "case": name, "card": smi,
+               "built_by": "train/cli.py::build_model('pretrained', backbone="
+                           f"{backbone!r}, bf16={bf16})",
+               "model_config": cfg, "params": "f32", "activations": "bf16" if bf16 else "f32",
+               "batch_clips": batch["frames"].shape[0],
+               "frames_per_clip": batch["frames"].shape[1], "timed_steps": iters,
+               **flags, **rec}
+        _emit(rec)
+        if breakdown is not None:
+            _emit({"phase": "convnet_training_device_time", "case": name, "card": smi,
+                   **breakdown})
+        recs[name] = rec
+        print(f"{name} training step {rec['step_ms']:.2f} ms "
+              f"({rec['frames_per_s']:.1f} frames/s), peak "
+              f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB allocated on {smi}",
+              flush=True)
+        del model, trainer, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def bn_stats_rel_diff(got: dict, ref: dict) -> float:
+    """The largest difference of two sets of BN running stats, per channel
+    in the reference's own scale: |d mean| / sqrt(var) and |d var| / var.
+    (A mean that is 0 in exact arithmetic, as after a bias-free 1x1 conv of
+    zero-mean channels, is only rounding residue: its own scale says
+    nothing.)"""
+    worst = 0.0
+    for k, mean in ref.items():
+        if not k.endswith("running_mean"):
+            continue
+        vk = k[:-len("mean")] + "var"
+        var = ref[vk]
+        worst = max(worst, float(((got[k] - mean).abs() / var.sqrt()).max()),
+                    float(((got[vk] - var).abs() / var).max()))
+    return worst
+
+
+def convnet_vs_cpu(torch, smi: str, flags: dict):
+    """(b) One B0 step (2 clips x 4 frames at 224 px; SGD with the ensemble
+    trainer's clip, 1.0, which the step exceeds; no dropout or drop-path
+    draws) on the same weights and batch on the card and on the CPU: loss,
+    grad norm and BN running stats within the tolerance the card's TF32
+    flags set (``CPU_TOL``), once at the CLI's flags and once with TF32
+    off. Returns the records."""
+    import copy
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.train import losses, optim, steps
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+
+    B, T, size = CONVTRAIN["cmp_clips"], CONVTRAIN["cmp_frames"], CONVTRAIN["size"]
+    cpu = BackboneDetector("efficientnet_b0", dropout_rate=0.0, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    cpu.backbone.drop_path_rate = 0.0
+    rng = np.random.default_rng(4)
+    batch = {"frames": torch.from_numpy(rng.normal(size=(B, T, size, size, 3))
+                                        .astype(np.float32)),
+             "labels": torch.tensor([0, 1]), "valid": torch.ones(B, dtype=torch.bool)}
+    models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).cuda()}
+
+    def run(model, dev):
+        opt = optim.build_optimizer("sgd", 0.5, grad_clip=1.0)
+        step = steps.make_train_step(model, opt, losses.cross_entropy_loss)
+        _, m = step(TrainState.create(model, opt), {k: v.to(dev) for k, v in batch.items()})
+        stats = {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return float(m["loss"]), float(m["grad_norm"]), stats
+
+    t = time.perf_counter()
+    loss_c, norm_c, stats_c = run(models["cpu"], "cpu")
+    cpu_s = time.perf_counter() - t
+    recs = []
+    for label, cudnn_tf32, matmul_tf32 in (("cli_flags", flags["cudnn_allow_tf32"],
+                                            flags["matmul_allow_tf32"]),
+                                           ("tf32_off", False, False)):
+        prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+            cudnn_tf32, matmul_tf32
+        try:
+            loss_g, norm_g, stats_g = run(copy.deepcopy(models["cuda"]), "cuda")
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        tol = CPU_TOL["tf32" if cudnn_tf32 or matmul_tf32 else "f32"]
+        d_stats = bn_stats_rel_diff(stats_g, stats_c)
+        rec = {"phase": "convnet_training_vs_cpu", "case": label, "card": smi,
+               "cudnn_allow_tf32": cudnn_tf32, "matmul_allow_tf32": matmul_tf32,
+               "model": "efficientnet_b0", "batch_clips": B, "frames_per_clip": T,
+               "loss_card": loss_g, "loss_cpu": loss_c,
+               "loss_rel_diff": abs(loss_g - loss_c) / abs(loss_c),
+               "grad_norm_card": norm_g, "grad_norm_cpu": norm_c,
+               "grad_norm_rel_diff": abs(norm_g - norm_c) / norm_c,
+               "bn_stats": len(stats_c), "bn_stats_rel_diff": d_stats,
+               "tol": tol, "cpu_step_s": cpu_s}
+        _emit(rec)
+        _require(norm_c > 1.0, f"the clip did not bite: grad norm {norm_c}")
+        _require(rec["loss_rel_diff"] <= tol["loss"]
+                 and rec["grad_norm_rel_diff"] <= tol["grad_norm"]
+                 and d_stats <= tol["bn_stats"], f"B0 step card vs CPU ({label}): {rec}")
+        recs.append(rec)
+    return recs
+
+
+def convnet_ensemble(torch, A, P, smi: str, root: str, data: str):
+    """(c) ``cli_ensemble.main`` at its defaults (B0 + resnet18, ``average``,
+    AdamW, warm restarts, clip 1.0, threshold sweep) with ``--torch-export``
+    for one epoch; the loader reads its ``.npz`` and ``.pt`` at match ratio
+    1.0; a ``Predictor`` serves two packed-YUV420 clips from the ``.npz``
+    (K1-YUV) at the calibrated threshold. (e) A ``.pt`` resume through the
+    CLI and a ``.pt`` warm start through ``Trainer``, one epoch each.
+    Returns (serving launches, record)."""
+    from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import EnsembleDetector
+    from deepfake_video_detection_tpu_torch.serve.loader import load_model
+    from deepfake_video_detection_tpu_torch.serve.predict import (
+        Predictor, load_calibration_threshold)
+    from deepfake_video_detection_tpu_torch.train import cli_ensemble
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    out = os.path.join(root, "ensemble")
+    t = time.perf_counter()
+    _require(cli_ensemble.main(["--data_dir", data, "--epochs", "1", "--torch-export",
+                                "--out_dir", out]) == 0, "cli_ensemble exited non-zero")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    npz, pt = (os.path.join(out, f"checkpoint_best.{x}") for x in ("npz", "pt"))
+    cal_path = os.path.join(out, "calibration_best.json")
+    for path in (npz, pt, cal_path):
+        _require(os.path.exists(path), f"cli_ensemble wrote no {os.path.basename(path)}")
+    with open(cal_path) as f:
+        cal = json.load(f)
+    loaded = {}
+    for path in (npz, pt):
+        model, variables, stats = load_model(path, device="cuda")
+        _require(stats["model_type"] == "ensemble_pretrained"
+                 and stats["backbones"] == ("efficientnet_b0", "resnet18")
+                 and stats["match_ratio"] == 1.0, f"load_model({path}): {stats}")
+        loaded[os.path.basename(path)] = {k: stats[k] for k in
+                                          ("model_type", "backbones", "match_ratio")}
+
+    # serve two packed-YUV420 clips at the calibrated threshold
+    T, size = int(os.environ.get("MAX_FRAMES", CONV["frames"])), CONV["size"]
+    rng = np.random.default_rng(5)
+    packed = [rng.integers(0, 256, (T, size * size * 3 // 2), dtype=np.uint8)
+              for _ in range(CONVTRAIN["serve_clips"])]
+    _reset_counts(A, P)
+    with mock.patch.dict(os.environ, {"SERVE_WARMUP": "0", "SERVE_WINDOWS": "1"}):
+        pred = Predictor(model, variables, stats["model_type"], checkpoint_path=pt,
+                         device="cuda")
+        served = [pred._predict_pretrained(p, f"trained{i}", packed_yuv=True)
+                  for i, p in enumerate(packed)]
+        pred.close()
+    torch.cuda.synchronize()
+    launches = _counts(A, P)
+    _require(launches == _want(K1_YUV=len(packed)), f"ensemble serving launches {launches}")
+    thr = cal["best_thr_accuracy"]
+    for r in served:
+        _check_result(r, T, "the trained ensemble")
+        _require(r["threshold"] == load_calibration_threshold(pt) == thr
+                 and f"thr={thr:.2f}" in r["description"],
+                 f"served threshold {r['threshold']} ({r['description']!r}) != the "
+                 f"calibration file's {thr}")
+
+    # (e) resume through the CLI, warm start through Trainer, from the .pt
+    t = time.perf_counter()
+    _require(cli_ensemble.main(["--data_dir", data, "--epochs", "1", "--resume", pt,
+                                "--out_dir", os.path.join(root, "resumed")]) == 0,
+             "the .pt resume exited non-zero")
+    resume_s = time.perf_counter() - t
+    ds = VideoFacesDataset(data, num_frames=CONVTRAIN["frames"])
+    train_ds, val_ds = ds.split(0.2)
+    model = EnsembleDetector(CONV["ensemble"], device="cuda",
+                             generator=torch.Generator().manual_seed(6))
+    trainer = Trainer(model, train_ds, val_ds, TrainerConfig(
+        out_dir=os.path.join(root, "warm"), epochs=1, lr=1e-4, optimizer="adamw",
+        schedule="warm_restarts", grad_clip=1.0, threshold_sweep=True), device="cuda")
+    state = trainer.warm_start(pt)
+    sd, _ = load_any(pt)
+    _require(all(np.array_equal(v.cpu().numpy(), sd[k]) for k, v in model.state_dict().items())
+             and state.step == 0, "the .pt warm start did not load the exported weights")
+    t = time.perf_counter()
+    state = trainer.train(state)
+    warm_s = time.perf_counter() - t
+    _require(state.step > 0 and os.path.exists(os.path.join(root, "warm", "checkpoint_best.npz")),
+             "the warm-started epoch wrote no checkpoint")
+    rec = {"phase": "convnet_ensemble", "card": smi, "cli": "train/cli_ensemble.py main, "
+           "defaults, --epochs 1 --torch-export", "cli_s": cli_s, "loaded": loaded,
+           "calibration_best_thr_accuracy": thr, "served_threshold": served[0]["threshold"],
+           "served_prob_fake": [r["prob_fake"] for r in served], "launches": launches,
+           "resume_epoch_s": resume_s, "warm_start_epoch_s": warm_s}
+    _emit(rec)
+    return launches, rec
+
+
+def convnet_temporal(torch, A, P, smi: str, root: str, data: str, flags: dict):
+    """(d) ``--model temporal`` at the CLI's defaults: the temporal
+    transformer (``d_model`` 256, 4 blocks, 4 heads) over EfficientNet-B0,
+    f32, 8 clips x 16 frames (N = 17): one ``Trainer`` step timed (mean of
+    5), 4 f32 flash forward and 4 f32 flash backward launches required,
+    device time by kernel, and its loss and grad norm through the kernels
+    against the plain versions. Returns (launches, f32 launches, record)."""
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+
+    tkw = {k: CONVTRAIN[k] for k in ("d_model", "depth", "num_heads")}
+    model, cfg, trainer, state, batch = _convnet_step_setup(
+        torch, data, os.path.join(root, "temporal"), "temporal", "efficientnet_b0", False,
+        tkw)
+    _require(cfg == {"model_type": "temporal", "backbone": "efficientnet_b0", **tkw},
+             f"temporal model_config {cfg}")
+    state, rec = _timed_step(torch, A, P, trainer, state, batch, 5, breakdown=True)
+    depth = CONVTRAIN["depth"]
+    _require(rec["launches"] == _want(K2=depth, K4=depth)
+             and rec["launches_f32"] == {"K2": depth, "K4": depth},
+             f"temporal step launches {rec['launches']} ({rec['launches_f32']} f32)")
+    params = list(model.parameters())
+
+    def loss_and_norm():
+        logits, _ = model(batch["frames"], train=True,
+                          generator=torch.Generator(device="cuda").manual_seed(2))
+        loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
+        return float(loss.detach()), float(global_norm(torch.autograd.grad(loss, params)))
+
+    loss_k, norm_k = loss_and_norm()
+    with _plain_attention(A):
+        loss_p, norm_p = loss_and_norm()
+    d_loss, d_norm = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
+    breakdown = rec.pop("device_time")
+    rec = {"phase": "convnet_temporal_training", "card": smi, "model_config": cfg,
+           "built_by": "train/cli.py::build_model('temporal'), the CLI's defaults",
+           "params": "f32", "activations": "f32", "tokens": batch["frames"].shape[1] + 1,
+           **flags, **rec, "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+           "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
+           "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
+           "step_tol": {"loss": F32_STEP_TOL_LOSS, "grad_norm": F32_STEP_TOL_NORM}}
+    _emit(rec)
+    _emit({"phase": "convnet_temporal_training_device_time", "card": smi, **breakdown})
+    _require(d_loss <= F32_STEP_TOL_LOSS and d_norm <= F32_STEP_TOL_NORM,
+             f"temporal step kernels vs plain: loss {loss_k} vs {loss_p}, "
+             f"grad norm {norm_k} vs {norm_p}")
+    print(f"temporal (B0) training step {rec['step_ms']:.2f} ms "
+          f"({rec['frames_per_s']:.1f} frames/s) on {smi}", flush=True)
+    return rec["launches"], rec["launches_f32"], rec
+
+
+def convnet_training(torch, A, P, smi: str, tf32_defaults: dict):
+    """The conv-net training phase, (a)-(e), on one synthetic set of 10
+    clips x 16 frames at 224 px from seed 0, at torch's default TF32 flags
+    (what the training CLIs run with; restored afterwards). Returns
+    (launches by path, f32 launches by path)."""
+    import shutil
+    import tempfile
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32_defaults["cudnn_allow_tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = tf32_defaults["matmul_allow_tf32"]
+    root = tempfile.mkdtemp(prefix="dfdt_convtrain_")
+    try:
+        data = os.path.join(root, "faces")
+        os.makedirs(data)
+        _write_faces(data, CONVTRAIN["clips"], CONVTRAIN["frames"], CONVTRAIN["size"])
+        seconds = {}
+
+        def part(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            seconds[name] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+        part("steps", convnet_steps, torch, A, P, smi, root, data, tf32_defaults)
+        part("vs_cpu", convnet_vs_cpu, torch, smi, tf32_defaults)
+        served, _ = part("ensemble", convnet_ensemble, torch, A, P, smi, root, data)
+        temporal, temporal_f32, _ = part("temporal", convnet_temporal, torch, A, P, smi,
+                                         root, data, tf32_defaults)
+        _emit({"phase": "convnet_training_seconds", **seconds})
+        return ({"convnet_serving": served, "convnet_temporal_training": temporal},
+                {"convnet_temporal_training": temporal_f32})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
@@ -1955,6 +2348,10 @@ def main() -> int:
     from deepfake_video_detection_tpu_torch.ops import attention as A
     from deepfake_video_detection_tpu_torch.ops import preprocess as P
 
+    # torch's own TF32 flags, which the training CLIs run with (the
+    # convnet_training phase restores them while it runs)
+    tf32_defaults = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                     "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     smi = _smi()
@@ -2032,9 +2429,13 @@ def main() -> int:
     legacy_paths, legacy_f32 = timed("legacy", legacy, torch, A, P, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    convnet_paths, convnet_f32 = timed("convnet_training", convnet_training, torch, A, P,
+                                       smi, tf32_defaults)
+    gc.collect()
+    torch.cuda.empty_cache()
     # f32 launches by path (every other launch is bf16)
     f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
-                 **legacy_f32}
+                 **legacy_f32, **convnet_f32}
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -2048,7 +2449,7 @@ def main() -> int:
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
-             **legacy_paths,
+             **legacy_paths, **convnet_paths,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})
@@ -2057,7 +2458,8 @@ def main() -> int:
                  "library_ms", "library_device_ms", "bound_ms", "bound_by",
                  "bound_ms_cuda_core")
 
-    def entry(kid, name, source, replaces, case, note=None, f32_case=None, legacy_cases=()):
+    def entry(kid, name, source, replaces, case, note=None, f32_case=None, legacy_cases=(),
+              convnet_cases=()):
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
         e = _summary_entry(name, source, replaces, case, sum(by_path.values()), case["tol"])
         e["id"], e["launches_by_path"] = kid, by_path
@@ -2067,10 +2469,12 @@ def main() -> int:
             f32 = sum(c.get(kid, 0) for c in f32_paths.values())
             e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
             e["f32"] = {k: f32_case.get(k) for k in case_keys}
-        if legacy_cases:
-            # the legacy phase's shapes: 3 or 6 heads
-            e["legacy"] = [{"dtype": c["dtype"], "note": c["note"],
-                            **{k: c.get(k) for k in case_keys}} for c in legacy_cases]
+        # the legacy phase's shapes (3 or 6 heads) and the conv-net
+        # training phase's (the temporal model over B0: 4 heads, N = 17)
+        for key, rows in (("legacy", legacy_cases), ("convnet", convnet_cases)):
+            if rows:
+                e[key] = [{"dtype": c["dtype"], "note": c["note"],
+                           **{k: c.get(k) for k in case_keys}} for c in rows]
         if note:
             e["note"] = note
         _require(e["launches"] > 0, f"{kid} was launched on no path: {by_path}")
@@ -2082,8 +2486,8 @@ def main() -> int:
     def f32_row(cases, n):
         return next(c for c in cases if c["note"].startswith(F32_ROW) and c["shape"][2] == n)
 
-    def legacy_rows(cases):
-        return [c for c in cases if c["note"].startswith(LEGACY_ROW)]
+    def rows(cases, prefix):
+        return [c for c in cases if c["note"].startswith(prefix)]
 
     both = ("ms is one backward call, both passes; the JAX package trains dense "
             "below N = 4096")
@@ -2093,11 +2497,13 @@ def main() -> int:
               "K1's packed-YUV420 entry: the JAX package has no kernel there (XLA fuses "
               "ops/yuv.py's colour matrix into K1's normalisation)"),
         entry("K2", "flash_attention_fwd", K2_SOURCE, K2_REPLACES, k2_cases[0],
-              f32_case=f32_row(k2_cases, 197), legacy_cases=legacy_rows(k2_cases)),
+              f32_case=f32_row(k2_cases, 197), legacy_cases=rows(k2_cases, LEGACY_ROW),
+              convnet_cases=rows(k2_cases, CONV_ROW)),
         entry("K3", "flash_attention_fwd", K2_SOURCE, K3_REPLACES, k3_case,
               "N > 512: the streaming regime", f32_case=f32_row(k2_cases, 641)),
         entry("K4", "flash_attention_bwd", K4_SOURCE, K4_REPLACES, k4_cases[0],
-              f32_case=f32_row(k4_cases, 197), legacy_cases=legacy_rows(k4_cases)),
+              f32_case=f32_row(k4_cases, 197), legacy_cases=rows(k4_cases, LEGACY_ROW),
+              convnet_cases=rows(k4_cases, CONV_ROW)),
         entry("K5", "flash_attention_bwd", K4_SOURCE, K5_REPLACES, k56_case,
               f"dQ pass, N > 512; {both}", f32_case=f32_row(k4_cases, 641)),
         entry("K6", "flash_attention_bwd", K4_SOURCE, K6_REPLACES, k56_case,

@@ -149,12 +149,11 @@ def canonicalize_detector_keys(sd: Mapping[str, Any], backbone_name: str
 _DROP_LEAVES = ("num_batches_tracked",)
 
 
-def import_into_model(model: torch.nn.Module, sd: Mapping[str, Any]) -> Dict[str, Any]:
-    """Shape-filtered non-strict load of a flat torch-layout ``sd`` into
-    ``model``: missing and mismatched keys keep the model's values and are
-    reported. Returns ``matched``, ``missing``, ``unexpected`` (not counting
-    ``num_batches_tracked``), ``shape_mismatch`` and ``match_ratio`` over
-    the model's ``state_dict``."""
+def match_state_dict(model: torch.nn.Module, sd: Mapping[str, Any]
+                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The entries of a flat torch-layout ``sd`` that fit ``model`` (key
+    and shape, cast to the model's dtypes), and the report
+    :func:`import_into_model` returns; loads nothing."""
     own = model.state_dict()
     load, missing, mismatched = {}, [], []
     for key, cur in own.items():
@@ -166,9 +165,19 @@ def import_into_model(model: torch.nn.Module, sd: Mapping[str, Any]) -> Dict[str
             mismatched.append((key, tuple(src.shape), tuple(cur.shape)))
             continue
         load[key] = src.to(cur.dtype)
+    return load, {"matched": list(load), "missing": missing,
+                  "unexpected": [k for k in sd if k not in load
+                                 and not k.endswith(_DROP_LEAVES)],
+                  "shape_mismatch": mismatched,
+                  "match_ratio": len(load) / max(len(own), 1)}
+
+
+def import_into_model(model: torch.nn.Module, sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Shape-filtered non-strict load of a flat torch-layout ``sd`` into
+    ``model``: missing and mismatched keys keep the model's values and are
+    reported. Returns ``matched``, ``missing``, ``unexpected`` (not counting
+    ``num_batches_tracked``), ``shape_mismatch`` and ``match_ratio`` over
+    the model's ``state_dict``."""
+    load, report = match_state_dict(model, sd)
     model.load_state_dict(load, strict=False)
-    return {"matched": list(load), "missing": missing,
-            "unexpected": [k for k in sd if k not in load
-                           and not k.endswith(_DROP_LEAVES)],
-            "shape_mismatch": mismatched,
-            "match_ratio": len(load) / max(len(own), 1)}
+    return report

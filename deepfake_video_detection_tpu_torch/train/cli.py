@@ -3,10 +3,13 @@
 Counterpart of ``deepfake_video_detection_tpu/train/cli.py`` for the
 frame-graph detector (``vit_gcn``, the default: ViT-Tiny + GCN over the
 normalised chain graph of a clip's frames), the CNN+LSTM (``cnn_lstm``),
-and the pretrained detector and the temporal transformer, each with a ViT
-or the ``tinyconv`` backbone:
+and the pretrained detector and the temporal transformer over any backbone
+the port builds (EfficientNet b0-b4, the default ``efficientnet_b0``;
+ResNet-18/34/50; the ViTs; ``tinyconv``):
 
     python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/
+    python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
+        --model pretrained
     python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
         --model pretrained --backbone vit_base_patch16_224 --bf16
     python -m deepfake_video_detection_tpu_torch.train.cli --data_dir faces/ \\
@@ -16,10 +19,11 @@ or the ``tinyconv`` backbone:
 80/20 split of the ``.npz`` face stacks in ``--data_dir``, class balancing
 (``--balance``), Adam + StepLR(5, 0.5), per-epoch and best-by-F1
 checkpoints, ``preds_epoch_N.csv``, ``--resume``, ``--smoke``. ``--bf16``
-means bf16 activations with f32 params. B0 and ResNet backbones,
-``--from-videos``, ``--progressive``, ``--steps_per_call > 1``,
-``--torch-export`` and the parallelism flags are not ported; each raises
-``NotImplementedError`` naming its ROADMAP item. The temporal model takes
+means bf16 activations with f32 params; ``--torch-export`` writes a
+``.pt`` beside each checkpoint and ``--resume`` also reads a reference
+``.pt``. ``--from-videos``, ``--progressive`` and ``--steps_per_call > 1``
+are not ported and raise ``NotImplementedError`` naming ROADMAP; the
+parallelism flags are not offered. The temporal model takes
 ``--d_model``, ``--depth`` and ``--heads``.
 """
 
@@ -43,9 +47,9 @@ def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16
                 bf16: bool = False, device="cuda", seed: int = 0):
     """``(model, adjacency, model_config)`` as in the JAX CLI: ``vit_gcn``
     (a ``vit_variant`` ViT, the chain adjacency), ``cnn_lstm``, and
-    ``pretrained`` and ``temporal`` with a ViT or ``tinyconv`` backbone;
-    ``temporal_kwargs``: the temporal model's sizes (``d_model``, ``depth``,
-    ``num_heads``). Weights from a generator seeded ``seed``."""
+    ``pretrained`` and ``temporal`` over ``backbone``; ``temporal_kwargs``:
+    the temporal model's sizes (``d_model``, ``depth``, ``num_heads``).
+    Weights from a generator seeded ``seed``."""
     name = name.lower()
     kw = {"compute_dtype": torch.bfloat16 if bf16 else torch.float32,
           "device": device, "generator": torch.Generator().manual_seed(seed)}
@@ -56,10 +60,6 @@ def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16
         return CNNLSTMHybrid(**kw), None, {"model_type": "cnn_lstm"}
     if name not in ("pretrained", "backbone", "temporal", "temporal_transformer"):
         raise ValueError(f"unknown model {name!r}")
-    if not backbone.lower().startswith(("vit", "tinyconv")):
-        raise NotImplementedError(
-            f"training the {backbone!r} backbone is not ported yet (ROADMAP Queue 1 "
-            f"items 14-15; the port serves it: serve/loader.py)")
     if name in ("pretrained", "backbone"):
         return (BackboneDetector(backbone, **kw), None,
                 {"model_type": "pretrained", "backbone": backbone})
@@ -75,8 +75,7 @@ def main(argv=None) -> int:
                     choices=["vit_gcn", "cnn_lstm", "pretrained", "temporal"])
     ap.add_argument("--vit_variant", default="vit_tiny_patch16_224")
     ap.add_argument("--backbone", default="efficientnet_b0",
-                    help="backbone for pretrained/temporal models (ViT or "
-                     "tinyconv so far)")
+                    help="backbone for pretrained/temporal models")
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--num_frames", type=int, default=16)
@@ -112,7 +111,8 @@ def main(argv=None) -> int:
             "port's bindings to libvideodec.so)")
     if args.progressive:
         raise NotImplementedError(
-            "--progressive is not ported yet (ROADMAP Queue 1 item 15)")
+            "--progressive is not ported yet (ROADMAP Queue 1 item 15: the next "
+            "training slice, train/progressive.py)")
 
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)

@@ -8,15 +8,19 @@ accumulation, ``preds_epoch_N.csv``, ``training_history.csv`` rewritten each
 epoch, ``calibration_best.json`` from the bounded threshold sweep, per-epoch
 / best / interrupt checkpoints in the JAX package's native ``.npz`` layout,
 ``resume`` and ``warm_start`` from such a file, and SIGTERM turned into the
-interrupt checkpoint.
+interrupt checkpoint. With ``keep_torch_export`` each checkpoint also gets a
+``<name>.pt`` in the reference's ``{model_state, model_config}`` layout;
+``resume`` and ``warm_start`` also read a reference ``.pt``/``.pth``
+(shape-filtered, non-strict, at least half the model matched).
 
 Per step: the loader's uint8 batch goes to the card through pinned memory,
 is augmented and normalised there (``data/augment.py``), and one train step
 (``train/steps.py``) runs forward, loss, backward (the flash backward kernel
 in every ViT block) and the optimizer update. Graph models get the
 normalised chain (or full) adjacency over the clip's frames with every
-batch (``adjacency``); batch-norm models (the CNN+LSTM) update their
-running stats once a step, ``remat`` or not.
+batch (``adjacency``); batch-norm models (EfficientNet, ResNet, the
+CNN+LSTM) update their running stats once a forward (each microbatch
+under ``grad_accum``), ``remat`` or not.
 
 Differences from the JAX trainer: the model arrives with its weights
 (initialised from a generator when it was built), so :meth:`init_state`
@@ -24,8 +28,7 @@ builds the optimizer state around them instead of re-initialising from
 ``seed``; random draws (augment, dropout) come from a ``torch.Generator``
 seeded per epoch as the JAX keys are, so they are seeded but not the same
 numbers. Not ported (each raises ``NotImplementedError``): meshes and
-parallel plans, ``steps_per_call > 1``, ``.pt`` warm starts and
-``keep_torch_export``.
+parallel plans, and ``steps_per_call > 1``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ import torch
 
 from deepfake_video_detection_tpu_torch.checkpoint.bridge import (
     load_checkpoint, opt_state_from_leaves, save_checkpoint, state_dict_from_jax)
+from deepfake_video_detection_tpu_torch.checkpoint.store import load_any, save_torch_checkpoint
+from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import match_state_dict
 from deepfake_video_detection_tpu_torch.data.augment import AugmentConfig, augment_batch
 from deepfake_video_detection_tpu_torch.data.dataset import SubsetDataset
 from deepfake_video_detection_tpu_torch.data.loader import Loader, prefetch_to_device
@@ -101,7 +106,7 @@ class TrainerConfig:
     best_metric: str = "f1"
     threshold_sweep: bool = False
     save_every: int = 1               # per-epoch checkpoint cadence
-    keep_torch_export: bool = False   # not ported
+    keep_torch_export: bool = False   # also write <name>.pt (model_config layout)
     seed: int = 42
     smoke: bool = False
     adjacency: Optional[str] = None   # None | chain | full: for graph models
@@ -131,8 +136,6 @@ class Trainer:
             raise NotImplementedError(f"meshes and parallel plans {_NOT_PORTED}")
         if config.steps_per_call > 1:
             raise NotImplementedError(f"steps_per_call > 1 {_NOT_PORTED}")
-        if config.keep_torch_export:
-            raise NotImplementedError(f"keep_torch_export {_NOT_PORTED}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.train_ds = train_ds
@@ -254,16 +257,26 @@ class Trainer:
         return TrainState.create(self.model, self.tx)
 
     def _load_params(self, path: str) -> Dict[str, Any]:
-        if not path.endswith(".npz"):
-            raise NotImplementedError(f"warm start from {path!r}: only native "
-                                      f".npz checkpoints load; .pt {_NOT_PORTED}")
+        """Load a checkpoint's weights into the model and return its meta: a
+        native ``.npz`` strictly, a reference ``.pt``/``.pth`` through a
+        shape-filtered non-strict import that must match at least half the
+        model (else ``ValueError``, the model untouched)."""
+        if path.endswith((".pt", ".pth")):
+            sd, meta = load_any(path)
+            load, report = match_state_dict(self.model, sd)
+            if report["match_ratio"] < 0.5:
+                raise ValueError(f"checkpoint {path} matches only "
+                                 f"{report['match_ratio']:.0%} of the model")
+            self.model.load_state_dict(load, strict=False)
+            return meta
         variables, meta = load_checkpoint(path)
         self.model.load_state_dict(state_dict_from_jax(variables), strict=True)
         return meta
 
     def resume(self, path: str, state: Optional[TrainState] = None) -> TrainState:
         """Restore params, optimizer state, step and epoch from a checkpoint
-        this trainer wrote."""
+        this trainer wrote (a ``.pt`` restores params, and epoch and step
+        where its meta has them, with a fresh optimizer state)."""
         state = state if state is not None else self.init_state()
         meta = self._load_params(path)
         if meta.get("_opt_leaves") is not None and meta.get("opt_names"):
@@ -275,7 +288,8 @@ class Trainer:
         return state
 
     def warm_start(self, path: str, state: Optional[TrainState] = None) -> TrainState:
-        """Params-only init from a native ``.npz`` (``--init-from``)."""
+        """Params-only init from a native ``.npz`` or a reference ``.pt``
+        (``--init-from``); the optimizer state stays fresh."""
         state = state if state is not None else self.init_state()
         self._load_params(path)
         return state
@@ -467,8 +481,14 @@ class Trainer:
                         opt_state=state.opt_state if with_opt else None,
                         step=state.step)
         if ema is not None:
+            # the EMA params with the live batch-norm statistics, as served
             save_checkpoint(os.path.join(self.cfg.out_dir, f"{name}_ema.npz"),
-                            ema, meta, step=state.step)
+                            {k: ema.get(k, v) for k, v in self.model.state_dict().items()},
+                            meta, step=state.step)
+        if self.cfg.keep_torch_export:
+            save_torch_checkpoint(os.path.join(self.cfg.out_dir, f"{name}.pt"),
+                                  self.model.state_dict(), layout="model_config",
+                                  meta={"model_config": self.cfg.model_config})
 
     # ------------------------------------------------------------------
     # main loop

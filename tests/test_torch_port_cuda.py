@@ -91,6 +91,8 @@ def test_fused_normalize_yuv_kernel_matches_plain(shape, dtype):
     (128, 3, 197, 64, torch.float32, True),       # the training CLI's default: vit_gcn
     (16, 3, 197, 64, torch.bfloat16, True),       # vit_gcn serving, 16 frames
     (16, 6, 197, 64, torch.float32, True),        # the ViT-GNN CLIs, 16 images
+    (8, 4, 17, 64, torch.float32, True),          # --model temporal over B0, 8 x 16 frames
+    (8, 4, 17, 64, torch.bfloat16, True),         # the same with --bf16
 ])
 def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
@@ -152,6 +154,8 @@ def _bwd_inputs(gen, B, H, N, d, dtype, strided):
     (128, 12, 197, 64, torch.float32, True),      # f32 ViT-B/16 step, 8 x 16 frames
     (128, 3, 197, 64, torch.float32, True),       # the training CLI's default: vit_gcn
     (16, 6, 197, 64, torch.float32, True),        # the ViT-GNN trainer, 16 images
+    (8, 4, 17, 64, torch.float32, True),          # --model temporal over B0, 8 x 16 frames
+    (8, 4, 17, 64, torch.bfloat16, True),         # the same with --bf16
 ])
 def test_flash_bwd_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
@@ -402,3 +406,50 @@ def test_convnet_serving_forward_on_cuda_matches_plain_versions(backbones, monke
             packed, 64, 64, torch.float32))[0], -1)
     assert float((probs - ref).abs().max()) <= 1e-4
     assert float((probs_yuv - ref_yuv).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_b0_train_step_on_cuda_matches_cpu(tf32, monkeypatch):
+    """One B0 step (2 clips x 4 frames at 224 px, SGD with a clip of 1.0
+    that bites, no dropout or drop-path draws) on the card and on the CPU
+    from the same weights and batch: loss, grad norm and every BN running
+    stat within chip_smoke.py's CPU_TOL for the card's cuDNN TF32 flag."""
+    import copy
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.train import losses, optim, steps
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+
+    _cuda_generator()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    tol = ({"loss": 1e-2, "grad_norm": 5e-2, "bn_stats": 5e-2} if tf32
+           else {"loss": 1e-4, "grad_norm": 1e-3, "bn_stats": 1e-3})
+    cpu = BackboneDetector("efficientnet_b0", dropout_rate=0.0, device="cpu",
+                           generator=torch.Generator().manual_seed(4))
+    cpu.backbone.drop_path_rate = 0.0
+    card = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(4)
+    batch = {"frames": torch.from_numpy(rng.normal(size=(2, 4, 224, 224, 3))
+                                        .astype(np.float32)),
+             "labels": torch.tensor([0, 1]), "valid": torch.ones(2, dtype=torch.bool)}
+
+    def run(model, dev):
+        opt = optim.build_optimizer("sgd", 0.5, grad_clip=1.0)
+        step = steps.make_train_step(model, opt, losses.cross_entropy_loss)
+        _, m = step(TrainState.create(model, opt), {k: v.to(dev) for k, v in batch.items()})
+        return float(m["loss"]), float(m["grad_norm"]), {
+            k: v.detach().cpu().double() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+    loss_c, norm_c, stats_c = run(cpu, "cpu")
+    loss_g, norm_g, stats_g = run(card, "cuda")
+    assert norm_c > 1.0
+    assert abs(loss_g - loss_c) <= tol["loss"] * abs(loss_c)
+    assert abs(norm_g - norm_c) <= tol["grad_norm"] * norm_c
+    for k, mean in stats_c.items():     # a mean by the channel's std, a variance by itself
+        if k.endswith("running_mean"):
+            var = stats_c[k[:-len("mean")] + "var"]
+            assert float(((stats_g[k] - mean).abs() / var.sqrt()).max()) <= tol["bn_stats"], k
+            assert float(((stats_g[k[:-len("mean")] + "var"] - var).abs() / var).max()) \
+                <= tol["bn_stats"], k
