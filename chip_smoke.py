@@ -38,8 +38,7 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    disagree; those events are ``kernel_queued_ms``, ``library_queued_ms``),
    every kernel of the call summed and each named
    (``kernel_device_ms_by_kernel``),
-   beside the library call's (``library_device_ms``) at N > 512 and on
-   every f32 row. Each flash source routes by dtype (``route``), both on the
+   beside the library call's (``library_device_ms``) on every row. Each flash source routes by dtype (``route``), both on the
    tensor cores: bf16 to its bf16 kernels, f32 to its 3xTF32 ones (bound by
    3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
    f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
@@ -51,7 +50,21 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
    windowed requests. Checks the result dicts, that the kernels' launch
    counts rose as the path requires, and one request's ``prob_fake``
-   against the plain versions.
+   against the plain versions. Then explain and int8 serving
+   (``explain_int8_serving``): (a) ``predict_faces(explain=True)`` on 8
+   crops of 224 px for ViT-B/16, B0 and the B0 + resnet18 ``voting``
+   ensemble (bf16 activations; the conv nets' weights drawn so that their
+   input gradient is not 0, ``_input_sensitive``): the ``saliency`` key,
+   ``explain_error`` None, the launches of the request and of its
+   explanation alone (ViT: K1 1 with f32 output, K2 12, K4 12), the
+   explanation's ms (median of 10) and peak memory, and its grids through
+   the kernels against the plain versions (``SAL_TOL``). (b) ViT-B/16 and
+   B0 saved as ``.npz`` and ``.pt`` and served through the loader in f32
+   and with ``QUANTIZE=int8``: ``quantized_weights`` (``INT8_WEIGHTS``),
+   bytes at rest, memory after load, ``prob_fake`` against f32, forward ms
+   at 1 and 16 clips, clips/s with 8 clients, launches per forward, and
+   the int8 model against its own weights dequantized to f32. (c) The
+   evaluator with ``--quantize int8`` on 4 clips.
 9. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
    16 frames at 224 px) trains ViT-B/16 for one epoch through ``Trainer``
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
@@ -114,7 +127,8 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 13. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
    its f32 row; K2 and K4 with their cases at the legacy phase's shapes
-   and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16),
+   and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16; K4
+   with its case at an explain request's shape, (8, 12, 197, 64) bf16),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -238,6 +252,19 @@ CONV_ROW = "convnet: "
 # products in every conv
 CPU_TOL = {"f32": {"loss": 1e-4, "grad_norm": 1e-3, "bn_stats": 1e-3},
            "tf32": {"loss": 1e-2, "grad_norm": 5e-2, "bn_stats": 5e-2}}
+
+# the explain and int8 phase: explain=True on 8 face crops of 224 px, int8
+# serving of 2 clips and 8 concurrent clients, the evaluator on 4 clips
+EXPLAIN = {"frames": 8, "size": 224, "iters": 10, "clients": 8, "eval_clips": 4}
+# the weights that QUANTIZE=int8 holds in int8, by backbone of the detector
+# (every matmul and conv weight of 4096 elements or more);
+# tests/test_torch_port_quant.py holds these counts against the JAX package's
+INT8_WEIGHTS = {"vit_base_patch16_224": 51, "efficientnet_b0": 59}
+# saliency grids in [0, 1], kernels vs plain versions on the card, absolute:
+# a bf16 model's backward rounds at other places through 12 blocks
+SAL_TOL = {"bf16": 5e-2, "f32": 1e-3}
+# the kernel case at an explain request's shape
+EXPLAIN_ROW = "explain: "
 
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
@@ -597,11 +624,10 @@ def check_k2(torch, A, gen):
                "bound_ms": bound, "bound_by": by}
         if name == "f32":
             rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
-        if N > A._SHORT_MAX or name == "f32" or note.startswith((LEGACY_ROW, CONV_ROW)):
-            rec["library_device_ms"] = _session_device_ms(
-                torch, lambda: F.scaled_dot_product_attention(q, k, v))
-            rec["library_queued_ms"] = _queued_ms(
-                torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        rec["library_device_ms"] = _session_device_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        rec["library_queued_ms"] = _queued_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v))
         _emit(rec)
         _require(err <= tol, f"flash {rec['shape']} {name}: O err {err} > {tol}")
         _require(err_lse <= K2_TOL_LSE, f"flash {rec['shape']} {name}: lse err {err_lse}")
@@ -651,7 +677,9 @@ def check_k4(torch, A, gen):
              (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer"),
              (8, 4, 17, 64, torch.float32, True,
               CONV_ROW + "the training CLI's --model temporal step over B0"),
-             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16")]
+             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16"),
+             (8, 12, 197, 64, torch.bfloat16, True,
+              EXPLAIN_ROW + "one explain request's input gradient (ViT-B/16, 8 frames)")]
     for B, H, N, d, dt, strided, note in specs:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
         name = "bf16" if dt == torch.bfloat16 else "f32"
@@ -711,11 +739,10 @@ def check_k4(torch, A, gen):
                "bound_ms": bound, "bound_by": by}
         if name == "f32":
             rec["bound_ms_cuda_core"] = _bound_ms(nbytes, ops, "f32")[0]
-        if N > A._SHORT_MAX or name == "f32" or note.startswith(CONV_ROW):
-            fb, fo = _session_device_ms(torch, sdpa_fwd_bwd), _session_device_ms(torch, sdpa_fwd)
-            rec["library_device_ms"] = None if fb is None or fo is None else fb - fo
-            qb, qo = _queued_ms(torch, sdpa_fwd_bwd), _queued_ms(torch, sdpa_fwd)
-            rec["library_queued_ms"] = None if qb is None or qo is None else qb - qo
+        fb, fo = _session_device_ms(torch, sdpa_fwd_bwd), _session_device_ms(torch, sdpa_fwd)
+        rec["library_device_ms"] = None if fb is None or fo is None else fb - fo
+        qb, qo = _queued_ms(torch, sdpa_fwd_bwd), _queued_ms(torch, sdpa_fwd)
+        rec["library_queued_ms"] = None if qb is None or qo is None else qb - qo
         _emit(rec)
         _require(ok, f"flash bwd {rec['shape']} {name}: errors {errs}")
         _require(deterministic, f"flash bwd {rec['shape']} {name}: runs differ")
@@ -2067,6 +2094,319 @@ def convnet_training(torch, A, P, smi: str, tf32_defaults: dict):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _launches_per_call(torch, fn, sessions: int = 3) -> int:
+    """Kernel launches of one call of ``fn`` under ``torch.profiler``: the
+    most over ``sessions`` sessions of one call each (a session can drop
+    records, never add them)."""
+    return max(sum(n for n, _ in _profile(torch, fn, 1).values()) for _ in range(sessions))
+
+
+def _input_sensitive(torch, model, seed: int) -> None:
+    """Conv weights drawn He fan-in and BN running means from N(0, 0.2),
+    variances from U(0.5, 1.5), as the CPU suite's ``random_variables``
+    draws them. At its init (kaiming fan-out: a depthwise kernel's std is
+    sqrt(2 / (C k²))) with ``_randomize_bn``'s means a random B0 passes
+    almost nothing of its input to its logits: its input gradient is
+    ~1e-22 on an H100 (PERF.md), under the saliency map's 1e-12 floor, so
+    its map is blank in both packages. These draws give gradients of ~1e-3
+    and an unsaturated ``prob_fake``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            if t.ndim == 4:
+                t.normal_(0.0, math.sqrt(2.0 / t[0].numel()), generator=gen)
+            elif name.endswith("running_mean"):
+                t.normal_(0.0, 0.2, generator=gen)
+            elif name.endswith("running_var"):
+                t.uniform_(0.5, 1.5, generator=gen)
+
+
+def _explain_case(torch, A, P, smi: str, name: str, model, model_type: str, faces):
+    """(a) One model's ``predict_faces(explain=True)``: the result's
+    ``saliency`` key, the launches of the request and of its explanation
+    alone, the explanation's ms (median of ``EXPLAIN["iters"]``) and peak
+    memory, and its grids through the kernels against the plain versions
+    on the card. Returns (the request's launches, record)."""
+    from deepfake_video_detection_tpu_torch.serve import saliency as saliency_mod
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+
+    T = len(faces)
+    with mock.patch.dict(os.environ, {"SERVE_WARMUP": "0"}):
+        pred = Predictor(model, None, model_type, device="cuda")
+    try:
+        plain = pred.predict_faces(faces, video_id=f"{name}_plain")
+        pred.explain_faces(faces)          # cuDNN picks its backward algorithms
+        torch.cuda.synchronize()
+        _reset_counts(A, P)
+        res = pred.predict_faces(faces, video_id=f"{name}_explain", explain=True)
+        torch.cuda.synchronize()
+        request = _counts(A, P)
+        _reset_counts(A, P)
+        pred.explain_faces(faces)
+        torch.cuda.synchronize()
+        alone = _counts(A, P)
+
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = []
+        for _ in range(EXPLAIN["iters"]):
+            t = time.perf_counter()
+            pred.explain_faces(faces)      # returns host values: synchronised
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+
+        x = torch.from_numpy(np.ascontiguousarray(faces[None])).cuda()
+        fn = saliency_mod.make_saliency_fn(model, fake_idx=1)
+        with_kernels = fn(x)
+        with mock.patch.object(saliency_mod, "fused_normalize", P.fused_normalize_plain), \
+                _plain_attention(A):
+            with_plain = fn(x)
+        gap = float((with_kernels - with_plain).abs().max())
+    finally:
+        pred.close()
+
+    dtype = "bf16" if model.compute_dtype == torch.bfloat16 else "f32"
+    _check_result(res, T, f"{name} explain request")
+    _require(pred.explain_error is None, f"{name} explain failed: {pred.explain_error!r}")
+    sal = res.get("saliency")
+    _require(isinstance(sal, dict) and sal.get("grid") == [14, 14]
+             and len(sal["frames"]) == T and all(len(f) == 196 for f in sal["frames"]),
+             f"{name}: result without a saliency grid: {sorted(res)}")
+    flat = np.asarray(sal["frames"], np.float64)
+    _require(flat.min() >= 0.0 and np.allclose(flat.max(axis=1), 1.0, atol=1e-3),
+             f"{name}: saliency frames are not max-normalised")
+    diff = abs(res["prob_fake"] - plain["prob_fake"])
+    _require(res["prediction"] == plain["prediction"] and diff <= PROB_TOL,
+             f"{name}: the explain request's verdict moved by {diff}")
+    _require(math.isfinite(gap) and gap <= SAL_TOL[dtype],
+             f"{name}: saliency kernels vs plain differ by {gap} > {SAL_TOL[dtype]}")
+    # the verdict's forward (bf16) and the explanation's (f32 out of K1)
+    # each normalise once; every ViT block runs K2 in each forward and K4 in
+    # the explanation's backward
+    depth = len(model.backbone.blocks) if name.startswith("vit") else 0
+    want_alone = _want(K1=1, K2=depth, K4=depth)
+    want_request = _want(K1=2, K2=2 * depth, K4=depth)
+    _require(alone == want_alone and request == want_request,
+             f"{name}: explain launches {alone}, request {request}; want {want_alone}, "
+             f"{want_request}")
+    rec = {"phase": "explain_serving", "card": smi, "model": name, "model_type": model_type,
+           "activations": dtype, "frames": T, "explain_ms": float(np.median(ms)),
+           "explain_ms_all": ms, "peak_gib": peak / 2**30,
+           "peak_over_resident_gib": (peak - base) / 2**30,
+           "launches_request": request, "launches_explain_alone": alone,
+           "grid_kernels_vs_plain_max_abs": gap, "grid_tol": SAL_TOL[dtype],
+           "prob_fake": res["prob_fake"], "prob_fake_without_explain": plain["prob_fake"],
+           "explain_error": None, "saliency_grid": sal["grid"]}
+    _emit(rec)
+    return request, rec
+
+
+def _int8_serving(torch, A, P, smi: str, name: str, model, root: str, faces):
+    """(b) ``model`` saved as a native ``.npz`` and a reference ``.pt``,
+    served through ``serve/loader.py::load_model`` in f32 and with
+    ``QUANTIZE=int8``: ``quantized_weights``, bytes at rest, memory after
+    load, ``prob_fake`` against f32, the forward's ms at 1 and 16 clips,
+    clips/s with 8 clients and launches per forward; the int8 model against
+    its own weights dequantized to f32 parameters. Returns (the int8
+    serving's launches, record, the ``.npz`` path)."""
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import save_checkpoint
+    from deepfake_video_detection_tpu_torch.checkpoint.store import save_torch_checkpoint
+    from deepfake_video_detection_tpu_torch.nn.quant import dequantize, quantized_bytes
+    from deepfake_video_detection_tpu_torch.serve.loader import load_model
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+
+    meta = {"model_config": {"model_type": "pretrained", "backbone": name}}
+    paths = {"npz": os.path.join(root, name, "checkpoint_best.npz"),
+             "pt": os.path.join(root, name, "model.pt")}
+    save_checkpoint(paths["npz"], model.state_dict(), meta=meta)
+    save_torch_checkpoint(paths["pt"], model.state_dict(), layout="model_config", meta=meta)
+    n = EXPLAIN["clients"]
+    xs = {b: torch.from_numpy(np.stack([faces[i % len(faces)] for i in range(b)])).cuda()
+          for b in (1, 16)}
+    out, launches = {}, None
+    for label, kind, mode in (("f32", "npz", "none"), ("int8", "npz", "int8"),
+                              ("int8_pt", "pt", "int8")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        with mock.patch.dict(os.environ, {"QUANTIZE": mode}):
+            m, variables, stats = load_model(paths[kind], device="cuda")
+        load_s = time.perf_counter() - t
+        resident = torch.cuda.memory_allocated() - before
+        want_q = INT8_WEIGHTS[name] if mode == "int8" else 0
+        _require(stats["match_ratio"] == 1.0 and stats["quantized_weights"] == want_q,
+                 f"{name} {label}: load stats {stats}")
+        with mock.patch.dict(os.environ, {"SERVE_WARMUP": "0"}):
+            pred = Predictor(m, variables, "pretrained", device="cuda")
+        rec = {"load_s": load_s, "quantized_weights": stats["quantized_weights"],
+               "resident_mib": resident / 2**20}
+        try:
+            pred._forward(xs[16])          # cuDNN picks its algorithms
+            torch.cuda.synchronize()
+            _reset_counts(A, P)
+            res = [pred.predict_faces(f, video_id=f"{label}{i}") for i, f in enumerate(faces)]
+            torch.cuda.synchronize()
+            if label == "int8":
+                launches = _counts(A, P)
+            for i, r in enumerate(res):
+                _check_result(r, len(faces[i]), f"{name} {label} request {i}")
+            rec["prob_fake"] = [r["prob_fake"] for r in res]
+            if label != "int8_pt":
+                rec["forward_ms"] = {b: _time_ms(torch, lambda: pred._forward(xs[b]),
+                                                 iters=5, warmup=2) for b in (1, 16)}
+                rec["launches_per_forward"] = _launches_per_call(
+                    torch, lambda: pred._forward(xs[1]))
+                rounds = []
+                for _ in range(ROUNDS):
+                    got, barrier = [None] * n, threading.Barrier(n)
+
+                    def client(i):
+                        barrier.wait()
+                        got[i] = pred.predict_faces(faces[i % len(faces)], video_id=f"c{i}")
+
+                    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+                    t = time.perf_counter()
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join(timeout=300)
+                    _require(not any(th.is_alive() for th in threads),
+                             f"a concurrent {name} {label} request hung")
+                    rounds.append(time.perf_counter() - t)
+                rec["concurrent_clips_per_s"] = n / float(np.median(rounds))
+            if label == "int8":
+                now, f32 = quantized_bytes(m)
+                rec.update(bytes_at_rest=now, bytes_if_f32=f32, bytes_ratio=now / f32)
+            if label == "int8_pt":
+                # the int8 read path against the same values held as f32
+                # parameters: only a wrong dequantization moves this
+                probs_int8 = pred._forward(xs[16])[0].float()
+                _require(dequantize(m) == INT8_WEIGHTS[name], f"{name}: dequantize count")
+                probs_deq = pred._forward(xs[16])[0].float()
+                rec["int8_vs_dequantized_prob_max_abs"] = float(
+                    (probs_int8 - probs_deq).abs().max())
+                _require(rec["int8_vs_dequantized_prob_max_abs"] <= PROB_TOL,
+                         f"{name}: int8 vs its dequantized weights {rec}")
+        finally:
+            pred.close()
+        out[label] = rec
+        del m, variables, pred
+    f32, q = out["f32"], out["int8"]
+    pt_diff = max(abs(a - b) for a, b in zip(out["int8_pt"]["prob_fake"], q["prob_fake"]))
+    _require(pt_diff <= PROB_TOL, f"{name}: int8 from .pt and .npz differ by {pt_diff}")
+    rec = {"phase": "int8_serving", "card": smi, "model": name, "activations": "bf16",
+           "cases": out, "prob_fake_int8_pt_vs_npz_max_abs": pt_diff,
+           "prob_fake_int8_vs_f32_max_abs": max(abs(a - b) for a, b in
+                                                zip(q["prob_fake"], f32["prob_fake"])),
+           "resident_ratio": q["resident_mib"] / f32["resident_mib"],
+           "dequant_launches_per_forward": q["launches_per_forward"]
+           - f32["launches_per_forward"]}
+    _emit(rec)
+    return launches, rec, paths["npz"]
+
+
+def _int8_evaluation(torch, A, P, smi: str, root: str, ckpt: str):
+    """(c) The evaluator CLI with ``--quantize int8`` over a few synthetic
+    clips: ``quantized_weights``, K1 launches, CSV rows. Returns (launches,
+    record)."""
+    import contextlib
+    import csv
+    import io
+
+    from deepfake_video_detection_tpu_torch.evals import evaluate as E
+
+    data = os.path.join(root, "eval_clips")
+    os.makedirs(data)
+    n_clips, T, B = EXPLAIN["eval_clips"], EXPLAIN["frames"], 2
+    _write_faces(data, n_clips, T, EXPLAIN["size"])
+    out_csv = os.path.join(root, "evaluation_int8.csv")
+    _reset_counts(A, P)
+    log = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = E.main(["--data_dir", data, "--checkpoint", ckpt, "--num_frames", str(T),
+                     "--batch_size", str(B), "--quantize", "int8", "--out_csv", out_csv])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = _counts(A, P)
+    first = log.getvalue().splitlines()[0]
+    _require(rc == 0 and first.endswith(f"quantized_weights={INT8_WEIGHTS['efficientnet_b0']}"),
+             f"the int8 evaluator: rc {rc}, {first!r}")
+    _require(launches == _want(K1=-(-n_clips // B)), f"int8 evaluation launches {launches}")
+    with open(out_csv) as f:
+        rows = list(csv.DictReader(f))
+    _require(len(rows) == n_clips and all(0.0 <= float(r["prob_fake"]) <= 1.0 for r in rows),
+             f"int8 evaluation CSV rows {rows}")
+    rec = {"phase": "int8_evaluation", "card": smi, "model": "efficientnet_b0",
+           "activations": "f32", "clips": n_clips, "frames_per_clip": T, "wall_s": wall_s,
+           "first_line": first, "launches": launches,
+           "prob_fake": [float(r["prob_fake"]) for r in rows]}
+    _emit(rec)
+    return launches, rec
+
+
+def explain_int8_serving(torch, A, P, smi: str):
+    """The explain and int8 phase: (a) ``predict_faces(explain=True)`` on 8
+    crops of 224 px for ViT-B/16, B0 and the B0 + resnet18 ``voting``
+    ensemble (random weights from seed 0, the conv nets' drawn by
+    ``_input_sensitive``, bf16 activations); (b) ViT-B/16 and B0 served
+    with ``QUANTIZE=int8`` through the loader from ``.npz`` and ``.pt``,
+    beside f32; (c) the evaluator with ``--quantize int8``. Returns
+    launches by path; the serving environment it sets is restored."""
+    T, size = EXPLAIN["frames"], EXPLAIN["size"]
+    with mock.patch.dict(os.environ, {"MAX_FRAMES": str(T), "SERVE_WINDOWS": "1",
+                                      "FACE_SIZE": str(size)}):
+        return _explain_int8_paths(torch, A, P, smi, T, size)
+
+
+def _explain_int8_paths(torch, A, P, smi: str, T: int, size: int):
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import (
+        BackboneDetector, EnsembleDetector)
+    from deepfake_video_detection_tpu_torch.serve.predict import serving_dtype
+
+    dtype = serving_dtype("cuda")
+    rng = np.random.default_rng(2)
+    faces = [rng.integers(0, 256, (T, size, size, 3), dtype=np.uint8) for _ in range(2)]
+    models = {}
+    for name in ("vit_base_patch16_224", "efficientnet_b0"):
+        models[name] = BackboneDetector(name, compute_dtype=dtype, device="cuda",
+                                        generator=torch.Generator().manual_seed(0))
+    models["ensemble_voting"] = EnsembleDetector(
+        CONV["ensemble"], ensemble_method="voting", compute_dtype=dtype, device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    for name in ("efficientnet_b0", "ensemble_voting"):
+        _input_sensitive(torch, models[name], CONV["bn_seed"])
+    paths, seconds = {}, {}
+    for name, m in models.items():
+        t = time.perf_counter()
+        model_type = "ensemble_pretrained" if name == "ensemble_voting" else "pretrained"
+        paths[f"explain_{name}"], _ = _explain_case(torch, A, P, smi, name, m, model_type,
+                                                    faces[0])
+        seconds[f"explain_{name}"] = time.perf_counter() - t
+    del models["ensemble_voting"], m
+    root = tempfile.mkdtemp(prefix="dfdt_int8_")
+    try:
+        npz = {}
+        for name, m in models.items():
+            t = time.perf_counter()
+            paths[f"int8_serving_{name}"], _, npz[name] = _int8_serving(
+                torch, A, P, smi, name, m, root, faces)
+            seconds[f"int8_serving_{name}"] = time.perf_counter() - t
+        t = time.perf_counter()
+        paths["int8_evaluation"], _ = _int8_evaluation(torch, A, P, smi, root,
+                                                       npz["efficientnet_b0"])
+        seconds["int8_evaluation"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _emit({"phase": "explain_int8_serving_seconds", **seconds})
+    return paths
+
+
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
@@ -2418,6 +2758,9 @@ def main() -> int:
     served, _ = timed("vit_serving", serve, torch, A, P, smi)
     _require(all(v > 0 for v in served.values()),
              f"a kernel was not launched on the serving path: {served}")
+    explained = timed("explain_int8_serving", explain_int8_serving, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     trained, _ = timed("vit_training", train, torch, A, P, smi)
     _require(trained["flash_attention_fwd"] > 0 and trained["flash_attention_bwd"] > 0,
              f"a kernel was not launched on the training path: {trained}")
@@ -2449,7 +2792,7 @@ def main() -> int:
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
-             **legacy_paths, **convnet_paths,
+             **explained, **legacy_paths, **convnet_paths,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})
@@ -2459,7 +2802,7 @@ def main() -> int:
                  "bound_ms_cuda_core")
 
     def entry(kid, name, source, replaces, case, note=None, f32_case=None, legacy_cases=(),
-              convnet_cases=()):
+              convnet_cases=(), explain_cases=()):
         by_path = {p: c.get(kid, 0) for p, c in paths.items()}
         e = _summary_entry(name, source, replaces, case, sum(by_path.values()), case["tol"])
         e["id"], e["launches_by_path"] = kid, by_path
@@ -2469,9 +2812,11 @@ def main() -> int:
             f32 = sum(c.get(kid, 0) for c in f32_paths.values())
             e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
             e["f32"] = {k: f32_case.get(k) for k in case_keys}
-        # the legacy phase's shapes (3 or 6 heads) and the conv-net
-        # training phase's (the temporal model over B0: 4 heads, N = 17)
-        for key, rows in (("legacy", legacy_cases), ("convnet", convnet_cases)):
+        # the legacy phase's shapes (3 or 6 heads), the conv-net training
+        # phase's (the temporal model over B0: 4 heads, N = 17) and an
+        # explain request's backward (ViT-B/16, 8 frames)
+        for key, rows in (("legacy", legacy_cases), ("convnet", convnet_cases),
+                          ("explain", explain_cases)):
             if rows:
                 e[key] = [{"dtype": c["dtype"], "note": c["note"],
                            **{k: c.get(k) for k in case_keys}} for c in rows]
@@ -2503,7 +2848,8 @@ def main() -> int:
               "N > 512: the streaming regime", f32_case=f32_row(k2_cases, 641)),
         entry("K4", "flash_attention_bwd", K4_SOURCE, K4_REPLACES, k4_cases[0],
               f32_case=f32_row(k4_cases, 197), legacy_cases=rows(k4_cases, LEGACY_ROW),
-              convnet_cases=rows(k4_cases, CONV_ROW)),
+              convnet_cases=rows(k4_cases, CONV_ROW),
+              explain_cases=rows(k4_cases, EXPLAIN_ROW)),
         entry("K5", "flash_attention_bwd", K4_SOURCE, K5_REPLACES, k56_case,
               f"dQ pass, N > 512; {both}", f32_case=f32_row(k4_cases, 641)),
         entry("K6", "flash_attention_bwd", K4_SOURCE, K6_REPLACES, k56_case,

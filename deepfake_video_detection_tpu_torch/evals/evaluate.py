@@ -26,8 +26,10 @@ clip's temporal blocks in its streaming regime (N > 512). The ``rnn``
 family's checkpoint holds only the logic RNN: its ViT-Tiny frame encoder is
 freshly initialised (from a generator seeded 0; the JAX package draws it
 from ``PRNGKey(0)``, so the two packages' numbers differ), as in the
-reference. ``--from-videos`` and ``--quantize int8`` are not ported, each
-raising ``NotImplementedError`` with its ROADMAP item.
+reference. ``--quantize int8`` holds the matmul and conv weights in int8
+with per-output-channel scales (``nn/quant.py``), to measure what
+``QUANTIZE=int8`` serving costs in quality. ``--from-videos`` is not ported
+and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
 from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
 from deepfake_video_detection_tpu_torch.nn import init as I
 from deepfake_video_detection_tpu_torch.nn import layers as L
+from deepfake_video_detection_tpu_torch.nn.quant import quantize_module
 from deepfake_video_detection_tpu_torch.ops.preprocess import fused_normalize
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
@@ -251,14 +254,13 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--from-videos is not ported yet (ROADMAP Queue 1 item 7: the "
             "port's bindings to libvideodec.so)")
-    if args.quantize != "none":
-        raise NotImplementedError(
-            "--quantize int8 is not ported yet (ROADMAP Queue 1 item 13: nn/quant.py)")
     sd, meta = load_any(args.checkpoint)
     model, report, mt = build_model_from_checkpoint(
         sd, meta, args.model, torch.bfloat16 if args.bf16 else None, args.device)
+    n_quant = quantize_module(model) if args.quantize == "int8" else 0
     print(f"model={mt} matched={len(report['matched'])} missing={len(report['missing'])} "
-          f"match_ratio={report['match_ratio']:.3f}")
+          f"match_ratio={report['match_ratio']:.3f}"
+          + (f" quantized_weights={n_quant}" if n_quant else ""))
 
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)

@@ -11,7 +11,10 @@ Counterpart of ``deepfake_video_detection_tpu/serve/loader.py``:
   candidate whose shape-filtered non-strict import reaches a match ratio of
   0.80 is built on the device and returned with its ``state_dict`` and the
   load stats (also in ``LAST_LOAD_STATS``), ready for
-  ``Predictor(model, variables, stats["model_type"])``.
+  ``Predictor(model, variables, stats["model_type"])``. With
+  ``QUANTIZE=int8`` its matmul and conv weights are then held in int8 with
+  per-output-channel scales (``nn/quant.py``), whatever the family;
+  ``stats["quantized_weights"]`` counts them.
 * :func:`rank_checkpoints_for_autoload`, :func:`pick_best_checkpoint_for_autoload`,
   :func:`build_autoload_candidates` and :func:`attempt_autoload`: the scored
   local search (dfdc200 > dfdc > ensemble folder priors, the
@@ -21,9 +24,9 @@ Counterpart of ``deepfake_video_detection_tpu/serve/loader.py``:
 The candidates by family: the temporal transformer, the CNN+LSTM (keys
 ``cnn.``), the frame-graph detector (keys ``gcn.``; its ViT variant told by
 the embedding width), ensembles (``models.<i>.``) and the single-backbone
-detector. Not ported, each raising ``NotImplementedError`` with its ROADMAP
-item: ``QUANTIZE=int8`` (item 13) and the temporal transformer's MoE
-checkpoints (item 18, raised by the model's constructor).
+detector. Not ported: the temporal transformer's MoE checkpoints, which
+raise ``NotImplementedError`` naming ROADMAP item 18 (from the model's
+constructor).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector, infer_mlp_kwargs, normalize_state_dict)
 from deepfake_video_detection_tpu_torch.nn import init as I
+from deepfake_video_detection_tpu_torch.nn.quant import quantize_module
 from deepfake_video_detection_tpu_torch.utils.config import env_int, env_str
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device, serving_dtype
 
@@ -112,16 +116,16 @@ def _strip_member(sd: Dict[str, Any], i: int) -> Dict[str, Any]:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
-def _check_quantize_mode() -> None:
-    """``QUANTIZE`` (weights at rest): ``int8`` is not ported and raises
-    rather than serve f32 under an int8 configuration; unknown values warn
-    and serve unquantized, as in the JAX loader."""
+def _quantize_mode() -> str:
+    """``QUANTIZE`` (weights at rest): ``int8`` or ``none``; unknown values
+    warn and serve unquantized, as in the JAX loader."""
     mode = (env_str("QUANTIZE", "none") or "none").lower()
-    if mode == "int8":
-        raise NotImplementedError("QUANTIZE=int8 is not ported yet (ROADMAP Queue 1 "
-                                  "item 13: nn/quant.py)")
-    if mode not in ("", "none", "0", "false", "off"):
+    if mode in ("", "none", "0", "false", "off"):
+        return "none"
+    if mode != "int8":
         logger.warning("QUANTIZE=%r not supported (int8|none); serving unquantized", mode)
+        return "none"
+    return mode
 
 
 def load_model(path: str, model_type: Optional[str] = None, device: Any = "cuda"
@@ -130,7 +134,7 @@ def load_model(path: str, model_type: Optional[str] = None, device: Any = "cuda"
     state_dict, stats)``. Activations in ``serving_dtype(device)``.
 
     Raises ``ValueError`` when no candidate reaches match ratio 0.80."""
-    _check_quantize_mode()
+    quantize = _quantize_mode() == "int8"
     dev = resolve_device(device)
     sd, meta = load_any(path)
     if (meta.get("metrics_scored_on") == "ema"
@@ -240,6 +244,11 @@ def load_model(path: str, model_type: Optional[str] = None, device: Any = "cuda"
         model = build(dev)
         report = import_into_model(model, csd)
         if report["match_ratio"] >= 0.80:
+            n_quant = 0
+            if quantize:
+                # after the import, so that every checkpoint format gets it
+                n_quant = quantize_module(model)
+                logger.info("QUANTIZE=int8: %d weight tensors quantized", n_quant)
             stats = {
                 "path": path, "model_type": mtype,
                 "match_ratio": report["match_ratio"],
@@ -251,7 +260,7 @@ def load_model(path: str, model_type: Optional[str] = None, device: Any = "cuda"
                 "compat_score": score,
                 "backbones": getattr(model, "backbone_names",
                                      getattr(model, "backbone_name", None)),
-                "quantized_weights": 0,
+                "quantized_weights": n_quant,
             }
             LAST_LOAD_STATS.clear()
             LAST_LOAD_STATS.update(stats)

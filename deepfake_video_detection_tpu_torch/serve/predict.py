@@ -36,8 +36,16 @@ packed-YUV forward K1's YUV420 entry (colour matrix and normalisation in one
 pass), and every ViT and temporal block the flash-attention kernel (K2; a
 window holds at most 64 frames, so the temporal blocks attend over N ≤ 65
 tokens here); the conv nets run cuDNN convolutions, channels-last. Video
-decoding and face detection (``predict_video``, ROADMAP item 7) and
-saliency (item 13) come with later slices.
+decoding and face detection (``predict_video``, ROADMAP item 7) come
+with a later slice.
+
+``predict_faces(..., explain=True)`` adds the ``saliency`` key: per-frame
+input-gradient grids of the deciding window (``serve/saliency.py``), taken
+outside ``torch.inference_mode()`` through K1 with f32 output and, on a ViT
+or temporal model, the flash forward (K2) and backward (K4). ``SERVE_EXPLAIN``
+(default on) gates it; ``SERVE_EXPLAIN_WARMUP`` explains a blank clip in the
+warmup. A failed explanation leaves the verdict as it is, is logged and is
+kept in ``explain_error``.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from deepfake_video_detection_tpu_torch.data.dataset import pad_or_sample_frames
 from deepfake_video_detection_tpu_torch.ops.preprocess import (
     fused_normalize, fused_normalize_yuv)
 from deepfake_video_detection_tpu_torch.serve.batcher import MicroBatcher, to_host
+from deepfake_video_detection_tpu_torch.serve.saliency import (
+    make_saliency_fn, saliency_payload)
 from deepfake_video_detection_tpu_torch.utils.config import env_bool, env_float, env_int
 from deepfake_video_detection_tpu_torch.utils.device import (  # noqa: F401
     resolve_device, serving_dtype)
@@ -234,8 +244,10 @@ class Predictor:
         # startup warmup (default on) in a background thread: builds the
         # kernels and runs every batch shape once, so the first requests do
         # not pay for it. A failure does not take the server down; it is
-        # logged and kept in ``warmup_error``.
+        # logged and kept in ``warmup_error`` (an explain failure in
+        # ``explain_error``).
         self.warmup_error: Optional[BaseException] = None
+        self.explain_error: Optional[BaseException] = None
         self.warmup_done = threading.Event()
         if env_bool("SERVE_WARMUP", True):
             threading.Thread(target=self.warmup, name="predictor-warmup",
@@ -272,6 +284,9 @@ class Predictor:
                 frames = torch.zeros((b, T, size, size, 3), dtype=torch.uint8,
                                      device=self.device)
                 to_host(self._forward(frames)[0])
+            if env_bool("SERVE_EXPLAIN", True) and env_bool("SERVE_EXPLAIN_WARMUP", False):
+                # off by default: most deployments never explain
+                self.explain_faces(np.zeros((T, size, size, 3), np.uint8))
         except Exception as e:  # warmup must never take the server down
             logger.exception("serving warmup failed")
             self.warmup_error = e
@@ -291,12 +306,25 @@ class Predictor:
     def predict_faces(self, faces: np.ndarray, video_id: str = "video",
                       explain: bool = False) -> Dict[str, Any]:
         """Run the decision policy on pre-extracted face crops
-        (T, H, W, 3) uint8 RGB."""
-        if explain:
-            raise NotImplementedError(f"saliency (explain) {_NOT_PORTED} (item 13)")
+        (T, H, W, 3) uint8 RGB. ``explain`` adds the ``saliency`` key
+        unless ``SERVE_EXPLAIN`` is off (the JAX package gates it in
+        ``predict_video``, the port's served entry until that is ported);
+        the legacy types ignore it."""
         if self.model_type in _LEGACY_TYPES:
             return self._predict_legacy(faces)
-        return self._predict_pretrained(faces, video_id)
+        return self._predict_pretrained(faces, video_id,
+                                        explain=explain and env_bool("SERVE_EXPLAIN", True))
+
+    def explain_faces(self, faces: np.ndarray) -> Optional[Dict[str, Any]]:
+        """Per-frame spatial saliency for ``faces`` (T, H, W, 3) uint8 RGB:
+        the ``saliency`` result key. None for the legacy types.
+        ``FAKE_CLASS_INDEX`` is read at every call."""
+        if self.model_type not in _PRETRAINED_TYPES:
+            return None
+        fake_idx = _get_fake_class_index(int(getattr(self.model, "num_classes", 2)))
+        grids = make_saliency_fn(self.model, fake_idx=fake_idx)(
+            self._to_device(np.asarray(faces)[None]))
+        return saliency_payload(to_host(grids)[0])
 
     def _predict_legacy(self, faces: np.ndarray) -> Dict[str, Any]:
         """The JAX package's legacy policy over the CNN+LSTM or frame-graph
@@ -347,7 +375,8 @@ class Predictor:
 
     def _predict_pretrained(self, faces: np.ndarray, video_id: str,
                             packed_yuv: bool = False, windows: int = 1,
-                            n_extracted: Optional[int] = None) -> Dict[str, Any]:
+                            n_extracted: Optional[int] = None,
+                            explain: bool = False) -> Dict[str, Any]:
         abstain_conf = env_float("DETECT_ABSTAIN_CONF", 0.60)
         abstain_margin = max(0.0, min(0.5, env_float("DETECT_ABSTAIN_MARGIN", 0.0)))
         # the number of faces actually extracted, not a padded count
@@ -483,6 +512,27 @@ class Predictor:
                                  for s in np.asarray(frame_scores)[widx]]}
         if win_payload is not None:
             base["windows"] = win_payload
+        if explain and not packed_yuv:
+            # the deciding window's spatial explanation; it rides through
+            # the abstain returns below, so an uncertain verdict still
+            # shows where the detector looked
+            try:
+                sal = self.explain_faces(faces_w[widx] if windows > 1 else np.asarray(faces))
+                if sal is not None:
+                    if self.extractor.detector in ("center", "haar"):
+                        # these detectors' non-explain verdicts ride the
+                        # packed-YUV420 path, the explanation the RGB one
+                        sal["pipeline_note"] = (
+                            "saliency explains the RGB extraction pipeline; "
+                            "non-explain verdicts use the packed-YUV420 "
+                            "path, which may differ marginally near the "
+                            "decision threshold")
+                    base["saliency"] = sal
+            except Exception as e:
+                # as in the JAX package the verdict stands without the key;
+                # the failure is logged and kept
+                logger.exception("saliency explain failed for %s", video_id)
+                self.explain_error = e
         if abstain_margin > 0.0 and abs(prob_fake - thr) <= abstain_margin:
             return {
                 "prediction": "Uncertain", "verdict_yes_no": "Unsure",

@@ -453,3 +453,97 @@ def test_b0_train_step_on_cuda_matches_cpu(tf32, monkeypatch):
             assert float(((stats_g[k] - mean).abs() / var.sqrt()).max()) <= tol["bn_stats"], k
             assert float(((stats_g[k[:-len("mean")] + "var"] - var).abs() / var).max()) \
                 <= tol["bn_stats"], k
+
+
+def test_flash_bwd_at_the_explain_shape_through_an_input_gradient():
+    """K4-bf16 at (8, 12, 197, 64), reached as an explain request reaches
+    it: the gradient of a bf16 attention block's output for its input
+    alone, q/k/v strided views of one QKV projection, against the plain
+    versions within 2e-2 of max |ref|."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.nn import layers as L
+
+    gen = _cuda_generator()
+    B, N, H, d = 8, 197, 12, 64
+    C = H * d
+    x = torch.randn((B, N, C), device="cuda", generator=gen).to(torch.bfloat16)
+    w_qkv = torch.randn((3 * C, C), device="cuda", generator=gen) / C ** 0.5
+    w_proj = torch.randn((C, C), device="cuda", generator=gen) / C ** 0.5
+
+    def input_grad():
+        leaf = x.detach().requires_grad_()
+        y = L.multi_head_attention(leaf, w_qkv, None, w_proj, None, H)
+        return torch.autograd.grad(y.float().square().sum(), leaf)[0]
+
+    f0, b0 = A.flash_attention_fwd.launches, A.flash_attention_bwd.launches
+    got = input_grad()
+    assert (A.flash_attention_fwd.launches, A.flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    assert all(p.grad is None for p in (w_qkv, w_proj))
+    with mock.patch.object(A, "flash_attention",
+                           lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+        ref = input_grad()
+    assert float((got.float() - ref.float()).abs().max()) <= 2e-2 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("backbone", ["vit_base_patch16_224", "efficientnet_b0"])
+def test_saliency_on_cuda_matches_plain_versions(backbone, monkeypatch):
+    """Full-size ViT-B/16 and B0 detectors serving in bf16, 8 crops of 224
+    px: the saliency grids through K1 (f32 out), K2 and K4 against the
+    plain versions within chip_smoke.py's bf16 gate (5e-2), max-normalised,
+    with the launches an explanation makes."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve import saliency
+
+    gen = _cuda_generator()
+    import chip_smoke
+
+    model = BackboneDetector(backbone, compute_dtype=torch.bfloat16, device="cuda").eval()
+    chip_smoke._input_sensitive(torch, model, 0)    # a B0 at its init has no input gradient
+    x = torch.randint(0, 256, (1, 8, 224, 224, 3), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    fn = saliency.make_saliency_fn(model, fake_idx=1)
+    depth = len(getattr(model.backbone, "blocks", ())) if backbone.startswith("vit") else 0
+    counts = (P.fused_normalize.launches, A.flash_attention_fwd.launches,
+              A.flash_attention_bwd.launches)
+    got = fn(x)
+    assert (P.fused_normalize.launches, A.flash_attention_fwd.launches,
+            A.flash_attention_bwd.launches) == (counts[0] + 1, counts[1] + depth,
+                                                counts[2] + depth)
+    monkeypatch.setattr(saliency, "fused_normalize", P.fused_normalize_plain)
+    monkeypatch.setattr(A, "flash_attention",
+                        lambda q, k, v: A.flash_attention_plain(q, k, v)[0])
+    ref = fn(x)
+    assert got.shape == (1, 8, 14, 14) and bool(torch.isfinite(got).all())
+    assert torch.allclose(got.amax(dim=(2, 3)), torch.ones(1, 8, device="cuda"))
+    assert float((got - ref).abs().max()) <= 5e-2
+    assert all(p.grad is None for p in model.parameters())
+
+
+@pytest.mark.parametrize("backbone", ["vit_tiny_patch16_224", "efficientnet_b0"])
+def test_int8_forward_on_cuda_matches_cpu(backbone, monkeypatch):
+    """A quantized detector (f32 activations, 64 px, cuDNN's TF32 off) on
+    the card against the same quantized detector on the CPU: the same
+    int8 weights and scales, logits within 1e-3."""
+    import copy
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+    from deepfake_video_detection_tpu_torch.nn.quant import Int8Weight, quantize_module
+
+    _cuda_generator()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = BackboneDetector(backbone, device="cpu").eval()
+    if backbone.startswith("vit"):
+        cpu.backbone = VisionTransformer(backbone, img_size=64, depth=2, device="cpu")
+    n = quantize_module(cpu)
+    card = copy.deepcopy(cpu).cuda()
+    assert n > 0 and all(m.q.is_cuda for m in card.modules() if isinstance(m, Int8Weight))
+    x = torch.randn((2, 3, 64, 64, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = cpu(x)[0]
+        got = card(x.cuda())[0].cpu()
+    assert float((got - ref).abs().max()) <= 1e-3

@@ -13,6 +13,7 @@ _PROBE = """
 import importlib, pkgutil, sys
 import deepfake_video_detection_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+assert {port.__name__ + ".nn.quant", port.__name__ + ".serve.saliency"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -263,9 +263,10 @@ def test_download_checkpoint_from_a_loopback_server(tmp_path):
 
 def test_unported_checkpoints_raise(b0, tmp_path, monkeypatch):
     paths = b0[3]
+    # QUANTIZE=int8 is ported (test_torch_port_quant.py holds it against JAX)
     monkeypatch.setenv("QUANTIZE", "int8")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port_loader.load_model(paths["npz"], device="cpu")
+    _, _, stats = port_loader.load_model(paths["npz"], device="cpu")
+    assert stats["quantized_weights"] > 10
     monkeypatch.delenv("QUANTIZE")
     # the cnn_lstm family is ported: a file with only its key prefix is
     # tried as one and matches nothing

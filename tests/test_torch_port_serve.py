@@ -360,8 +360,9 @@ def test_unported_paths_raise(weights, serve_env, monkeypatch):
     pred = port_predict.Predictor(model, sd, "pretrained", device="cpu")
     with pytest.raises(NotImplementedError):
         pred.predict_video("clip.mp4")
-    with pytest.raises(NotImplementedError):
-        pred.predict_faces(np.zeros((T, SIZE, SIZE, 3), np.uint8), explain=True)
+    # explain is ported (test_torch_port_explain.py holds it against JAX)
+    assert "saliency" in pred.predict_faces(np.zeros((T, SIZE, SIZE, 3), np.uint8),
+                                            explain=True)
     pred.close()
     # CUDA asked for and missing: raise, never carry on on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -291,9 +291,12 @@ def test_evaluator_matches_jax(clips, tmp_path):
     assert [r["path"] for r in rows] == paths
     np.testing.assert_allclose([float(r["prob_fake"]) for r in rows], prob, atol=1e-6)
     assert all(r["pred"] == str(int(float(r["prob_fake"]) >= 0.5)) for r in rows)
-    for flag in (["--from-videos"], ["--quantize", "int8"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            E.main(["--data_dir", clips, "--checkpoint", path, "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        E.main(["--data_dir", clips, "--checkpoint", path, "--device", "cpu",
+                "--from-videos"])
+    # --quantize int8 is ported (test_torch_port_quant.py holds it against JAX)
+    assert E.main(["--data_dir", clips, "--checkpoint", path, "--device", "cpu",
+                   "--quantize", "int8", "--out_csv", str(tmp_path / "q.csv")]) == 0
     # a reference .pt of the same weights reads as the native file does
     pt = str(tmp_path / "model.pt")
     jax_save_torch_checkpoint(pt, variables, layout="model_config", meta={"model_config": cfg})
