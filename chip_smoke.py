@@ -5,7 +5,10 @@
 
 Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 
-1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA.
+1. Device: the card's name and power limit (``nvidia-smi``), torch/CUDA;
+   then ``decoder_probe``, what the machine offers a video decoder (printed
+   only, nothing installed): ``libavformat`` in ``ldconfig -p``, the libav
+   headers, ``g++``, cv2 and its FFMPEG line, imageio-ffmpeg, the Haar XMLs.
 2. Build: every CUDA kernel of the port, from the sources in the checkout,
    one ``nvcc`` per source, all started together; the fused-normalize
    library is waited for at once and the conv-net phases (3-6) run while the
@@ -111,7 +114,24 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    step, its 4 + 4 f32 flash launches, device time by kernel, loss and
    grad norm against the plain versions. (e) A ``.pt`` resume through the
    CLI and a ``.pt`` warm start through ``Trainer``, one epoch each.
-12. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
+12. The improved trainer and the other training CLIs (``improved``), on
+   10 synthetic clips of 16 frames at 224 px from seed 0, at torch's own
+   TF32 flags. (a) ``cli_improved.main`` for one epoch twice: ``--backbone
+   clip`` at the CLI's defaults (the frame graph over ViT-B/16, f32, batch
+   8) and ``--backbone dinov2 --bf16``: its launches against the counts the
+   model gives (12 forward and 12 backward flash calls a step, 12 a
+   validation batch), ``training_metrics_improved.csv``, the best
+   checkpoint read by ``serve/loader.py``; one step of the CLI's trainer:
+   ms (CUDA events), frames/s, peak memory, device time by kernel and the
+   idle share, loss and grad norm through the kernels against the plain
+   versions (f32 1e-4 / 1e-3, bf16 1e-2 / 5e-2). (b) ``train/cli.py
+   --model pretrained --progressive --epochs_per_stage 1`` (B0): the three
+   stage directories, stage 0's stem equal to the init with the head
+   moved, the copied best checkpoint, and a timed step of each stage.
+   (c) ``train/lr_finder.py`` at its defaults (B0, 8 x 8 frames, 100
+   steps): more than 10 finite points, finite suggestions, CSV and SVG, ms
+   a step. (d) ``evals/validate_improvements.py main(["--device", "cuda"])``.
+13. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
@@ -124,7 +144,7 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-13. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+14. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
    its f32 row; K2 and K4 with their cases at the legacy phase's shapes
    and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16; K4
@@ -2094,6 +2114,327 @@ def convnet_training(torch, A, P, smi: str, tf32_defaults: dict):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def decoder_probe() -> dict:
+    """What the card's machine offers a video decoder, printed and nothing
+    installed: ``libavformat`` in the loader cache, the libav headers,
+    ``g++``, cv2 and its FFMPEG video I/O line, imageio-ffmpeg and the Haar
+    cascade XMLs."""
+    import glob
+    import shutil
+
+    def run(cmd):
+        try:
+            return subprocess.run(cmd, capture_output=True, text=True, timeout=20).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            return f"error: {e}"
+
+    rec = {"phase": "decoder_probe",
+           "libavformat": [ln.strip() for ln in run(["ldconfig", "-p"]).splitlines()
+                           if "libavformat.so" in ln],
+           "libav_headers": sorted(glob.glob("/usr/include/**/libavformat/avformat.h",
+                                             recursive=True)
+                                   + glob.glob("/usr/local/include/libavformat/avformat.h")),
+           "gxx": shutil.which("g++"),
+           "gxx_version": (run(["g++", "--version"]).splitlines() or [None])[0]
+           if shutil.which("g++") else None}
+    haar_dirs = ["/usr/share/opencv4/haarcascades", "/usr/share/opencv/haarcascades",
+                 "/usr/local/share/opencv4/haarcascades"]
+    try:
+        import cv2
+        info = cv2.getBuildInformation()
+        video = [ln.strip() for ln in info.splitlines() if "FFMPEG" in ln]
+        rec["cv2"] = {"version": cv2.__version__, "ffmpeg": video}
+        if getattr(cv2, "data", None) is not None:
+            haar_dirs.append(cv2.data.haarcascades)
+    except ImportError:
+        rec["cv2"] = None
+    try:
+        import imageio_ffmpeg
+        exe = imageio_ffmpeg.get_ffmpeg_exe()
+        rec["imageio_ffmpeg"] = {"version": imageio_ffmpeg.__version__, "ffmpeg": exe}
+    except Exception as e:  # not installed, or no ffmpeg binary beside it
+        rec["imageio_ffmpeg"] = None if isinstance(e, ImportError) else f"error: {e}"
+    xmls = {p for d in haar_dirs for p in glob.glob(os.path.join(d, "*.xml"))}
+    rec["haar_cascades"] = {"count": len(xmls),
+                            "dirs": sorted({os.path.dirname(p) for p in xmls})}
+    _emit(rec)
+    return rec
+
+
+def _improved_run(torch, A, P, smi: str, root: str, data: str, flags: list, name: str):
+    """``cli_improved.main`` over ``data`` for one epoch with ``flags``
+    (CLIP at the CLI's defaults, or DINOv2 in bf16): its launches against
+    the counts the model and the split give, ``training_metrics_improved.csv``
+    and the best checkpoint read back through ``serve/loader.py``; then one
+    step of the CLI's own trainer (``cli_improved.build_trainer``): its
+    launches (12 forward, 12 backward flash calls, f32 as 3xTF32 without
+    ``--bf16``), time (CUDA events, mean of 5 after a warm-up), frames/s,
+    peak memory, device time by kernel and the idle share, and its loss and
+    grad norm through the kernels against the plain versions. Returns
+    (launches, f32 launches, record)."""
+    from deepfake_video_detection_tpu_torch.serve import loader
+    from deepfake_video_detection_tpu_torch.train import cli_improved
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+
+    out = os.path.join(root, name)
+    argv = ["--data_dir", data, "--epochs", "1", "--out_dir", out, *flags]
+    gc.collect()
+    torch.cuda.synchronize()
+    _reset_counts(A, P)
+    t = time.perf_counter()
+    _require(cli_improved.main(argv) == 0, f"cli_improved {flags} exited non-zero")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    launches, f32 = _counts(A, P), _f32_counts(A)
+    for f in ("checkpoint_best.npz", "training_history.csv", "training_metrics_improved.csv"):
+        _require(os.path.exists(os.path.join(out, f)), f"cli_improved wrote no {f}")
+    model, _, stats = loader.load_model(os.path.join(out, "checkpoint_best.npz"))
+    _require(stats["model_type"] == "vit_gcn" and stats["match_ratio"] == 1.0,
+             f"the loader read the improved checkpoint as {stats}")
+    del model
+
+    trainer, args = cli_improved.build_trainer(argv)
+    model, cfg = trainer.model, trainer.cfg
+    bf16 = args.bf16
+    depth, B, T = len(model.vit.blocks), cfg.batch_size, cfg.num_frames
+    _require(model.vit.embed_dim == 768 and model.vit.num_heads == 12 and depth == 12
+             and model.compute_dtype == (torch.bfloat16 if bf16 else torch.float32),
+             f"cli_improved {flags} did not build ViT-B/16 in the asked dtype")
+    steps = -(-len(trainer.train_ds) // B)
+    val_batches = -(-len(trainer.val_ds) // B)
+    want = _want(K2=depth * (steps + val_batches), K4=depth * steps)
+    want_f32 = {"K2": 0, "K4": 0} if bf16 else {"K2": want["K2"], "K4": want["K4"]}
+    _require(launches == want and f32 == want_f32,
+             f"cli_improved {flags} launches {launches} ({f32} f32) != {want} ({want_f32})")
+
+    state = trainer.init_state()
+    batch = next(iter(trainer._device_batches(trainer.train_ds, True)))
+    batch.pop("paths", None)
+    batch = trainer._prep_train(batch, torch.Generator(device="cuda").manual_seed(1))
+    state, rec = _timed_step(torch, A, P, trainer, state, batch, iters=5, breakdown=True)
+    step_f32 = {"K2": 0, "K4": 0} if bf16 else {"K2": depth, "K4": depth}
+    _require(rec["launches"] == _want(K2=depth, K4=depth) and rec["launches_f32"] == step_f32,
+             f"improved step launches {rec['launches']} ({rec['launches_f32']} f32)")
+
+    params = list(model.parameters())
+
+    def loss_and_norm():
+        logits = model(batch["frames"], batch["adjacency"], train=True,
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+        loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
+        return float(loss.detach()), float(global_norm(torch.autograd.grad(loss, params)))
+
+    loss_k, norm_k = loss_and_norm()
+    _reset_counts(A, P)
+    with _plain_attention(A):
+        loss_p, norm_p = loss_and_norm()
+    _require(not any(_counts(A, P).values()), f"the plain step launched {_counts(A, P)}")
+    d_loss, d_norm = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
+    tol = (STEP_TOL_LOSS, STEP_TOL_NORM) if bf16 else (F32_STEP_TOL_LOSS, F32_STEP_TOL_NORM)
+    device_time = rec.pop("device_time")
+    rec = {"phase": "improved_training", "card": smi, "run": name,
+           "built_by": "train/cli_improved.py " + " ".join(flags),
+           "flavour": args.backbone, "normalize": cfg.normalize, "loss": cfg.loss,
+           "optimizer": cfg.optimizer, "params": "f32", "activations": "bf16" if bf16 else "f32",
+           "batch_clips": B, "frames_per_clip": T, "cli_wall_s": cli_s, "train_steps": steps,
+           "val_batches": val_batches, "cli_launches": launches, "cli_launches_f32": f32,
+           "step_launches": rec["launches"], "step_launches_f32": rec["launches_f32"],
+           "step_ms": rec["step_ms"], "frames_per_s": rec["frames_per_s"],
+           "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+           "device_ms": device_time["device_ms"], "idle_share": device_time["idle_share"],
+           "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+           "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
+           "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
+           "step_tol": {"loss": tol[0], "grad_norm": tol[1]},
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    _emit(rec)
+    _emit({"phase": "improved_training_device_time", "card": smi, "run": name, **device_time})
+    _require(d_loss <= tol[0] and d_norm <= tol[1],
+             f"improved step {flags} kernels vs plain: loss {loss_k} vs {loss_p}, "
+             f"grad norm {norm_k} vs {norm_p}")
+    print(f"improved training step ({name}) {rec['step_ms']:.2f} ms "
+          f"({rec['frames_per_s']:.1f} frames/s), peak "
+          f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB allocated, idle "
+          f"{device_time['idle_share']:.3f} on {smi}", flush=True)
+    return launches, f32, rec
+
+
+def progressive_training(torch, A, P, smi: str, root: str, data: str):
+    """``train/cli.py --model pretrained --progressive --epochs_per_stage 1``
+    at the CLI's defaults (B0, batch 8 x 16 frames): the three stage
+    directories, stage 0's ``conv_stem.weight`` equal to the model's init
+    bit for bit with the head moved, and the copied ``checkpoint_best.npz``;
+    then one masked-AdamW step of each stage, timed (mean of 5)."""
+    import filecmp
+
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import (
+        load_checkpoint, state_dict_from_jax)
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.progressive import ProgressiveFineTuner
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    out = os.path.join(root, "progressive")
+    T, B = CONVTRAIN["frames"], CONVTRAIN["batch"]
+    _reset_counts(A, P)
+    t = time.perf_counter()
+    _require(cli.main(["--data_dir", data, "--model", "pretrained", "--progressive",
+                       "--epochs_per_stage", "1", "--out_dir", out]) == 0,
+             "the progressive CLI exited non-zero")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    launches = _counts(A, P)
+    stages = sorted(d for d in os.listdir(out) if d.startswith("stage"))
+    _require(stages == ["stage0_head_only", "stage1_partial_unfreeze",
+                        "stage2_full_finetune"], f"progressive stage directories {stages}")
+    model, _, model_config = cli.build_model("pretrained", T)
+    init = {k: t.cpu() for k, t in model.state_dict().items()}
+    best0 = state_dict_from_jax(load_checkpoint(
+        os.path.join(out, stages[0], "checkpoint_best.npz"))[0])
+    _require(torch.equal(best0["backbone.conv_stem.weight"], init["backbone.conv_stem.weight"]),
+             "stage 0 moved the frozen stem")
+    _require(not torch.equal(best0["fc1.weight"], init["fc1.weight"]),
+             "stage 0 left the head where it was")
+    _require(filecmp.cmp(os.path.join(out, "checkpoint_best.npz"),
+                         os.path.join(out, stages[-1], "checkpoint_best.npz"), shallow=False),
+             "the last stage's best checkpoint was not copied to out_dir")
+
+    ds = VideoFacesDataset(data, num_frames=T)
+    ft = ProgressiveFineTuner(model)
+    stage_ms = {}
+    while True:
+        sc = ft.get_stage_config()
+        cfg = TrainerConfig(out_dir=os.path.join(root, "progressive_steps"), epochs=1,
+                            batch_size=B, num_frames=T, lr=sc["lr"], schedule="const",
+                            loss="ce", balance="weights", grad_clip=None, augment=True,
+                            model_config=model_config)
+        trainer = Trainer(model, ds, ds, cfg, tx=ft.make_optimizer(), device="cuda")
+        batch = next(iter(trainer._device_batches(ds, True)))
+        batch.pop("paths", None)
+        batch = trainer._prep_train(batch, torch.Generator(device="cuda").manual_seed(1))
+        _, rec = _timed_step(torch, A, P, trainer, trainer.init_state(), batch, iters=5,
+                             breakdown=False)
+        stage_ms[sc["name"]] = {"step_ms": rec["step_ms"], "frames_per_s": rec["frames_per_s"],
+                                "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+                                "trainable": sum(ft.trainable_mask().values())}
+        if not ft.advance_stage():
+            break
+    rec = {"phase": "progressive_training", "card": smi, "backbone": "efficientnet_b0",
+           "built_by": "train/cli.py --model pretrained --progressive --epochs_per_stage 1",
+           "batch_clips": B, "frames_per_clip": T, "cli_wall_s": cli_s, "stages": stages,
+           "cli_launches": launches, "stage_steps": stage_ms,
+           "parameters": len(init) - sum(k.endswith(("running_mean", "running_var"))
+                                         for k in init),
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    _emit(rec)
+    print("progressive stages " + ", ".join(f"{k} {v['step_ms']:.2f} ms"
+                                            for k, v in stage_ms.items())
+          + f" a step on {smi}", flush=True)
+    return rec
+
+
+def lr_finder_run(torch, smi: str, root: str, data: str):
+    """``train/lr_finder.py main`` at its defaults (B0, batch 8 x 8
+    frames, 100 steps from 1e-4 to 10): more than 10 finite history points,
+    finite suggestions, the CSV and the SVG written; the sweep's ms a step
+    (the ``find`` call alone, by the host clock after a sync)."""
+    import contextlib
+    import io
+
+    from deepfake_video_detection_tpu_torch.train import lr_finder
+
+    out_csv = os.path.join(root, "lr_finder.csv")
+    real_find, sweep = lr_finder.LRFinder.find, {}
+
+    def timed_find(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_find(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        sweep["s"], sweep["steps"] = time.perf_counter() - t, len(self.history)
+        return res
+
+    buf = io.StringIO()
+    with mock.patch.object(lr_finder.LRFinder, "find", timed_find), \
+            contextlib.redirect_stdout(buf):
+        rc = lr_finder.main(["--data_dir", data, "--out_csv", out_csv])
+    _require(rc == 0, "the LR finder exited non-zero")
+    printed = buf.getvalue()
+    suggested = [float(ln.rsplit(":", 1)[1]) for ln in printed.splitlines()
+                 if ln.startswith("suggested lr")]
+    with open(out_csv) as f:
+        rows = [ln.split(",") for ln in f.read().splitlines()[1:]]
+    losses = [float(r[1]) for r in rows]
+    svg = out_csv[:-4] + ".svg"
+    rec = {"phase": "lr_finder", "card": smi, "backbone": "efficientnet_b0",
+           "built_by": "train/lr_finder.py main, default flags", "batch_clips": 8,
+           "frames_per_clip": 8, "steps": sweep.get("steps"), "history_points": len(rows),
+           "sweep_s": sweep.get("s"),
+           "ms_per_step": sweep["s"] * 1e3 / max(sweep["steps"], 1) if sweep else None,
+           "suggested": suggested, "first": rows[0] if rows else None,
+           "last": rows[-1] if rows else None, "svg_bytes": os.path.getsize(svg)
+           if os.path.exists(svg) else None,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    _emit(rec)
+    _require(len(rows) > 10 and all(math.isfinite(v) for v in losses),
+             f"LR finder history: {len(rows)} points, finite {all(map(math.isfinite, losses))}")
+    _require(len(suggested) == 2 and all(math.isfinite(v) for v in suggested),
+             f"LR finder suggestions {suggested}")
+    _require(rec["svg_bytes"], "the LR finder wrote no SVG")
+    print(f"LR finder {rec['ms_per_step']:.2f} ms a step over {rec['steps']} steps, "
+          f"suggested {suggested} on {smi}", flush=True)
+    return rec
+
+
+def improved_paths(torch, A, P, smi: str, tf32_defaults: dict):
+    """The improved trainer, progressive fine-tuning, the LR finder and the
+    validation demo on one synthetic set of 10 clips x 16 frames at 224 px
+    from seed 0, at torch's default TF32 flags (the training CLIs' own;
+    restored afterwards). Returns (launches by path, f32 launches by path)."""
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.evals import validate_improvements
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32_defaults["cudnn_allow_tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = tf32_defaults["matmul_allow_tf32"]
+    root = tempfile.mkdtemp(prefix="dfdt_improved_")
+    try:
+        data = os.path.join(root, "faces")
+        os.makedirs(data)
+        _write_faces(data, CONVTRAIN["clips"], CONVTRAIN["frames"], CONVTRAIN["size"])
+        seconds, paths, f32_paths = {}, {}, {}
+        for name, flags in (("clip", ["--backbone", "clip"]),
+                            ("dinov2_bf16", ["--backbone", "dinov2", "--bf16"])):
+            t = time.perf_counter()
+            paths[f"improved_{name}"], f32_paths[f"improved_{name}"], _ = _improved_run(
+                torch, A, P, smi, root, data, flags, name)
+            seconds[name] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+        for name, fn, args in (("progressive", progressive_training, (torch, A, P, smi)),
+                               ("lr_finder", lr_finder_run, (torch, smi))):
+            t = time.perf_counter()
+            fn(*args, root, data)
+            seconds[name] = time.perf_counter() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        _require(validate_improvements.main(["--device", "cuda"]) == 0,
+                 "validate_improvements exited non-zero")
+        seconds["validate_improvements"] = time.perf_counter() - t
+        _emit({"phase": "validate_improvements", "card": smi, "rc": 0,
+               "seconds": seconds["validate_improvements"]})
+        _emit({"phase": "improved_seconds", **seconds})
+        return paths, f32_paths
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _launches_per_call(torch, fn, sessions: int = 3) -> int:
     """Kernel launches of one call of ``fn`` under ``torch.profiler``: the
     most over ``sessions`` sessions of one call each (a session can drop
@@ -2699,6 +3040,7 @@ def main() -> int:
     _emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count()})
+    decoder_probe()
 
     # one nvcc per source, all started together: the flash libraries compile
     # in a thread while the conv-net phases, which need only K1, run
@@ -2776,9 +3118,13 @@ def main() -> int:
                                        smi, tf32_defaults)
     gc.collect()
     torch.cuda.empty_cache()
+    improved_launches, improved_f32 = timed("improved", improved_paths, torch, A, P, smi,
+                                            tf32_defaults)
+    gc.collect()
+    torch.cuda.empty_cache()
     # f32 launches by path (every other launch is bf16)
     f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
-                 **legacy_f32, **convnet_f32}
+                 **legacy_f32, **convnet_f32, **improved_f32}
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -2792,7 +3138,7 @@ def main() -> int:
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
-             **explained, **legacy_paths, **convnet_paths,
+             **explained, **legacy_paths, **convnet_paths, **improved_launches,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})

@@ -24,11 +24,14 @@ and combines their logits by ``average``, ``weighted`` (a softmax over the
 learnt ``weights``) or ``voting`` (the one-hot majority class). The JAX
 package ``vmap``s members of one architecture to hand XLA one program; here
 a loop is the same computation.
+
+``BackboneDetector.trainable_mask`` is the progressive fine-tuner's freeze
+mask (``train/progressive.py``), keyed by parameter name.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -153,6 +156,33 @@ class BackboneDetector(nn.Module):
         h = L.dropout(h, self.dropout_rate, train, generator)
         logits = L.linear(h, self.fc2.weight, self.fc2.bias).to(torch.float32)
         return logits, frame_scores
+
+    # -- fine-tuning support -------------------------------------------------
+
+    def trainable_mask(self, freeze_backbone: bool = False,
+                       unfreeze_blocks: int = 0) -> Dict[str, bool]:
+        """Parameter name → trainable, the JAX pytree mask flattened to the
+        port's names (what ``train/optim.py`` reads). The head is always
+        trainable; ``unfreeze_blocks=N`` keeps the last N entries of
+        ``backbone.blocks`` (sorted as ints: B0's stages, a ViT's blocks)
+        trainable when the backbone is frozen, or for a ResNet the last N
+        ``layer*`` (sorted by name); ``-1`` (or ``freeze_backbone=False``)
+        makes everything trainable. Everything else in the backbone (B0's
+        ``conv_head``/``bn2``, a ViT's ``norm``) stays frozen."""
+        names = [n for n, _ in self.named_parameters()]
+        if not freeze_backbone or unfreeze_blocks == -1:
+            return {n: True for n in names}
+        keep: Tuple[str, ...] = ()
+        if unfreeze_blocks > 0:
+            bb = self.backbone
+            if isinstance(getattr(bb, "blocks", None), nn.Module):
+                keys = sorted((k for k, _ in bb.blocks.named_children()), key=int)
+                keep = tuple(f"backbone.blocks.{k}." for k in keys[-unfreeze_blocks:])
+            else:
+                keys = sorted(k for k, _ in bb.named_children() if k.startswith("layer"))
+                keep = tuple(f"backbone.{k}." for k in keys[-unfreeze_blocks:])
+        # the trailing dot: "blocks.1." never catches "blocks.10."
+        return {n: not n.startswith("backbone.") or n.startswith(keep) for n in names}
 
 
 class EnsembleDetector(nn.Module):

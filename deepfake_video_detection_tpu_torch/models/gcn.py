@@ -11,9 +11,12 @@ an MLP classify. Parameter names are the JAX tree's: ``vit.*`` (timm's),
 As in the JAX model, ``A_norm`` is cast to the activations' dtype before
 its product (bf16 when serving on the card, summed in f32 by the matmul),
 and dropout draws only when ``train`` and a generator is given. Every
-block's attention runs the flash kernels on the card. Only the ``timm``
-backbone flavour is ported: ``clip`` and ``dinov2`` need
-``models/feature_extractors.py`` (ROADMAP Queue 1 item 12).
+block's attention runs the flash kernels on the card. ``backbone``
+``"clip"`` or ``"dinov2"`` takes the ViT of ``models/feature_extractors.py``'s
+wrapper (``.vit``, not the wrapper: the trainer normalises the frames once,
+with the CLIP statistics for ``clip``); the flavour picks that
+normalisation and the key layout of the HF importer, and the encoder and
+its weights are the ``timm`` flavour's.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+from deepfake_video_detection_tpu_torch.models.feature_extractors import build_feature_extractor
 from deepfake_video_detection_tpu_torch.nn import init as I
 from deepfake_video_detection_tpu_torch.nn import layers as L
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
@@ -58,10 +61,6 @@ class FrameGraphDetector(nn.Module):
                  backbone: str = "timm", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if backbone in ("clip", "dinov2"):
-            raise NotImplementedError(
-                f"the {backbone!r} backbone flavour is not ported yet (ROADMAP "
-                f"Queue 1 item 12: models/feature_extractors.py)")
         g = generator or torch.Generator().manual_seed(0)
         dev = resolve_device(device)
         self.vit_out = vit_out
@@ -70,9 +69,9 @@ class FrameGraphDetector(nn.Module):
         self.vit_variant = vit_variant
         self.backbone_flavor = backbone
         self.compute_dtype = compute_dtype
-        self.vit = VisionTransformer(variant=vit_variant, img_size=img_size,
-                                     num_classes=0, compute_dtype=compute_dtype,
-                                     device=dev, generator=g)
+        # every flavour's encoder is the same ViT, drawn the same way
+        self.vit = build_feature_extractor(backbone, vit_variant, img_size,
+                                           compute_dtype, dev, g).vit
         self.needs_proj = self.vit.feature_dim != vit_out
         if self.needs_proj:
             self.vit_proj = I.default_linear(self.vit.feature_dim, vit_out, g, dev)

@@ -21,15 +21,22 @@ ResNet-18/34/50; the ViTs; ``tinyconv``):
 checkpoints, ``preds_epoch_N.csv``, ``--resume``, ``--smoke``. ``--bf16``
 means bf16 activations with f32 params; ``--torch-export`` writes a
 ``.pt`` beside each checkpoint and ``--resume`` also reads a reference
-``.pt``. ``--from-videos``, ``--progressive`` and ``--steps_per_call > 1``
-are not ported and raise ``NotImplementedError`` naming ROADMAP; the
-parallelism flags are not offered. The temporal model takes
-``--d_model``, ``--depth`` and ``--heads``.
+``.pt``. ``--progressive`` (with ``--model pretrained``) runs the
+three-stage fine-tune of ``train/progressive.py``, ``--epochs_per_stage``
+epochs a stage, each stage in ``<out_dir>/stage<i>_<name>`` and the last
+stage's best checkpoint copied to ``<out_dir>/checkpoint_best.npz``.
+``--from-videos`` and ``--steps_per_call > 1`` are not ported and raise
+``NotImplementedError`` naming ROADMAP; the parallelism flags are not
+offered. The temporal model takes ``--d_model``, ``--depth`` and
+``--heads``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+from dataclasses import replace
 
 import torch
 
@@ -39,6 +46,7 @@ from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
 from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector)
+from deepfake_video_detection_tpu_torch.train.progressive import ProgressiveFineTuner
 from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -97,7 +105,11 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 activations (params stay f32)")
     ap.add_argument("--from-videos", dest="from_videos", action="store_true")
-    ap.add_argument("--progressive", action="store_true")
+    ap.add_argument("--progressive", action="store_true",
+                    help="3-stage progressive fine-tune for --model pretrained "
+                         "(head-only lr 1e-3, last 2 blocks lr 1e-4, all lr 1e-5)")
+    ap.add_argument("--epochs_per_stage", type=int, default=5,
+                    help="epochs per progressive stage (with --progressive)")
     ap.add_argument("--d_model", type=int, default=256, help="temporal model width")
     ap.add_argument("--depth", type=int, default=4, help="temporal transformer blocks")
     ap.add_argument("--heads", type=int, default=4, help="temporal attention heads")
@@ -109,10 +121,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--from-videos is not ported yet (ROADMAP Queue 1 item 7: the "
             "port's bindings to libvideodec.so)")
-    if args.progressive:
-        raise NotImplementedError(
-            "--progressive is not ported yet (ROADMAP Queue 1 item 15: the next "
-            "training slice, train/progressive.py)")
 
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)
@@ -131,12 +139,48 @@ def main(argv=None) -> int:
         steps_per_call=args.steps_per_call, grad_accum=args.grad_accum,
         ema_decay=args.ema_decay, model_config=model_config,
         compute_dtype="bfloat16" if args.bf16 else "float32")
+    if args.progressive:
+        if args.model != "pretrained":
+            ap.error("--progressive requires --model pretrained")
+        if args.ema_decay:
+            ap.error("--progressive rebuilds the optimizer per stage and "
+                     "does not carry the EMA slot; drop --ema_decay")
+        return _run_progressive(args, model, train_ds, val_ds, cfg)
+
     trainer = Trainer(model, train_ds, val_ds, cfg, device=args.device)
     state = None
     resume = args.resume or args.checkpoint
     if resume:
         state = trainer.resume(resume)
     trainer.train(state)
+    return 0
+
+
+def _run_progressive(args, model, train_ds, val_ds, cfg) -> int:
+    """The three stages through the standard Trainer: each stage gets a
+    fresh masked AdamW at its lr (constant, no EMA), warm-starts from the
+    previous stage's best checkpoint (stage 0 from ``--resume`` or
+    ``--checkpoint`` when given, else the model as built) and writes to
+    ``<out_dir>/stage<i>_<name>``. The last best is copied to
+    ``<out_dir>/checkpoint_best.npz`` for the serving loader's glob."""
+    ft = ProgressiveFineTuner(model, epochs_per_stage=args.epochs_per_stage)
+    prev_best = args.resume or args.checkpoint
+    while True:
+        sc = ft.get_stage_config()
+        stage_cfg = replace(cfg, lr=sc["lr"], epochs=sc["epochs"], schedule="const",
+                            ema_decay=None,
+                            out_dir=os.path.join(cfg.out_dir,
+                                                 f"stage{sc['stage']}_{sc['name']}"))
+        trainer = Trainer(model, train_ds, val_ds, stage_cfg, tx=ft.make_optimizer(),
+                          device=args.device)
+        state = trainer.warm_start(prev_best) if prev_best else None
+        print(f"progressive stage {sc['stage']} ({sc['name']}): lr={sc['lr']:g}, "
+              f"epochs={sc['epochs']}, unfreeze_blocks={sc['unfreeze_blocks']}")
+        trainer.train(state)
+        prev_best = os.path.join(stage_cfg.out_dir, "checkpoint_best.npz")
+        if not ft.advance_stage():
+            break
+    shutil.copyfile(prev_best, os.path.join(cfg.out_dir, "checkpoint_best.npz"))
     return 0
 
 

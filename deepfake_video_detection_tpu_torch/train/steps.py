@@ -100,7 +100,7 @@ def make_multi_step(*args, **kwargs):
     package) are a JAX dispatch device; on the card their counterpart is a
     CUDA graph, not ported yet."""
     raise NotImplementedError(
-        "steps_per_call > 1 is not ported (ROADMAP Queue 1: CUDA graphs for "
+        "steps_per_call > 1 is not ported (ROADMAP Queue 1 item 21: CUDA graphs for "
         "the train step)")
 
 

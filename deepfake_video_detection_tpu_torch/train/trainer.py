@@ -133,9 +133,9 @@ class Trainer:
         ``device``: the card unless the caller names another; the model is
         moved there."""
         if mesh is not None or plan is not None:
-            raise NotImplementedError(f"meshes and parallel plans {_NOT_PORTED}")
+            raise NotImplementedError(f"meshes and parallel plans {_NOT_PORTED} (item 18)")
         if config.steps_per_call > 1:
-            raise NotImplementedError(f"steps_per_call > 1 {_NOT_PORTED}")
+            raise NotImplementedError(f"steps_per_call > 1 {_NOT_PORTED} (item 21)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.train_ds = train_ds

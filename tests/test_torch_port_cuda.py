@@ -547,3 +547,76 @@ def test_int8_forward_on_cuda_matches_cpu(backbone, monkeypatch):
         ref = cpu(x)[0]
         got = card(x.cuda())[0].cpu()
     assert float((got - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("flavor,dtype", [("clip", torch.float32), ("dinov2", torch.bfloat16)])
+def test_improved_step_on_cuda_matches_plain_versions(flavor, dtype):
+    """The improved trainer's model (the frame graph over a two-block
+    ViT-Tiny at 64 px, CLIP- or DINOv2-flavoured) under its loss (focal,
+    label smoothing 0.1): one step's loss and grad norm through the flash
+    kernels (2 forward and 2 backward launches, f32 as 3xTF32) against the
+    plain versions, f32 within 1e-4 / 1e-3 and bf16 within 1e-2 / 5e-2."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.data.normalize import clip_normalize
+    from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
+    from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+    from deepfake_video_detection_tpu_torch.train.losses import focal_loss
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+    from deepfake_video_detection_tpu_torch.utils.graph import (
+        chain_adjacency, normalize_adjacency)
+
+    gen = _cuda_generator()
+    model = FrameGraphDetector(vit_variant="vit_tiny_patch16_224", img_size=64,
+                               backbone=flavor, compute_dtype=dtype, device="cuda")
+    model.vit = VisionTransformer("vit_tiny_patch16_224", img_size=64, depth=2,
+                                  compute_dtype=dtype, device="cuda")
+    u8 = torch.randint(0, 256, (2, 4, 64, 64, 3), dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    x = clip_normalize(u8) if flavor == "clip" else P.fused_normalize_plain(u8, torch.float32)
+    adj = normalize_adjacency(chain_adjacency(4)).cuda().expand(2, 4, 4)
+    labels = torch.tensor([0, 1], device="cuda")
+    params = list(model.parameters())
+
+    def run():
+        loss = focal_loss(model(x, adj, train=True), labels, label_smoothing=0.1)
+        return float(loss), float(global_norm(torch.autograd.grad(loss, params)))
+
+    fwd, bwd = A.flash_attention_fwd, A.flash_attention_bwd
+    before = (fwd.launches, bwd.launches, fwd.launches_f32, bwd.launches_f32)
+    loss, norm = run()
+    f32 = 2 if dtype == torch.float32 else 0
+    assert (fwd.launches, bwd.launches, fwd.launches_f32, bwd.launches_f32) == (
+        before[0] + 2, before[1] + 2, before[2] + f32, before[3] + f32)
+    with mock.patch.object(A, "flash_attention",
+                           lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+        ref_loss, ref_norm = run()
+    tol = (1e-4, 1e-3) if dtype == torch.float32 else (1e-2, 5e-2)
+    assert abs(loss - ref_loss) <= tol[0] * abs(ref_loss)
+    assert abs(norm - ref_norm) <= tol[1] * ref_norm
+
+
+def test_progressive_stage_on_cuda_leaves_frozen_parameters():
+    """Stage 0 (head only) of a B0 detector on the card: one masked AdamW
+    step moves the head and the batch-norm running stats and leaves every
+    backbone parameter bit for bit."""
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.train import steps as S
+    from deepfake_video_detection_tpu_torch.train.losses import cross_entropy_loss
+    from deepfake_video_detection_tpu_torch.train.progressive import ProgressiveFineTuner
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+
+    gen = _cuda_generator()
+    model = BackboneDetector("efficientnet_b0", device="cuda")
+    ft = ProgressiveFineTuner(model)
+    opt = ft.make_optimizer()
+    before = {k: t.clone() for k, t in model.state_dict().items()}
+    batch = {"frames": torch.randn((2, 2, 64, 64, 3), device="cuda", generator=gen),
+             "labels": torch.tensor([0, 1], device="cuda")}
+    S.make_train_step(model, opt, cross_entropy_loss)(TrainState.create(model, opt), batch,
+                                                      torch.Generator(device="cuda"))
+    mask = ft.trainable_mask()
+    for k, t in model.state_dict().items():
+        moved = not torch.equal(t, before[k])
+        assert moved == (mask[k] if k in mask else k.endswith(("running_mean",
+                                                                "running_var"))), k

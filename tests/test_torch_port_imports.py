@@ -13,7 +13,10 @@ _PROBE = """
 import importlib, pkgutil, sys
 import deepfake_video_detection_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-assert {port.__name__ + ".nn.quant", port.__name__ + ".serve.saliency"} <= set(names)
+assert {port.__name__ + m for m in (
+    ".nn.quant", ".serve.saliency", ".train.progressive", ".train.lr_finder",
+    ".train.cli_improved", ".evals.validate_improvements",
+    ".models.feature_extractors")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

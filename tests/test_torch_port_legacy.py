@@ -209,8 +209,14 @@ def test_frame_graph_detector_matches_jax(vit_out):
     ref, _ = jm.apply(v, jnp.asarray(x), jnp.asarray(A))
     got = pm(_t(x), _t(A))
     _close(got, ref, DETECTOR_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FrameGraphDetector(vit_variant=TINY, backbone="clip", device="cpu")
+    # the clip/dinov2 flavours build the same encoder from the same draws
+    timm = FrameGraphDetector(vit_variant=TINY, img_size=SIZE, device="cpu").state_dict()
+    for flavor in ("clip", "dinov2"):
+        other = FrameGraphDetector(vit_variant=TINY, img_size=SIZE, backbone=flavor,
+                                   device="cpu")
+        assert other.backbone_flavor == flavor
+        got = other.state_dict()
+        assert list(got) == list(timm) and all(torch.equal(got[k], timm[k]) for k in timm)
 
 
 @pytest.mark.parametrize("train", [False, True])

@@ -321,8 +321,10 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, npz_dir, tmp_path
         cli.build_model("vit_gcn", 4)
     with pytest.raises(RuntimeError, match="CUDA"):   # the pretrained model's default
         cli.build_model("pretrained", 4, backbone="efficientnet_b0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="CUDA"):   # progressive fine-tuning
         cli.main(["--data_dir", npz_dir, "--model", "pretrained", "--progressive"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--data_dir", npz_dir, "--from-videos"])
 
 
 # ---------------------------------------------------------------------------
