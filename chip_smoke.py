@@ -67,7 +67,22 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    bytes at rest, memory after load, ``prob_fake`` against f32, forward ms
    at 1 and 16 clips, clips/s with 8 clients, launches per forward, and
    the int8 model against its own weights dequantized to f32. (c) The
-   evaluator with ``--quantize int8`` on 4 clips.
+   evaluator with ``--quantize int8`` on 4 clips. Then ``video_serving``:
+   video files through ``Predictor.predict_video``, as on a host without
+   the libav libraries the native decoder needs (``VIDEO_BACKEND=cv2``,
+   ``SERVE_YUV_TRANSFER=0``, ``FACE_DETECTOR`` at auto, which must resolve
+   to haar with the native engine): 4 clips of 1280 x 720, 25 fps, 48
+   frames, written by ``cv2.VideoWriter`` (mp4v) with a ~440 px synthetic
+   face, and one clip without a face (the center fallback answers). B0
+   (random weights from seed 0, BN stats from U(0.5, 1.5)) with
+   micro-batching and warmup: sequential requests, their median ms by stage
+   (decode, Haar, host-to-device with the crop and resize, forward and
+   policy: timed around the package's calls), clips/s with 8 clients
+   (median of 3 rounds), K1 launches (one per sequential request), 8 faces
+   a clip, ``prob_fake`` against the plain versions, the forward's device
+   time by kernel and idle share, and the crops on the card against the
+   CPU (``CROP_TOL``). ViT-B/16: one request (K1 1, K2 12) and one
+   ``explain=True`` request (K4 12, the ``saliency`` key).
 9. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
    16 frames at 224 px) trains ViT-B/16 for one epoch through ``Trainer``
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
@@ -285,6 +300,18 @@ INT8_WEIGHTS = {"vit_base_patch16_224": 51, "efficientnet_b0": 59}
 SAL_TOL = {"bf16": 5e-2, "f32": 1e-3}
 # the kernel case at an explain request's shape
 EXPLAIN_ROW = "explain: "
+
+# the video-serving phase: clips written by cv2 (mp4v; the card's machine
+# has cv2 with FFMPEG but no libav for the native decoder), 1280 x 720 at
+# 25 fps, 48 frames; a ~440 px synthetic face (~110 px at HAAR_MAX_SIDE =
+# 320) drifting through 4 clips, and one clip without a face; requests of
+# MAX_FRAMES = 8 crops of 224 px (every 5th frame)
+VIDEO = {"clips": 4, "width": 1280, "height": 720, "fps": 25, "frames": 48, "face": 440,
+         "max_frames": 8, "size": 224, "clients": 8, "crop_iters": 10}
+# decode through cv2, crop RGB on the card: the packed-YUV path and the
+# center detector's in-decoder crop need the native decoder (libav)
+VIDEO_ENV = {"VIDEO_BACKEND": "cv2", "SERVE_YUV_TRANSFER": "0"}
+CROP_TOL = 1   # crops on the card vs the CPU, uint8 levels: f32 sums in another order
 
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
@@ -2748,6 +2775,313 @@ def _explain_int8_paths(torch, A, P, smi: str, T: int, size: int):
     return paths
 
 
+def synth_face(size: int) -> np.ndarray:
+    """A face-like gray patch that passes every stage of the frontal-face
+    cascade: a bright oval, dark eyes under a brow shadow, a lighter nose
+    bridge, a dark mouth (``tests/test_haar.py`` draws the same)."""
+    img = np.full((size, size), 120.0)
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0)
+    face = ((yy - 0.52) / 0.48) ** 2 + ((xx - 0.5) / 0.40) ** 2 <= 1.0
+    img[face] = 200.0
+    for cy, cx, ry, rx, val in ((0.38, 0.32, 0.055, 0.10, 60), (0.38, 0.68, 0.055, 0.10, 60),
+                                (0.30, 0.32, 0.035, 0.11, 150), (0.30, 0.68, 0.035, 0.11, 150),
+                                (0.55, 0.5, 0.10, 0.05, 180), (0.72, 0.5, 0.045, 0.16, 80)):
+        img[(((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0) & face] = val
+    return img
+
+
+def write_clip(path: str, index: int, face: bool = True) -> None:
+    """One ``VIDEO`` clip through ``cv2.VideoWriter`` (mp4v): gray frames with
+    the synthetic face drifting right and down, further along in a later
+    clip ``index``; no face with ``face=False``."""
+    import cv2
+
+    W, H, s = VIDEO["width"], VIDEO["height"], VIDEO["face"]
+    patch = synth_face(s).astype(np.uint8)[..., None]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), VIDEO["fps"], (W, H))
+    _require(writer.isOpened(), f"cv2 cannot write {path}")
+    try:
+        for t in range(VIDEO["frames"]):
+            frame = np.full((H, W, 3), 120, np.uint8)
+            if face:
+                oy, ox = 80 + 3 * (t % 8) + 20 * index, 100 + 4 * t + 150 * index
+                frame[oy:oy + s, ox:ox + s] = patch
+            writer.write(frame)
+    finally:
+        writer.release()
+
+
+def _stage_timer(stages: dict, name: str, fn):
+    """``fn`` wrapped to append its wall ms to ``stages[name]``: the phase
+    times a request's stages around the package's calls."""
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stages.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+    return timed
+
+
+def _level_gap(a: np.ndarray, b: np.ndarray):
+    _require(a.shape == b.shape and a.dtype == b.dtype == np.uint8,
+             f"crops {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def video_serving(torch, A, P, smi: str):
+    """Serve video files end to end through ``Predictor.predict_video``:
+    cv2 decoding, Haar detection on the host (native engine, tracking on),
+    the margin-expanded boxes cropped and resized on the card, K1 and the
+    detector. Returns launches by path; the environment is restored."""
+    import shutil
+    import tempfile
+
+    env = {"MAX_FRAMES": str(VIDEO["max_frames"]), "FACE_SIZE": str(VIDEO["size"]),
+           "SERVE_WINDOWS": "1", **VIDEO_ENV}
+    root = tempfile.mkdtemp(prefix="dfdt_video_")
+    try:
+        with mock.patch.dict(os.environ, env):
+            for k in ("FACE_DETECTOR", "HAAR_CASCADE", "HAAR_MAX_SIDE", "HAAR_TRACK",
+                      "MTCNN_WEIGHTS", "KEEP_ALL_FACES", "VIDEO_SAMPLE_RATE"):
+                os.environ.pop(k, None)
+            t = time.perf_counter()
+            clips = [os.path.join(root, f"face{i}.mp4") for i in range(VIDEO["clips"])]
+            for i, path in enumerate(clips):
+                write_clip(path, i)
+            noface = os.path.join(root, "noface.mp4")
+            write_clip(noface, 0, face=False)
+            write_s = time.perf_counter() - t
+            b0 = _video_b0(torch, A, P, smi, clips, noface, write_s)
+            vit = _video_vit(torch, A, P, smi, clips)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"video_serving": {k: b0.get(k, 0) + vit.get(k, 0) for k in ("K1", "K2", "K4")}}
+
+
+def _video_request_check(res: dict, what: str) -> None:
+    _check_result(res, VIDEO["max_frames"], what)
+    _require(res["num_faces"] == VIDEO["max_frames"],
+             f"{what}: num_faces {res['num_faces']} != {VIDEO['max_frames']}")
+
+
+def _video_b0(torch, A, P, smi: str, clips: list, noface: str, write_s: float) -> dict:
+    """B0 (full size, random weights from seed 0, BN stats from U(0.5, 1.5))
+    behind a Predictor with micro-batching and warmup: sequential requests
+    timed by stage, 8 concurrent clients, launch counts, ``prob_fake``
+    against the plain versions, crops on the card against the CPU."""
+    import cv2
+
+    from deepfake_video_detection_tpu_torch.data import faces as faces_mod
+    from deepfake_video_detection_tpu_torch.data import haar_native
+    from deepfake_video_detection_tpu_torch.data.haar import get_default_cascade
+    from deepfake_video_detection_tpu_torch.data.video import sample_video_frames
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve import predict as predict_mod
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor, serving_dtype
+
+    T, size, n = VIDEO["max_frames"], VIDEO["size"], VIDEO["clients"]
+    t0 = time.perf_counter()
+    model = BackboneDetector("efficientnet_b0", compute_dtype=serving_dtype("cuda"),
+                             device="cuda", generator=torch.Generator().manual_seed(0))
+    _randomize_bn(torch, model, CONV["bn_seed"])
+    pred = Predictor(model, None, "pretrained", device="cuda")
+    _require(pred.warmup_done.wait(timeout=600), "video B0 warmup did not finish in 600 s")
+    _require(pred.warmup_error is None, f"video B0 warmup failed: {pred.warmup_error!r}")
+    setup_s = time.perf_counter() - t0
+    ex = pred.extractor
+    cascade = get_default_cascade()
+    setting = {"detector": ex.detector, "cascade": cascade.path if cascade else None,
+               "haar_engine": haar_native.engine(), "cv2": cv2.__version__,
+               "VIDEO_BACKEND": os.environ.get("VIDEO_BACKEND"),
+               "SERVE_YUV_TRANSFER": os.environ.get("SERVE_YUV_TRANSFER"),
+               "FACE_DETECTOR": os.environ.get("FACE_DETECTOR", "auto"),
+               "extract_concurrency": pred._extract_sem._value if pred._extract_sem else 0,
+               "extractor_device": str(ex.device)}
+    print(f"video serving: {setting}", flush=True)
+    _require(ex.detector == "haar", f"FACE_DETECTOR=auto resolved to {ex.detector!r}")
+    _require(setting["haar_engine"] == "native", "the native Haar engine did not load")
+
+    try:
+        # sequential requests, each stage timed around the package's calls
+        stages, seq, seq_ms = {}, [], []
+        with mock.patch.object(faces_mod, "sample_video_frames",
+                               _stage_timer(stages, "decode", faces_mod.sample_video_frames)), \
+                mock.patch.object(ex, "_detect_haar",
+                                  _stage_timer(stages, "haar", ex._detect_haar)), \
+                mock.patch.object(faces_mod, "crop_and_resize_batch",
+                                  _stage_timer(stages, "h2d_crop_resize",
+                                               faces_mod.crop_and_resize_batch)), \
+                mock.patch.object(pred, "_predict_pretrained",
+                                  _stage_timer(stages, "forward_and_policy",
+                                               pred._predict_pretrained)):
+            pred.predict_video(clips[0])          # the first request's one-time host costs
+            stages.clear()
+            torch.cuda.synchronize()
+            _reset_counts(A, P)
+            batches0 = pred._batcher.batches_run
+            for path in clips + [noface]:
+                t = time.perf_counter()
+                seq.append(pred.predict_video(path))
+                seq_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            seq_counts = _counts(A, P)
+            seq_batches = pred._batcher.batches_run - batches0
+        for i, r in enumerate(seq):
+            _video_request_check(r, f"video request {i}")
+        _require(seq_counts == _want(K1=len(seq)) and seq_batches == len(seq),
+                 f"sequential video requests: launches {seq_counts}, {seq_batches} batcher "
+                 f"steps; want K1 {len(seq)}")
+        stage_ms = {k: float(np.median(v)) for k, v in stages.items()}
+        _require(len(stages.get("haar", [])) == len(seq)
+                 and len(stages.get("forward_and_policy", [])) == len(seq),
+                 f"a request skipped a stage: {stages}")
+
+        # concurrent clients, the extraction semaphore at its default
+        def client_round():
+            out, barrier = [None] * n, threading.Barrier(n)
+
+            def client(i):
+                barrier.wait()
+                out[i] = pred.predict_video(clips[i % len(clips)])
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            _require(not any(th.is_alive() for th in threads), "a video request hung")
+            return out, time.perf_counter() - t
+
+        _reset_counts(A, P)
+        batches0 = pred._batcher.batches_run
+        conc, conc_s = [], []
+        for _ in range(ROUNDS):
+            res, sec = client_round()
+            conc += res
+            conc_s.append(sec)
+        torch.cuda.synchronize()
+        conc_counts = _counts(A, P)
+        conc_batches = pred._batcher.batches_run - batches0
+        for i, r in enumerate(conc):
+            _video_request_check(r, f"concurrent video request {i}")
+        _require(conc_counts == _want(K1=conc_batches) and conc_counts["K1"] >= 1,
+                 f"concurrent video requests: launches {conc_counts}, {conc_batches} steps")
+
+        # the first clip's crops through the plain versions
+        faces = ex.extract_from_video(clips[0], max_frames=T)
+        x = torch.from_numpy(faces[None]).cuda()
+        with mock.patch.object(predict_mod, "fused_normalize", P.fused_normalize_plain):
+            p_plain = float(pred._forward(x)[0].float().cpu()[0, 1])
+        diff = abs(p_plain - seq[0]["prob_fake"])
+        _require(diff <= PROB_TOL, f"video prob_fake kernels vs plain differ by {diff}")
+        breakdown = _kernel_breakdown(torch, lambda: pred._forward(x))
+
+        # crops on the card against the CPU: the request's boxes, and edge
+        # boxes (fractional, partly off the frame, one pixel)
+        frames = sample_video_frames(clips[0], max_frames=T)
+        cpu_ex = faces_mod.FaceExtractor(detector="haar", face_size=size, device="cpu")
+        gap, share = _level_gap(ex.extract_from_frames(frames),
+                                cpu_ex.extract_from_frames(frames))
+        W, H = VIDEO["width"], VIDEO["height"]
+        edge = np.array([[10.3, 5.7, 500.2, 455.9], [-120.5, -80.25, 380.75, 395.5],
+                         [640.0, 360.0, 641.0, 361.0], [0, 0, W, H],
+                         [1000.6, 500.1, 1400.2, 900.3], [300.25, 100.75, 777.5, 577.5],
+                         [-10.0, -10.0, 20.0, 20.0], [W - 5.5, H - 5.5, W + 100.0, H + 100.0]],
+                        np.float32)
+        e_gap, e_share = _level_gap(faces_mod.crop_and_resize_batch(frames, edge, size, "cuda"),
+                                    faces_mod.crop_and_resize_batch(frames, edge, size, "cpu"))
+        _require(max(gap, e_gap) <= CROP_TOL,
+                 f"crops on the card vs the CPU differ by {gap} / {e_gap} levels")
+        crop_ms = []
+        for _ in range(VIDEO["crop_iters"]):
+            t = time.perf_counter()
+            faces_mod.crop_and_resize_batch(frames, edge, size, "cuda")
+            crop_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        pred.close()
+
+    rec = {"phase": "video_serving", "card": smi, "model": "efficientnet_b0",
+           "activations": "bf16", "setting": setting, "clips": len(clips) + 1,
+           "clip": {k: VIDEO[k] for k in ("width", "height", "fps", "frames", "face")},
+           "frames_per_request": T, "face_size": size, "write_clips_s": write_s,
+           "setup_s": setup_s, "sequential_ms": seq_ms,
+           "sequential_ms_median": float(np.median(seq_ms)),
+           "stage_ms_median": stage_ms,
+           "stage_ms_other": float(np.median(seq_ms)) - sum(stage_ms.values()),
+           "stage_ms_all": stages,
+           "concurrent_clients": n, "concurrent_wall_s": conc_s,
+           "concurrent_clips_per_s": n / float(np.median(conc_s)),
+           "launches_sequential": seq_counts, "launches_concurrent": conc_counts,
+           "batcher_steps_concurrent": conc_batches,
+           "k1_per_request_sequential": seq_counts["K1"] / len(seq),
+           "prob_fake_kernels": seq[0]["prob_fake"], "prob_fake_plain": p_plain,
+           "prob_fake_abs_diff": diff, "prob_tol": PROB_TOL,
+           "crop_card_vs_cpu": {"max_levels": gap, "share_differing": share,
+                                "edge_boxes_max_levels": e_gap,
+                                "edge_boxes_share_differing": e_share, "tol": CROP_TOL},
+           "crop_ms_8_boxes_1280x720": float(np.median(crop_ms)),
+           "noface_clip": {k: seq[-1][k] for k in ("prediction", "num_faces", "prob_fake")},
+           "verdicts": [r["prediction"] for r in seq + conc]}
+    _emit(rec)
+    _emit({"phase": "video_serving_device_time", "forward": "rgb_1", "card": smi, **breakdown})
+    print(f"video serving (B0): {rec['sequential_ms_median']:.1f} ms a request "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in stage_ms.items())}), "
+          f"{rec['concurrent_clips_per_s']:.1f} clips/s with {n} clients on {smi}", flush=True)
+    return {k: seq_counts[k] + conc_counts[k] for k in ("K1", "K2", "K4")}
+
+
+def _video_vit(torch, A, P, smi: str, clips: list) -> dict:
+    """ViT-B/16 (random weights from seed 0, bf16): one sequential request
+    (K1 1, K2 12) and one ``explain=True`` request (K4 12, and the
+    ``saliency`` key) through ``predict_video``."""
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor, serving_dtype
+
+    model = BackboneDetector("vit_base_patch16_224", compute_dtype=serving_dtype("cuda"),
+                             device="cuda", generator=torch.Generator().manual_seed(0))
+    depth = len(model.backbone.blocks)
+    with mock.patch.dict(os.environ, {"SERVE_WARMUP": "0"}):
+        pred = Predictor(model, None, "pretrained", device="cuda")
+    try:
+        pred.predict_video(clips[0], explain=True)   # builds cuDNN's plans, unmeasured
+        torch.cuda.synchronize()
+        _reset_counts(A, P)
+        t = time.perf_counter()
+        res = pred.predict_video(clips[1])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        plain = _counts(A, P)
+        _reset_counts(A, P)
+        t = time.perf_counter()
+        res_e = pred.predict_video(clips[2], explain=True)
+        torch.cuda.synchronize()
+        explain_ms = (time.perf_counter() - t) * 1e3
+        explained = _counts(A, P)
+    finally:
+        pred.close()
+    _video_request_check(res, "ViT video request")
+    _video_request_check(res_e, "ViT explain video request")
+    _require(pred.explain_error is None, f"ViT explain failed: {pred.explain_error!r}")
+    sal = res_e.get("saliency")
+    _require(isinstance(sal, dict) and sal.get("grid") == [14, 14]
+             and len(sal["frames"]) == VIDEO["max_frames"],
+             f"ViT explain video request without a saliency grid: {sorted(res_e)}")
+    _require(plain == _want(K1=1, K2=depth),
+             f"ViT video request launches {plain}; want K1 1, K2 {depth}")
+    _require(explained == _want(K1=2, K2=2 * depth, K4=depth),
+             f"ViT explain video request launches {explained}; want K1 2, K2 {2 * depth}, "
+             f"K4 {depth}")
+    _emit({"phase": "video_serving_vit", "card": smi, "model": "vit_base_patch16_224",
+           "activations": "bf16", "request_ms": ms, "explain_request_ms": explain_ms,
+           "launches_request": plain, "launches_explain_request": explained,
+           "prob_fake": res["prob_fake"], "explain_prob_fake": res_e["prob_fake"],
+           "saliency_grid": sal["grid"]})
+    return {k: plain[k] + explained[k] for k in ("K1", "K2", "K4")}
+
+
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
@@ -3103,6 +3437,9 @@ def main() -> int:
     explained = timed("explain_int8_serving", explain_int8_serving, torch, A, P, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    video_paths = timed("video_serving", video_serving, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     trained, _ = timed("vit_training", train, torch, A, P, smi)
     _require(trained["flash_attention_fwd"] > 0 and trained["flash_attention_bwd"] > 0,
              f"a kernel was not launched on the training path: {trained}")
@@ -3138,7 +3475,7 @@ def main() -> int:
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
-             **explained, **legacy_paths, **convnet_paths, **improved_launches,
+             **explained, **video_paths, **legacy_paths, **convnet_paths, **improved_launches,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})

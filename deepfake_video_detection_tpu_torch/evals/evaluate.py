@@ -252,8 +252,8 @@ def main(argv=None) -> int:
 
     if args.from_videos:
         raise NotImplementedError(
-            "--from-videos is not ported yet (ROADMAP Queue 1 item 7: the "
-            "port's bindings to libvideodec.so)")
+            "--from-videos is not ported yet (ROADMAP Queue 1 item 14: the "
+            "port's data/video_dataset.py)")
     sd, meta = load_any(args.checkpoint)
     model, report, mt = build_model_from_checkpoint(
         sd, meta, args.model, torch.bfloat16 if args.bf16 else None, args.device)

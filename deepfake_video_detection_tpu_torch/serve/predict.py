@@ -9,10 +9,16 @@ optional ``EnhancedDecisionAgent`` over its members' logits) and
 ``"temporal"`` (a ``TemporalTransformerDetector``), which the JAX package
 serves through the same forward functions, warmup, windows and policy: the
 same decision policy and result-dict schema. ``serve/loader.py::load_model``
-builds any of them from a checkpoint. Requests come in as face crops,
-through :meth:`Predictor.predict_faces` (RGB) or
-:meth:`Predictor._predict_pretrained` with ``packed_yuv=True`` (packed
-YUV420, half the host→device bytes). The policy: optional windowed scan
+builds any of them from a checkpoint. :meth:`Predictor.predict_video` serves
+a video file: the extractor (``data/faces.py::FaceExtractor``, on the
+Predictor's device) decodes and crops up to ``MAX_FRAMES`` × ``SERVE_WINDOWS``
+faces, as packed YUV420 from inside the native decoder (half the
+host→device bytes) for the center and haar detectors, or as RGB crops
+resized on the device otherwise (explain requests, ``KEEP_ALL_FACES``,
+``SERVE_YUV_TRANSFER=0``); any failure comes back as ``{"error": ...}``.
+Extraction runs in the request's thread under a semaphore
+(``SERVE_EXTRACT_CONCURRENCY``). :meth:`Predictor.predict_faces` takes
+crops directly. The policy: optional windowed scan
 (``SERVE_WINDOWS``) with the order-statistics threshold correction,
 calibrated threshold from ``calibration_best.json`` /
 ``DETECT_FAKE_THRESHOLD`` / 0.5 with the extreme-threshold guard, and the
@@ -36,8 +42,8 @@ packed-YUV forward K1's YUV420 entry (colour matrix and normalisation in one
 pass), and every ViT and temporal block the flash-attention kernel (K2; a
 window holds at most 64 frames, so the temporal blocks attend over N ≤ 65
 tokens here); the conv nets run cuDNN convolutions, channels-last. Video
-decoding and face detection (``predict_video``, ROADMAP item 7) come
-with a later slice.
+decoding and Haar detection run on the host; the RGB path's crop and resize
+runs on the device as two batched products.
 
 ``predict_faces(..., explain=True)`` adds the ``saliency`` key: per-frame
 input-gradient grids of the deciding window (``serve/saliency.py``), taken
@@ -50,6 +56,7 @@ kept in ``explain_error``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 
 from deepfake_video_detection_tpu_torch.data.dataset import pad_or_sample_frames
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.ops.preprocess import (
     fused_normalize, fused_normalize_yuv)
 from deepfake_video_detection_tpu_torch.serve.batcher import MicroBatcher, to_host
@@ -72,7 +80,9 @@ from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, norm
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
+# `with self._extract_sem or _NULL_CTX:`, a no-op when admission control is
+# off (SERVE_EXTRACT_CONCURRENCY=0)
+_NULL_CTX = contextlib.nullcontext()
 _PRETRAINED_TYPES = ("pretrained", "ensemble_pretrained", "temporal")
 _LEGACY_TYPES = ("cnn_lstm", "vit_gcn")
 LEGACY_FRAMES = 16     # the legacy models' clip length
@@ -184,17 +194,6 @@ def make_legacy_forward(model: torch.nn.Module, model_type: str, device: Any):
     return fwd
 
 
-class CenterCropExtractor:
-    """Stand-in for the JAX package's ``FaceExtractor`` until the extraction
-    slice: carries the three attributes the Predictor reads."""
-
-    detector = "center"
-    keep_all = False
-
-    def __init__(self, face_size: Optional[int] = None):
-        self.face_size = face_size or env_int("FACE_SIZE", 224)
-
-
 class Predictor:
     """Holds the model on its device and the serving forwards; thread-safe
     for requests."""
@@ -207,8 +206,8 @@ class Predictor:
         """``variables``: a ``state_dict`` loaded strictly into ``model``,
         or None to serve the weights the model holds. ``enhanced_agent``:
         an ``agents.enhanced.EnhancedDecisionAgent``, consulted for
-        ensembles. ``extractor``: any object with ``face_size``,
-        ``detector`` and ``keep_all``."""
+        ensembles. ``extractor``: a ``FaceExtractor`` (by default one on
+        ``device``, configured from the environment)."""
         if model_type not in _PRETRAINED_TYPES + _LEGACY_TYPES:
             raise ValueError(f"unknown model_type {model_type!r}")
         self.device = resolve_device(device)
@@ -218,7 +217,7 @@ class Predictor:
         self.model_type = model_type
         self.checkpoint_path = checkpoint_path
         self.enhanced_agent = enhanced_agent
-        self.extractor = extractor or CenterCropExtractor()
+        self.extractor = extractor or FaceExtractor(device=self.device)
 
         self._batcher = None
         if model_type in _LEGACY_TYPES:
@@ -240,6 +239,13 @@ class Predictor:
             self._fwd_item = lambda stacked: self._forward(self._to_device(stacked))
             self._fwd_yuv_item = lambda stacked: self._forward_yuv(
                 self._to_device(stacked))
+
+        # admission control for the host-bound extraction stage (decode and
+        # face detection): without it, many concurrent requests each run
+        # their GIL-free extraction at once and thrash a small host instead
+        # of queueing. SERVE_EXTRACT_CONCURRENCY overrides (0 = off).
+        n_ex = env_int("SERVE_EXTRACT_CONCURRENCY", max(2, os.cpu_count() or 1))
+        self._extract_sem = threading.BoundedSemaphore(n_ex) if n_ex > 0 else None
 
         # startup warmup (default on) in a background thread: builds the
         # kernels and runs every batch shape once, so the first requests do
@@ -300,16 +306,19 @@ class Predictor:
     # ------------------------------------------------------------------
 
     def predict_video(self, video_path: str, explain: bool = False) -> Dict[str, Any]:
-        raise NotImplementedError(f"video decoding and face extraction "
-                                  f"{_NOT_PORTED} (item 7): use predict_faces")
+        """The verdict on a video file; any exception comes back as
+        ``{"error": str(e)}``, so the caller always gets a dict."""
+        try:
+            return self._predict(video_path, explain=explain)
+        except Exception as e:
+            return {"error": str(e)}
 
     def predict_faces(self, faces: np.ndarray, video_id: str = "video",
                       explain: bool = False) -> Dict[str, Any]:
         """Run the decision policy on pre-extracted face crops
         (T, H, W, 3) uint8 RGB. ``explain`` adds the ``saliency`` key
-        unless ``SERVE_EXPLAIN`` is off (the JAX package gates it in
-        ``predict_video``, the port's served entry until that is ported);
-        the legacy types ignore it."""
+        unless ``SERVE_EXPLAIN`` is off, as in :meth:`predict_video`; the
+        legacy types ignore it."""
         if self.model_type in _LEGACY_TYPES:
             return self._predict_legacy(faces)
         return self._predict_pretrained(faces, video_id,
@@ -325,6 +334,58 @@ class Predictor:
         grids = make_saliency_fn(self.model, fake_idx=fake_idx)(
             self._to_device(np.asarray(faces)[None]))
         return saliency_payload(to_host(grids)[0])
+
+    @staticmethod
+    def _pad_to_fixed_scan_shape(faces: np.ndarray, windows: int,
+                                 total: int) -> np.ndarray:
+        """Cycle-pad an under-length windowed extraction up to ``total``
+        frames, so the windowed forward always sees (windows, MAX_FRAMES,
+        ...). Clips below ``MIN_FACES`` pass unpadded, so the abstain gate
+        sees the true count."""
+        n = int(faces.shape[0])
+        if windows <= 1 or n >= total or n < max(1, env_int("MIN_FACES", 2)):
+            return faces
+        return faces[np.arange(total) % n]
+
+    def _predict(self, video_path: str, explain: bool = False) -> Dict[str, Any]:
+        # SERVE_EXPLAIN (default on) gates explain here too, so a disabled
+        # explain does not force the RGB path
+        explain = explain and env_bool("SERVE_EXPLAIN", True)
+        if self.model_type in _LEGACY_TYPES:
+            with self._extract_sem or _NULL_CTX:
+                faces = self.extractor.extract_from_video(video_path)
+            if faces.shape[0] == 0:
+                return {"error": "No faces detected in video"}
+            return self._predict_legacy(faces)
+        max_frames = max(1, min(64, env_int("MAX_FRAMES", 8)))
+        # long-video scanning: SERVE_WINDOWS = W > 1 samples W·T frames over
+        # the whole clip, and the most suspicious window decides
+        windows = max(1, min(64, env_int("SERVE_WINDOWS", 1)))
+        total = max_frames * windows
+        video_id = os.path.basename(video_path)
+        if (self.extractor.detector in ("center", "haar") and not explain
+                and not self.extractor.keep_all
+                and env_bool("SERVE_YUV_TRANSFER", True)):
+            # packed YUV420 crops from inside the native decoder (haar
+            # detects there too, on the luma plane); explain requests take
+            # the RGB path, since saliency differentiates the RGB forward
+            with self._extract_sem or _NULL_CTX:
+                packed = self.extractor.extract_from_video_yuv(video_path, max_frames=total)
+            if packed.shape[0] == 0:
+                return {"error": "No faces detected in video"}
+            n_extracted = int(packed.shape[0])
+            packed = self._pad_to_fixed_scan_shape(packed, windows, total)
+            return self._predict_pretrained(packed, video_id, packed_yuv=True,
+                                            windows=windows, n_extracted=n_extracted)
+        with self._extract_sem or _NULL_CTX:
+            faces = self.extractor.extract_from_video(video_path, max_frames=total,
+                                                      spread=windows > 1)
+        if faces.shape[0] == 0:
+            return {"error": "No faces detected in video"}
+        n_extracted = int(faces.shape[0])
+        faces = self._pad_to_fixed_scan_shape(faces, windows, total)
+        return self._predict_pretrained(faces, video_id, windows=windows,
+                                        n_extracted=n_extracted, explain=explain)
 
     def _predict_legacy(self, faces: np.ndarray) -> Dict[str, Any]:
         """The JAX package's legacy policy over the CNN+LSTM or frame-graph

@@ -119,8 +119,8 @@ def main(argv=None) -> int:
 
     if args.from_videos:
         raise NotImplementedError(
-            "--from-videos is not ported yet (ROADMAP Queue 1 item 7: the "
-            "port's bindings to libvideodec.so)")
+            "--from-videos is not ported yet (ROADMAP Queue 1 item 14: the "
+            "port's data/video_dataset.py)")
 
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)

@@ -620,3 +620,54 @@ def test_progressive_stage_on_cuda_leaves_frozen_parameters():
         moved = not torch.equal(t, before[k])
         assert moved == (mask[k] if k in mask else k.endswith(("running_mean",
                                                                 "running_var"))), k
+
+
+def test_crop_and_resize_on_cuda_matches_cpu():
+    """The RGB path's crop and resize (two f32 products with JAX's
+    resampling weights) on the card against the same call on the CPU, at
+    1280 x 720: boxes with fractional corners, partly off the frame, one
+    pixel wide, the whole frame; at most 1 level anywhere."""
+    from deepfake_video_detection_tpu_torch.data.faces import crop_and_resize_batch
+
+    _cuda_generator()
+    frames = np.random.default_rng(0).integers(0, 256, (8, 720, 1280, 3), np.uint8)
+    boxes = np.array([[10.3, 5.7, 500.2, 455.9], [-120.5, -80.25, 380.75, 395.5],
+                      [640.0, 360.0, 641.0, 361.0], [0, 0, 1280, 720],
+                      [1000.6, 500.1, 1400.2, 900.3], [300.25, 100.75, 777.5, 577.5],
+                      [-10.0, -10.0, 20.0, 20.0], [1274.5, 714.5, 1380.0, 820.0]], np.float32)
+    for size in (224, 64):
+        got = crop_and_resize_batch(frames, boxes, size, "cuda").astype(np.int16)
+        ref = crop_and_resize_batch(frames, boxes, size, "cpu").astype(np.int16)
+        d = np.abs(got - ref)
+        assert got.shape == (8, size, size, 3) and d.max() <= 1
+        assert (d > 0).mean() < 0.01
+
+
+def test_predict_video_on_cuda_through_cv2(tmp_path, monkeypatch):
+    """A video file served on the card as on a host without libav: cv2
+    decoding, Haar detection (``FACE_DETECTOR`` at auto), the crops resized
+    on the card and one K1 launch; the result has no ``error`` key."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+
+    _cuda_generator()
+    for k, v in {"VIDEO_BACKEND": "cv2", "SERVE_YUV_TRANSFER": "0", "MAX_FRAMES": "4",
+                 "FACE_SIZE": "64", "SERVE_WARMUP": "0", "SERVE_WINDOWS": "1",
+                 "MIN_FACES": "1"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("FACE_DETECTOR", raising=False)
+    path = str(tmp_path / "face.mp4")
+    chip_smoke.write_clip(path, 0)
+    pred = Predictor(BackboneDetector("efficientnet_b0", device="cuda"), None, "pretrained",
+                     device="cuda")
+    try:
+        assert pred.extractor.detector == "haar"
+        before = P.fused_normalize.launches
+        res = pred.predict_video(path)
+        assert P.fused_normalize.launches == before + 1
+    finally:
+        pred.close()
+    assert "error" not in res, res
+    assert res["num_faces"] == 4 and len(res["frame_scores"]) == 4

@@ -32,6 +32,7 @@ from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector)
 from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
 from deepfake_video_detection_tpu_torch.serve import saliency
 
@@ -175,7 +176,7 @@ def vit_served():
 
 def _served_pair(weights, model_type="pretrained"):
     jmodel, variables = weights
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     jpred = jax_predict.Predictor(jmodel, variables, model_type, extractor=extractor)
     model = BackboneDetector("vit_tiny_patch16_224", device="cpu")
     model.backbone = _small_vit()
@@ -229,7 +230,7 @@ def test_predict_faces_explain_matches_jax(vit_served, serve_env):
 
 def test_temporal_model_explains_as_jax(serve_env):
     jmodel, variables, model = _pair("temporal", 8)
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     jpred = jax_predict.Predictor(jmodel, variables, "temporal", extractor=extractor)
     ppred = port_predict.Predictor(model, None, "temporal", extractor=extractor,
                                    device="cpu")
@@ -245,7 +246,7 @@ def test_legacy_types_do_not_explain(serve_env):
     """As in the JAX package: ``explain_faces`` is None and the legacy
     result has no saliency key."""
     pred = port_predict.Predictor(CNNLSTMHybrid(device="cpu"), None, "cnn_lstm",
-                                  extractor=port_predict.CenterCropExtractor(SIZE),
+                                  extractor=FaceExtractor(detector="center", face_size=SIZE, device="cpu"),
                                   device="cpu")
     faces = _frames(10)[0]
     assert pred.explain_faces(faces) is None

@@ -16,7 +16,8 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 assert {port.__name__ + m for m in (
     ".nn.quant", ".serve.saliency", ".train.progressive", ".train.lr_finder",
     ".train.cli_improved", ".evals.validate_improvements",
-    ".models.feature_extractors")} <= set(names)
+    ".models.feature_extractors", ".data.video", ".data.haar_native", ".data.haar",
+    ".data.faces")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -58,6 +58,7 @@ from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
 from deepfake_video_detection_tpu_torch.models.vit_gnn import FallbackModel, ViTGNNModel
 from deepfake_video_detection_tpu_torch.nn import layers as L
 from deepfake_video_detection_tpu_torch.serve import loader as port_loader
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
 from deepfake_video_detection_tpu_torch.train import cli
 from deepfake_video_detection_tpu_torch.train import cli_vit_gnn
@@ -337,7 +338,7 @@ def serve_env(monkeypatch):
 @pytest.fixture(scope="module")
 def legacy_predictors():
     """Per family: the JAX and the port Predictor on one set of weights."""
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SERVE_WARMUP", "0")

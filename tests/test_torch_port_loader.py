@@ -33,6 +33,7 @@ from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import (
     _EFFNET_SEQ, canonicalize_detector_keys, import_into_model)
 from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
 from deepfake_video_detection_tpu_torch.serve import loader as port_loader
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
 
 from test_torch_port_convnets import random_variables
@@ -145,7 +146,7 @@ def test_ensemble_pt_loads_as_in_jax_and_serves(tmp_path, monkeypatch):
                  "MAX_FRAMES": "2"}.items():
         monkeypatch.setenv(k, v)
     pred = port_predict.Predictor(model, sd, stats["model_type"], checkpoint_path=path,
-                                  extractor=port_predict.CenterCropExtractor(32),
+                                  extractor=FaceExtractor(detector="center", face_size=32, device="cpu"),
                                   device="cpu")
     faces = np.random.default_rng(6).integers(0, 256, (2, 32, 32, 3), np.uint8)
     res = pred.predict_faces(faces, "clip")

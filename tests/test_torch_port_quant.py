@@ -45,6 +45,7 @@ from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
 from deepfake_video_detection_tpu_torch.nn import quant
 from deepfake_video_detection_tpu_torch.nn.init import shapes_only
 from deepfake_video_detection_tpu_torch.serve import loader as port_loader
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
 from deepfake_video_detection_tpu_torch.serve.saliency import make_saliency_fn
 
@@ -222,7 +223,7 @@ def test_loader_quantize_int8_matches_jax(b0_checkpoint, monkeypatch):
                  "SERVE_DP": "0", "MAX_FRAMES": str(T), "QUANTIZE": "int8"}.items():
         monkeypatch.setenv(k, v)
     jm, jv, jstats = jax_loader.load_model(b0_checkpoint["npz"])
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     jpred = jax_predict.Predictor(jm, jv, jstats["model_type"], extractor=extractor)
     faces = np.random.default_rng(12).integers(0, 256, (T, SIZE, SIZE, 3), np.uint8)
     ref = jpred.predict_faces(faces, "clip")

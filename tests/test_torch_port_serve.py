@@ -27,6 +27,7 @@ from deepfake_video_detection_tpu_torch.checkpoint.bridge import state_dict_from
 from deepfake_video_detection_tpu_torch.models.backbone_detector import (
     BackboneDetector, EnsembleDetector)
 from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
 
 from test_torch_port_convnets import random_variables
@@ -59,7 +60,7 @@ def _port_model(variables):
 
 def _predictors(weights, checkpoint_path=None):
     jmodel, variables = weights
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     jpred = jax_predict.Predictor(jmodel, variables, "pretrained",
                                   checkpoint_path=checkpoint_path,
                                   extractor=extractor)
@@ -179,7 +180,7 @@ def test_convnet_predictor_matches_jax(convnet_weights, serve_env, model_type, p
     """B0, and the ensemble with the enhanced agent over its members'
     logits: the same result dict as the JAX Predictor on the same crops."""
     jmodel, variables = convnet_weights[model_type]
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     ensemble = model_type == "ensemble_pretrained"
     jpred = jax_predict.Predictor(jmodel, variables, model_type, extractor=extractor,
                                   enhanced_agent=JaxAgent() if ensemble else None)
@@ -262,7 +263,7 @@ def test_batcher_threads_give_unbatched_results(weights, serve_env):
     what each returns alone, unbatched."""
     serve_env.setenv("SERVE_MICROBATCH", "0")
     model, sd = _port_model(weights[1])
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     alone = port_predict.Predictor(model, sd, "pretrained", extractor=extractor,
                                    device="cpu")
     serve_env.setenv("SERVE_MICROBATCH", "1")
@@ -323,7 +324,7 @@ def test_warmup_runs_every_bucket_and_records_errors(weights, serve_env):
 
     model.forward = spy
     pred = port_predict.Predictor(model, sd, "pretrained", device="cpu",
-                                  extractor=port_predict.CenterCropExtractor(SIZE))
+                                  extractor=FaceExtractor(detector="center", face_size=SIZE, device="cpu"))
     assert pred.warmup_done.wait(timeout=120)
     assert pred.warmup_error is None
     # batch 1 and the buckets 2 and 4, each through the YUV and the RGB forward
@@ -335,7 +336,7 @@ def test_warmup_runs_every_bucket_and_records_errors(weights, serve_env):
 
     model.forward = broken
     pred = port_predict.Predictor(model, None, "pretrained", device="cpu",
-                                  extractor=port_predict.CenterCropExtractor(SIZE))
+                                  extractor=FaceExtractor(detector="center", face_size=SIZE, device="cpu"))
     assert pred.warmup_done.wait(timeout=120)
     assert isinstance(pred.warmup_error, RuntimeError)
     pred.close()
@@ -358,8 +359,10 @@ def test_unported_paths_raise(weights, serve_env, monkeypatch):
     with pytest.raises(ValueError, match="model_type"):
         port_predict.Predictor(model, sd, "logic_rnn", device="cpu")
     pred = port_predict.Predictor(model, sd, "pretrained", device="cpu")
-    with pytest.raises(NotImplementedError):
-        pred.predict_video("clip.mp4")
+    # predict_video is ported (test_torch_port_video.py holds it against
+    # JAX); as there, a failing request comes back as an error dict
+    res = pred.predict_video("clip.mp4")
+    assert list(res) == ["error"] and "clip.mp4" in res["error"]
     # explain is ported (test_torch_port_explain.py holds it against JAX)
     assert "saliency" in pred.predict_faces(np.zeros((T, SIZE, SIZE, 3), np.uint8),
                                             explain=True)

@@ -40,6 +40,7 @@ from deepfake_video_detection_tpu_torch.evals import evaluate as E
 from deepfake_video_detection_tpu_torch.models import temporal_transformer as T
 from deepfake_video_detection_tpu_torch.models.backbone_detector import TinyConvBackbone
 from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
 from deepfake_video_detection_tpu_torch.train import cli
 from deepfake_video_detection_tpu_torch.train import losses as L
@@ -344,7 +345,7 @@ def test_predictor_serves_a_temporal_model(monkeypatch):
                  "SERVE_DP": "0", "MAX_FRAMES": "12"}.items():
         monkeypatch.setenv(k, v)
     jmodel, variables, model = _models(seed=11)
-    extractor = port_predict.CenterCropExtractor(SIZE)
+    extractor = FaceExtractor(detector="center", face_size=SIZE, device="cpu")
     jpred = jax_predict.Predictor(jmodel, variables, "temporal", extractor=extractor)
     monkeypatch.setenv("SERVE_WARMUP", "1")
     pred = port_predict.Predictor(model, None, "temporal", extractor=extractor, device="cpu")
