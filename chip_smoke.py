@@ -146,7 +146,27 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    (c) ``train/lr_finder.py`` at its defaults (B0, 8 x 8 frames, 100
    steps): more than 10 finite points, finite suggestions, CSV and SVG, ms
    a step. (d) ``evals/validate_improvements.py main(["--device", "cuda"])``.
-13. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
+13. Training and evaluation from raw videos (``from_videos``), at torch's
+   own TF32 flags: 20 clips (10 ``*_fake``, 10 ``*_real``) of 1280 x 720 at
+   25 fps, 80 frames, written by ``cv2.VideoWriter`` with the synthetic
+   face, decoded through cv2 (``VIDEO_BACKEND=cv2``), the mtcnn cascade
+   from ``mtcnn_weights`` (seed 0, face-class biases raised; a
+   facenet-layout ``.pt`` in ``MTCNN_WEIGHTS``). (a) The cascade on 16
+   frames of a clip: the frames with a kept box after each stage (at least
+   one each); on 4 textured frames against the CPU, cuDNN's TF32 off
+   (``MTCNN_MATCH``, ``MTCNN_SCORE_TOL``) and on. (b) ``data/prepare.py
+   main --detector mtcnn --batch-clips 8``: one ``.npz`` a clip, no
+   ``skipping`` line, ms a clip by stage (decode, cascade, crop) and one
+   batch's cascade under the profiler (launches, idle share). (c)
+   ``train/cli.py main --from-videos --detector mtcnn --epochs 1`` at the
+   CLI's default model (vit_gcn, f32, batch 8 x 16 frames): artefacts,
+   finite losses, no decode failure on stderr, no zero clip in a pass over
+   the dataset, 12 f32 K2 and K4 launches a step; step ms, epoch s, the
+   loader's wait share, peak memory. (d) ``evals/evaluate.py main
+   --from-videos`` on that checkpoint (center, the cv2 route): 20 rows, K1
+   once and K2 12 times a batch, the first batch's ``prob_fake`` against
+   the plain versions.
+14. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
@@ -159,7 +179,7 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-14. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+15. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
    its f32 row; K2 and K4 with their cases at the legacy phase's shapes
    and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16; K4
@@ -312,6 +332,19 @@ VIDEO = {"clips": 4, "width": 1280, "height": 720, "fps": 25, "frames": 48, "fac
 # center detector's in-decoder crop need the native decoder (libav)
 VIDEO_ENV = {"VIDEO_BACKEND": "cv2", "SERVE_YUV_TRANSFER": "0"}
 CROP_TOL = 1   # crops on the card vs the CPU, uint8 levels: f32 sums in another order
+
+# the from-videos phase: 20 mp4v clips (10 *_fake, 10 *_real) of 1280 x 720
+# at 25 fps, 80 frames, the synthetic face drifting 2 px a frame; the mtcnn
+# cascade from mtcnn_weights (seed 0, face-class biases raised); prep with
+# --batch-clips 8 (16 frames a clip at VIDEO_SAMPLE_RATE 5), the training
+# CLI's default model from videos (batch 8 x 16 frames), the evaluator
+FROM_VIDEOS = {"clips": 20, "frames": 80, "batch_clips": 8, "num_frames": 16, "batch": 8,
+               "cmp_frames": 4, "face_bias": (2.0, 1.7, 1.7)}
+# the cascade on the card vs the CPU with cuDNN's TF32 off: the share of
+# valid boxes matched at IoU > 0.5, and the largest score gap over them (f32
+# sums in other orders: ~1e-6; TF32 convolutions move scores by ~1e-3)
+MTCNN_MATCH = 0.9
+MTCNN_SCORE_TOL = 1e-3
 
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
@@ -2790,10 +2823,12 @@ def synth_face(size: int) -> np.ndarray:
     return img
 
 
-def write_clip(path: str, index: int, face: bool = True) -> None:
+def write_clip(path: str, index: int, face: bool = True, frames: int = 0,
+               step: int = 4, background: int = 120) -> None:
     """One ``VIDEO`` clip through ``cv2.VideoWriter`` (mp4v): gray frames with
-    the synthetic face drifting right and down, further along in a later
-    clip ``index``; no face with ``face=False``."""
+    the synthetic face drifting right and down, ``step`` px a frame, further
+    along in a later clip ``index``; no face with ``face=False``;
+    ``frames`` frames (``VIDEO``'s by default), on a ``background`` level."""
     import cv2
 
     W, H, s = VIDEO["width"], VIDEO["height"], VIDEO["face"]
@@ -2801,10 +2836,10 @@ def write_clip(path: str, index: int, face: bool = True) -> None:
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), VIDEO["fps"], (W, H))
     _require(writer.isOpened(), f"cv2 cannot write {path}")
     try:
-        for t in range(VIDEO["frames"]):
-            frame = np.full((H, W, 3), 120, np.uint8)
+        for t in range(frames or VIDEO["frames"]):
+            frame = np.full((H, W, 3), background, np.uint8)
             if face:
-                oy, ox = 80 + 3 * (t % 8) + 20 * index, 100 + 4 * t + 150 * index
+                oy, ox = 80 + 3 * (t % 8) + 20 * index, 100 + step * t + 150 * index
                 frame[oy:oy + s, ox:ox + s] = patch
             writer.write(frame)
     finally:
@@ -3314,6 +3349,414 @@ def serve_long(torch, A, P, model, ckpt: str, faces, device: str = "cuda"):
     return launches, res
 
 
+def mtcnn_weights(torch, seed: int = 0) -> dict:
+    """The port's cascade drawn from a generator seeded ``seed`` as a
+    facenet-layout state dict (CPU tensors), each net's face-class bias
+    raised by ``FROM_VIDEOS["face_bias"]``: random nets score near 0.5, so
+    without it nothing passes the default thresholds (0.6, 0.7, 0.7)."""
+    from deepfake_video_detection_tpu_torch.models.mtcnn import MTCNN
+
+    det = MTCNN((48, 48), device="cpu", generator=torch.Generator().manual_seed(seed))
+    sd = {k: t.detach().clone() for k, t in det.state_dict().items()}
+    for key, d in zip(("pnet.conv4_1.bias", "rnet.dense5_1.bias", "onet.dense6_1.bias"),
+                      FROM_VIDEOS["face_bias"]):
+        sd[key][1] += d
+    return sd
+
+
+def mtcnn_frames(n: int, H: int, W: int) -> np.ndarray:
+    """``n`` textured (H, W) frames from seed 0, (n, H, W, 3) uint8: a smooth
+    random pattern, noise, the synthetic face. No two cells of P-Net's grid
+    see the same pixels, so no candidate ties another on score."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:H, 0:W]
+    out = []
+    for _ in range(n):
+        fx, fy, ph = rng.uniform(20, 80), rng.uniform(20, 80), rng.uniform(0, 6)
+        img = 120 + 50 * np.sin(xx / fx + ph) * np.cos(yy / fy) + rng.normal(0, 6, (H, W))
+        s = min(H, W) // 2
+        oy, ox = int(rng.integers(0, H - s)), int(rng.integers(0, W - s))
+        img[oy:oy + s, ox:ox + s] = synth_face(s) + rng.normal(0, 6, (s, s))
+        rgb = np.stack([img, img * 0.95 + 8, img * 1.05 - 8], -1)
+        out.append(np.clip(rgb, 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def _iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    iw = np.clip(np.minimum(a[:, None, 2], b[None, :, 2])
+                 - np.maximum(a[:, None, 0], b[None, :, 0]), 0, None)
+    ih = np.clip(np.minimum(a[:, None, 3], b[None, :, 3])
+                 - np.maximum(a[:, None, 1], b[None, :, 1]), 0, None)
+    inter = iw * ih
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
+
+
+def match_detections(gb, gs, gv, rb, rs, rv):
+    """Detections ``g`` against reference ones ``r`` ((N, F, 4) boxes, (N, F)
+    scores and valid masks, CPU tensors): the share of valid boxes (of the
+    larger of the two counts) whose reference box has a valid match at
+    IoU > 0.5, and the largest score gap over the matched."""
+    gb, gs, gv, rb, rs, rv = (t.numpy() for t in (gb, gs, gv, rb, rs, rv))
+    matched, gap = 0, 0.0
+    for n in range(rv.shape[0]):
+        a, sa, b, sb = rb[n][rv[n]], rs[n][rv[n]], gb[n][gv[n]], gs[n][gv[n]]
+        if len(a) == 0 or len(b) == 0:
+            continue
+        iou = _iou_matrix(a, b)
+        ok, best = iou.max(1) > 0.5, iou.argmax(1)
+        matched += int(ok.sum())
+        if ok.any():
+            gap = max(gap, float(np.abs(sa[ok] - sb[best[ok]]).max()))
+    total = max(int(rv.sum()), int(gv.sum()))
+    return (matched / total if total else 0.0), gap
+
+
+class _Tee:
+    """A text stream that keeps what is written and passes it on."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _fv_cascade(torch, smi: str, clip: str, sd: dict, tf32_defaults: dict) -> dict:
+    """(a) The cascade on the card: on 16 cv2 frames of ``clip`` the frames
+    with a kept box after each stage (at least one each), and on 4 textured
+    frames of the clip's size against the same cascade on the CPU, with
+    cuDNN's TF32 off (``MTCNN_MATCH``, ``MTCNN_SCORE_TOL``) and on."""
+    from deepfake_video_detection_tpu_torch.data.video import sample_video_frames
+    from deepfake_video_detection_tpu_torch.models import mtcnn as M
+
+    frames = sample_video_frames(clip, max_frames=FROM_VIDEOS["num_frames"])
+    H, W = frames.shape[1:3]
+    det = M.MTCNN((H, W), device="cuda")
+    det.load_state_dict(sd, strict=True)
+    kept, real_nms = [], M.masked_nms
+
+    def recording(*args):
+        keep = real_nms(*args)
+        kept.append(int(keep.any(dim=-1).sum()))
+        return keep
+
+    with mock.patch.object(M, "masked_nms", recording):
+        _, _, valid = det.detect(frames)
+    stages = dict(zip(("pnet", "rnet", "onet"), kept))
+    _require(len(kept) == 3 and min(kept) >= 1 and int(valid.any(-1).sum()) == kept[2],
+             f"the cascade kept no box at some stage: frames with a box {stages}")
+
+    cmp = mtcnn_frames(FROM_VIDEOS["cmp_frames"], H, W)
+    cpu = M.MTCNN((H, W), device="cpu")
+    cpu.load_state_dict(sd, strict=True)
+    ref = cpu.detect(cmp)
+    prev = torch.backends.cudnn.allow_tf32
+    out = {}
+    try:
+        for name, flag in (("tf32_off", False), ("tf32_torch_default",
+                                                 tf32_defaults["cudnn_allow_tf32"])):
+            torch.backends.cudnn.allow_tf32 = flag
+            got = [t.cpu() for t in det.detect(torch.from_numpy(cmp).cuda())]
+            share, gap = match_detections(*got, *ref)
+            out[name] = {"cudnn_allow_tf32": flag, "match_share": share, "score_gap": gap,
+                         "valid_card": int(got[2].sum()), "valid_cpu": int(ref[2].sum())}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    rec = {"phase": "from_videos_cascade", "card": smi, "frames": len(frames),
+           "frame_size": [H, W], "scales": len(det.scales),
+           "frames_with_a_box_by_stage": stages, "card_vs_cpu": out,
+           "tol": {"match_share": MTCNN_MATCH, "score_gap": MTCNN_SCORE_TOL}}
+    _emit(rec)
+    off = out["tf32_off"]
+    _require(off["valid_cpu"] > 0 and off["match_share"] >= MTCNN_MATCH
+             and off["score_gap"] < MTCNN_SCORE_TOL,
+             f"the cascade on the card vs the CPU (TF32 off): {off}")
+    return rec
+
+
+def _fv_prepare(torch, smi: str, root: str, clipdir: str, sd: dict) -> dict:
+    """(b) ``data/prepare.py main --detector mtcnn --batch-clips 8``: one
+    ``.npz`` a clip, no clip skipped; ms a clip by stage (decode on the
+    thread pool, the cascade, the crop; timed around the package's calls),
+    and one batch's cascade under the profiler (launches, idle share)."""
+    import contextlib
+
+    from deepfake_video_detection_tpu_torch.data import faces as faces_mod
+    from deepfake_video_detection_tpu_torch.data import prepare
+    from deepfake_video_detection_tpu_torch.data.video import sample_video_frames
+    from deepfake_video_detection_tpu_torch.models.mtcnn import MTCNN
+
+    out = os.path.join(root, "faces")
+    stages, n = {}, FROM_VIDEOS["clips"]
+    tee = _Tee(sys.stdout)
+    with mock.patch.object(prepare, "sample_video_frames",
+                           _stage_timer(stages, "decode", prepare.sample_video_frames)), \
+            mock.patch.object(faces_mod.FaceExtractor, "_detect_mtcnn",
+                              _stage_timer(stages, "cascade",
+                                           faces_mod.FaceExtractor._detect_mtcnn)), \
+            mock.patch.object(faces_mod, "crop_and_resize_batch",
+                              _stage_timer(stages, "crop", faces_mod.crop_and_resize_batch)), \
+            contextlib.redirect_stdout(tee):
+        t = time.perf_counter()
+        rc = prepare.main(["--data_dir", clipdir, "--out_dir", out, "--detector", "mtcnn",
+                           "--batch-clips", str(FROM_VIDEOS["batch_clips"])])
+        wall_s = time.perf_counter() - t
+    _require(rc == 0, "the prep CLI exited non-zero")
+    _require("skipping" not in tee.text(), f"the prep CLI skipped a clip: {tee.text()}")
+    files = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+    _require(len(files) == n, f"the prep CLI wrote {len(files)} files for {n} clips")
+    shapes = set()
+    for f in files:
+        with np.load(os.path.join(out, f)) as z:
+            faces = z["faces"]
+        _require(faces.dtype == np.uint8 and faces.ndim == 4 and 1 <= len(faces) <= 32
+                 and faces.shape[1:] == (224, 224, 3) and faces.any(),
+                 f"{f}: faces {faces.shape} {faces.dtype}")
+        shapes.add(faces.shape)
+
+    # one batch's cascade on the card: the frames of --batch-clips clips
+    clips = sorted(os.listdir(clipdir))[:FROM_VIDEOS["batch_clips"]]
+    batch = torch.from_numpy(np.concatenate(
+        [sample_video_frames(os.path.join(clipdir, c), 5, 32) for c in clips])).cuda()
+    det = MTCNN(tuple(batch.shape[1:3]), device="cuda")
+    det.load_state_dict(sd, strict=True)
+    breakdown = _kernel_breakdown(torch, lambda: det.detect(batch), top=8)
+    rec = {"phase": "from_videos_prepare", "card": smi, "clips": n, "files": len(files),
+           "face_shapes": sorted(shapes), "batch_clips": FROM_VIDEOS["batch_clips"],
+           "wall_s": wall_s, "ms_per_clip_wall": wall_s / n * 1e3,
+           "ms_per_clip_by_stage": {k: sum(v) / n for k, v in stages.items()},
+           "stage_calls": {k: len(v) for k, v in stages.items()},
+           "cascade_batch_frames": int(batch.shape[0]),
+           "cascade_batch": {k: breakdown[k] for k in ("events_ms", "device_ms", "idle_share",
+                                                       "launches", "kernels")},
+           "cascade_batch_top": breakdown["top"]}
+    _emit(rec)
+    return rec
+
+
+def _fv_train(torch, A, P, smi: str, root: str, clipdir: str):
+    """(c) ``train/cli.py main --from-videos --detector mtcnn`` at the CLI's
+    default model (vit_gcn, f32) for one epoch: artefacts, finite losses,
+    no decode failure (stderr captured) and no zero clip in a pass over the
+    dataset, 12 f32 K2 and K4 launches a step; step ms, epoch s, the
+    share of the epoch spent waiting on the loader, peak memory. Returns
+    (launches, f32 launches, the best checkpoint's path)."""
+    import concurrent.futures as fut
+    import contextlib
+    import csv
+
+    from deepfake_video_detection_tpu_torch.data.video_dataset import VideoClipsDataset
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer
+
+    T, B, n = FROM_VIDEOS["num_frames"], FROM_VIDEOS["batch"], FROM_VIDEOS["clips"]
+    out = os.path.join(root, "checkpoints")
+    waits, consumer, epochs = {"train": [], "val": []}, {"train": [], "val": []}, {}
+    batches = Trainer._device_batches
+
+    def timed_batches(self, ds, train, epoch=0):
+        kind = "train" if train else "val"
+        it = iter(batches(self, ds, train, epoch))
+        while True:
+            t = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            waits[kind].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            yield b
+            consumer[kind].append(time.perf_counter() - t)
+
+    tee = _Tee(sys.stderr)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(A, P)
+    with mock.patch.object(Trainer, "_device_batches", timed_batches), \
+            mock.patch.object(Trainer, "train_epoch",
+                              _stage_timer(epochs, "train_epoch", Trainer.train_epoch)), \
+            contextlib.redirect_stderr(tee):
+        t = time.perf_counter()
+        rc = cli.main(["--data_dir", clipdir, "--from-videos", "--detector", "mtcnn",
+                       "--epochs", "1", "--batch_size", str(B), "--num_frames", str(T),
+                       "--out_dir", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches, f32 = _counts(A, P), _f32_counts(A)
+    _require(rc == 0, "the training CLI exited non-zero from videos")
+    _require("decode failed" not in tee.text(), f"a clip failed to decode: {tee.text()}")
+    for name in ("checkpoint_best.npz", "training_history.csv"):
+        _require(os.path.exists(os.path.join(out, name)), f"the CLI wrote no {name}")
+    with open(os.path.join(out, "training_history.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["train_loss"]) for r in rows] + [float(r["val_loss"]) for r in rows
+                                                       if "val_loss" in r]
+    _require(len(rows) == 1 and all(math.isfinite(x) for x in losses),
+             f"training history {rows}")
+    steps, val_batches = len(waits["train"]), len(waits["val"])
+    n_val = max(1, int(n * 0.2))
+    _require(steps == -(-(n - n_val) // B) and val_batches == -(-n_val // B),
+             f"{steps} steps and {val_batches} validation batches for {n} clips")
+    depth = LEGACY["depth"]
+    want = _want(K2=depth * (steps + val_batches), K4=depth * steps)
+    _require(launches == want and f32 == {"K2": want["K2"], "K4": want["K4"]},
+             f"from-videos training launches {launches} ({f32} f32) != {want}")
+
+    # one pass over the dataset: no clip zero-filled, no failure printed
+    ds = VideoClipsDataset(clipdir, num_frames=T, detector="mtcnn", device="cuda")
+    with fut.ThreadPoolExecutor(4) as pool:
+        nonzero = list(pool.map(lambda i: bool(ds[i][0].reshape(T, -1).any(1).all()),
+                                range(len(ds))))
+    _require(all(nonzero) and not ds._warned,
+             f"a clip came out zero-filled: {[ds.files[i] for i, ok in enumerate(nonzero) if not ok]}")
+
+    epoch_s = epochs["train_epoch"][0] / 1e3
+    rec = {"phase": "from_videos_training", "card": smi, "model": "vit_gcn",
+           "vit_variant": LEGACY["vit"], "built_by": "train/cli.py main --from-videos "
+           "--detector mtcnn --epochs 1", "params": "f32", "activations": "f32",
+           "clips": n, "batch_clips": B, "frames_per_clip": T, "cli_wall_s": cli_s,
+           "train_steps": steps, "val_batches": val_batches, "launches": launches,
+           "launches_f32": f32, "k2_per_step": launches["K2"] / (steps + val_batches),
+           "k4_per_step": launches["K4"] / steps,
+           "step_ms": [x * 1e3 for x in consumer["train"]],
+           "loader_wait_ms": {k: [x * 1e3 for x in v] for k, v in waits.items()},
+           "epoch_s": epoch_s,
+           "loader_wait_share_of_epoch": sum(waits["train"]) / epoch_s,
+           "max_memory_allocated_bytes": peak, "train_loss": float(rows[0]["train_loss"]),
+           "no_zero_clip": True}
+    _emit(rec)
+    return launches, f32, os.path.join(out, "checkpoint_best.npz")
+
+
+def _fv_evaluate(torch, A, P, smi: str, root: str, clipdir: str, ckpt: str):
+    """(d) ``evals/evaluate.py main --from-videos`` on the trained checkpoint,
+    at its default detector (center: decoded by cv2, the center prior's
+    crops resized on the card): 20 rows, K1 once and K2 12 times a batch, no
+    decode failure; the first batch's ``prob_fake`` through the plain
+    versions within ``PROB_TOL``. Returns (launches, f32 launches)."""
+    import contextlib
+    import csv
+
+    from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
+    from deepfake_video_detection_tpu_torch.data.dataset import SubsetDataset
+    from deepfake_video_detection_tpu_torch.data.video_dataset import VideoClipsDataset
+    from deepfake_video_detection_tpu_torch.evals import evaluate as E
+
+    T, B, n = FROM_VIDEOS["num_frames"], FROM_VIDEOS["batch"], FROM_VIDEOS["clips"]
+    out_csv = os.path.join(root, "evaluation_from_videos.csv")
+    tee = _Tee(sys.stderr)
+    _reset_counts(A, P)
+    with contextlib.redirect_stderr(tee):
+        t = time.perf_counter()
+        rc = E.main(["--data_dir", clipdir, "--from-videos", "--checkpoint", ckpt,
+                     "--out_csv", out_csv])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    launches, f32 = _counts(A, P), _f32_counts(A)
+    _require(rc == 0, "the evaluator exited non-zero from videos")
+    _require("decode failed" not in tee.text(), f"a clip failed to decode: {tee.text()}")
+    with open(out_csv) as f:
+        rows = list(csv.DictReader(f))
+    _require(len(rows) == n and all(0.0 <= float(r["prob_fake"]) <= 1.0 for r in rows),
+             f"evaluation CSV rows {rows}")
+    forwards, depth = -(-n // B), LEGACY["depth"]
+    want = _want(K1=forwards, K2=depth * forwards)
+    _require(launches == want and f32 == {"K2": want["K2"], "K4": 0},
+             f"from-videos evaluation launches {launches} ({f32} f32) != {want}")
+
+    # the first batch through the plain versions
+    sd, meta = load_any(ckpt)
+    model, _, mt = E.build_model_from_checkpoint(sd, meta, "", None, "cuda")
+    ds = VideoClipsDataset(clipdir, num_frames=T, device="cuda")
+    _reset_counts(A, P)
+    with mock.patch.object(E, "fused_normalize", P.fused_normalize_plain), \
+            _plain_attention(A):
+        _, _, p_plain = E.evaluate_dataset(model, SubsetDataset(ds, range(B)), B, 1, mt)
+    _require(not any(_counts(A, P).values()) and not ds._warned,
+             f"the plain evaluation launched {_counts(A, P)}")
+    p_kernels = np.array([float(r["prob_fake"]) for r in rows[:B]])
+    diff = float(np.abs(p_kernels - p_plain).max())
+    rec = {"phase": "from_videos_evaluation", "card": smi, "model": mt,
+           "detector": "center (cv2 decode, VIDEO_BACKEND=cv2)", "activations": "f32",
+           "clips": n, "batch_clips": B, "frames_per_clip": T, "wall_s": wall_s,
+           "ms_per_clip": wall_s / n * 1e3, "launches": launches, "csv_rows": len(rows),
+           "prob_fake_kernels_vs_plain": diff, "prob_tol": PROB_TOL}
+    _emit(rec)
+    _require(diff <= PROB_TOL, f"from-videos prob_fake kernels vs plain differ by {diff}")
+    return launches, f32
+
+
+def from_videos(torch, A, P, smi: str, tf32_defaults: dict):
+    """Training and evaluation from raw videos (``from_videos``): 20 clips
+    written by cv2, decoded through cv2 (``VIDEO_BACKEND=cv2``), the mtcnn
+    cascade from ``mtcnn_weights`` (``MTCNN_WEIGHTS``); (a)-(d), at torch's
+    default TF32 flags (the CLIs' own; restored afterwards). Returns
+    (launches by path, f32 launches by path)."""
+    import concurrent.futures as fut
+    import shutil
+    import tempfile
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32_defaults["cudnn_allow_tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = tf32_defaults["matmul_allow_tf32"]
+    root = tempfile.mkdtemp(prefix="dfdt_fromvideos_")
+    try:
+        clipdir = os.path.join(root, "clips")
+        os.makedirs(clipdir)
+        wpath = os.path.join(root, "mtcnn_weights.pt")
+        sd = mtcnn_weights(torch, 0)
+        torch.save(sd, wpath)
+        env = {"VIDEO_BACKEND": "cv2", "MTCNN_WEIGHTS": wpath}
+        seconds = {}
+        with mock.patch.dict(os.environ, env):
+            for k in ("FACE_DETECTOR", "VIDEO_SAMPLE_RATE", "VIDEO_KEYFRAMES_ONLY",
+                      "KEEP_ALL_FACES", "MAX_FRAMES", "FACE_SIZE", "HAAR_CASCADE"):
+                os.environ.pop(k, None)
+            t = time.perf_counter()
+            n = FROM_VIDEOS["clips"]
+            paths = [os.path.join(clipdir, f"clip{i:02d}_{'fake' if i % 2 else 'real'}.mp4")
+                     for i in range(n)]
+            with fut.ThreadPoolExecutor(4) as pool:
+                list(pool.map(lambda i: write_clip(paths[i], i % 4, frames=FROM_VIDEOS["frames"],
+                                                   step=2, background=140 if i % 2 else 100),
+                              range(n)))
+            seconds["write_clips"] = time.perf_counter() - t
+
+            def part(name, fn, *args):
+                t = time.perf_counter()
+                res = fn(*args)
+                seconds[name] = time.perf_counter() - t
+                gc.collect()
+                torch.cuda.empty_cache()
+                return res
+
+            part("cascade", _fv_cascade, torch, smi, paths[0], sd, tf32_defaults)
+            part("prepare", _fv_prepare, torch, smi, root, clipdir, sd)
+            trained, trained_f32, ckpt = part("training", _fv_train, torch, A, P, smi, root,
+                                              clipdir)
+            evaluated, evaluated_f32 = part("evaluation", _fv_evaluate, torch, A, P, smi, root,
+                                            clipdir, ckpt)
+        _emit({"phase": "from_videos_seconds", **seconds})
+        launches = {k: trained[k] + evaluated[k] for k in ("K1", "K2", "K4")}
+        f32 = {k: trained_f32[k] + evaluated_f32[k] for k in ("K2", "K4")}
+        return {"from_videos": launches}, {"from_videos": f32}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def long_clips(torch, A, P, smi: str, device: str = "cuda"):
     """The long-clip phases on one synthetic set; returns launches by path."""
     import shutil
@@ -3459,9 +3902,13 @@ def main() -> int:
                                             tf32_defaults)
     gc.collect()
     torch.cuda.empty_cache()
+    video_launches, video_f32 = timed("from_videos", from_videos, torch, A, P, smi,
+                                      tf32_defaults)
+    gc.collect()
+    torch.cuda.empty_cache()
     # f32 launches by path (every other launch is bf16)
     f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
-                 **legacy_f32, **convnet_f32, **improved_f32}
+                 **legacy_f32, **convnet_f32, **improved_f32, **video_f32}
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -3476,6 +3923,7 @@ def main() -> int:
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
              **explained, **video_paths, **legacy_paths, **convnet_paths, **improved_launches,
+             **video_launches,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})

@@ -14,11 +14,13 @@ Sub-packages
 ------------
 ``utils``       env parsing, dotted-path helpers, device choice
 ``data``        normalisation, ``.npz`` face-stack dataset, loader with
-                device prefetch, on-device augmentation
+                device prefetch, on-device augmentation, video decoding,
+                face extraction (Haar, MTCNN), dataset preparation and
+                the direct-from-video dataset
 ``ops``         the kernels' wrappers (fused normalize, flash forward and
                 backward as one autograd Function), YUV420
 ``nn``          initialisers on a ``torch.Generator``, functional layers
-``models``      ViT backbones and the per-frame ``BackboneDetector``
+``models``      the detectors' backbones and heads, the MTCNN cascade
 ``checkpoint``  JAX trees / native ``.npz`` checkpoints ↔ ``state_dict``
 ``train``       losses, optimizer, train/eval steps, ``Trainer``, CLI
 ``evals``       classification metrics and the threshold sweep

@@ -16,33 +16,43 @@ Detectors:
 * ``none``   — the frames are already face crops;
 * ``auto``   (default) — mtcnn if ``MTCNN_WEIGHTS`` names a file, else haar
   if a cascade XML is found, else center;
-* ``mtcnn``  — not ported yet (ROADMAP item 17): extraction raises.
+* ``mtcnn``  — the fixed-buffer cascade (``models/mtcnn.py``) on the
+  extractor's device, weights in facenet-pytorch's layout from
+  ``MTCNN_WEIGHTS`` (random from a generator seeded 0 without a file); a
+  clip in which it finds nothing goes through haar before the center prior.
 
 The crops of a clip are resized together on the extractor's device by
 :func:`crop_and_resize_batch`, two batched f32 products with
 ``jax.image.scale_and_translate``'s weight matrices.
+
+With ``VIDEO_BACKEND=cv2`` or ``imageio`` the center detector decodes
+through that package and crops with the center prior
+(:meth:`FaceExtractor.extract_from_video`): its in-decoder crop needs the
+native decoder, and on a host without libav the JAX
+package's center branch fails on every clip.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
 from deepfake_video_detection_tpu_torch.data.augment import resample_weights
 from deepfake_video_detection_tpu_torch.data.haar import detect_faces, get_default_cascade
 from deepfake_video_detection_tpu_torch.data.video import (
     center_crop_box, probe_video, sample_video_faces_center, sample_video_faces_haar_yuv,
     sample_video_faces_spread, sample_video_faces_spread_yuv, sample_video_frames)
+from deepfake_video_detection_tpu_torch.models.mtcnn import MTCNN, import_facenet_weights
 from deepfake_video_detection_tpu_torch.utils.config import env_int
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
-
-_MTCNN_NOT_PORTED = "the mtcnn face detector is not ported yet (ROADMAP Queue 1 item 17)"
 
 
 def _env_flag(name: str, default: str = "") -> bool:
@@ -105,9 +115,10 @@ def crop_and_resize_batch(frames: np.ndarray, boxes: np.ndarray, size: int,
 class FaceExtractor:
     """Frames or a video file → face crops, on ``device`` for the resize
     (``utils/device.py::resolve_device``: CUDA unless the caller names
-    another device; raises without a card). Requests share one extractor:
-    it holds no state between calls except the ``last_*`` attributes of
-    :meth:`extract_from_video_yuv`."""
+    another device; raises without a card) and the mtcnn cascade. Requests
+    and loader threads share one extractor: it holds no state between calls
+    except the ``last_*`` attributes of :meth:`extract_from_video_yuv` and
+    one cascade per frame size, built once under a lock."""
 
     def __init__(self, detector: Optional[str] = None,
                  face_size: Optional[int] = None,
@@ -121,6 +132,9 @@ class FaceExtractor:
         self.face_size = face_size or env_int("FACE_SIZE", 224)
         self.keep_all = _env_flag("KEEP_ALL_FACES") if keep_all is None else keep_all
         self.margin = margin
+        self._mtcnn_cache = {}
+        self._mtcnn_params = None
+        self._mtcnn_lock = threading.Lock()
         self.detector = self._resolve_detector(requested)
 
     def _resolve_detector(self, requested: str) -> str:
@@ -153,6 +167,42 @@ class FaceExtractor:
         return requested
 
     # -- detection ------------------------------------------------------------
+
+    def _mtcnn(self, height: int, width: int) -> MTCNN:
+        """The cascade for (height, width) frames, built on first use: weights
+        from ``mtcnn_weights`` / ``MTCNN_WEIGHTS`` (a facenet-layout ``.pt`` or
+        ``.npz``), else random from a generator seeded 0 (the JAX package
+        draws from ``PRNGKey(0)``: other numbers)."""
+        with self._mtcnn_lock:
+            det = self._mtcnn_cache.get((height, width))
+            if det is None:
+                det = MTCNN((height, width), device=self.device)
+                if self._mtcnn_weights:
+                    if self._mtcnn_params is None:
+                        sd, _ = load_any(self._mtcnn_weights)
+                        self._mtcnn_params = import_facenet_weights(sd)
+                    det.load_state_dict(self._mtcnn_params, strict=True)
+                det.eval()
+                self._mtcnn_cache[(height, width)] = det
+        return det
+
+    def _detect_mtcnn(self, frames: np.ndarray):
+        """Per-frame mtcnn boxes (xyxy), one cascade over all the frames: the
+        largest valid box unless ``keep_all``; None for a frame without one."""
+        det = self._mtcnn(frames.shape[1], frames.shape[2])
+        boxes, _, valid = det.detect(frames)
+        all_boxes, all_valid = boxes.cpu().numpy(), valid.cpu().numpy()
+        out = []
+        for b, v in zip(all_boxes, all_valid):
+            if not v.any():
+                out.append(None)
+            elif self.keep_all:
+                out.append(b[v])
+            else:   # the largest valid box, as the reference keeps
+                areas = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+                areas[~v] = -1
+                out.append(b[int(areas.argmax())][None])
+        return out
 
     def _detect_haar(self, frames: np.ndarray):
         """Per-frame Viola-Jones boxes (xyxy): the largest unless
@@ -199,25 +249,41 @@ class FaceExtractor:
 
     def extract_from_frames_batch(self, clips) -> list:
         """:meth:`extract_from_frames` over each of ``clips``, a sequence of
-        (T_i, H, W, 3) uint8 arrays. (The JAX package batches the mtcnn
-        detector across clips here; no other detector has a batched form.)"""
-        return [self.extract_from_frames(np.asarray(c)) for c in clips]
+        (T_i, H, W, 3) uint8 arrays, the same crops. For the mtcnn detector
+        one cascade runs over all the clips' frames (clips of one frame
+        size; otherwise, and for the other detectors, clip by clip). Nothing
+        is compiled per shape, so a ragged batch (clips of other lengths)
+        costs no more than an even one."""
+        clips = [np.asarray(c) for c in clips]
+        shapes = {c.shape[1:3] for c in clips if c.size}
+        if self.detector != "mtcnn" or len(shapes) != 1:
+            return [self.extract_from_frames(c) for c in clips]
+        per_frame = self._detect_mtcnn(np.concatenate([c for c in clips if c.size]))
+        out, i = [], 0
+        for c in clips:
+            n = c.shape[0] if c.size else 0
+            out.append(self.extract_from_frames(c, _boxes=per_frame[i:i + n]))
+            i += n
+        return out
 
-    def extract_from_frames(self, frames: np.ndarray) -> np.ndarray:
+    def extract_from_frames(self, frames: np.ndarray, _boxes=None) -> np.ndarray:
         """(N, H, W, 3) uint8 frames → (M, face_size, face_size, 3) uint8.
-        A clip in which the detector finds nothing is cropped with the
-        center prior on every frame."""
+        A clip in which mtcnn finds nothing goes through haar (where a
+        cascade XML is found); one in which the detector finds nothing is
+        cropped with the center prior on every frame. ``_boxes``: per-frame
+        detections already made (:meth:`extract_from_frames_batch`)."""
         if frames.size == 0:
             return np.zeros((0, self.face_size, self.face_size, 3), np.uint8)
         n, H, W = frames.shape[0], frames.shape[1], frames.shape[2]
         if self.detector == "none":
             boxes = np.tile(np.array([0, 0, W, H], np.float32), (n, 1))
             return crop_and_resize_batch(frames, boxes, self.face_size, self.device)
-        if self.detector == "mtcnn":
-            raise NotImplementedError(_MTCNN_NOT_PORTED)
-        if self.detector == "haar":
+        if self.detector in ("mtcnn", "haar"):
+            per_frame = (_boxes if _boxes is not None
+                         else self._detect_mtcnn(frames) if self.detector == "mtcnn"
+                         else self._detect_haar(frames))
             sel_frames, sel_boxes = [], []
-            for frame, boxes in zip(frames, self._detect_haar(frames)):
+            for frame, boxes in zip(frames, per_frame):
                 if boxes is None:
                     continue
                 for b in boxes:
@@ -231,6 +297,13 @@ class FaceExtractor:
                 return crop_and_resize_batch(np.stack(sel_frames),
                                              np.asarray(sel_boxes, np.float32),
                                              self.face_size, self.device)
+            if self.detector == "mtcnn" and get_default_cascade() is not None:
+                # the reference runs the Haar pass when MTCNN finds nothing
+                chain = FaceExtractor(detector="haar", face_size=self.face_size,
+                                      keep_all=self.keep_all, margin=self.margin,
+                                      device=self.device)
+                if chain.detector != "mtcnn":   # never recurse into this fallback
+                    return chain.extract_from_frames(frames)
         # the center prior, and the detector's whole-clip fallback
         boxes = center_square_boxes(n, H, W, self.margin)
         return crop_and_resize_batch(frames, boxes, self.face_size, self.device)
@@ -247,10 +320,15 @@ class FaceExtractor:
         a stride from the container's frame count otherwise (kept at the
         default where the native probe fails, as in the JAX package); the
         default scan reads the first ``sample_rate * max_frames`` frames.
+        With ``VIDEO_BACKEND=cv2|imageio`` the center detector takes the
+        generic route (decode, then the center prior's crops), since its
+        in-decoder crop needs the native decoder.
         """
         if max_frames is None:
             max_frames = max(1, min(env_int("MAX_FRAMES", 8), 64))
-        if self.detector == "center":
+        python_decoder = (os.environ.get("VIDEO_BACKEND", "native").strip().lower()
+                          in ("cv2", "imageio"))
+        if self.detector == "center" and not python_decoder:
             # crop and resize inside the C++ decode, GIL-free
             if keyframes_only is None:
                 keyframes_only = _env_flag("VIDEO_KEYFRAMES_ONLY")

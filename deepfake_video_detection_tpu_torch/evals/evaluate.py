@@ -28,8 +28,10 @@ freshly initialised (from a generator seeded 0; the JAX package draws it
 from ``PRNGKey(0)``, so the two packages' numbers differ), as in the
 reference. ``--quantize int8`` holds the matmul and conv weights in int8
 with per-output-channel scales (``nn/quant.py``), to measure what
-``QUANTIZE=int8`` serving costs in quality. ``--from-videos`` is not ported
-and raises ``NotImplementedError`` naming its ROADMAP item.
+``QUANTIZE=int8`` serving costs in quality. ``--from-videos`` scores the
+video files in ``--data_dir`` (``data/video_dataset.py`` at its default
+detector, center, as the JAX evaluator; ``VIDEO_BACKEND=cv2`` on a host
+without libav).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import (
     import_into_model, infer_ensemble_count)
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.data.loader import Loader, prefetch_to_device
+from deepfake_video_detection_tpu_torch.data.video_dataset import VideoClipsDataset
 from deepfake_video_detection_tpu_torch.evals.metrics import full_metrics, threshold_sweep
 from deepfake_video_detection_tpu_torch.models.backbone_detector import (
     BackboneDetector, EnsembleDetector)
@@ -250,10 +253,6 @@ def main(argv=None) -> int:
                     help="torch device to evaluate on (the card by default)")
     args = ap.parse_args(argv)
 
-    if args.from_videos:
-        raise NotImplementedError(
-            "--from-videos is not ported yet (ROADMAP Queue 1 item 14: the "
-            "port's data/video_dataset.py)")
     sd, meta = load_any(args.checkpoint)
     model, report, mt = build_model_from_checkpoint(
         sd, meta, args.model, torch.bfloat16 if args.bf16 else None, args.device)
@@ -262,8 +261,13 @@ def main(argv=None) -> int:
           f"match_ratio={report['match_ratio']:.3f}"
           + (f" quantized_weights={n_quant}" if n_quant else ""))
 
-    ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
-                           recursive=args.recursive)
+    if args.from_videos:
+        ds = VideoClipsDataset(args.data_dir, num_frames=args.num_frames,
+                               face_size=args.face_size, labels_csv=args.labels_csv,
+                               recursive=args.recursive, device=args.device)
+    else:
+        ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
+                               recursive=args.recursive)
     paths, labels, prob_fake = evaluate_dataset(model, ds, args.batch_size,
                                                 args.fake_index, mt)
 

@@ -25,7 +25,11 @@ means bf16 activations with f32 params; ``--torch-export`` writes a
 three-stage fine-tune of ``train/progressive.py``, ``--epochs_per_stage``
 epochs a stage, each stage in ``<out_dir>/stage<i>_<name>`` and the last
 stage's best checkpoint copied to ``<out_dir>/checkpoint_best.npz``.
-``--from-videos`` and ``--steps_per_call > 1`` are not ported and raise
+``--from-videos`` trains on the video files in ``--data_dir``
+(``data/video_dataset.py``: decoding and face extraction in the loader's
+threads, ``--detector center|mtcnn|none``, ``--face_size``,
+``--labels_csv``, ``--cache-clips``); on a host without libav set
+``VIDEO_BACKEND=cv2``. ``--steps_per_call > 1`` is not ported and raises
 ``NotImplementedError`` naming ROADMAP; the parallelism flags are not
 offered. The temporal model takes ``--d_model``, ``--depth`` and
 ``--heads``.
@@ -41,6 +45,7 @@ from dataclasses import replace
 import torch
 
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+from deepfake_video_detection_tpu_torch.data.video_dataset import VideoClipsDataset
 from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
 from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
 from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
@@ -104,7 +109,16 @@ def main(argv=None) -> int:
                          "best checkpoint use the EMA weights")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 activations (params stay f32)")
-    ap.add_argument("--from-videos", dest="from_videos", action="store_true")
+    ap.add_argument("--from-videos", dest="from_videos", action="store_true",
+                    help="train directly from the raw video files in --data_dir "
+                         "(decoding in the loader; no .npz prep stage)")
+    ap.add_argument("--labels_csv", default=None,
+                    help="with --from-videos: labels CSV (else path tokens)")
+    ap.add_argument("--face_size", type=int, default=224)
+    ap.add_argument("--detector", default="center", choices=["center", "mtcnn", "none"])
+    ap.add_argument("--cache-clips", dest="cache_clips", action="store_true",
+                    help="with --from-videos: decode each clip once and keep its "
+                         "faces in host memory across epochs")
     ap.add_argument("--progressive", action="store_true",
                     help="3-stage progressive fine-tune for --model pretrained "
                          "(head-only lr 1e-3, last 2 blocks lr 1e-4, all lr 1e-5)")
@@ -118,12 +132,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.from_videos:
-        raise NotImplementedError(
-            "--from-videos is not ported yet (ROADMAP Queue 1 item 14: the "
-            "port's data/video_dataset.py)")
-
-    ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
-                           recursive=args.recursive)
+        ds = VideoClipsDataset(args.data_dir, num_frames=args.num_frames,
+                               face_size=args.face_size, detector=args.detector,
+                               labels_csv=args.labels_csv, recursive=args.recursive,
+                               cache_clips=args.cache_clips, device=args.device)
+    else:
+        ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
+                               recursive=args.recursive)
     train_ds, val_ds = ds.split(0.2)
     temporal_kwargs = dict(d_model=args.d_model, depth=args.depth,
                            num_heads=args.heads)

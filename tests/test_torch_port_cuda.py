@@ -671,3 +671,57 @@ def test_predict_video_on_cuda_through_cv2(tmp_path, monkeypatch):
         pred.close()
     assert "error" not in res, res
     assert res["num_faces"] == 4 and len(res["frame_scores"]) == 4
+
+
+def _biased_mtcnn_state(seed: int = 0):
+    """A facenet-layout state dict of the port's cascade from ``seed``, its
+    face-class biases raised so that candidates pass the default thresholds
+    (``chip_smoke.py``'s weights)."""
+    import chip_smoke
+
+    return chip_smoke.mtcnn_weights(torch, seed)
+
+
+def test_mtcnn_cascade_on_cuda_matches_cpu(monkeypatch):
+    """The cascade on the card against the CPU, cuDNN's TF32 off: the same
+    valid slots, boxes within 1e-2 px, scores within 1e-3."""
+    from deepfake_video_detection_tpu_torch.models.mtcnn import MTCNN
+
+    _cuda_generator()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    import chip_smoke
+
+    frames = chip_smoke.mtcnn_frames(4, 180, 320)
+    sd = _biased_mtcnn_state()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        det = MTCNN((180, 320), device=dev)
+        det.load_state_dict(sd, strict=True)
+        out[dev] = [t.cpu() for t in det.detect(frames)]
+    (gb, gs, gv), (rb, rs, rv) = out["cuda"], out["cpu"]
+    assert rv.any()
+    match, gap = chip_smoke.match_detections(gb, gs, gv, rb, rs, rv)
+    assert match >= 0.9 and gap < 1e-3, (match, gap)
+
+
+def test_video_clips_dataset_mtcnn_item_on_cuda_through_cv2(tmp_path, monkeypatch):
+    """One ``VideoClipsDataset`` item with the mtcnn detector, decoded by cv2
+    (``VIDEO_BACKEND=cv2``), the cascade and the crops on the card: the
+    clip is not zero-filled and nothing is printed about a failure."""
+    pytest.importorskip("cv2")
+    import chip_smoke
+    from deepfake_video_detection_tpu_torch.data.video_dataset import VideoClipsDataset
+
+    _cuda_generator()
+    path = tmp_path / "mtcnn.pt"
+    torch.save(_biased_mtcnn_state(), str(path))
+    monkeypatch.setenv("MTCNN_WEIGHTS", str(path))
+    monkeypatch.setenv("VIDEO_BACKEND", "cv2")
+    chip_smoke.write_clip(str(tmp_path / "clip_fake.mp4"), 0)
+    ds = VideoClipsDataset(str(tmp_path), num_frames=4, face_size=64, detector="mtcnn",
+                           device="cuda")
+    assert ds.extractor.detector == "mtcnn"
+    faces, label, _ = ds[0]
+    assert not ds._warned and label == 1
+    assert faces.shape == (4, 64, 64, 3) and all(f.any() for f in faces)

@@ -17,7 +17,7 @@ assert {port.__name__ + m for m in (
     ".nn.quant", ".serve.saliency", ".train.progressive", ".train.lr_finder",
     ".train.cli_improved", ".evals.validate_improvements",
     ".models.feature_extractors", ".data.video", ".data.haar_native", ".data.haar",
-    ".data.faces")} <= set(names)
+    ".data.faces", ".models.mtcnn", ".data.prepare", ".data.video_dataset")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -292,7 +292,9 @@ def test_evaluator_matches_jax(clips, tmp_path):
     assert [r["path"] for r in rows] == paths
     np.testing.assert_allclose([float(r["prob_fake"]) for r in rows], prob, atol=1e-6)
     assert all(r["pred"] == str(int(float(r["prob_fake"]) >= 0.5)) for r in rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --from-videos is ported (test_torch_port_prepare.py): it reads video
+    # files, and a directory of face stacks has none, as in the JAX package
+    with pytest.raises(FileNotFoundError, match="no labeled video files"):
         E.main(["--data_dir", clips, "--checkpoint", path, "--device", "cpu",
                 "--from-videos"])
     # --quantize int8 is ported (test_torch_port_quant.py holds it against JAX)

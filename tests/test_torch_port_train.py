@@ -323,8 +323,11 @@ def test_entry_points_do_not_fall_back_to_the_cpu(monkeypatch, npz_dir, tmp_path
         cli.build_model("pretrained", 4, backbone="efficientnet_b0")
     with pytest.raises(RuntimeError, match="CUDA"):   # progressive fine-tuning
         cli.main(["--data_dir", npz_dir, "--model", "pretrained", "--progressive"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--data_dir", npz_dir, "--from-videos"])
+    videos = tmp_path / "videos"                      # --from-videos: labelled clips,
+    videos.mkdir()                                    # which the dataset lists undecoded
+    (videos / "clip_fake.mp4").write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--data_dir", str(videos), "--from-videos"])
 
 
 # ---------------------------------------------------------------------------
@@ -569,5 +572,7 @@ def test_cli_trains_a_vit_detector_on_the_cpu(tmp_path):
                      "--batch_size", "2", "--num_frames", "2", "--bf16",
                      "--out_dir", str(out), "--device", "cpu"]) == 0
     assert (out / "checkpoint_best.npz").exists() and (out / "preds_epoch_0.csv").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --from-videos is ported (test_torch_port_prepare.py): it reads video
+    # files, and a directory of face stacks has none, as in the JAX package
+    with pytest.raises(FileNotFoundError, match="no labeled video files"):
         cli.main(["--data_dir", str(d), "--model", "pretrained", "--from-videos"])

@@ -391,15 +391,30 @@ def test_detector_resolution_matches_jax(env, tmp_path, caplog):
 
 
 def test_mtcnn_raises_naming_item_17(tmp_path, clips):
+    """The mtcnn detector is ported (ROADMAP item 17's MTCNN half): an
+    unreadable weights file raises at first use, as the JAX package's
+    does, and a facenet-layout file runs the cascade on the clip's frames
+    (``test_torch_port_mtcnn.py`` holds it against JAX's)."""
+    from mtcnn_torch_ref import make_nets
+
     weights = tmp_path / "mtcnn.npz"
     weights.write_bytes(b"")
-    ex = faces.FaceExtractor(detector="mtcnn", mtcnn_weights=str(weights), face_size=SIZE,
-                             device="cpu")
     frames = video.sample_video_frames(clips["face"], max_frames=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ex.extract_from_frames(frames)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ex.extract_from_frames_batch([frames])
+    for ex in (faces.FaceExtractor(detector="mtcnn", mtcnn_weights=str(weights),
+                                   face_size=SIZE, device="cpu"),
+               jax_faces.FaceExtractor(detector="mtcnn", mtcnn_weights=str(weights),
+                                       face_size=SIZE)):
+        assert ex.detector == "mtcnn"
+        with pytest.raises(EOFError):
+            ex.extract_from_frames(frames)
+    _, sd = make_nets(seed=7)
+    pt = tmp_path / "mtcnn.pt"
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(pt))
+    ex = faces.FaceExtractor(detector="mtcnn", mtcnn_weights=str(pt), face_size=SIZE,
+                             device="cpu")
+    got = ex.extract_from_frames(frames)
+    assert got.shape[1:] == (SIZE, SIZE, 3) and got.shape[0] >= 1
+    np.testing.assert_array_equal(ex.extract_from_frames_batch([frames])[0], got)
 
 
 # ---------------------------------------------------------------------------
