@@ -82,7 +82,23 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    a clip, ``prob_fake`` against the plain versions, the forward's device
    time by kernel and idle share, and the crops on the card against the
    CPU (``CROP_TOL``). ViT-B/16: one request (K1 1, K2 12) and one
-   ``explain=True`` request (K4 12, the ``saliency`` key).
+   ``explain=True`` request (K4 12, the ``saliency`` key). Then ``web_app``:
+   the web app (``serve/app.py``) behind its ``ThreadingWSGIServer`` on
+   127.0.0.1, driven by ``urllib`` with the same clips and setting. A B0
+   checkpoint (seed 0, BN stats from U(0.5, 1.5)) is autoloaded: predictor
+   on the card, ``warmup_error`` None; the pages, signup, login and the
+   dashboard with its cookie; ``/api/model-info`` says ``cuda``. Five
+   sequential multipart uploads to ``/api/predict`` (K1 one a request; ms
+   beside the same clip through ``predict_video``: the HTTP overhead), 8
+   concurrent clients (clips/s, K1 one a batcher step), the first clip's
+   ``prob_fake`` against the plain versions, the no-face clip against
+   ``predict_video``; a background job (``POST /results``, polled to done,
+   the page and the verdict of a synchronous request). Then a ViT-B/16
+   checkpoint swapped in over ``/api/load-model`` (the B0 predictor
+   closed): three uploads (K1 1, K2 12 each), one with ``?explain=1`` (K1
+   2, K2 24, K4 12, a saliency grid), a path outside the checkpoints root
+   refused (403); chat, public chat and the report give the offline
+   fallbacks. No response may carry ``error``.
 9. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
    16 frames at 224 px) trains ViT-B/16 for one epoch through ``Trainer``
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
@@ -3117,6 +3133,403 @@ def _video_vit(torch, A, P, smi: str, clips: list) -> dict:
     return {k: plain[k] + explained[k] for k in ("K1", "K2", "K4")}
 
 
+class _HttpClient:
+    """``urllib.request`` against the app on loopback: redirects are
+    returned, not followed (the session cookie rides on a 302), and an HTTP
+    error status is returned with its body."""
+
+    def __init__(self, base: str):
+        import urllib.request
+
+        class NoRedirect(urllib.request.HTTPRedirectHandler):
+            def redirect_request(self, *args, **kwargs):
+                return None
+
+        self.base = base
+        self.opener = urllib.request.build_opener(NoRedirect)
+
+    def __call__(self, method: str, path: str, body: bytes = None, ctype: str = None,
+                 cookie: str = None):
+        import urllib.error
+        import urllib.request
+
+        headers = {"Content-Type": ctype} if ctype else {}
+        if cookie:
+            headers["Cookie"] = f"session={cookie}"
+        req = urllib.request.Request(self.base + path, data=body, method=method,
+                                     headers=headers)
+        try:
+            with self.opener.open(req, timeout=300) as r:
+                return r.status, r.headers, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers, e.read()
+
+    def json(self, method: str, path: str, data=None, cookie: str = None):
+        body = None if data is None else json.dumps(data).encode()
+        status, _, out = self(method, path, body, "application/json" if body else None,
+                              cookie)
+        return status, json.loads(out)
+
+    def upload(self, path: str, clip: str, field: str = "video", cookie: str = None):
+        boundary = "dfdtsmokeboundary"
+        with open(clip, "rb") as f:
+            content = f.read()
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{field}\"; "
+                f"filename=\"{os.path.basename(clip)}\"\r\nContent-Type: video/mp4\r\n\r\n"
+                ).encode() + content + f"\r\n--{boundary}--\r\n".encode()
+        return self("POST", path, body, f"multipart/form-data; boundary={boundary}", cookie)
+
+
+def _cookie(headers) -> str:
+    return headers["Set-Cookie"].split(";")[0].split("=", 1)[1]
+
+
+def web_app(torch, A, P, smi: str):
+    """The web app on loopback HTTP (``serve/app.py``): an autoloaded B0
+    checkpoint, then a ViT-B/16 one swapped in over ``/api/load-model``,
+    with ``VIDEO_BACKEND=cv2``, ``SERVE_YUV_TRANSFER=0`` and the
+    ``video_serving`` clips. Returns launches by path; the environment is
+    restored and the server, the jobs and the predictors are stopped."""
+    import shutil
+    import tempfile
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import save_checkpoint
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve import chat as chat_mod
+    from deepfake_video_detection_tpu_torch.serve import loader as loader_mod
+    from deepfake_video_detection_tpu_torch.serve import predict as predict_mod
+    from deepfake_video_detection_tpu_torch.serve.app import ThreadingWSGIServer, create_app
+    from deepfake_video_detection_tpu_torch.serve.predict import (
+        serving_dtype, simple_english_justification_200_words)
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    T, n = VIDEO["max_frames"], VIDEO["clients"]
+    env = {"MAX_FRAMES": str(T), "FACE_SIZE": str(VIDEO["size"]), "SERVE_WINDOWS": "1",
+           **VIDEO_ENV}
+    root = tempfile.mkdtemp(prefix="dfdt_web_")
+    app = httpd = server = None
+    launches = {"K1": 0, "K2": 0, "K4": 0}
+
+    def counted(fn):
+        """Run ``fn`` with the counts set to 0 just before it; add what it
+        launched to the phase's launches and return (its result, counts)."""
+        torch.cuda.synchronize()
+        _reset_counts(A, P)
+        out = fn()
+        torch.cuda.synchronize()
+        c = _counts(A, P)
+        for k in launches:
+            launches[k] += c[k]
+        return out, c
+
+    try:
+        with mock.patch.dict(os.environ, env):
+            for k in ("FACE_DETECTOR", "HAAR_CASCADE", "HAAR_MAX_SIDE", "HAAR_TRACK",
+                      "MTCNN_WEIGHTS", "KEEP_ALL_FACES", "VIDEO_SAMPLE_RATE", "SERVE_WARMUP",
+                      "NO_AUTOLOAD", "MODEL_URL", "CHECKPOINT_URL", "MODEL_PATH",
+                      "CHECKPOINT_PATH", "MODEL_TYPE", "QUANTIZE", "ALLOW_ANY_MODEL_PATH",
+                      "GEMINI_API_KEY", "GOOGLE_API_KEY", "FIREBASE_API_KEY",
+                      "FIREBASE_DATABASE_URL", "MAX_UPLOAD_MB"):
+                os.environ.pop(k, None)
+            t0 = time.perf_counter()
+            clips = [os.path.join(root, f"face{i}.mp4") for i in range(VIDEO["clips"])]
+            for i, path in enumerate(clips):
+                write_clip(path, i)
+            noface = os.path.join(root, "noface.mp4")
+            write_clip(noface, 0, face=False)
+            ckroot = os.path.join(root, "checkpoints")
+
+            # (1) autoload of a B0 checkpoint
+            b0 = BackboneDetector("efficientnet_b0", compute_dtype=serving_dtype("cuda"),
+                                  device="cuda", generator=torch.Generator().manual_seed(0))
+            _randomize_bn(torch, b0, CONV["bn_seed"])
+            b0_path = os.path.join(ckroot, "b0", "checkpoint_best.npz")
+            save_checkpoint(b0_path, b0.state_dict(), meta={"model_config": {
+                "model_type": "pretrained", "backbone": "efficientnet_b0"}})
+            del b0
+            app = create_app(autoload=True, device="cuda", upload_dir=os.path.join(root, "up"),
+                             data_dir=os.path.join(root, "data"),
+                             log_root=os.path.join(root, "logs"), checkpoints_root=ckroot)
+            pred = app.predictor
+            _require(pred is not None, "the app autoloaded no model")
+            _require(pred.model_type == "pretrained" and pred.checkpoint_path == b0_path
+                     and loader_mod.LAST_LOAD_STATS.get("backbones") == "efficientnet_b0",
+                     f"autoload picked {pred.model_type} {pred.checkpoint_path} "
+                     f"{loader_mod.LAST_LOAD_STATS}")
+            _require(pred.device.type == "cuda", f"autoloaded predictor on {pred.device}")
+            _require(pred.warmup_done.wait(timeout=600), "web B0 warmup did not finish")
+            _require(pred.warmup_error is None, f"web B0 warmup failed: {pred.warmup_error!r}")
+            setup_s = time.perf_counter() - t0
+
+            # (2) a real server on loopback
+            httpd = make_server("127.0.0.1", 0, app, server_class=ThreadingWSGIServer,
+                                handler_class=Quiet)
+            server = threading.Thread(target=httpd.serve_forever, name="web-app",
+                                      daemon=True)
+            server.start()
+            http = _HttpClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+            for path in ("/health", "/", "/ui", "/about"):
+                status, _, body = http("GET", path)
+                _require(status == 200, f"GET {path}: {status} {body[:200]!r}")
+            form = "application/x-www-form-urlencoded"
+            status, headers, _ = http("POST", "/signup", b"email=smoke%40x.com&password=pw1",
+                                      form)
+            _require(status == 302 and "session=" in headers.get("Set-Cookie", ""),
+                     f"signup: {status}")
+            status, headers, _ = http("POST", "/login", b"email=smoke%40x.com&password=pw1",
+                                      form)
+            _require(status == 302, f"login: {status}")
+            cookie = _cookie(headers)
+            status, _, body = http("GET", "/dashboard", cookie=cookie)
+            _require(status == 200 and b"smoke@x.com" in body, f"dashboard: {status}")
+            status, info = http.json("GET", "/api/model-info")
+            _require(status == 200 and info["device"] == "cuda" and info["loaded"] is True
+                     and info["model_type"] == "pretrained", f"model-info: {info}")
+
+            # (3) B0 uploads: sequential, then concurrent clients
+            def post(clip, query=""):
+                status, _, body = http.upload("/api/predict" + query, clip)
+                _require(status == 200, f"predict {os.path.basename(clip)}: {status}")
+                return json.loads(body)
+
+            def timed_posts(clip, k, query=""):
+                out, ms = [], []
+                for _ in range(k):
+                    t = time.perf_counter()
+                    out.append(post(clip, query))
+                    ms.append((time.perf_counter() - t) * 1e3)
+                return out, ms
+
+            (seq, seq_ms), seq_counts = counted(lambda: timed_posts(clips[0], 5))
+            for i, r in enumerate(seq):
+                _video_request_check(r, f"web B0 request {i}")
+            _require(seq_counts == _want(K1=len(seq)),
+                     f"sequential web requests launched {seq_counts}; want K1 {len(seq)}")
+
+            def direct(p, clip, k):
+                ms = []
+                for _ in range(k):
+                    t = time.perf_counter()
+                    r = p.predict_video(clip)
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    _video_request_check(r, "direct predict_video")
+                return ms
+
+            direct_ms = direct(pred, clips[0], 5)
+
+            def client_round(client=http):
+                out, barrier = [None] * n, threading.Barrier(n)
+
+                def client_fn(i):
+                    barrier.wait()
+                    status, _, body = client.upload("/api/predict", clips[i % len(clips)])
+                    _require(status == 200, f"concurrent predict: {status}")
+                    out[i] = json.loads(body)
+
+                threads = [threading.Thread(target=client_fn, args=(i,)) for i in range(n)]
+                t = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=300)
+                _require(not any(th.is_alive() for th in threads), "a web request hung")
+                return out, time.perf_counter() - t
+
+            def concurrent(client):
+                batches0 = pred._batcher.batches_run
+                rounds, c = counted(lambda: [client_round(client) for _ in range(ROUNDS)])
+                steps = pred._batcher.batches_run - batches0
+                for i, r in enumerate(r for res, _ in rounds for r in res):
+                    _video_request_check(r, f"concurrent web request {i}")
+                _require(c == _want(K1=steps) and c["K1"] >= 1,
+                         f"concurrent web requests: launches {c}, {steps} steps")
+                return [sec for _, sec in rounds], c, steps
+
+            conc_s, conc_counts, conc_batches = concurrent(http)
+            # the same rounds against a second server on the same app whose
+            # listen backlog holds all n connections: the app's server keeps
+            # the stdlib's request_queue_size (5), as the JAX package's does
+            deep = make_server("127.0.0.1", 0, app, handler_class=Quiet,
+                               server_class=type("DeepBacklog", (ThreadingWSGIServer,),
+                                                 {"request_queue_size": 4 * n}))
+            deep_thread = threading.Thread(target=deep.serve_forever, daemon=True)
+            deep_thread.start()
+            try:
+                deep_s, deep_counts, deep_batches = concurrent(
+                    _HttpClient(f"http://127.0.0.1:{deep.server_address[1]}"))
+            finally:
+                deep.shutdown()
+                deep.server_close()
+                deep_thread.join(timeout=30)
+
+            # the first clip through the plain versions
+            faces = pred.extractor.extract_from_video(clips[0], max_frames=T)
+            x = torch.from_numpy(faces[None]).cuda()
+            with mock.patch.object(predict_mod, "fused_normalize", P.fused_normalize_plain):
+                p_plain = float(pred._forward(x)[0].float().cpu()[0, 1])
+            diff = abs(p_plain - seq[0]["prob_fake"])
+            _require(diff <= PROB_TOL, f"web prob_fake kernels vs plain differ by {diff}")
+            (nf,), nf_counts = counted(lambda: [post(noface)])
+            nf_ref = pred.predict_video(noface)
+            _video_request_check(nf, "web no-face request")
+            _require(nf_counts == _want(K1=1), f"the no-face request launched {nf_counts}")
+            _require(nf["prediction"] == nf_ref["prediction"]
+                     and nf["num_faces"] == nf_ref["num_faces"]
+                     and abs(nf["prob_fake"] - nf_ref["prob_fake"]) <= PROB_TOL,
+                     f"no-face clip over HTTP {nf} vs direct {nf_ref}")
+
+            # (4) a background job through the JobManager
+            (sync,), sync_counts = counted(lambda: [post(clips[1])])
+            _require(sync_counts == _want(K1=1), f"a web request launched {sync_counts}")
+
+            def job():
+                t = time.perf_counter()
+                status, headers, _ = http.upload("/results", clips[1], field="videos",
+                                                 cookie=cookie)
+                _require(status == 302 and "/results?job=" in headers.get("Location", ""),
+                         f"POST /results: {status}")
+                job_id = headers["Location"].split("job=")[1]
+                deadline = time.perf_counter() + 30
+                while True:
+                    status, st = http.json("GET", f"/api/ui-job/{job_id}")
+                    if st["status"] not in ("queued", "running") \
+                            or time.perf_counter() > deadline:
+                        break
+                    time.sleep(0.01)
+                ms = (time.perf_counter() - t) * 1e3
+                _require(st["status"] == "done", f"job {job_id}: {st}")
+                return job_id, ms
+
+            (job_id, job_ms), job_counts = counted(job)
+            _require(job_counts == _want(K1=1), f"the job launched {job_counts}")
+            (item,) = app.cache.get(app.jobs.status(job_id)["result"])
+            _video_request_check(item["result"], "the job's result")
+            status, _, page = http("GET", f"/results?job={job_id}", cookie=cookie)
+            verdict = item["result"]["prediction"]
+            _require(verdict == sync["prediction"],
+                     f"the job's verdict {verdict} != the synchronous {sync['prediction']}")
+            _require(status == 200 and verdict.encode() in page and b"face1.mp4" in page,
+                     f"GET /results?job=: {status}")
+
+            # (5) swap in ViT-B/16; a request, an explain request
+            vit = BackboneDetector("vit_base_patch16_224", compute_dtype=serving_dtype("cuda"),
+                                   device="cuda", generator=torch.Generator().manual_seed(0))
+            depth = len(vit.backbone.blocks)
+            vit_path = os.path.join(ckroot, "vit", "checkpoint_best.npz")
+            save_checkpoint(vit_path, vit.state_dict(), meta={"model_config": {
+                "model_type": "pretrained", "backbone": "vit_base_patch16_224"}})
+            del vit
+            t = time.perf_counter()
+            status, loaded = http.json("POST", "/api/load-model", {"path": vit_path})
+            load_s = time.perf_counter() - t
+            _require(status == 200 and loaded.get("ok")
+                     and loaded["stats"]["backbones"] == "vit_base_patch16_224",
+                     f"load-model ViT-B/16: {status} {loaded}")
+            _require(pred._batcher._closed, "the replaced B0 predictor was not closed")
+            vpred = app.predictor
+            _require(vpred is not pred and vpred.device.type == "cuda",
+                     f"ViT predictor on {vpred.device}")
+            _require(vpred.warmup_done.wait(timeout=600), "web ViT warmup did not finish")
+            _require(vpred.warmup_error is None, f"web ViT warmup: {vpred.warmup_error!r}")
+            pred = vpred
+            post(clips[3], "?explain=1")   # the backward's plans, unmeasured (video_serving)
+            vit_res, vit_ms, vit_counts = [], [], []
+            for clip in clips[:3]:
+                (res, ms), c = counted(lambda: timed_posts(clip, 1))
+                _require(c == _want(K1=1, K2=depth),
+                         f"ViT web request launched {c}; want K1 1, K2 {depth}")
+                _video_request_check(res[0], "ViT web request")
+                vit_res += res
+                vit_ms += ms
+                vit_counts.append(c)
+            vit_direct_ms = direct(pred, clips[0], 3)
+            ((res_e,), (explain_ms,)), explained = counted(
+                lambda: timed_posts(clips[2], 1, "?explain=1"))
+            _require(explained == _want(K1=2, K2=2 * depth, K4=depth),
+                     f"ViT explain web request launched {explained}; want K1 2, "
+                     f"K2 {2 * depth}, K4 {depth}")
+            _video_request_check(res_e, "ViT explain web request")
+            sal = res_e.get("saliency")
+            _require(pred.explain_error is None and isinstance(sal, dict)
+                     and sal.get("grid") == [14, 14] and len(sal["frames"]) == T,
+                     f"ViT explain web request without a saliency grid: {sorted(res_e)}")
+            outside = os.path.join(root, "outside.npz")
+            np.savez(outside, x=np.zeros(3))
+            status, out = http.json("POST", "/api/load-model", {"path": outside})
+            _require(status == 403, f"load-model outside the root: {status} {out}")
+            _require(app.predictor is pred, "a refused load replaced the predictor")
+
+            # (6) chat and the report, offline (no key): the local fallbacks
+            msg = "why was this video flagged?"
+            status, out = http.json("POST", "/api/chat", {"message": msg}, cookie=cookie)
+            _require(status == 200 and out["reply"] == chat_mod.generate_chat_reply(
+                msg, app.last_results.get("smoke@x.com")), f"chat: {status} {out}")
+            status, out = http.json("POST", "/api/chat-public", {"message": "how does it work?"})
+            _require(status == 200 and out["reply"] == chat_mod.generate_chat_reply(
+                "how does it work?", app.last_results.get("__public__"),
+                loader_mod.LAST_LOAD_STATS or None), f"chat-public: {status} {out}")
+            status, out = http.json("POST", "/api/gemini-report-public", {})
+            last = app.last_results["__public__"]
+            _require(status == 200 and last["prob_fake"] == res_e["prob_fake"]
+                     and out["report"] == simple_english_justification_200_words(last, "")
+                     and len(out["report"].split()) == 200, f"report: {status} {out}")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join(timeout=30)
+        if app is not None:
+            app.jobs.shutdown()
+            if app.predictor is not None:
+                app.predictor.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    med = float(np.median(seq_ms))
+    rec = {"phase": "web_app", "card": smi, "server": "ThreadingWSGIServer on 127.0.0.1",
+           "setting": dict(VIDEO_ENV, detector="haar"), "setup_s": setup_s,
+           "frames_per_request": T, "face_size": VIDEO["size"],
+           "b0": {"request_ms": seq_ms, "request_ms_median": med,
+                  "predict_video_ms": direct_ms,
+                  "predict_video_ms_median": float(np.median(direct_ms)),
+                  "http_overhead_ms": med - float(np.median(direct_ms)),
+                  "concurrent_clients": n, "listen_backlog": ThreadingWSGIServer.request_queue_size,
+                  "concurrent_wall_s": conc_s,
+                  "concurrent_clips_per_s": n / float(np.median(conc_s)),
+                  "batcher_steps_concurrent": conc_batches,
+                  "concurrent_wall_s_backlog_4n": deep_s,
+                  "concurrent_clips_per_s_backlog_4n": n / float(np.median(deep_s)),
+                  "batcher_steps_concurrent_backlog_4n": deep_batches,
+                  "launches_concurrent_backlog_4n": deep_counts,
+                  "launches_sequential": seq_counts, "launches_concurrent": conc_counts,
+                  "launches_noface": nf_counts, "launches_sync": sync_counts,
+                  "prob_fake_kernels": seq[0]["prob_fake"], "prob_fake_plain": p_plain,
+                  "prob_fake_abs_diff": diff, "prob_tol": PROB_TOL,
+                  "noface": {k: nf[k] for k in ("prediction", "num_faces", "prob_fake")}},
+           "job": {"ms": job_ms, "launches": job_counts, "verdict": verdict,
+                   "sync_verdict": sync["prediction"]},
+           "vit": {"load_model_s": load_s, "request_ms": vit_ms,
+                   "request_ms_median": float(np.median(vit_ms)),
+                   "predict_video_ms": vit_direct_ms,
+                   "predict_video_ms_median": float(np.median(vit_direct_ms)),
+                   "explain_request_ms": explain_ms,
+                   "launches_requests": vit_counts, "launches_explain": explained,
+                   "prob_fake": [r["prob_fake"] for r in vit_res],
+                   "saliency_grid": sal["grid"]},
+           "launches": launches}
+    _emit(rec)
+    print(f"web app: B0 {med:.1f} ms a request over HTTP, "
+          f"{rec['b0']['predict_video_ms_median']:.1f} ms through predict_video, "
+          f"{rec['b0']['concurrent_clips_per_s']:.1f} clips/s with {n} clients "
+          f"({rec['b0']['concurrent_clips_per_s_backlog_4n']:.1f} at a backlog of {4 * n}), job "
+          f"{job_ms:.1f} ms; ViT-B/16 {rec['vit']['request_ms_median']:.1f} ms, explain "
+          f"{explain_ms:.1f} ms on {smi}", flush=True)
+    return {"web_app": launches}
+
+
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
@@ -3883,6 +4296,9 @@ def main() -> int:
     video_paths = timed("video_serving", video_serving, torch, A, P, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    web_paths = timed("web_app", web_app, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     trained, _ = timed("vit_training", train, torch, A, P, smi)
     _require(trained["flash_attention_fwd"] > 0 and trained["flash_attention_bwd"] > 0,
              f"a kernel was not launched on the training path: {trained}")
@@ -3922,7 +4338,8 @@ def main() -> int:
              "training": {"K2": trained["flash_attention_fwd"],
                           "K4": trained["flash_attention_bwd"]},
              "f32_training": trained_f32,
-             **explained, **video_paths, **legacy_paths, **convnet_paths, **improved_launches,
+             **explained, **video_paths, **web_paths, **legacy_paths, **convnet_paths,
+             **improved_launches,
              **video_launches,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start

@@ -673,6 +673,63 @@ def test_predict_video_on_cuda_through_cv2(tmp_path, monkeypatch):
     assert res["num_faces"] == 4 and len(res["frame_scores"]) == 4
 
 
+def test_web_app_serves_an_upload_on_cuda(tmp_path, monkeypatch):
+    """One clip posted to the port's WSGI app on the card (cv2 decoding,
+    Haar): the checkpoint swapped in over ``/api/load-model`` is a ViT-Tiny
+    ``BackboneDetector``; the request launches K1 once and K2 once a block,
+    and its result has no ``error`` key."""
+    pytest.importorskip("cv2")
+    import io
+    import json
+
+    import chip_smoke
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import save_checkpoint
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve.app import create_app
+
+    _cuda_generator()
+    for k, v in {"VIDEO_BACKEND": "cv2", "SERVE_YUV_TRANSFER": "0", "MAX_FRAMES": "4",
+                 "FACE_SIZE": "224", "SERVE_WARMUP": "0", "SERVE_WINDOWS": "1",
+                 "MIN_FACES": "1"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("FACE_DETECTOR", raising=False)
+    model = BackboneDetector("vit_tiny_patch16_224", device="cuda")
+    depth = len(model.backbone.blocks)
+    ckpt = tmp_path / "ckpts" / "vit" / "checkpoint_best.npz"
+    save_checkpoint(str(ckpt), model.state_dict(), meta={"model_config": {
+        "model_type": "pretrained", "backbone": "vit_tiny_patch16_224"}})
+    clip = tmp_path / "face.mp4"
+    chip_smoke.write_clip(str(clip), 0)
+    app = create_app(autoload=False, device="cuda", upload_dir=str(tmp_path / "up"),
+                     data_dir=str(tmp_path / "data"), log_root=str(tmp_path / "logs"),
+                     checkpoints_root=str(tmp_path / "ckpts"))
+
+    def post(path, body, ctype):
+        out = {}
+        environ = {"REQUEST_METHOD": "POST", "PATH_INFO": path, "QUERY_STRING": "",
+                   "CONTENT_LENGTH": str(len(body)), "CONTENT_TYPE": ctype,
+                   "wsgi.input": io.BytesIO(body)}
+        data = b"".join(app(environ, lambda status, headers: out.update(status=status)))
+        return out["status"], json.loads(data)
+
+    status, loaded = post("/api/load-model", json.dumps({"path": str(ckpt)}).encode(),
+                          "application/json")
+    assert status.startswith("200") and loaded["ok"], loaded
+    body = (b'--b\r\nContent-Disposition: form-data; name="video"; filename="face.mp4"'
+            b"\r\n\r\n" + clip.read_bytes() + b"\r\n--b--\r\n")
+    try:
+        assert app.predictor.device.type == "cuda"
+        k1, k2 = P.fused_normalize.launches, A.flash_attention_fwd.launches
+        status, res = post("/api/predict", body, "multipart/form-data; boundary=b")
+        torch.cuda.synchronize()
+        assert P.fused_normalize.launches == k1 + 1
+        assert A.flash_attention_fwd.launches == k2 + depth
+    finally:
+        app.predictor.close()
+    assert status.startswith("200") and "error" not in res, res
+    assert res["num_faces"] == 4 and 0.0 <= res["prob_fake"] <= 1.0
+
+
 def _biased_mtcnn_state(seed: int = 0):
     """A facenet-layout state dict of the port's cascade from ``seed``, its
     face-class biases raised so that candidates pass the default thresholds

@@ -17,7 +17,10 @@ assert {port.__name__ + m for m in (
     ".nn.quant", ".serve.saliency", ".train.progressive", ".train.lr_finder",
     ".train.cli_improved", ".evals.validate_improvements",
     ".models.feature_extractors", ".data.video", ".data.haar_native", ".data.haar",
-    ".data.faces", ".models.mtcnn", ".data.prepare", ".data.video_dataset")} <= set(names)
+    ".data.faces", ".models.mtcnn", ".data.prepare", ".data.video_dataset",
+    ".serve.app", ".serve.jobs", ".serve.auth", ".serve.auth_sqlite", ".serve.chat",
+    ".serve.templates", ".serve.detector", ".agents.active_learning", ".agents.telemetry",
+    ".utils.profiling")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
