@@ -98,7 +98,8 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    closed): three uploads (K1 1, K2 12 each), one with ``?explain=1`` (K1
    2, K2 24, K4 12, a saliency grid), a path outside the checkpoints root
    refused (403); chat, public chat and the report give the offline
-   fallbacks. No response may carry ``error``.
+   fallbacks. No response may carry ``error``. The app's server holds the 8
+   clients in its listen backlog (32; the JAX package's server keeps 5).
 9. Training: a synthetic ``.npz`` face-stack set from seed 0 (24 clips of
    16 frames at 224 px) trains ViT-B/16 for one epoch through ``Trainer``
    (f32 params, bf16 activations, augment and threshold sweep on, batch 8),
@@ -144,7 +145,18 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    ``--model temporal`` at the CLI's defaults over B0 (N = 17): a timed
    step, its 4 + 4 f32 flash launches, device time by kernel, loss and
    grad norm against the plain versions. (e) A ``.pt`` resume through the
-   CLI and a ``.pt`` warm start through ``Trainer``, one epoch each.
+   CLI and a ``.pt`` warm start through ``Trainer``, one epoch each. (f)
+   ``moe_temporal``: ``--model temporal --moe_experts 4`` at the CLI's
+   defaults for one epoch (its plan line ``dp=1,moe=4e(dense)``, launches
+   all f32); a timed step of that model (4 f32 flash forward and 4 f32
+   backward launches at (8, 4, 17, 64), peak memory, idle share, loss with
+   the 0.01 aux term and grad norm against the plain versions, the aux in
+   ``MOE["aux_range"]``); ``use_flash=False`` on the same weights (logits
+   within ``DENSE_TOL``, no flash launch); a ``--bf16`` step (1 bf16 + 3
+   f32 flash launches each way: the MoE's f32 output promotes the residual
+   stream, as in the JAX package); the CLI's checkpoint through
+   ``load_model`` (4 experts, match ratio 1.0), a ``Predictor`` (K1 1, K2
+   4, ``prob_fake`` kernels vs plain) and the evaluator CLI.
 12. The improved trainer and the other training CLIs (``improved``), on
    10 synthetic clips of 16 frames at 224 px from seed 0, at torch's own
    TF32 flags. (a) ``cli_improved.main`` for one epoch twice: ``--backbone
@@ -182,7 +194,17 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    --from-videos`` on that checkpoint (center, the cv2 route): 20 rows, K1
    once and K2 12 times a batch, the first batch's ``prob_fake`` against
    the plain versions.
-14. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
+14. The conditional GAN (``gan``), at ``create_image_conditioned_gan``'s
+   defaults (latent 256, cond 128, base 64 channels, 224 px, ViT-Tiny
+   condition), batch 8: ``extract_image_condition`` (12 f32 flash launches
+   at (8, 3, 197, 64), the cond vector against the plain versions); one
+   ``d_step`` on the card against the CPU from the same weights with TF32
+   off and SGD at lr 1 (loss, D's running stats after their two moves, the
+   updated parameters p − g: ``GAN_GRAD_TOL``); three ``d_step``/``g_step`` pairs with
+   Adam at torch's TF32 flags (ms a pair, peak memory, device time and idle
+   share, no flash launch); ``save_gan_checkpoint`` →
+   ``load_gan_checkpoint`` byte-equal.
+15. Long clips: a synthetic set from seed 0 (8 clips of 1024 frames at
    224 px, ~1.2 GB in a temp dir) and the temporal transformer over
    ViT-B/16 features (``d_model`` 256, 4 blocks, 4 heads: the training
    CLI's defaults). (a) ``Trainer`` trains it one epoch at T = 640, batch
@@ -195,7 +217,7 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-15. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+16. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
    its f32 row; K2 and K4 with their cases at the legacy phase's shapes
    and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16; K4
@@ -361,6 +383,26 @@ FROM_VIDEOS = {"clips": 20, "frames": 80, "batch_clips": 8, "num_frames": 16, "b
 # sums in other orders: ~1e-6; TF32 convolutions move scores by ~1e-3)
 MTCNN_MATCH = 0.9
 MTCNN_SCORE_TOL = 1e-3
+
+# the MoE temporal phase: the training CLI's --model temporal --moe_experts 4
+# at its defaults (EfficientNet-B0, d_model 256, 4 blocks, 4 heads, batch 8 x
+# 16 frames, f32) on the conv-net training phase's synthetic set; the
+# load-balance loss E * sum(fraction * mean prob) is 1 at a balanced router
+# and at most E (rounding can take a balanced one a hair under 1)
+MOE = {"experts": 4, "serve_frames": 8, "aux_weight": 0.01, "aux_range": (1.0 - 1e-3, 4.0)}
+# the dense attention (use_flash=False) against the flash route on the card,
+# the same weights, f32 logits: sums in another order through 4 blocks
+DENSE_TOL = 1e-4
+
+# the GAN phase: create_image_conditioned_gan's defaults (latent 256, cond
+# 128, base 64 channels, 224 px, a ViT-Tiny condition), batch 8, Adam 1e-3
+GAN = {"batch": 8, "pairs": 3, "lr": 1e-3}
+# the D step's updated parameters p - g (SGD, lr 1), card vs CPU with TF32
+# off: their distance over the step's length, ||g_card - g_cpu|| / ||g_cpu||.
+# Sums in other orders move a few of D's ~3M leaky-ReLU inputs across the
+# kink (slope 1 against 0.2), which moves whole rows of the gradient: on the
+# CPU, inputs moved by 1e-6 of themselves move this distance by 3.9e-4
+GAN_GRAD_TOL = CPU_TOL["f32"]["grad_norm"]
 
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
@@ -2151,6 +2193,209 @@ def convnet_temporal(torch, A, P, smi: str, root: str, data: str, flags: dict):
     return rec["launches"], rec["launches_f32"], rec
 
 
+def moe_temporal(torch, A, P, smi: str, root: str, data: str, flags: dict, dense_rec: dict):
+    """The temporal transformer's one-card MoE and dense-attention modes,
+    at torch's TF32 flags. (a) ``train/cli.py main --model temporal
+    --moe_experts 4 --epochs 1`` at the CLI's defaults (B0, ``d_model``
+    256, 4 blocks, 4 heads, batch 8 x 16 frames, f32): its plan line, its
+    launches (all f32); one ``Trainer`` step of that model timed (mean of
+    5), 4 f32 flash forward and 4 f32 backward launches at (8, 4, 17, 64),
+    peak memory, device time by kernel and idle share, and its loss (with
+    0.01 x aux) and grad norm through the kernels against the plain
+    versions, the aux in ``MOE["aux_range"]``. (b) ``--bf16``: block 0 in
+    bf16, blocks 1-3 in f32 (the MoE promotes, as in the JAX package): 1
+    bf16 + 3 f32 flash launches a forward, the same a backward. (c) The
+    CLI's checkpoint through ``serve/loader.py::load_model`` (temporal,
+    4 experts, match ratio 1.0), served by a ``Predictor`` (bf16: K1 1, K2
+    4), ``prob_fake`` kernels vs plain, and scored by the evaluator CLI.
+    (d) ``use_flash=False`` on the same weights: logits within
+    ``DENSE_TOL`` of the flash route's, no flash launch. Returns (launches
+    by path, f32 launches by path)."""
+    import contextlib
+    import csv
+
+    from deepfake_video_detection_tpu_torch.evals import evaluate as E
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+    from deepfake_video_detection_tpu_torch.nn.moe import MoEMLP
+    from deepfake_video_detection_tpu_torch.serve.loader import load_model
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+
+    n_exp, depth = MOE["experts"], CONVTRAIN["depth"]
+    tkw = {**{k: CONVTRAIN[k] for k in ("d_model", "depth", "num_heads")}, "moe_experts": n_exp}
+    out = os.path.join(root, "moe")
+    # (a) the CLI
+    _reset_counts(A, P)
+    tee = _Tee(sys.stdout)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(["--data_dir", data, "--model", "temporal", "--moe_experts", str(n_exp),
+                       "--epochs", "1", "--out_dir", out])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    cli_launches, cli_f32 = _counts(A, P), _f32_counts(A)
+    plan = f"parallelism plan: dp=1,moe={n_exp}e(dense) over 1 devices"
+    ckpt = os.path.join(out, "checkpoint_best.npz")
+    _require(rc == 0 and os.path.exists(ckpt), f"the MoE CLI exited {rc}")
+    _require(plan in tee.text(), f"the MoE CLI printed no {plan!r}")
+    _require(cli_launches["K2"] > 0 and cli_launches["K4"] > 0
+             and cli_launches["K2"] % depth == 0 and cli_launches["K4"] % depth == 0
+             and cli_f32 == {"K2": cli_launches["K2"], "K4": cli_launches["K4"]}
+             and cli_launches == _want(K2=cli_launches["K2"], K4=cli_launches["K4"]),
+             f"MoE CLI launches {cli_launches} ({cli_f32} f32)")
+
+    # the CLI's model, one timed step, kernels vs plain
+    model, cfg, trainer, state, batch = _convnet_step_setup(
+        torch, data, os.path.join(root, "moe_step"), "temporal", "efficientnet_b0", False, tkw)
+    _require(cfg == {"model_type": "temporal", "backbone": "efficientnet_b0", **tkw},
+             f"MoE model_config {cfg}")
+    _require(all(isinstance(b.mlp, MoEMLP) and b.mlp.num_experts == n_exp
+                 for b in model.blocks), "the CLI's model has no MoE blocks")
+    state, rec = _timed_step(torch, A, P, trainer, state, batch, 5, breakdown=True)
+    _require(rec["launches"] == _want(K2=depth, K4=depth)
+             and rec["launches_f32"] == {"K2": depth, "K4": depth},
+             f"MoE step launches {rec['launches']} ({rec['launches_f32']} f32)")
+    breakdown = rec.pop("device_time")
+    params = list(model.parameters())
+
+    def loss_and_norm():
+        logits, _, aux = model(batch["frames"], train=True,
+                               generator=torch.Generator(device="cuda").manual_seed(2))
+        aux = aux["moe_load_balance"]
+        loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"]) \
+            + MOE["aux_weight"] * aux
+        return (float(loss.detach()), float(global_norm(torch.autograd.grad(loss, params))),
+                float(aux.detach()))
+
+    loss_k, norm_k, aux_k = loss_and_norm()
+    with _plain_attention(A):
+        loss_p, norm_p, aux_p = loss_and_norm()
+    d_loss, d_norm = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
+    _require(d_loss <= F32_STEP_TOL_LOSS and d_norm <= F32_STEP_TOL_NORM,
+             f"MoE step kernels vs plain: loss {loss_k} vs {loss_p}, "
+             f"grad norm {norm_k} vs {norm_p}")
+    lo, hi = MOE["aux_range"]
+    _require(lo <= aux_k <= hi, f"MoE load-balance loss {aux_k} outside [{lo}, {hi}]")
+
+    # (d) the dense attention on the same weights
+    dense = TemporalTransformerDetector("efficientnet_b0", use_flash=False, device="cuda",
+                                        **tkw)
+    dense.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        _reset_counts(A, P)
+        logits_dense, _ = dense(batch["frames"])
+        torch.cuda.synchronize()
+        dense_counts = _counts(A, P)
+        logits_flash, _ = model(batch["frames"])
+    dense_diff = float((logits_dense - logits_flash).abs().max())
+    _require(not any(dense_counts.values()), f"use_flash=False launched {dense_counts}")
+    _require(dense_diff <= DENSE_TOL, f"use_flash=False vs flash logits differ by {dense_diff}")
+    del model, trainer, state, batch, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) --bf16: one bf16 block, then f32
+    model, _, trainer, state, batch = _convnet_step_setup(
+        torch, data, os.path.join(root, "moe_bf16"), "temporal", "efficientnet_b0", True, tkw)
+    state, rec_bf16 = _timed_step(torch, A, P, trainer, state, batch, 5, breakdown=False)
+    _require(rec_bf16["launches"] == _want(K2=depth, K4=depth)
+             and rec_bf16["launches_f32"] == {"K2": depth - 1, "K4": depth - 1},
+             f"MoE --bf16 step launches {rec_bf16['launches']} "
+             f"({rec_bf16['launches_f32']} f32)")
+    del model, trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the checkpoint through the loader, a Predictor and the evaluator
+    model, variables, stats = load_model(ckpt, device="cuda")
+    _require(stats["model_type"] == "temporal" and stats["match_ratio"] == 1.0
+             and model.moe_experts == n_exp, f"load_model({ckpt}): {stats}")
+    T, size = MOE["serve_frames"], CONVTRAIN["size"]
+    faces = np.random.default_rng(7).integers(0, 256, (T, size, size, 3), dtype=np.uint8)
+    with mock.patch.dict(os.environ, {"SERVE_WARMUP": "0", "SERVE_WINDOWS": "1"}):
+        pred = Predictor(model, variables, "temporal", checkpoint_path=ckpt, device="cuda")
+        _reset_counts(A, P)
+        res = pred.predict_faces(faces, video_id="moe")
+        torch.cuda.synchronize()
+        serve_counts, serve_f32 = _counts(A, P), _f32_counts(A)
+        pred.close()
+    _check_result(res, T, "a request to the MoE checkpoint")
+    _require(serve_counts == _want(K1=1, K2=depth) and serve_f32["K2"] == depth - 1,
+             f"MoE serving launches {serve_counts} ({serve_f32} f32)")
+    x = torch.from_numpy(faces[None]).cuda()
+
+    def prob(normalize):
+        with torch.inference_mode():
+            logits, _ = model(normalize(x, model.compute_dtype))
+        return float(torch.softmax(logits.float(), dim=-1)[0, 1])
+
+    p_kernels = prob(P.fused_normalize)
+    with _plain_attention(A):
+        p_plain = prob(P.fused_normalize_plain)
+    p_diff = abs(p_kernels - p_plain)
+    _require(p_diff <= PROB_TOL, f"MoE prob_fake kernels {p_kernels} vs plain {p_plain}")
+    del model, variables, pred
+    out_csv = os.path.join(out, "evaluation.csv")
+    _reset_counts(A, P)
+    t = time.perf_counter()
+    _require(E.main(["--data_dir", data, "--checkpoint", ckpt, "--num_frames",
+                     str(CONVTRAIN["frames"]), "--batch_size", str(CONVTRAIN["batch"]),
+                     "--out_csv", out_csv, "--device", "cuda"]) == 0,
+             "the evaluator exited non-zero on the MoE checkpoint")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_counts, eval_f32 = _counts(A, P), _f32_counts(A)
+    with open(out_csv) as f:
+        rows = list(csv.DictReader(f))
+    forwards = -(-CONVTRAIN["clips"] // CONVTRAIN["batch"])
+    _require(len(rows) == CONVTRAIN["clips"]
+             and eval_counts == _want(K1=forwards, K2=depth * forwards)
+             and eval_f32["K2"] == depth * forwards,
+             f"MoE evaluation: {len(rows)} rows, launches {eval_counts} ({eval_f32} f32)")
+
+    rec = {"phase": "moe_temporal", "card": smi, "model_config": cfg,
+           "cli": f"train/cli.py main --model temporal --moe_experts {n_exp} --epochs 1",
+           "plan_line": plan, "cli_s": cli_s, "cli_launches": cli_launches,
+           "params": "f32", "activations": "f32", "tokens": CONVTRAIN["frames"] + 1,
+           "flash_shape": [CONVTRAIN["batch"], CONVTRAIN["num_heads"], CONVTRAIN["frames"] + 1,
+                           CONVTRAIN["d_model"] // CONVTRAIN["num_heads"]],
+           **flags, **rec, "idle_share": breakdown["idle_share"],
+           "dense_temporal_step_ms": dense_rec["step_ms"],
+           "step_ms_over_dense": rec["step_ms"] / dense_rec["step_ms"],
+           "aux_kernels": aux_k, "aux_plain": aux_p, "aux_range": list(MOE["aux_range"]),
+           "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
+           "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
+           "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
+           "step_tol": {"loss": F32_STEP_TOL_LOSS, "grad_norm": F32_STEP_TOL_NORM},
+           "bf16": {k: rec_bf16[k] for k in ("step_ms", "frames_per_s",
+                                            "max_memory_allocated_bytes", "launches",
+                                            "launches_f32")},
+           "loaded": {k: stats[k] for k in ("model_type", "match_ratio", "compat_score")},
+           "served": {"launches": serve_counts, "launches_f32": serve_f32,
+                      "prediction": res["prediction"], "prob_fake": res["prob_fake"],
+                      "prob_fake_kernels": p_kernels, "prob_fake_plain": p_plain,
+                      "prob_fake_abs_diff": p_diff, "prob_tol": PROB_TOL},
+           "evaluation": {"wall_s": eval_s, "rows": len(rows), "launches": eval_counts,
+                          "launches_f32": eval_f32},
+           "dense_attention": {"launches": dense_counts, "logits_max_abs_diff": dense_diff,
+                               "tol": DENSE_TOL}}
+    _emit(rec)
+    _emit({"phase": "moe_temporal_device_time", "card": smi, **breakdown})
+    print(f"MoE temporal (B0, {n_exp} experts) training step {rec['step_ms']:.2f} ms "
+          f"({rec['step_ms_over_dense']:.2f}x the dense one), --bf16 "
+          f"{rec_bf16['step_ms']:.2f} ms, peak "
+          f"{rec['max_memory_allocated_bytes'] / 2**30:.2f} GiB on {smi}", flush=True)
+    paths = {"moe_temporal_cli": cli_launches, "moe_temporal_step": rec["launches"],
+             "moe_temporal_bf16_step": rec_bf16["launches"],
+             "moe_temporal_serving": serve_counts, "moe_temporal_evaluation": eval_counts}
+    f32 = {"moe_temporal_cli": cli_f32, "moe_temporal_step": rec["launches_f32"],
+           "moe_temporal_bf16_step": rec_bf16["launches_f32"],
+           "moe_temporal_serving": serve_f32, "moe_temporal_evaluation": eval_f32}
+    return paths, f32
+
+
 def convnet_training(torch, A, P, smi: str, tf32_defaults: dict):
     """The conv-net training phase, (a)-(e), on one synthetic set of 10
     clips x 16 frames at 224 px from seed 0, at torch's default TF32 flags
@@ -2180,14 +2425,204 @@ def convnet_training(torch, A, P, smi: str, tf32_defaults: dict):
         part("steps", convnet_steps, torch, A, P, smi, root, data, tf32_defaults)
         part("vs_cpu", convnet_vs_cpu, torch, smi, tf32_defaults)
         served, _ = part("ensemble", convnet_ensemble, torch, A, P, smi, root, data)
-        temporal, temporal_f32, _ = part("temporal", convnet_temporal, torch, A, P, smi,
-                                         root, data, tf32_defaults)
+        temporal, temporal_f32, temporal_rec = part("temporal", convnet_temporal, torch, A, P,
+                                                    smi, root, data, tf32_defaults)
+        moe_paths, moe_f32 = part("moe_temporal", moe_temporal, torch, A, P, smi, root, data,
+                                  tf32_defaults, temporal_rec)
         _emit({"phase": "convnet_training_seconds", **seconds})
-        return ({"convnet_serving": served, "convnet_temporal_training": temporal},
-                {"convnet_temporal_training": temporal_f32})
+        return ({"convnet_serving": served, "convnet_temporal_training": temporal,
+                 **moe_paths},
+                {"convnet_temporal_training": temporal_f32, **moe_f32})
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _gan_d_step_vs_cpu(torch, VG, G, D, real, z, cond) -> dict:
+    """One ``d_step`` on the card and on the CPU from the same weights and
+    batch, TF32 off, with SGD at lr 1 so that the updated parameters are
+    p − g: the loss, D's running stats after their two moves, the grad norm
+    and the distance of the updated parameters (``GAN_GRAD_TOL``); the conv
+    biases that feed a training-mode batch norm have a gradient of 0 up to
+    rounding."""
+    import copy
+
+    from deepfake_video_detection_tpu_torch.train.optim import Optimizer
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        before = {k: v.detach().cpu().clone() for k, v in D.state_dict().items()}
+        for dev in ("cuda", "cpu"):
+            g, d = copy.deepcopy(G).to(dev), copy.deepcopy(D).to(dev)
+            opt = Optimizer("sgd", 1.0, weight_decay=0, grad_clip=None)
+            d_step, _ = VG.make_gan_steps(g, d, Optimizer("sgd", 1.0, weight_decay=0,
+                                                          grad_clip=None), opt)
+            _, loss = d_step(opt.init(dict(d.named_parameters())), real.to(dev), z.to(dev),
+                             cond.to(dev))
+            out[dev] = (float(loss), {k: v.detach().cpu() for k, v in d.state_dict().items()})
+            del g, d
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (loss_card, sd_card), (loss_cpu, sd_cpu) = out["cuda"], out["cpu"]
+    stats = {k: v for k, v in sd_cpu.items() if k.endswith(("running_mean", "running_var"))}
+    moved = {k: v for k, v in before.items() if k in stats}
+    d_stats = bn_stats_rel_diff(sd_card, stats)
+    cancelled = tuple(f"net.{i}.conv.bias" for i in range(1, len(D.net)))
+    grads = {k: (before[k].double() - sd_card[k].double(), before[k].double() - ref.double())
+             for k, ref in sd_cpu.items() if k not in stats}
+    norm_card, norm_cpu, dist = (math.sqrt(sum(float(f(c, r).square().sum())
+                                               for c, r in grads.values()))
+                                 for f in (lambda c, r: c, lambda c, r: r,
+                                           lambda c, r: c - r))
+    scale = max(float(r.abs().max()) for _, r in grads.values())
+    cancelled_max = max(float(grads[k][0].abs().max()) for k in cancelled) / scale
+    by_tensor = {k: float((c - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                 for k, (c, r) in grads.items() if k not in cancelled}
+    rec = {"batch": int(real.shape[0]), "optimizer": "sgd lr 1 (the updated params are p - g)",
+           "cudnn_allow_tf32": False, "loss_card": loss_card, "loss_cpu": loss_cpu,
+           "loss_rel_diff": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "bn_stats_rel_diff": d_stats,
+           "bn_stats_moved": bn_stats_rel_diff(stats, moved) > 0,
+           "grad_norm_card": norm_card, "grad_norm_cpu": norm_cpu,
+           "grad_norm_rel_diff": abs(norm_card - norm_cpu) / norm_cpu,
+           "params_distance_over_step": dist / norm_cpu,
+           "cancelled_bias_grad_over_largest": cancelled_max,
+           "worst_tensors_max_diff_over_own_largest": dict(
+               sorted(by_tensor.items(), key=lambda kv: -kv[1])[:3]),
+           "tol": {"loss": CPU_TOL["f32"]["loss"], "bn_stats": CPU_TOL["f32"]["bn_stats"],
+                   "grad_norm": CPU_TOL["f32"]["grad_norm"], "params": GAN_GRAD_TOL}}
+    _require(rec["loss_rel_diff"] <= CPU_TOL["f32"]["loss"]
+             and d_stats <= CPU_TOL["f32"]["bn_stats"] and rec["bn_stats_moved"]
+             and rec["grad_norm_rel_diff"] <= CPU_TOL["f32"]["grad_norm"]
+             and rec["params_distance_over_step"] <= GAN_GRAD_TOL,
+             f"GAN d_step card vs CPU: {rec}")
+    return rec
+
+
+def gan_phase(torch, A, P, smi: str, tf32_defaults: dict):
+    """The conditional GAN (``models/vlm_gan.py``) at
+    ``create_image_conditioned_gan``'s defaults: G (latent 256 + cond 128 →
+    224 px), the PatchGAN D, a ViT-Tiny condition through the projector,
+    batch 8, f32. (a) ``extract_image_condition``: 12 f32 flash launches at
+    (8, 3, 197, 64), the cond vector against the plain versions (f32
+    ``K2_TOL_F32`` of max |ref|). (b) One ``d_step`` card vs CPU
+    (``_gan_d_step_vs_cpu``). (c) ``GAN["pairs"]`` ``d_step``/``g_step``
+    pairs with Adam (lr 1e-3, no decay, no clip) at torch's TF32 flags: ms
+    a pair by CUDA events, peak memory, device time and idle share of a
+    pair; no flash launch. (d) ``save_gan_checkpoint`` →
+    ``load_gan_checkpoint`` byte-equal. Returns (launches by path, f32
+    launches by path)."""
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.models import vlm_gan as VG
+    from deepfake_video_detection_tpu_torch.train.optim import Optimizer
+
+    B = GAN["batch"]
+    G, D, vit, proj = VG.create_image_conditioned_gan(
+        device="cuda", generator=torch.Generator().manual_seed(0))
+    size = G.img_size
+    rng = np.random.default_rng(8)
+    vs = vit.img_size
+    imgs = torch.from_numpy(rng.normal(size=(B, vs, vs, 3)).astype(np.float32)).cuda()
+    real = torch.from_numpy(rng.uniform(-1, 1, (B, size, size, 3)).astype(np.float32)).cuda()
+    z = torch.from_numpy(rng.normal(size=(B, G.latent_dim)).astype(np.float32)).cuda()
+
+    # (a) the condition: ViT-Tiny through the flash kernels
+    _reset_counts(A, P)
+    with torch.no_grad():
+        cond = VG.extract_image_condition(vit, imgs, proj)
+        torch.cuda.synchronize()
+        cond_counts, cond_f32 = _counts(A, P), _f32_counts(A)
+        with _plain_attention(A):
+            cond_plain = VG.extract_image_condition(vit, imgs, proj)
+    depth = len(vit.blocks)
+    _require(cond.shape == (B, proj.cond_dim), f"cond shape {tuple(cond.shape)}")
+    _require(cond_counts == _want(K2=depth) and cond_f32["K2"] == depth,
+             f"GAN condition launches {cond_counts} ({cond_f32} f32)")
+    cond_err = float((cond - cond_plain).abs().max())
+    cond_rel = cond_err / float(cond_plain.abs().max())
+    _require(cond_rel <= K2_TOL_F32, f"GAN condition kernels vs plain: {cond_rel} of max |ref|")
+
+    # (b) one D step, card vs CPU
+    vs_cpu = _gan_d_step_vs_cpu(torch, VG, G, D, real, z, cond)
+
+    # (c) the pairs, at torch's TF32 flags
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32_defaults["cudnn_allow_tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = tf32_defaults["matmul_allow_tf32"]
+    root = tempfile.mkdtemp(prefix="dfdt_gan_")
+    try:
+        opt_g, opt_d = (Optimizer("adam", GAN["lr"], weight_decay=0, grad_clip=None)
+                        for _ in range(2))
+        d_step, g_step = VG.make_gan_steps(G, D, opt_g, opt_d)
+        gs = opt_g.init(dict(G.named_parameters()))
+        ds = opt_d.init(dict(D.named_parameters()))
+        losses = []
+
+        def pair():
+            _, d_loss = d_step(ds, real, z, cond)
+            _, g_loss = g_step(gs, z, cond, real)
+            losses.append((d_loss, g_loss))
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(A, P)
+        pair_ms = []
+        for _ in range(GAN["pairs"]):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pair()
+            stop.record()
+            torch.cuda.synchronize()
+            pair_ms.append(start.elapsed_time(stop))
+        peak = torch.cuda.max_memory_allocated()
+        pair_counts = _counts(A, P)
+        _require(not any(pair_counts.values()), f"a GAN step launched {pair_counts}")
+        breakdown = _kernel_breakdown(torch, pair, top=8)
+        _require(all(math.isfinite(float(a)) and math.isfinite(float(b)) for a, b in losses),
+                 f"GAN losses {losses}")
+
+        # (d) the checkpoint round trip
+        path = os.path.join(root, "gan.npz")
+        VG.save_gan_checkpoint(path, G, D, extra={"step": len(losses)})
+        gsd, dsd, meta = VG.load_gan_checkpoint(path)
+        for name, net, sd in (("G", G, gsd), ("D", D, dsd)):
+            mine = net.state_dict()
+            _require(sorted(sd) == sorted(mine) and all(
+                sd[k].numpy().tobytes() == v.detach().cpu().numpy().tobytes()
+                for k, v in mine.items()), f"the GAN checkpoint's {name} did not read back")
+        _require(meta == {"step": len(losses), "kind": "vlm_gan"}, f"GAN meta {meta}")
+        ckpt_bytes = os.path.getsize(path)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(root, ignore_errors=True)
+    warm = pair_ms[1:]
+    rec = {"phase": "gan", "card": smi,
+           "built_by": "models/vlm_gan.py::create_image_conditioned_gan(), its defaults",
+           "latent_dim": G.latent_dim, "cond_dim": G.cond_dim, "img_size": size,
+           "base_channels": G.base_channels, "batch": B, "params": "f32",
+           "activations": "f32", "optimizer": "adam 1e-3, no decay, no clip",
+           "loss_type": "hinge", **tf32_defaults,
+           "condition": {"flash_shape": [B, vit.num_heads, vit.num_patches + 1,
+                                         vit.embed_dim // vit.num_heads],
+                         "launches": cond_counts, "launches_f32": cond_f32,
+                         "max_abs_err": cond_err, "rel_err": cond_rel, "tol": K2_TOL_F32},
+           "d_step_vs_cpu": vs_cpu,
+           "pair_ms": pair_ms, "pair_ms_warm_mean": float(np.mean(warm)),
+           "max_memory_allocated_bytes": peak, "idle_share": breakdown["idle_share"],
+           "pair_device_ms": breakdown["device_ms"], "launches_pairs": pair_counts,
+           "losses": [[float(a), float(b)] for a, b in losses],
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_round_trip": "byte-equal"}
+    _emit(rec)
+    _emit({"phase": "gan_device_time", "card": smi, **breakdown})
+    print(f"GAN ({size} px, batch {B}): a d_step + g_step pair {rec['pair_ms_warm_mean']:.2f} ms, "
+          f"peak {peak / 2**30:.2f} GiB, idle {breakdown['idle_share']:.3f} on {smi}",
+          flush=True)
+    return {"gan_condition": cond_counts}, {"gan_condition": cond_f32}
 
 
 def decoder_probe() -> dict:
@@ -3349,22 +3784,12 @@ def web_app(torch, A, P, smi: str):
                          f"concurrent web requests: launches {c}, {steps} steps")
                 return [sec for _, sec in rounds], c, steps
 
+            # the app's server holds all n connections in its listen backlog
+            # (the JAX package's keeps the stdlib's 5: the overflow waited out
+            # TCP's one-second retransmission, ROADMAP Queue 3)
+            _require(ThreadingWSGIServer.request_queue_size >= n,
+                     f"listen backlog {ThreadingWSGIServer.request_queue_size} < {n} clients")
             conc_s, conc_counts, conc_batches = concurrent(http)
-            # the same rounds against a second server on the same app whose
-            # listen backlog holds all n connections: the app's server keeps
-            # the stdlib's request_queue_size (5), as the JAX package's does
-            deep = make_server("127.0.0.1", 0, app, handler_class=Quiet,
-                               server_class=type("DeepBacklog", (ThreadingWSGIServer,),
-                                                 {"request_queue_size": 4 * n}))
-            deep_thread = threading.Thread(target=deep.serve_forever, daemon=True)
-            deep_thread.start()
-            try:
-                deep_s, deep_counts, deep_batches = concurrent(
-                    _HttpClient(f"http://127.0.0.1:{deep.server_address[1]}"))
-            finally:
-                deep.shutdown()
-                deep.server_close()
-                deep_thread.join(timeout=30)
 
             # the first clip through the plain versions
             faces = pred.extractor.extract_from_video(clips[0], max_frames=T)
@@ -3500,10 +3925,6 @@ def web_app(torch, A, P, smi: str):
                   "concurrent_wall_s": conc_s,
                   "concurrent_clips_per_s": n / float(np.median(conc_s)),
                   "batcher_steps_concurrent": conc_batches,
-                  "concurrent_wall_s_backlog_4n": deep_s,
-                  "concurrent_clips_per_s_backlog_4n": n / float(np.median(deep_s)),
-                  "batcher_steps_concurrent_backlog_4n": deep_batches,
-                  "launches_concurrent_backlog_4n": deep_counts,
                   "launches_sequential": seq_counts, "launches_concurrent": conc_counts,
                   "launches_noface": nf_counts, "launches_sync": sync_counts,
                   "prob_fake_kernels": seq[0]["prob_fake"], "prob_fake_plain": p_plain,
@@ -3523,8 +3944,7 @@ def web_app(torch, A, P, smi: str):
     _emit(rec)
     print(f"web app: B0 {med:.1f} ms a request over HTTP, "
           f"{rec['b0']['predict_video_ms_median']:.1f} ms through predict_video, "
-          f"{rec['b0']['concurrent_clips_per_s']:.1f} clips/s with {n} clients "
-          f"({rec['b0']['concurrent_clips_per_s_backlog_4n']:.1f} at a backlog of {4 * n}), job "
+          f"{rec['b0']['concurrent_clips_per_s']:.1f} clips/s with {n} clients, job "
           f"{job_ms:.1f} ms; ViT-B/16 {rec['vit']['request_ms_median']:.1f} ms, explain "
           f"{explain_ms:.1f} ms on {smi}", flush=True)
     return {"web_app": launches}
@@ -4322,9 +4742,12 @@ def main() -> int:
                                       tf32_defaults)
     gc.collect()
     torch.cuda.empty_cache()
+    gan_launches, gan_f32 = timed("gan", gan_phase, torch, A, P, smi, tf32_defaults)
+    gc.collect()
+    torch.cuda.empty_cache()
     # f32 launches by path (every other launch is bf16)
     f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
-                 **legacy_f32, **convnet_f32, **improved_f32, **video_f32}
+                 **legacy_f32, **convnet_f32, **improved_f32, **video_f32, **gan_f32}
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -4340,7 +4763,7 @@ def main() -> int:
              "f32_training": trained_f32,
              **explained, **video_paths, **web_paths, **legacy_paths, **convnet_paths,
              **improved_launches,
-             **video_launches,
+             **video_launches, **gan_launches,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})

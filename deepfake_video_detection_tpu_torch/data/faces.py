@@ -46,8 +46,9 @@ from deepfake_video_detection_tpu_torch.checkpoint.store import load_any
 from deepfake_video_detection_tpu_torch.data.augment import resample_weights
 from deepfake_video_detection_tpu_torch.data.haar import detect_faces, get_default_cascade
 from deepfake_video_detection_tpu_torch.data.video import (
-    center_crop_box, probe_video, sample_video_faces_center, sample_video_faces_haar_yuv,
-    sample_video_faces_spread, sample_video_faces_spread_yuv, sample_video_frames)
+    backend_frame_count, center_crop_box, probe_video, sample_video_faces_center,
+    sample_video_faces_haar_yuv, sample_video_faces_spread, sample_video_faces_spread_yuv,
+    sample_video_frames)
 from deepfake_video_detection_tpu_torch.models.mtcnn import MTCNN, import_facenet_weights
 from deepfake_video_detection_tpu_torch.utils.config import env_int
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
@@ -317,17 +318,20 @@ class FaceExtractor:
 
         ``spread=True`` spreads the samples over the whole clip (long-video
         scanning, ``SERVE_WINDOWS``): seek sampling for the center detector,
-        a stride from the container's frame count otherwise (kept at the
-        default where the native probe fails, as in the JAX package); the
-        default scan reads the first ``sample_rate * max_frames`` frames.
+        a stride from the container's frame count otherwise; the default
+        scan reads the first ``sample_rate * max_frames`` frames. Where the
+        native probe fails (no libav), the JAX package keeps the default
+        stride and so reads only the clip's head; under
+        ``VIDEO_BACKEND=cv2|imageio`` the port takes the frame count from
+        that backend instead.
         With ``VIDEO_BACKEND=cv2|imageio`` the center detector takes the
         generic route (decode, then the center prior's crops), since its
         in-decoder crop needs the native decoder.
         """
         if max_frames is None:
             max_frames = max(1, min(env_int("MAX_FRAMES", 8), 64))
-        python_decoder = (os.environ.get("VIDEO_BACKEND", "native").strip().lower()
-                          in ("cv2", "imageio"))
+        backend = os.environ.get("VIDEO_BACKEND", "native").strip().lower()
+        python_decoder = backend in ("cv2", "imageio")
         if self.detector == "center" and not python_decoder:
             # crop and resize inside the C++ decode, GIL-free
             if keyframes_only is None:
@@ -343,12 +347,14 @@ class FaceExtractor:
                 max_frames=max_frames, margin=self.margin, keyframes_only=keyframes_only)
         if spread and sample_rate is None:
             # stride the clip so that max_frames samples span it end to end
+            n_total = 0
             try:
                 _, _, _, n_total = probe_video(path)
-                if n_total > 0:
-                    sample_rate = max(1, n_total // max(1, max_frames))
             except Exception:
-                pass
+                if python_decoder:
+                    n_total = backend_frame_count(backend, path)
+            if n_total > 0:
+                sample_rate = max(1, n_total // max(1, max_frames))
         frames = sample_video_frames(path, sample_rate=sample_rate, max_frames=max_frames,
                                      keyframes_only=keyframes_only)
         return self.extract_from_frames(frames)

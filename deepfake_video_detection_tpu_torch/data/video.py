@@ -313,6 +313,32 @@ def encode_video(path: str, frames: np.ndarray, fps: int = 25) -> None:
         raise VideoDecodeError(f"{path}: {err.value.decode(errors='replace')}")
 
 
+def backend_frame_count(backend: str, path: str) -> int:
+    """The container's frame count through cv2 (``CAP_PROP_FRAME_COUNT``)
+    or imageio, for ``VIDEO_BACKEND=cv2|imageio``; 0 when it is unknown or
+    the package is missing."""
+    try:
+        if backend == "cv2":
+            import cv2
+
+            cap = cv2.VideoCapture(path)
+            try:
+                return max(0, int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+            finally:
+                cap.release()
+        if backend == "imageio":
+            import imageio.v2 as iio
+
+            reader = iio.get_reader(path)
+            try:
+                return max(0, int(reader.count_frames()))
+            finally:
+                reader.close()
+    except Exception:
+        return 0
+    return 0
+
+
 def _optional_backend(backend: str, path: str, sample_rate: int,
                       max_frames: int) -> Optional[np.ndarray]:
     """Decode through imageio or cv2; None when the package is missing (the

@@ -86,15 +86,17 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block: ``y + attn(LN(y))``, then
     ``y + fc2(gelu(fc1(LN(y))))`` (exact GELU). The temporal transformer
-    reuses it with its own width."""
+    reuses it with its own width, and passes its MoE feed-forward as
+    ``mlp`` in place of the ``fc1``/``fc2`` pair."""
 
-    def __init__(self, dim: int, num_heads: int, hidden: int, eps: float, **kw):
+    def __init__(self, dim: int, num_heads: int, hidden: int, eps: float,
+                 mlp: Optional[nn.Module] = None, **kw):
         super().__init__()
         self.eps = eps
         self.norm1 = _norm(dim, **kw)
         self.attn = Attention(dim, num_heads, **kw)
         self.norm2 = _norm(dim, **kw)
-        self.mlp = Mlp(dim, hidden, **kw)
+        self.mlp = mlp if mlp is not None else Mlp(dim, hidden, **kw)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         y = y + self.attn(L.layer_norm(y, self.norm1.weight, self.norm1.bias,

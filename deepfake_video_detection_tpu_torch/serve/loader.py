@@ -24,9 +24,8 @@ Counterpart of ``deepfake_video_detection_tpu/serve/loader.py``:
 The candidates by family: the temporal transformer, the CNN+LSTM (keys
 ``cnn.``), the frame-graph detector (keys ``gcn.``; its ViT variant told by
 the embedding width), ensembles (``models.<i>.``) and the single-backbone
-detector. Not ported: the temporal transformer's MoE checkpoints, which
-raise ``NotImplementedError`` naming ROADMAP item 18 (from the model's
-constructor).
+detector. A temporal checkpoint's block MLP (dense, or an MoE's experts) is
+read from its leaves (``models/temporal_transformer.py::infer_mlp_kwargs``).
 """
 
 from __future__ import annotations
@@ -179,7 +178,7 @@ def load_model(path: str, model_type: Optional[str] = None, device: Any = "cuda"
                         default=3)
         kw = dict(d_model=d_model, depth=depth, num_heads=cfg.get("num_heads", 4),
                   use_cls=use_cls, compute_dtype=cdt, **infer_mlp_kwargs(sd, d_model, cfg))
-        with I.shapes_only():  # an MoE checkpoint raises here
+        with I.shapes_only():  # an unknown backbone raises here
             TemporalTransformerDetector(name, device="meta", **kw)
         candidates.append(("temporal", lambda d, name=name, kw=kw:
                            TemporalTransformerDetector(name, device=d, **kw), sd))

@@ -30,9 +30,12 @@ stage's best checkpoint copied to ``<out_dir>/checkpoint_best.npz``.
 threads, ``--detector center|mtcnn|none``, ``--face_size``,
 ``--labels_csv``, ``--cache-clips``); on a host without libav set
 ``VIDEO_BACKEND=cv2``. ``--steps_per_call > 1`` is not ported and raises
-``NotImplementedError`` naming ROADMAP; the parallelism flags are not
-offered. The temporal model takes ``--d_model``, ``--depth`` and
-``--heads``.
+``NotImplementedError`` naming ROADMAP. The temporal model takes
+``--d_model``, ``--depth``, ``--heads`` and ``--moe_experts`` (a top-1
+mixture of experts in every block, trained densely on the one card, as the
+JAX CLI does on one device; ``model_config`` records it); of the JAX CLI's
+parallelism flags only ``--expert_par`` is offered, and a degree above 1
+raises ``NotImplementedError`` (ROADMAP item 18(c)).
 """
 
 from __future__ import annotations
@@ -127,9 +130,14 @@ def main(argv=None) -> int:
     ap.add_argument("--d_model", type=int, default=256, help="temporal model width")
     ap.add_argument("--depth", type=int, default=4, help="temporal transformer blocks")
     ap.add_argument("--heads", type=int, default=4, help="temporal attention heads")
+    ap.add_argument("--moe_experts", type=int, default=0,
+                    help="experts per block MLP (temporal); dense on one card")
+    ap.add_argument("--expert_par", type=int, default=0,
+                    help="expert-parallel degree (above 1 is not ported)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (the card by default)")
     args = ap.parse_args(argv)
+    moe_plan = _moe_plan(args)
 
     if args.from_videos:
         ds = VideoClipsDataset(args.data_dir, num_frames=args.num_frames,
@@ -142,6 +150,8 @@ def main(argv=None) -> int:
     train_ds, val_ds = ds.split(0.2)
     temporal_kwargs = dict(d_model=args.d_model, depth=args.depth,
                            num_heads=args.heads)
+    if args.moe_experts > 0:
+        temporal_kwargs["moe_experts"] = args.moe_experts
     model, adjacency, model_config = build_model(
         args.model, args.num_frames, args.vit_variant, args.backbone,
         temporal_kwargs, bf16=args.bf16, device=args.device)
@@ -162,6 +172,8 @@ def main(argv=None) -> int:
                      "does not carry the EMA slot; drop --ema_decay")
         return _run_progressive(args, model, train_ds, val_ds, cfg)
 
+    if moe_plan:
+        print(f"parallelism plan: {moe_plan} over 1 devices")
     trainer = Trainer(model, train_ds, val_ds, cfg, device=args.device)
     state = None
     resume = args.resume or args.checkpoint
@@ -169,6 +181,21 @@ def main(argv=None) -> int:
         state = trainer.resume(resume)
     trainer.train(state)
     return 0
+
+
+def _moe_plan(args) -> str:
+    """The JAX ``parallel/strategy.py::build_plan``'s checks of the MoE
+    flags on one device, and its plan's description (empty without MoE):
+    the experts run densely; expert parallelism raises."""
+    if args.moe_experts <= 0:
+        return ""
+    if args.model not in ("temporal", "temporal_transformer"):
+        raise ValueError("--moe_experts requires --model temporal")
+    if args.expert_par > 1:
+        raise NotImplementedError(
+            f"--expert_par {args.expert_par} (experts sharded over devices) is not "
+            "ported yet (ROADMAP item 18(c): sequence and expert parallelism)")
+    return f"dp=1,moe={args.moe_experts}e(dense)"
 
 
 def _run_progressive(args, model, train_ds, val_ds, cfg) -> int:

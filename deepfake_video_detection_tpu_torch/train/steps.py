@@ -13,6 +13,15 @@ and batch norm's running stats, which the JAX step threads through as new
 model state computed once, are left alone by the recomputation
 (``nn.layers.frozen_running_stats``). A batch with ``adjacency`` (the graph
 models) passes it as the model's second argument.
+
+A model that reports auxiliary losses (the temporal transformer's MoE
+router, whose training forward returns a dict after its outputs, as the
+JAX model reports ``aux_losses`` in its new state) adds each, weighted by
+``aux_loss_weight`` (0.01), to the loss it differentiates: in the plain step
+the reported loss includes them; in the accumulating step each microbatch
+adds ``weight · aux / accum`` and the reported loss stays the weighted mean
+of the microbatches' task losses, as in the JAX package. Under ``remat``
+the aux comes out of ``torch.utils.checkpoint`` with the logits.
 """
 
 from __future__ import annotations
@@ -30,9 +39,12 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def _forward(model, batch: dict, train: bool,
-             generator: Optional[torch.Generator], remat: bool) -> torch.Tensor:
+             generator: Optional[torch.Generator], remat: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The model's logits (the first output of a ``(logits, ...)`` tuple)
-    on ``batch["frames"]`` (and ``batch["adjacency"]`` when present)."""
+    on ``batch["frames"]`` (and ``batch["adjacency"]`` when present), and
+    the sum of the aux losses it reports (a dict as its last output), or
+    None."""
     inputs = (batch["frames"],) + ((batch["adjacency"],) if "adjacency" in batch else ())
     if not remat:
         out = model(*inputs, train=train, generator=generator)
@@ -50,7 +62,13 @@ def _forward(model, batch: dict, train: bool,
                 return model(*xs, train=train, generator=generator)
 
         out = checkpoint(run, *inputs, use_reentrant=False)
-    return out[0] if isinstance(out, tuple) else out
+    if not isinstance(out, tuple):
+        return out, None
+    aux = None
+    if isinstance(out[-1], dict):
+        for v in out[-1].values():
+            aux = v if aux is None else aux + v
+    return out[0], aux
 
 
 def _hits(logits: torch.Tensor, labels: torch.Tensor,
@@ -68,21 +86,24 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
-                    remat: bool = False
+                    remat: bool = False, aux_loss_weight: float = 0.01
                     ) -> Callable[[TrainState, dict, Optional[torch.Generator]],
                                   Tuple[TrainState, Metrics]]:
     """``step(state, batch, generator) -> (state, metrics)``. ``batch``:
     ``frames`` (B, T, H, W, C) normalised, ``labels`` (B,), optionally
     ``valid`` (B,) bool and ``adjacency`` (B, T, T), all on the model's
-    device. ``generator`` drives
-    dropout. The state is updated in place and returned."""
+    device. ``generator`` drives dropout. The state is updated in place
+    and returned; the loss includes ``aux_loss_weight`` × the model's aux
+    losses."""
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
         params = state.params
-        logits = _forward(model, batch, True, generator, remat)
+        logits, aux = _forward(model, batch, True, generator, remat)
         valid = batch.get("valid")
         loss = loss_fn(logits, batch["labels"], sample_mask=valid)
+        if aux is not None:
+            loss = loss + aux_loss_weight * aux
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = dict(zip(params, grads))
         grad_norm = global_norm(g for g in grads.values() if g is not None)
@@ -107,14 +128,16 @@ def make_multi_step(*args, **kwargs):
 def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
                     accum: int, remat: bool = False,
                     prep: Optional[Callable[[dict, Optional[torch.Generator]], dict]] = None,
-                    sample_weight_fn: Optional[Callable[..., torch.Tensor]] = None):
+                    sample_weight_fn: Optional[Callable[..., torch.Tensor]] = None,
+                    aux_loss_weight: float = 0.01):
     """One optimizer step whose gradient is accumulated over ``accum``
     microbatches. ``batches``: every leaf shaped ``(accum, B/accum, ...)``.
     Microbatch gradients are combined by their weight sums
     (``sample_weight_fn(labels, valid)``, the loss's class weight × validity),
     so the result equals the full-batch gradient up to float addition order.
     ``prep(batch, generator)`` (the trainer's augment + normalise) runs per
-    microbatch."""
+    microbatch. A model's aux losses add ``aux_loss_weight · aux / accum``
+    each microbatch to the differentiated loss, not to the reported one."""
     if sample_weight_fn is None:
         def sample_weight_fn(labels, valid):  # noqa: F811 — default: mask only
             w = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
@@ -134,10 +157,12 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
             b = {k: v[i] for k, v in batches.items()}
             if prep is not None:
                 b = prep(b, generator)
-            logits = _forward(model, b, True, generator, remat)
+            logits, aux = _forward(model, b, True, generator, remat)
             mean_k = loss_fn(logits, b["labels"], sample_mask=b.get("valid"))
-            g = torch.autograd.grad(mean_k * scale[i], list(params.values()),
-                                    allow_unused=True)
+            scaled = mean_k * scale[i]
+            if aux is not None:
+                scaled = scaled + aux_loss_weight * aux / accum
+            g = torch.autograd.grad(scaled, list(params.values()), allow_unused=True)
             for n, gi in zip(params, g):
                 if gi is not None:
                     grads[n] += gi
@@ -158,7 +183,7 @@ def make_eval_step(model: Any) -> Callable[[dict], Metrics]:
 
     @torch.inference_mode()
     def step(batch: dict):
-        logits = _forward(model, batch, False, None, False)
+        logits, _ = _forward(model, batch, False, None, False)
         return {"logits": logits,
                 "probs": torch.softmax(logits.to(torch.float32), dim=-1)}
 

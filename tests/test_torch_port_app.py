@@ -895,3 +895,60 @@ def test_app_asks_for_the_card_by_default(tmp_path):
     app = port_app.create_app(device="cpu", **kw)
     status, _, body = call(app, "GET", "/api/model-info")
     assert json.loads(body)["device"] == "cpu" and json.loads(body)["loaded"] is False
+
+
+def test_server_listen_backlog_repairs_the_reference():
+    """The JAX app's server keeps socketserver's listen backlog of 5; the
+    port's is 32, so 8 clients connecting at once, before the server accepts
+    any, all connect at once (none waits out a dropped SYN) and each gets
+    its answer."""
+    import socket
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def capture(host, port, app, server_class=None, **kw):
+        seen["server_class"] = server_class
+        raise Stop
+
+    with mock.patch.object(jax_app, "_startup_hardening"), \
+            mock.patch.object(jax_app, "create_app", return_value=None), \
+            mock.patch("wsgiref.simple_server.make_server", capture), \
+            pytest.raises(Stop):
+        jax_app.main(["--no-autoload", "--port", "0"])
+    assert seen["server_class"].request_queue_size == 5
+    assert port_app.ThreadingWSGIServer.request_queue_size == 32
+
+    def hello(environ, start_response):
+        start_response("200 OK", [("Content-Type", "text/plain")])
+        return [environ["PATH_INFO"].encode()]
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    server = make_server("127.0.0.1", 0, hello, server_class=port_app.ThreadingWSGIServer,
+                         handler_class=Quiet)
+    port = server.server_address[1]
+    socks = []
+    try:
+        for i in range(8):          # queued in the backlog: nothing accepts yet
+            s = socket.create_connection(("127.0.0.1", port), timeout=0.5)
+            s.sendall(f"GET /{i} HTTP/1.0\r\nHost: x\r\n\r\n".encode())
+            socks.append(s)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        for i, s in enumerate(socks):
+            s.settimeout(10)
+            data = b""
+            while chunk := s.recv(4096):
+                data += chunk
+            assert data.startswith(b"HTTP/1.0 200") and data.endswith(f"/{i}".encode()), data
+    finally:
+        for s in socks:
+            s.close()
+        server.shutdown()
+        server.server_close()

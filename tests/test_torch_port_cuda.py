@@ -782,3 +782,90 @@ def test_video_clips_dataset_mtcnn_item_on_cuda_through_cv2(tmp_path, monkeypatc
     faces, label, _ = ds[0]
     assert not ds._warned and label == 1
     assert faces.shape == (4, 64, 64, 3) and all(f.any() for f in faces)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dense_on_cuda_matches_cpu(dtype):
+    """``MoEMLP.apply_dense`` on the card (batched matmuls over the stacked
+    experts, cuBLAS) against the same weights and tokens on the CPU: the
+    output (f32 either way: bf16 tokens are promoted), the routing, the
+    load-balance loss and the parameters' gradients."""
+    from deepfake_video_detection_tpu_torch.nn.moe import MoEMLP
+
+    gen = _cuda_generator()
+    moe = MoEMLP(256, 1024, 4, device="cuda", generator=torch.Generator().manual_seed(0))
+    ref_moe = MoEMLP(256, 1024, 4, device="cpu")
+    ref_moe.load_state_dict({k: v.cpu() for k, v in moe.state_dict().items()})
+    x = torch.randn((136, 256), device="cuda", generator=gen).to(dtype)
+    out, aux = moe.apply_dense(x, with_aux=True)
+    ref, ref_aux = ref_moe.apply_dense(x.cpu(), with_aux=True)
+    assert out.dtype == torch.float32
+    assert moe._route(x)[0].cpu().tolist() == ref_moe._route(x.cpu())[0].tolist()
+    assert float((out.cpu() - ref).detach().abs().max()) <= 1e-5 * float(ref.detach().abs().max())
+    assert abs(float(aux.detach()) - float(ref_aux.detach())) <= 1e-6
+    grads = torch.autograd.grad(out.square().sum() + aux, list(moe.parameters()))
+    ref_grads = torch.autograd.grad(ref.square().sum() + ref_aux, list(ref_moe.parameters()))
+    for g, r in zip(grads, ref_grads):
+        assert float((g.cpu() - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_moe_on_cuda_matches_plain_versions(dtype):
+    """A tinyconv MoE temporal model (4 experts, 2 blocks) at T = 16: one
+    step's loss, aux and gradients through the flash kernels vs their plain
+    versions, and the routes: f32 throughout, or with bf16 activations
+    block 0 in bf16 and block 1 in f32 (the MoE promotes, as in JAX)."""
+    from unittest import mock
+
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+
+    gen = _cuda_generator()
+    model = TemporalTransformerDetector("tinyconv", d_model=64, depth=2, num_heads=2,
+                                        moe_experts=4, dropout_rate=0.0, compute_dtype=dtype,
+                                        device="cuda")
+    x = torch.randn((2, 16, 16, 16, 3), device="cuda", generator=gen)
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        logits, _, aux = model(x, train=True)
+        loss = torch.nn.functional.cross_entropy(logits, torch.tensor([0, 1], device="cuda"))
+        loss = loss + 0.01 * aux["moe_load_balance"]
+        return loss, torch.autograd.grad(loss, params, allow_unused=True)
+
+    fwd, bwd = A.flash_attention_fwd, A.flash_attention_bwd
+    counts = (fwd.launches, fwd.launches_f32, bwd.launches, bwd.launches_f32)
+    loss, grads = loss_and_grads()
+    f32 = 2 if dtype == torch.float32 else 1
+    assert (fwd.launches - counts[0], fwd.launches_f32 - counts[1],
+            bwd.launches - counts[2], bwd.launches_f32 - counts[3]) == (2, f32, 2, f32)
+    with mock.patch.object(A, "flash_attention",
+                           lambda q, k, v: A.flash_attention_plain(q, k, v)[0]):
+        ref_loss, ref_grads = loss_and_grads()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert abs(float(loss) - float(ref_loss)) <= tol * abs(float(ref_loss))
+    for g, r in zip(grads, ref_grads):
+        if r is not None:
+            assert float((g - r).abs().max()) <= 10 * tol * max(float(r.abs().max()), 1e-6)
+
+
+def test_dense_attention_on_cuda_matches_the_flash_route():
+    """``use_flash=False`` on the card: logits within 1e-4 of the flash
+    route's on the same weights, and no flash kernel launched."""
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+
+    gen = _cuda_generator()
+    kw = dict(d_model=64, depth=2, num_heads=2, moe_experts=4, device="cuda")
+    dense = TemporalTransformerDetector("tinyconv", use_flash=False, **kw)
+    flash = TemporalTransformerDetector("tinyconv", **kw)
+    flash.load_state_dict(dense.state_dict())
+    x = torch.randn((2, 16, 16, 16, 3), device="cuda", generator=gen)
+    with torch.no_grad():
+        before = A.flash_attention_fwd.launches
+        logits, scores = dense(x)
+        assert A.flash_attention_fwd.launches == before
+        ref, ref_scores = flash(x)
+        assert A.flash_attention_fwd.launches == before + 2
+    assert float((logits - ref).abs().max()) <= 1e-4
+    assert float((scores - ref_scores).abs().max()) <= 1e-4

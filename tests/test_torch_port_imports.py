@@ -20,7 +20,7 @@ assert {port.__name__ + m for m in (
     ".data.faces", ".models.mtcnn", ".data.prepare", ".data.video_dataset",
     ".serve.app", ".serve.jobs", ".serve.auth", ".serve.auth_sqlite", ".serve.chat",
     ".serve.templates", ".serve.detector", ".agents.active_learning", ".agents.telemetry",
-    ".utils.profiling")} <= set(names)
+    ".utils.profiling", ".nn.moe", ".models.vlm_gan")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

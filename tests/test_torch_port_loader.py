@@ -32,6 +32,8 @@ from deepfake_video_detection_tpu_torch.checkpoint.bridge import (
 from deepfake_video_detection_tpu_torch.checkpoint.torch_bridge import (
     _EFFNET_SEQ, canonicalize_detector_keys, import_into_model)
 from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+    TemporalTransformerDetector)
 from deepfake_video_detection_tpu_torch.serve import loader as port_loader
 from deepfake_video_detection_tpu_torch.data.faces import FaceExtractor
 from deepfake_video_detection_tpu_torch.serve import predict as port_predict
@@ -275,10 +277,13 @@ def test_unported_checkpoints_raise(b0, tmp_path, monkeypatch):
     torch.save({"cnn.fc.weight": torch.zeros(2, 2)}, legacy)
     with pytest.raises(ValueError, match="no candidate"):
         port_loader.load_model(legacy, device="cpu")
+    # the temporal transformer's MoE is ported (test_torch_port_moe.py holds
+    # it against JAX): a reference .pt of one loads, its experts read from w1
     moe = str(tmp_path / "temporal_moe.pt")
-    torch.save({"model_state": {"cls_token": torch.zeros(1, 1, 32),
-                                "backbone.conv1.weight": torch.zeros(16, 3, 3, 3),
-                                "blocks.0.mlp.w1": torch.zeros(4, 32, 64)},
+    src = TemporalTransformerDetector("tinyconv", d_model=32, depth=1, mlp_hidden=64,
+                                      moe_experts=4, device="cpu")
+    torch.save({"model_state": src.state_dict(),
                 "model_config": {"model_type": "temporal", "backbone": "tinyconv"}}, moe)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        port_loader.load_model(moe, device="cpu")
+    model, _, stats = port_loader.load_model(moe, device="cpu")
+    assert stats["model_type"] == "temporal" and stats["match_ratio"] == 1.0
+    assert model.blocks[0].mlp.w1.shape == (4, 32, 64)

@@ -600,3 +600,50 @@ def test_extraction_semaphore(serve_env, limit):
     assert out == [{"error": "No faces detected in video"}] * 3
     assert (pred._extract_sem is None) == (limit == "0")
     assert ex.most == {"0": 3, "1": 1, "3": 3}[limit]
+
+
+@pytest.mark.parametrize("backend", [None, "cv2"])
+def test_spread_without_the_native_probe(clips, env, backend):
+    """``extract_from_video(spread=True)``: with the native decoder both
+    packages stride the clip from ``probe_video``'s frame count and sample
+    the same frames, byte-equal. Under ``VIDEO_BACKEND=cv2`` with
+    ``probe_video`` made to raise (no libav), JAX's samples stop at the
+    clip's head (a fault of the reference) and the port's span it, the
+    stride from cv2's frame count."""
+    calls = {}
+
+    def recording(module, name):
+        real = module.sample_video_frames
+
+        def sample(path, sample_rate=None, **kw):
+            frames = real(path, sample_rate=sample_rate, **kw)
+            calls[name] = (sample_rate, frames)
+            return frames
+
+        env.setattr(module, "sample_video_frames", sample)
+
+    def no_probe(path):
+        raise video.VideoDecodeError(f"{path}: no libav")
+
+    for module, name in ((faces, "port"), (jax_faces, "jax")):
+        recording(module, name)
+    if backend:
+        env.setenv("VIDEO_BACKEND", backend)
+        env.setattr(faces, "probe_video", no_probe)
+        env.setattr(jax_video, "probe_video", no_probe)     # imported at the call
+    n_total, n = 36, 3
+    ours = faces.FaceExtractor(detector="haar", face_size=SIZE, device="cpu")
+    ref = jax_faces.FaceExtractor(detector="haar", face_size=SIZE)
+    ours.extract_from_video(clips["face"], max_frames=n, spread=True)
+    ref.extract_from_video(clips["face"], max_frames=n, spread=True)
+    (rate, got), (jrate, want) = calls["port"], calls["jax"]
+    assert len(got) == len(want) == n
+    if backend is None:
+        assert rate == jrate == n_total // n and got.tobytes() == want.tobytes()
+        return
+    assert jrate is None                                # the default stride: the head
+    assert video.backend_frame_count("cv2", clips["face"]) == n_total
+    assert rate == n_total // n
+    full = video.sample_video_frames(clips["face"], sample_rate=1, max_frames=n_total)
+    assert all(np.array_equal(got[i], full[i * rate]) for i in range(n))
+    assert not np.array_equal(got[1], want[1])
