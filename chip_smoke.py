@@ -217,7 +217,32 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    counts, CSV rows, one clip's ``prob_fake`` and frame scores against the
    plain versions, ms per clip. (c) ``Predictor(model_type="temporal")``
    warms up its buckets and serves it.
-16. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+16. The multi-device modes (``parallel``), each at a world of one over
+   NCCL (the card's machine holds one H100; worlds of 2 and 4 are held to
+   the JAX package on the CPU), each plan's step against the no-plan step
+   from the same weights, batch and dropout draws (``PAR_TOL``: the first
+   step's loss, grad norm, Adam moment and parameter update, the second
+   step's loss),
+   with its step ms, idle share and peak memory beside the no-plan step's,
+   its flash launches and the calls that show its mode ran (the step's
+   gradient reduction under the mesh; the ring's fold and block gradients,
+   Ulysses' all-to-alls, ``apply_expert_parallel``, ``pipeline_blocks``;
+   none in the no-plan step): (a) ViT-B/16 (bf16, 8 clips x 16 frames, one padded)
+   under ``build_plan``'s ``--mesh data=1`` plan; (b) the same under FSDP2
+   (``make_fsdp_spec_fn(1)``: ``build_plan`` refuses ``--fsdp`` at data <
+   2, as JAX does), its placement line, the model an ``FSDPModule`` and
+   every leaf the rule shards a DTensor; (c) in the long-clip phase, the
+   temporal model over ViT-B/16 at T = 640, batch 1, one ``Trainer`` step
+   under the plans for ``--seq ring`` and ``--seq ulysses`` (seq_par 1, no
+   cls token: N = 640) against the no-plan step of the same model (K3 and
+   K5/K6 inside the ring's Function and after the all-to-alls); (d) the
+   ring's fold at a virtual S = 2 and 4 over one (1, 4, 2048, 64) call in
+   bf16 and f32, O and dq/dk/dv against one flash call over the whole N
+   and against the plain versions (``RING_TOL``); (e) the temporal model
+   over B0 (f32, the CLI's defaults) with 4 experts through
+   ``apply_expert_parallel`` at G = 1 (capacity at every token) against
+   the dense MoE, and as a pipeline at S = 1, M = 2 against the loop.
+17. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
    its f32 row; K2 and K4 with their cases at the legacy phase's shapes
    and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16; K4
@@ -407,6 +432,34 @@ GAN_GRAD_TOL = CPU_TOL["f32"]["grad_norm"]
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
         "eval_batch": 2, "size": 224, "serve_frames": 8}
+
+# the parallel phase: every multi-device mode on a world of one over NCCL.
+# (a)/(b) ViT-B/16, bf16, the training phase's batch (8 clips x 16 frames of
+# 224 px, one padded); (d) the ring's fold at a virtual S over one
+# (1, 4, 2048, 64) call; (e) the temporal model over B0 at the training CLI's
+# defaults (f32, 8 clips x 16 frames): MoE with 4 experts, the pipeline with
+# 2 microbatches
+PARALLEL = {"clips": 8, "frames": 16, "size": 224, "ring_shape": (1, 4, 2048, 64),
+            "ring_s": (2, 4), "experts": 4, "pp_microbatches": 2}
+# a plan's step against the no-plan step from the same weights, batch and
+# dropout draws, relative. A world of one runs the same arithmetic save for
+# f32 sums taken in another order (the pipeline's microbatches, the clip's
+# norm over FSDP2's shards, batch norm's moments from global sums): the
+# first step's loss and grad norm read 0 or ~2e-7 on an H100 (PERF.md,
+# PR 17). ``moment``: Adam's first moment after the first step (linear in
+# the clipped gradient the optimizer consumed), ‖m_plan − m‖ / ‖m‖ (a B0
+# step on the CPU, batch norm's moments from global sums: 1.4e-6).
+# ``update``: the parameters' change in that step, ‖Δ_plan − Δ‖ / ‖Δ‖;
+# Adam's first step divides each gradient by its own size, so an element
+# whose gradient is near 0 moves by up to its rounding over eps (a B0 step
+# on the CPU reads 4e-4), hence the looser gate; a skipped or doubled
+# update reads 0.5 or more. ``loss2``: the second step's loss, which reads
+# the updated parameters.
+PAR_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "moment": 1e-4, "update": 1e-2, "loss2": 1e-4}
+# the ring's fold against one flash call over the whole N and against the
+# plain versions: bf16 of max |ref| (PERF.md §2), f32 absolute
+RING_TOL = {"bf16": {"fwd": BF16_TOL_REL, "bwd": BF16_TOL_REL},
+            "f32": {"fwd": K2_TOL_F32, "bwd": K4_TOL_F32}}
 
 
 class SmokeFailure(RuntimeError):
@@ -4590,6 +4643,416 @@ def from_videos(torch, A, P, smi: str, tf32_defaults: dict):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _mode_hooks():
+    """``(owner, attribute, key, counts_call)``: functions that only a mode's
+    own code calls, so their calls in a step show which modes it ran: the
+    ring's fold and its backward's block gradients, Ulysses' all-to-alls,
+    the expert-parallel MoE, the pipeline, and a step's gradient reduction
+    under a mesh."""
+    from deepfake_video_detection_tpu_torch.models import temporal_transformer as TT
+    from deepfake_video_detection_tpu_torch.nn.moe import MoEMLP
+    from deepfake_video_detection_tpu_torch.ops import ring_attention as R
+    from deepfake_video_detection_tpu_torch.ops import ulysses_attention as U
+    from deepfake_video_detection_tpu_torch.parallel.strategy import ParallelRuntime
+
+    every = lambda *a: True  # noqa: E731
+    return [(R, "fold_forward", "ring_fold", every),
+            (R, "block_grads", "ring_block_grads", every),
+            (U, "all_to_all", "ulysses_all_to_all", every),
+            (MoEMLP, "apply_expert_parallel", "expert_parallel", every),
+            (TT, "pipeline_blocks", "pipeline", every),
+            (ParallelRuntime, "reduce_grads", "mesh_reduce_grads",
+             lambda self, *a: self.mesh is not None)]
+
+
+class _ModeCalls:
+    """Within the block, count the calls of :func:`_mode_hooks`' functions
+    into ``self.counts``; the functions are restored on exit."""
+
+    def __enter__(self):
+        self.counts, self.saved = {}, []
+        for owner, attr, key, pred in _mode_hooks():
+            orig = getattr(owner, attr)
+            self.counts[key] = 0
+
+            def wrap(*a, _orig=orig, _key=key, _pred=pred, **k):
+                if _pred(*a):
+                    self.counts[_key] += 1
+                return _orig(*a, **k)
+
+            setattr(owner, attr, wrap)
+            self.saved.append((owner, attr, orig))
+        return self.counts
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in self.saved:
+            setattr(owner, attr, orig)
+        return False
+
+
+def _full_params(params) -> dict:
+    """Every parameter whole and f32 (an FSDP2 DTensor gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    return {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach().float().clone()
+            for n, p in params.items()}
+
+
+def _first_steps(torch, A, P, step, state, batch, gen, rec: dict) -> None:
+    """Two steps of ``step`` from ``state`` into ``rec``: the first's loss,
+    grad norm, launches, mode calls (:class:`_ModeCalls`), peak memory,
+    the parameters' change (``update``) and Adam's first moment
+    (``moment``), both kept on the card for :func:`_par_compare`, then the
+    second's loss."""
+    from torch.distributed.tensor import DTensor
+
+    before = _full_params(state.params)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(A, P)
+    with _ModeCalls() as modes:
+        state, m = step(state, batch, gen())
+        torch.cuda.synchronize()
+    rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               launches=_counts(A, P), launches_f32=_f32_counts(A), mode_calls=dict(modes),
+               dtensor_params=sum(isinstance(p, DTensor) for p in state.params.values()),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    after = _full_params(state.params)
+    rec["update"] = {n: after[n] - before[n] for n in before}
+    rec["moment"] = _full_params(state.opt_state["mu"])
+    del before, after
+    state, m = step(state, batch, gen())
+    rec["loss2"] = float(m["loss"])
+
+
+def _par_step(torch, A, P, build, batch, loss_fn, opt_fn, plan=None):
+    """Steps of ``build()`` (under ``plan``: placed, with its
+    ``ParallelRuntime``) on ``batch`` with dropout from a generator seeded 2:
+    :func:`_first_steps`, then the step's time, device time and idle share
+    (``_kernel_breakdown``) over later steps."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from deepfake_video_detection_tpu_torch.parallel.strategy import (
+        ParallelRuntime, place_model, placement_line)
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+    from deepfake_video_detection_tpu_torch.train.steps import make_train_step
+
+    model, opt, rec = build(), opt_fn(), {}
+    runtime = None
+    if plan is not None:
+        rec["placement_summary"] = place_model(model, plan.mesh, plan.param_spec_fn)
+        rec["placement"] = placement_line(plan, rec["placement_summary"])
+        runtime = ParallelRuntime(plan.mesh)
+    rec["fsdp_module"] = isinstance(model, FSDPModule)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, loss_fn, runtime=runtime)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(2)
+
+    _first_steps(torch, A, P, step, state, batch, gen, rec)
+    bd = _kernel_breakdown(torch, lambda: step(state, batch, gen()), top=5)
+    rec.update(step_ms=bd["events_ms"], device_ms=bd["device_ms"],
+               idle_share=bd["idle_share"], kernel_launches=bd["launches"])
+    return rec
+
+
+def _par_compare(smi: str, name: str, plan_rec: dict, plain_rec: dict, dtype: str,
+                 flash: dict, modes: dict) -> dict:
+    """Hold a plan's step to the no-plan step (``PAR_TOL``: the first step's
+    loss and grad norm, Adam's first moment and the update after it, the
+    second step's loss),
+    require the same flash launches and those ``flash`` lists, and the mode
+    calls ``modes`` (every other hook's count 0, and 0 for each in the
+    no-plan step); emit and return the plan's launches by kernel."""
+    import torch
+
+    def rel(key):
+        return abs(plan_rec[key] - plain_rec[key]) / abs(plain_rec[key])
+
+    def rel_l2(key):
+        a, b = plan_rec.pop(key), plain_rec[key]
+        _require(set(a) == set(b), f"{name}: {key} names differ from the no-plan model's")
+        num = math.sqrt(sum(float(torch.sum(torch.square(a[n] - b[n]))) for n in b))
+        den = math.sqrt(sum(float(torch.sum(torch.square(b[n]))) for n in b))
+        return num / den if den > 0 else math.inf
+
+    diffs = {"loss": rel("loss"), "grad_norm": rel("grad_norm"), "moment": rel_l2("moment"),
+             "update": rel_l2("update"), "loss2": rel("loss2")}
+    for key, d in diffs.items():
+        _require(d <= PAR_TOL[key], f"{name}: {key} differs by {d} > {PAR_TOL[key]} "
+                 f"(plan {plan_rec.get(key)}, no plan {plain_rec.get(key)})")
+    got = {k: plan_rec["launches"][k] for k in flash}
+    _require(got == flash, f"{name}: flash launches {got} != {flash}")
+    want = {k: modes.get(k, 0) for k in plan_rec["mode_calls"]}
+    _require(plan_rec["mode_calls"] == want, f"{name}: mode calls {plan_rec['mode_calls']} "
+             f"!= {want}")
+    _require(not any(plain_rec["mode_calls"].values()),
+             f"{name}: the no-plan step ran a mode: {plain_rec['mode_calls']}")
+    import torch.distributed as dist
+
+    _emit({"phase": name, "card": smi, "world": dist.get_world_size(),
+           "backend": dist.get_backend(), "dtype": dtype,
+           **{f"{k}_rel_diff": v for k, v in diffs.items()}, "tol": PAR_TOL,
+           "plan": plan_rec,
+           "no_plan": {k: v for k, v in plain_rec.items() if k not in ("update", "moment")}})
+    print(f"{name}: step {plan_rec['step_ms']:.2f} ms (no plan "
+          f"{plain_rec['step_ms']:.2f}), idle {plan_rec['idle_share']:.3f} "
+          f"({plain_rec['idle_share']:.3f}), peak {plan_rec['max_memory_allocated_bytes'] / 2**30:.2f} "
+          f"GiB ({plain_rec['max_memory_allocated_bytes'] / 2**30:.2f}) on {smi}", flush=True)
+    return plan_rec["launches"]
+
+
+def _ring_fold_check(torch, A, P, smi: str):
+    """(d) The ring's fold at a virtual S = 2 and 4 over one (1, 4, 2048, 64)
+    call, bf16 and f32: each virtual rank folds the blocks it would receive,
+    its own first; O, dq, dk, dv against one flash call over the whole N
+    and against the plain versions. Returns the fold's launches."""
+    from deepfake_video_detection_tpu_torch.ops.ring_attention import (
+        fold_backward, fold_forward)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    f32_launches = dict(launches)
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q, k, v, dout = (torch.randn(PARALLEL["ring_shape"], generator=g, device="cuda")
+                         .to(dt) for _ in range(4))
+        ref_o = A.flash_attention(q.requires_grad_(), k.requires_grad_(), v.requires_grad_())
+        ref = [ref_o.detach()] + list(torch.autograd.grad(ref_o, (q, k, v), dout))
+        q, k, v = (t.detach() for t in (q, k, v))
+        p_o, p_lse = A.flash_attention_plain(q, k, v)
+        plain = [p_o] + list(A.flash_attention_bwd_plain(q, k, v, p_o, p_lse, dout))
+        for S in PARALLEL["ring_s"]:
+            n = q.shape[2] // S
+            blk = [(k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n]) for i in range(S)]
+            outs, dqs = [], []
+            dks = [torch.zeros_like(blk[0][0], dtype=torch.float32) for _ in range(S)]
+            dvs = [torch.zeros_like(d) for d in dks]
+            _reset_counts(A, P)
+            for r in range(S):
+                order = [(r - i) % S for i in range(S)]      # the ring's arrivals
+                qr, dr = q[:, :, r * n:(r + 1) * n], dout[:, :, r * n:(r + 1) * n]
+                o, lse = fold_forward(qr, [blk[b] for b in order])
+                dq, dkv = fold_backward(qr, o, lse, dr, [blk[b] for b in order])
+                outs.append(o)
+                dqs.append(dq)
+                for b, (dk_i, dv_i) in zip(order, dkv):
+                    dks[b] += dk_i.float()
+                    dvs[b] += dv_i.float()
+            torch.cuda.synchronize()
+            c = _counts(A, P)
+            for key in launches:
+                launches[key] += c[key]
+                f32_launches[key] += c[key] if dt_name == "f32" else 0
+            got = [torch.cat(outs, 2), torch.cat(dqs, 2), torch.cat(dks, 2), torch.cat(dvs, 2)]
+            errs = {}
+            for against, refs in (("kernel", ref), ("plain", plain)):
+                for nm, a, b in zip(("o", "dq", "dk", "dv"), got, refs):
+                    err = float((a.float() - b.float()).abs().max())
+                    scale = float(b.float().abs().max()) if dt_name == "bf16" else 1.0
+                    tol = RING_TOL[dt_name]["fwd" if nm == "o" else "bwd"]
+                    errs[f"{against}_{nm}"] = err / scale
+                    _require(err <= tol * scale, f"ring fold S={S} {dt_name} {nm} vs "
+                             f"{against}: {err} > {tol * scale}")
+            fwd, bwd = ("K3", "K5") if n > A._SHORT_MAX else ("K2", "K4")
+            want = _want(**{fwd: S * S, bwd: S * S, **({"K6": S * S} if bwd == "K5" else {})})
+            _require(c == want, f"ring fold S={S}: launches {c} != {want}")
+            _emit({"phase": "parallel_ring_fold", "card": smi, "dtype": dt_name, "S": S,
+                   "shape": list(PARALLEL["ring_shape"]), "block_rows": n,
+                   "launches": c, "errors": errs, "tol": RING_TOL[dt_name]})
+    return launches, f32_launches
+
+
+def parallel(torch, A, P, smi: str):
+    """The multi-device modes on a world of one over NCCL: (a) DP, (b)
+    FSDP2, (d) the ring's fold, (e) expert parallelism and the pipeline.
+    Returns (launches by path, f32 launches by path)."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+    from deepfake_video_detection_tpu_torch.parallel.mesh import init_world, make_mesh
+    from deepfake_video_detection_tpu_torch.parallel.strategy import (
+        ParallelPlan, build_plan, make_fsdp_spec_fn)
+    from deepfake_video_detection_tpu_torch.train import losses as Loss
+    from deepfake_video_detection_tpu_torch.train import optim as O
+
+    init_world("cuda")
+    _require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+             f"world: {dist.get_backend()} x {dist.get_world_size()}")
+    flags = argparse.Namespace(mesh="data=1", fsdp=False, seq="none", seq_par=1,
+                               pp_stages=1, pp_microbatches=2, moe_experts=0, expert_par=0)
+    B, T, size = PARALLEL["clips"], PARALLEL["frames"], PARALLEL["size"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"frames": torch.randn((B, T, size, size, 3), generator=g, device="cuda"),
+             "labels": torch.arange(B, device="cuda") % 2,
+             "valid": torch.arange(B, device="cuda") < B - 1}      # one padded clip
+    cw = torch.tensor([0.8, 1.2], device="cuda")
+
+    def loss_fn(logits, labels, sample_mask=None):
+        return Loss.cross_entropy_loss(logits, labels, class_weights=cw,
+                                       sample_mask=sample_mask)
+
+    def adam():
+        return O.build_optimizer("adam", 1e-4, grad_clip=1.0)
+
+    def vit():
+        return BackboneDetector("vit_base_patch16_224", compute_dtype=torch.bfloat16,
+                                device="cuda", generator=torch.Generator().manual_seed(0))
+
+    paths, f32_paths = {}, {}
+    plain = _par_step(torch, A, P, vit, batch, loss_fn, adam)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_plan, _ = build_plan(flags, "pretrained", T, device="cuda")
+    _require(dp_plan.description == "dp=1", dp_plan.description)
+    rec = _par_step(torch, A, P, vit, batch, loss_fn, adam, dp_plan)
+    vit_flash = {"K2": 12, "K4": 12}
+    _require(rec["dtensor_params"] == 0 and not rec["fsdp_module"],
+             f"dp: {rec['dtensor_params']} DTensor parameters")
+    paths["parallel_dp"] = _par_compare(smi, "parallel_dp", rec, plain, "bf16", vit_flash,
+                                        {"mesh_reduce_grads": 1})
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(device="cuda")
+    fsdp_plan = ParallelPlan(mesh=mesh, param_spec_fn=make_fsdp_spec_fn(1), pure_dp=False,
+                             description="dp=1,fsdp", batch_multiple=1,
+                             mesh_shape={"data": 1, "model": 1})
+    rec = _par_step(torch, A, P, vit, batch, loss_fn, adam, fsdp_plan)
+    _require(rec["placement_summary"][0] > 0, f"nothing sharded: {rec['placement']}")
+    # fully_shard ran: the model is an FSDPModule and each leaf the rule
+    # shards is a DTensor through both steps
+    _require(rec["fsdp_module"] and rec["dtensor_params"] == rec["placement_summary"][0],
+             f"fsdp: FSDPModule {rec['fsdp_module']}, {rec['dtensor_params']} DTensor "
+             f"parameters for {rec['placement']}")
+    paths["parallel_fsdp"] = _par_compare(smi, "parallel_fsdp", rec, plain, "bf16", vit_flash,
+                                          {"mesh_reduce_grads": 1})
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    paths["parallel_ring_fold"], f32_paths["parallel_ring_fold"] = _ring_fold_check(
+        torch, A, P, smi)
+
+    # (e) the temporal model over B0, f32: MoE through apply_expert_parallel
+    # at G = 1 against the dense MoE, the pipeline at S = 1 against the loop
+    tkw = {"d_model": 256, "depth": 4, "num_heads": 4}
+    ep_mesh = make_mesh(device="cuda", axis_names=("data", "expert"))
+    pp_mesh = make_mesh(device="cuda", axis_names=("data", "stage"))
+
+    def temporal(**kw):
+        def build():
+            m = TemporalTransformerDetector(
+                "efficientnet_b0", device="cuda", generator=torch.Generator().manual_seed(0),
+                **tkw, **kw)
+            for blk in m.blocks if m.moe_experts else ():
+                # capacity = every token: no token overflows, so expert
+                # parallelism computes the dense path's function (the drops
+                # are held to JAX's in tests/test_torch_port_sp.py)
+                blk.mlp.capacity_factor = float(m.moe_experts)
+            return m
+        return build
+
+    t_flash = {"K2": 4, "K4": 4}
+    moe_kw = {"moe_experts": PARALLEL["experts"]}
+    dense = _par_step(torch, A, P, temporal(**moe_kw), batch, loss_fn, adam)
+    ep_plan = ParallelPlan(mesh=ep_mesh, pure_dp=False, description="dp=1,ep=1x4e",
+                           mesh_shape={"data": 1, "expert": 1})
+    rec = _par_step(torch, A, P, temporal(**moe_kw, mesh=ep_mesh, expert_axis="expert"),
+                    batch, loss_fn, adam, ep_plan)
+    paths["parallel_ep"] = _par_compare(smi, "parallel_ep", rec, dense, "f32", t_flash,
+                                        {"mesh_reduce_grads": 1,
+                                         "expert_parallel": tkw["depth"]})
+    del dense
+    f32_paths["parallel_ep"] = rec["launches_f32"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = _par_step(torch, A, P, temporal(), batch, loss_fn, adam)
+    pp_plan = ParallelPlan(mesh=pp_mesh, pure_dp=False, description="dp=1,pp=1",
+                           mesh_shape={"data": 1, "stage": 1},
+                           batch_multiple=PARALLEL["pp_microbatches"])
+    M = PARALLEL["pp_microbatches"]
+    rec = _par_step(torch, A, P, temporal(mesh=pp_mesh, stage_axis="stage",
+                                          pp_microbatches=M),
+                    batch, loss_fn, adam, pp_plan)
+    paths["parallel_pp"] = _par_compare(smi, "parallel_pp", rec, loop, "f32",
+                                        {"K2": 4 * M, "K4": 4 * M},
+                                        {"mesh_reduce_grads": 1, "pipeline": 1})
+    del loop
+    f32_paths["parallel_pp"] = rec["launches_f32"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, f32_paths
+
+
+def parallel_seq(torch, A, P, smi: str, data: str) -> dict:
+    """(c) The temporal model over ViT-B/16 at T = 640, batch 1, on the long
+    clips: ``Trainer`` steps under ``build_plan``'s plan for ``--seq ring``
+    and ``--seq ulysses`` (a world of one: seq_par 1, no cls token) against
+    the no-plan steps of the same model and weights (:func:`_first_steps`),
+    the ring's fold and block gradients or Ulysses' all-to-alls counted in
+    each block. Returns the launches by path."""
+    import argparse
+
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.parallel.strategy import build_plan
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    T = LONG["train_frames"]
+    ds = VideoFacesDataset(data, num_frames=T)
+    tkw = {k: LONG[k] for k in ("d_model", "depth", "num_heads")}
+    cfg = TrainerConfig(out_dir=os.path.join(os.path.dirname(data), "sp"), epochs=1,
+                        batch_size=1, num_frames=T, lr=1e-4, optimizer="adam",
+                        grad_clip=1.0, augment=False)
+    batch, recs, paths = None, {}, {}
+    for name in ("plain", "ring", "ulysses"):
+        plan, kw = None, {"use_cls": False}
+        if name != "plain":
+            plan, kw = build_plan(argparse.Namespace(
+                mesh=None, fsdp=False, seq=name, seq_par=1, pp_stages=1, pp_microbatches=2,
+                moe_experts=0, expert_par=0), "temporal", T, depth=LONG["depth"],
+                device="cuda")
+            _require(plan.description == f"dp=1,sp=1({name})" and kw["use_cls"] is False,
+                     f"{name} plan: {plan.description} {kw}")
+        model, _, _ = cli.build_model("temporal", T, backbone=LONG["backbone"], bf16=True,
+                                      device="cuda", temporal_kwargs={**tkw, **kw})
+        trainer = Trainer(model, ds, ds, cfg, plan=plan, device="cuda")
+        if batch is None:
+            batch = next(iter(trainer._device_batches(ds, True)))
+            batch.pop("paths", None)
+            batch = trainer._prep_train(batch, None)
+        state = trainer.init_state()
+        step = trainer.train_step
+
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(2)
+
+        rec = {}
+        _first_steps(torch, A, P, step, state, batch, gen, rec)
+        _require_split_route(A, f"sequence-parallel {name}")
+        bd = _kernel_breakdown(torch, lambda: step(state, batch, gen()), top=5)
+        rec.update(step_ms=bd["events_ms"], device_ms=bd["device_ms"],
+                   idle_share=bd["idle_share"], kernel_launches=bd["launches"])
+        recs[name] = rec
+        if name != "plain":
+            paths[f"parallel_{name}"] = _par_compare(
+                smi, f"parallel_sp_{name}", rec, recs["plain"], "bf16",
+                {"K2": 12, "K3": LONG["depth"], "K4": 12, "K5": LONG["depth"],
+                 "K6": LONG["depth"]},
+                {"mesh_reduce_grads": 1,
+                 **({"ring_fold": LONG["depth"], "ring_block_grads": LONG["depth"]}
+                    if name == "ring" else {"ulysses_all_to_all": 4 * LONG["depth"]})})
+        del model, trainer, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def long_clips(torch, A, P, smi: str, device: str = "cuda"):
     """The long-clip phases on one synthetic set; returns launches by path."""
     import shutil
@@ -4611,8 +5074,11 @@ def long_clips(torch, A, P, smi: str, device: str = "cuda"):
         first = os.path.join(data, sorted(os.listdir(data))[0])
         faces = np.load(first)["faces"][:LONG["serve_frames"]]
         served, _ = serve_long(torch, A, P, model, ckpt, faces, device)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
         return {"long_training": trained, "long_evaluation": evaluated,
-                "long_serving": served}
+                "long_serving": served, **parallel_seq(torch, A, P, smi, data)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4627,6 +5093,219 @@ def _summary_entry(name, source, replaces, main, launches, tol):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
             "library_device_ms": main.get("library_device_ms"), "shape": main["shape"]}
+
+
+# ``python chip_smoke.py multi`` under ``torchrun --nproc_per_node 4``: every
+# multi-device mode across four cards over NCCL, each step against the
+# no-plan step on the whole global batch, which every rank also computes on
+# its own card. SGD (linear in the gradient), dropout and drop-path off, so
+# the two compute one function; the batch is split at other places, so the
+# gates are the kernel-vs-plain step gates of its dtype (``MULTI_TOL``).
+# ``--device cpu --small``: the same over gloo at the CPU tests' sizes.
+MULTI_TOL = {"bf16": {"loss": STEP_TOL_LOSS, "grad_norm": STEP_TOL_NORM},
+             "f32": {"loss": F32_STEP_TOL_LOSS, "grad_norm": F32_STEP_TOL_NORM}}
+MULTI_MODES = (
+    # (name, model, flags, dtype)
+    ("dp", "vit", {"mesh": "data=4"}, "bf16"),
+    ("fsdp", "vit", {"fsdp": True}, "bf16"),
+    ("tp", "b0", {"mesh": "data=2,model=2"}, "f32"),
+    ("fsdp_tp", "b0", {"mesh": "data=2,model=2", "fsdp": True}, "f32"),
+    ("ring", "seq", {"seq": "ring", "seq_par": 4}, "f32"),
+    ("ulysses", "seq", {"seq": "ulysses", "seq_par": 4}, "f32"),
+    ("ep4", "moe", {"moe_experts": 4, "expert_par": 4}, "f32"),
+    ("ep2", "moe", {"moe_experts": 4, "expert_par": 2}, "f32"),
+    ("pp2", "temporal", {"pp_stages": 2, "pp_microbatches": 2}, "f32"),
+    ("pp4", "temporal", {"pp_stages": 4, "pp_microbatches": 2}, "f32"),
+)
+
+
+def multi_card(argv) -> int:
+    """Each of ``MULTI_MODES`` at this run's world (four ranks) against the
+    no-plan step: the first step's loss, grad norm and update (‖Δ_plan −
+    Δ‖ / ‖Δ‖ over every parameter, FSDP2's gathered), batch norm's running
+    statistics, the second step's loss, and on the card the flash launches
+    and the step's time beside the no-plan step's on the whole batch."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+    from deepfake_video_detection_tpu_torch.models.vit import VisionTransformer
+    from deepfake_video_detection_tpu_torch.ops import attention as A
+    from deepfake_video_detection_tpu_torch.parallel.mesh import init_world, shard_batch
+    from deepfake_video_detection_tpu_torch.parallel.strategy import (
+        ParallelRuntime, build_plan, place_model, placement_line)
+    from deepfake_video_detection_tpu_torch.train import losses as Loss
+    from deepfake_video_detection_tpu_torch.train import optim as O
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+    from deepfake_video_detection_tpu_torch.train.steps import make_train_step
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py multi")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--small", action="store_true")
+    ap.add_argument("--modes", default=",".join(m[0] for m in MULTI_MODES))
+    args = ap.parse_args(argv)
+    cuda = args.device == "cuda"
+    if cuda and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    init_world(args.device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    _require(world == 4, f"the multi-card check runs four ranks, not {world}")
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    smi = _smi() if cuda else "cpu"
+    if rank == 0:
+        print(smi, flush=True)
+    small = args.small
+    # full width on the card: ViT-B/16 (bf16), B0 (f32), the temporal model
+    # (d_model 256, 4 blocks, 4 heads) over B0; the CPU tests' sizes with --small
+    px = {"vit": 32 if small else 224, "b0": 48 if small else 224,
+          "temporal": 16 if small else 224}
+    tkw = {"d_model": 16, "depth": 4, "num_heads": 4} if small else \
+        {"d_model": 256, "depth": 4, "num_heads": 4}
+    tkw["dropout_rate"] = 0.0
+    t_backbone = "tinyconv" if small else "efficientnet_b0"
+    # clips x frames of each family's global batch; the last clip padded
+    shapes = {"vit": (8, 2 if small else 16), "b0": (8, 2 if small else 4),
+              "seq": (2, 16 if small else 64), "moe": (8, 4 if small else 16),
+              "temporal": (8, 4 if small else 16)}
+
+    def build(family, kw, dtype):
+        g = torch.Generator().manual_seed(0)
+        if family == "vit":
+            m = BackboneDetector("vit_tiny_patch16_224" if small else "vit_base_patch16_224",
+                                 dropout_rate=0.0, device=dev, generator=g,
+                                 compute_dtype=torch.bfloat16 if dtype == "bf16" else torch.float32)
+            if small:
+                m.backbone = VisionTransformer("vit_tiny_patch16_224", img_size=32, depth=2,
+                                               device=dev)
+            return m
+        if family == "b0":
+            m = BackboneDetector("efficientnet_b0", dropout_rate=0.0, device=dev, generator=g)
+            m.backbone.drop_path_rate = 0.0
+            return m
+        m = TemporalTransformerDetector(t_backbone, device=dev, generator=g, **tkw, **kw)
+        if hasattr(m.backbone, "drop_path_rate"):
+            m.backbone.drop_path_rate = 0.0
+        for blk in m.blocks if m.moe_experts else ():
+            blk.mlp.capacity_factor = float(m.moe_experts)   # no token overflows
+        return m
+
+    def run(model, batch, runtime):
+        """Two SGD steps: (loss, grad norm, update, BN stats, loss2, launches, ms)."""
+        opt = O.build_optimizer("sgd", 1e-2, grad_clip=1.0)
+        cw = torch.tensor([0.8, 1.2], device=dev)
+        step = make_train_step(model, opt, lambda lg, lb, sample_mask=None:
+                               Loss.cross_entropy_loss(lg, lb, class_weights=cw,
+                                                       sample_mask=sample_mask),
+                               runtime=runtime)
+        state = TrainState.create(model, opt)
+        before = _full_params(state.params)
+        _reset_flash(A)
+        state, m = step(state, batch)
+        launches = {"fwd": A.flash_attention_fwd.launches, "bwd": A.flash_attention_bwd.launches}
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "launches": launches}
+        after = _full_params(state.params)
+        update = {n: after[n] - before[n] for n in before}
+        stats = {n: b.detach().float().clone() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+        del before, after
+        state, m = step(state, batch)
+        rec["loss2"] = float(m["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                state, m = step(state, batch)
+            float(m["loss"])
+            rec["step_ms"] = (time.perf_counter() - t) / 3 * 1e3
+            rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        return rec, update, stats
+
+    def rel_l2(a, b):
+        num = math.sqrt(sum(float(torch.sum(torch.square(a[n] - b[n]))) for n in b))
+        den = math.sqrt(sum(float(torch.sum(torch.square(b[n]))) for n in b))
+        return num / den if den > 0 else 0.0
+
+    wanted = set(args.modes.split(","))
+    for name, family, flags, dtype in MULTI_MODES:
+        if name not in wanted:
+            continue
+        B, T = shapes[family]
+        size = px["temporal" if family in ("seq", "moe", "temporal") else family]
+        g = torch.Generator().manual_seed(7)
+        batch = {"frames": torch.randn((B, T, size, size, 3), generator=g).to(dev),
+                 "labels": (torch.arange(B) % 2).to(dev),
+                 "valid": (torch.arange(B) < B - 1).to(dev)}
+        model_type = "pretrained" if family in ("vit", "b0") else "temporal"
+        plan, kw = build_plan(argparse.Namespace(**{**dict(
+            mesh=None, fsdp=False, seq="none", seq_par=1, pp_stages=1, pp_microbatches=2,
+            moe_experts=0, expert_par=0), **flags}), model_type, T,
+            depth=tkw["depth"] if model_type == "temporal" else None, device=args.device)
+        # the reference: no plan, the whole batch, this rank's card
+        ref_kw = {k: v for k, v in kw.items()
+                  if k in ("moe_experts", "use_cls", "pp_microbatches")}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ref, ref_update, ref_stats = run(build(family, ref_kw, dtype), batch, None)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = build(family, kw, dtype)
+        # what every rank holds: the whole model (FSDP2 aside), the
+        # temporal blocks included under the pipeline
+        n_params = sum(p.numel() for p in model.parameters())
+        n_blocks = sum(p.numel() for n, p in model.named_parameters() if n.startswith("blocks."))
+        summary = place_model(model, plan.mesh, plan.param_spec_fn)
+        rt = ParallelRuntime(plan.mesh)
+        local = shard_batch(batch, plan.mesh, specs=plan.batch_spec)
+        rec, update, stats = run(model, local, rt)
+        diffs = {"loss": abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]),
+                 "grad_norm": abs(rec["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                 "update": rel_l2(update, ref_update),
+                 "loss2": abs(rec["loss2"] - ref["loss2"]) / abs(ref["loss2"])}
+        if ref_stats:
+            diffs["bn_stats"] = rel_l2(stats, ref_stats)
+        tol = MULTI_TOL[dtype]
+        gate = {"loss": tol["loss"], "grad_norm": tol["grad_norm"], "update": tol["grad_norm"],
+                "loss2": tol["loss"], "bn_stats": tol["loss"]}
+        line = {"phase": f"multi_{name}", "card": smi, "world": world,
+                "backend": dist.get_backend(), "rank": rank, "plan": plan.description,
+                "placement": placement_line(plan, summary), "dtype": dtype,
+                "batch": [B, T, size], "params": n_params, "block_params": n_blocks,
+                **{f"{k}_rel_diff": v for k, v in diffs.items()},
+                "tol": {k: gate[k] for k in diffs}, "plan_step": rec, "no_plan_step": ref}
+        bad = [k for k, v in diffs.items() if not v <= gate[k]]
+        if cuda and family != "b0" and not (rec["launches"]["fwd"] and rec["launches"]["bwd"]):
+            bad.append("no flash launch")
+        flags_ok = torch.tensor([float(bool(bad))], device=dev)
+        dist.all_reduce(flags_ok)
+        if rank == 0 or bad:
+            _emit(line)
+        _require(float(flags_ok) == 0, f"multi {name}: {bad or 'another rank failed'}")
+        del model, rt, update, ref_update
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        _emit({"ok": True, "multi": True, "world": world, "backend": dist.get_backend(),
+               "device": {"platform": "gpu" if cuda else "cpu",
+                          "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+                          "count": torch.cuda.device_count() if cuda else 0}})
+    dist.destroy_process_group()
+    return 0
+
+
+def _reset_flash(A) -> None:
+    for f in (A.flash_attention_fwd, A.flash_attention_bwd):
+        f.launches = f.launches_long = f.launches_split = f.launches_f32 = 0
 
 
 def main() -> int:
@@ -4745,9 +5424,13 @@ def main() -> int:
     gan_launches, gan_f32 = timed("gan", gan_phase, torch, A, P, smi, tf32_defaults)
     gc.collect()
     torch.cuda.empty_cache()
+    par_launches, par_f32 = timed("parallel", parallel, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     # f32 launches by path (every other launch is bf16)
     f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
-                 **legacy_f32, **convnet_f32, **improved_f32, **video_f32, **gan_f32}
+                 **legacy_f32, **convnet_f32, **improved_f32, **video_f32, **gan_f32,
+                 **par_f32}
 
     def conv_path(launches):
         return {"K1": launches["fused_normalize"], "K1-YUV": launches["fused_normalize_yuv"]}
@@ -4763,7 +5446,7 @@ def main() -> int:
              "f32_training": trained_f32,
              **explained, **video_paths, **web_paths, **legacy_paths, **convnet_paths,
              **improved_launches,
-             **video_launches, **gan_launches,
+             **video_launches, **gan_launches, **par_launches,
              **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})
@@ -4836,6 +5519,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["multi"]:
+            sys.exit(multi_card(sys.argv[2:]))
         sys.exit(main())
     except SystemExit:
         raise

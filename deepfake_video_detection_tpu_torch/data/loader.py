@@ -4,7 +4,11 @@ Counterpart of ``deepfake_video_detection_tpu/data/loader.py``.
 :class:`Loader` is a copy (numpy only): fixed batch size, the last partial
 batch padded by repeating its first sample and masked in ``valid``,
 per-epoch shuffling or inverse-frequency sampling from
-``rng(seed + epoch)``, and item IO fanned out over a thread pool.
+``rng(seed + epoch)``, and item IO fanned out over a thread pool. Under a
+mesh every rank draws the same order and ``shard=(index, count)`` makes
+it load and yield only its rows of each batch (padded to
+``pad_to_multiple``, which ``count`` divides), as JAX's ``shard_batch``
+hands each device its rows of the global batch.
 :func:`prefetch_to_device` keeps ``size`` batches in flight to the card:
 each batch is copied into pinned host memory and sent with a
 ``non_blocking`` copy, so the transfer overlaps the previous step.
@@ -30,6 +34,7 @@ class Loader:
         drop_last: bool = False,
         num_workers: int = 4,
         pad_to_multiple: int = 1,
+        shard: tuple = (0, 1),
     ):
         self.ds = dataset
         self.batch_size = batch_size
@@ -39,6 +44,10 @@ class Loader:
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.pad_to_multiple = max(1, pad_to_multiple)
+        self.shard = tuple(shard)
+        if self.pad_to_multiple % self.shard[1]:
+            raise ValueError(f"{self.shard[1]} shards do not divide the batch "
+                             f"multiple {self.pad_to_multiple}")
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -61,50 +70,47 @@ class Loader:
         return np.arange(n)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """This shard's rows of every batch (all of them at ``shard=(0, 1)``),
+        padded to ``pad_to_multiple``: rows past the batch's items repeat its
+        first item with ``valid`` False. Items of the next two batches load
+        while a batch is consumed."""
         idx = self._epoch_indices()
         self.epoch += 1
-        bs = self.batch_size
+        bs, (me, count) = self.batch_size, self.shard
+        n_batches = len(idx) // bs if self.drop_last else -(-len(idx) // bs)
+        plans = []
+        for b in range(n_batches):
+            chunk = idx[b * bs:(b + 1) * bs]
+            target = -(-len(chunk) // self.pad_to_multiple) * self.pad_to_multiple
+            rows = range(me * target // count, (me + 1) * target // count)
+            plans.append([(int(chunk[r] if r < len(chunk) else chunk[0]), r < len(chunk))
+                          for r in rows])
+
+        def submit(pool, plan):
+            # the padding rows, all the batch's first item, share one load
+            # (shard 0's own first row)
+            futures, pad = [], None
+            for i, real in plan:
+                if real:
+                    futures.append(pool.submit(self.ds.__getitem__, i))
+                else:
+                    pad = pad or (futures[0] if me == 0 else
+                                  pool.submit(self.ds.__getitem__, i))
+                    futures.append(pad)
+            return futures
+
         with _fut.ThreadPoolExecutor(self.num_workers) as pool:
-            # submit a sliding window of item futures so IO overlaps compute
-            window = max(2 * bs, 16)
-            futures = collections.deque()
-            pos = 0
-
-            def fill():
-                nonlocal pos
-                while pos < len(idx) and len(futures) < window:
-                    futures.append(pool.submit(self.ds.__getitem__, int(idx[pos])))
-                    pos += 1
-
-            fill()
-            batch_faces, batch_labels, batch_paths = [], [], []
-            while futures:
-                faces, lab, path = futures.popleft().result()
-                fill()
-                batch_faces.append(faces)
-                batch_labels.append(lab)
-                batch_paths.append(path)
-                if len(batch_faces) == bs:
-                    yield self._make_batch(batch_faces, batch_labels, batch_paths)
-                    batch_faces, batch_labels, batch_paths = [], [], []
-            if batch_faces and not self.drop_last:
-                yield self._make_batch(batch_faces, batch_labels, batch_paths)
-
-    def _make_batch(self, faces, labels, paths) -> Dict[str, np.ndarray]:
-        n = len(faces)
-        target = -(-n // self.pad_to_multiple) * self.pad_to_multiple
-        valid = np.zeros((target,), bool)
-        valid[:n] = True
-        while len(faces) < target:  # pad by repeating the first sample
-            faces.append(faces[0])
-            labels.append(labels[0])
-            paths.append(paths[0])
-        return {
-            "frames": np.stack(faces),                       # (B,T,H,W,3) uint8
-            "labels": np.asarray(labels, np.int64),
-            "valid": valid,
-            "paths": paths,
-        }
+            pending = collections.deque(submit(pool, p) for p in plans[:2])
+            for b, p in enumerate(plans):
+                if b + 2 < len(plans):
+                    pending.append(submit(pool, plans[b + 2]))
+                items = [f.result() for f in pending.popleft()]
+                yield {
+                    "frames": np.stack([it[0] for it in items]),      # (B,T,H,W,3) uint8
+                    "labels": np.asarray([it[1] for it in items], np.int64),
+                    "valid": np.asarray([v for _, v in p], bool),
+                    "paths": [it[2] for it in items],
+                }
 
 
 def prefetch_to_device(iterator, device: Any = "cuda", size: int = 2,

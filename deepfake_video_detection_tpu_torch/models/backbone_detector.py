@@ -27,6 +27,17 @@ a loop is the same computation.
 
 ``BackboneDetector.trainable_mask`` is the progressive fine-tuner's freeze
 mask (``train/progressive.py``), keyed by parameter name.
+
+``BackboneDetector.tensor_parallel`` is the JAX plan's ``--mesh model=N``
+(``parallel/strategy.py::tp_param_pspec``: ``fc1.weight`` on its input
+features, ``conv_head.weight`` on its output channels). Each rank of the
+mesh's ``model`` axis computes its slice of the F features (conv_head's
+output channels, bn2 and SiLU per channel; a backbone without conv_head
+slices its features), and the two layers that contract over F, the
+temporal attention's ``ta0`` and ``fc1``, sum their partial products over
+the axis with one autograd-aware all-reduce each: where GSPMD puts the
+collectives for JAX. The dropout on the pooled features draws the whole
+(B, F) mask and takes its slice, as one device would.
 """
 
 from __future__ import annotations
@@ -114,6 +125,19 @@ class BackboneDetector(nn.Module):
         self.fc1 = skip_init(nn.Linear, F, 256, **kw)
         self.fc2 = skip_init(nn.Linear, 256, num_classes, **kw)
         self._init_head(g)
+        self.tp = None
+
+    def tensor_parallel(self, mesh, axis: str = "model") -> None:
+        """Compute this rank's slice of the features over ``axis`` of
+        ``mesh`` (a ``DeviceMesh``) from now on."""
+        from deepfake_video_detection_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
+
+        size = axis_size(mesh, axis)
+        if self.feature_dim % size:
+            raise ValueError(f"{self.feature_dim} features do not split over {axis}={size}")
+        self.tp = (axis_group(mesh, axis), axis_rank(mesh, axis), size)
+        if hasattr(self.backbone, "head_split"):
+            self.backbone.head_split = self.tp
 
     @torch.no_grad()
     def _init_head(self, g: torch.Generator) -> None:
@@ -139,6 +163,8 @@ class BackboneDetector(nn.Module):
         dropout when ``train`` (on x's device)."""
         B, T = x.shape[0], x.shape[1]
         feats = self.backbone(x.reshape((B * T,) + tuple(x.shape[2:])), train, generator)
+        if self.tp is not None:
+            return self._forward_tp(feats.reshape(B, T, -1), train, generator)
         feats = feats.reshape(B, T, self.feature_dim)
         if self.use_temporal_attention:
             ta0, ta2 = self.temporal_attention[0], self.temporal_attention[2]
@@ -153,6 +179,44 @@ class BackboneDetector(nn.Module):
                                       device=feats.device)
         h = L.dropout(pooled, self.dropout_rate, train, generator)
         h = torch.relu(L.linear(h, self.fc1.weight, self.fc1.bias))
+        h = L.dropout(h, self.dropout_rate, train, generator)
+        logits = L.linear(h, self.fc2.weight, self.fc2.bias).to(torch.float32)
+        return logits, frame_scores
+
+    def _forward_tp(self, feats: torch.Tensor, train: bool,
+                    generator: Optional[torch.Generator]):
+        """The head on this rank's feature slice ``feats`` (B, T, F/size),
+        or on the whole F (then sliced here)."""
+        from deepfake_video_detection_tpu_torch.parallel.mesh import all_reduce
+
+        group, rank, size = self.tp
+        per = self.feature_dim // size
+        sl = slice(rank * per, (rank + 1) * per)
+        if feats.shape[-1] == self.feature_dim:
+            feats = feats[..., sl]
+        B, T = feats.shape[:2]
+
+        def contract(h, lin):     # h · W[:, slice]ᵀ summed over the ranks, + b
+            part = L.linear(h, lin.weight[:, sl])
+            return all_reduce(part, group) + lin.bias.to(part.dtype)
+
+        if self.use_temporal_attention:
+            ta0, ta2 = self.temporal_attention[0], self.temporal_attention[2]
+            a = torch.relu(contract(feats, ta0))
+            a = torch.sigmoid(L.linear(a, ta2.weight, ta2.bias))[..., 0]
+            attn = torch.softmax(a.to(torch.float32), dim=1).to(feats.dtype)
+            frame_scores = attn
+            pooled = torch.sum(feats * attn[..., None], dim=1)
+        else:
+            pooled = feats.mean(dim=1)
+            frame_scores = torch.full((B, T), 1.0 / T, dtype=feats.dtype,
+                                      device=feats.device)
+        if train and self.dropout_rate > 0.0:
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand((B, self.feature_dim), generator=generator,
+                              device=pooled.device)[:, sl] < keep
+            pooled = torch.where(mask, pooled / keep, torch.zeros_like(pooled))
+        h = torch.relu(contract(pooled, self.fc1))
         h = L.dropout(h, self.dropout_rate, train, generator)
         logits = L.linear(h, self.fc2.weight, self.fc2.bias).to(torch.float32)
         return logits, frame_scores
@@ -210,6 +274,11 @@ class EnsembleDetector(nn.Module):
     @property
     def members(self) -> nn.ModuleList:
         return self.models
+
+    def tensor_parallel(self, mesh, axis: str = "model") -> None:
+        """Every member's :meth:`BackboneDetector.tensor_parallel`."""
+        for m in self.models:
+            m.tensor_parallel(mesh, axis)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,

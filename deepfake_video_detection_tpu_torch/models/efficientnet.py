@@ -212,6 +212,9 @@ class EfficientNet(nn.Module):
             for stage in stages)
         self.conv_head = conv(stages[-1][-1].out_ch, self.head_ch, 1, g, dev)
         self.bn2 = BatchNorm(self.head_ch, dev, bn_eps, bn_momentum)
+        # tensor parallelism (BackboneDetector.tensor_parallel): this rank's
+        # (group, rank, size); conv_head computes its slice of the channels
+        self.head_split = None
         if num_classes > 0:
             self.classifier = skip_init(nn.Linear, self.head_ch, num_classes,
                                         device=dev, dtype=torch.float32)
@@ -231,8 +234,30 @@ class EfficientNet(nn.Module):
                 dp = self.drop_path_rate * i / max(self.num_blocks - 1, 1)
                 x = block(x, train, dp, generator)
                 i += 1
-        x = F.silu(self.bn2(L.conv2d(x, self.conv_head.weight), train))
+        if self.head_split is not None:
+            x = self._head_slice(x, train)
+        else:
+            x = F.silu(self.bn2(L.conv2d(x, self.conv_head.weight), train))
         feats = L.global_avg_pool(x)
         if self.num_classes > 0:
             feats = L.linear(feats, self.classifier.weight, self.classifier.bias)
         return feats
+
+    def _head_slice(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """conv_head → bn2 → SiLU on this rank's slice of the output
+        channels; bn2's running stats of every slice are gathered over the
+        group so each rank keeps them whole."""
+        from deepfake_video_detection_tpu_torch.parallel.mesh import all_gather
+
+        group, rank, size = self.head_split
+        per = self.head_ch // size
+        sl = slice(rank * per, (rank + 1) * per)
+        bn = self.bn2
+        y, (mean, var) = L.batch_norm(
+            L.conv2d(x, self.conv_head.weight[sl]), bn.weight[sl], bn.bias[sl],
+            bn.running_mean[sl], bn.running_var[sl], train, bn.eps, bn.momentum)
+        if train and not L.running_stats_frozen():
+            with torch.no_grad():
+                for buf, part in ((bn.running_mean, mean), (bn.running_var, var)):
+                    buf.copy_(all_gather(part, group))
+        return F.silu(y)

@@ -35,20 +35,37 @@ f32, as in the JAX model.
 Parameters are f32 and ``compute_dtype`` is the activations' dtype; the
 time encoding is computed in f32 and the cls token cast, so the first
 block sees ``compute_dtype``. Dropout draws from the generator the caller
-passes. The JAX package's sequence-parallel, pipeline and expert-parallel
-modes (``mesh``, ``seq_axis``, ``stage_axis``, ``expert_axis``) raise
-``NotImplementedError`` (ROADMAP items 18(b)-(d));
-:func:`normalize_state_dict` turns a pipeline-layout checkpoint into the
-loop layout this model loads.
+passes. :func:`normalize_state_dict` turns a pipeline-layout checkpoint
+into the loop layout this model loads.
+
+The JAX model's multi-device modes take a ``DeviceMesh``
+(``parallel/strategy.py::build_plan`` gives the kwargs); the model then
+sees this rank's part of the batch:
+
+* ``seq_axis`` (sequence parallelism, ``use_cls=False``): each rank holds
+  T/S frames; the time encoding takes their global positions, every
+  attention runs through ``ops/ring_attention.py`` (``seq_strategy``
+  ``"ring"``) or ``ops/ulysses_attention.py`` (``"ulysses"``), the pooling
+  is the mean over all T frames (a sum over the ``seq`` axis) and the
+  frame scores the softmax over all T.
+* ``expert_axis`` (with ``moe_experts``): every block's MoE runs
+  ``MoEMLP.apply_expert_parallel``.
+* ``stage_axis``: the blocks run as a GPipe pipeline of
+  ``pp_microbatches`` microbatches (``parallel/pipeline.py``); stage s
+  applies blocks s·depth/S … The parameters keep the loop layout (every
+  rank holds all blocks and uses its own), so a pipeline checkpoint loads
+  in both packages' loaders as a loop-layout one.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.nn.utils import skip_init
 
@@ -57,6 +74,11 @@ from deepfake_video_detection_tpu_torch.models.vit import Block
 from deepfake_video_detection_tpu_torch.nn import init as I
 from deepfake_video_detection_tpu_torch.nn import layers as L
 from deepfake_video_detection_tpu_torch.nn.moe import MoEMLP
+from deepfake_video_detection_tpu_torch.ops.ring_attention import ring_attention
+from deepfake_video_detection_tpu_torch.ops.ulysses_attention import ulysses_attention
+from deepfake_video_detection_tpu_torch.parallel.mesh import (
+    all_reduce, axis_group, axis_rank, axis_size, solo)
+from deepfake_video_detection_tpu_torch.parallel.pipeline import pipeline_blocks
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 from deepfake_video_detection_tpu_torch.utils.tree import flatten_dotted, unflatten_dotted
 
@@ -116,10 +138,11 @@ def infer_mlp_kwargs(sd: Dict[str, Any], d_model: int,
     return {}
 
 
-def time_encoding(T: int, D: int, device: Any) -> torch.Tensor:
-    """(T, D) f32: ``pos / 10000^(2·i/D)`` with sin and cos concatenated on
-    the last axis (not interleaved), as the JAX model builds it."""
-    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+def time_encoding(T: int, D: int, device: Any, offset: int = 0) -> torch.Tensor:
+    """(T, D) f32 at positions ``offset … offset+T−1``: ``pos /
+    10000^(2·i/D)`` with sin and cos concatenated on the last axis (not
+    interleaved), as the JAX model builds it."""
+    pos = torch.arange(offset, offset + T, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / D)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
@@ -142,30 +165,57 @@ def dense_attention(x: torch.Tensor, attn: nn.Module) -> torch.Tensor:
     return L.linear(out.transpose(1, 2).reshape(B, N, D), attn.proj.weight, attn.proj.bias)
 
 
+def split_attention(x: torch.Tensor, attn: nn.Module, fn) -> torch.Tensor:
+    """``attn.qkv`` → ``fn(q, k, v)`` over (B, nh, N, hd) → ``attn.proj``:
+    the sequence-parallel attentions on this rank's frames."""
+    B, N, D = x.shape
+    nh = attn.num_heads
+    qkv = L.linear(x, attn.qkv.weight, attn.qkv.bias).reshape(B, N, 3, nh, D // nh)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    out = fn(q, k, v)
+    return L.linear(out.transpose(1, 2).reshape(B, N, D), attn.proj.weight, attn.proj.bias)
+
+
 class TemporalBlock(Block):
-    """``models/vit.py::Block`` with the temporal model's two options: the
-    dense attention (``use_flash=False``) and an MoE feed-forward, with
-    which it returns ``(y, load-balance loss)``."""
+    """``models/vit.py::Block`` with the temporal model's options: the
+    dense attention (``use_flash=False``), a sequence-parallel attention
+    (``seq_attention(q, k, v)``), and an MoE feed-forward, with which it
+    returns ``(y, load-balance loss)``, expert-parallel under
+    ``expert_mesh`` (a ``(mesh, axis, batch_axis)`` triple)."""
 
     def __init__(self, dim: int, num_heads: int, hidden: int, eps: float, use_flash: bool,
-                 mlp: Optional[MoEMLP] = None, **kw):
+                 mlp: Optional[MoEMLP] = None, seq_attention=None, expert_mesh=None, **kw):
         super().__init__(dim, num_heads, hidden, eps, mlp=mlp, **kw)
         self.use_flash = use_flash
+        self.seq_attention = seq_attention
+        self.expert_mesh = expert_mesh
 
     def forward(self, y: torch.Tensor):
         h = L.layer_norm(y, self.norm1.weight, self.norm1.bias, self.eps)
-        y = y + (self.attn(h) if self.use_flash else dense_attention(h, self.attn))
+        if self.seq_attention is not None:
+            y = y + split_attention(h, self.attn, self.seq_attention)
+        else:
+            y = y + (self.attn(h) if self.use_flash else dense_attention(h, self.attn))
         h = L.layer_norm(y, self.norm2.weight, self.norm2.bias, self.eps)
         if not isinstance(self.mlp, MoEMLP):
             return y + self.mlp(h)
-        out, aux = self.mlp(h.reshape(-1, h.shape[-1]), with_aux=True)
+        flat = h.reshape(-1, h.shape[-1])
+        if self.expert_mesh is not None:
+            mesh, axis, batch_axis = self.expert_mesh
+            out, aux = self.mlp.apply_expert_parallel(flat, mesh, axis, True, batch_axis)
+        else:
+            out, aux = self.mlp(flat, with_aux=True)
         return y + out.reshape(h.shape), aux
 
 
-_UNPORTED = {"mesh": "18(b): data parallelism, FSDP and tensor parallelism",
-             "seq_axis": "18(c): sequence and expert parallelism",
-             "expert_axis": "18(c): sequence and expert parallelism",
-             "stage_axis": "18(d): pipeline parallelism"}
+def _seq_softmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Softmax over the last axis split over the ``axis`` ranks (no grad)."""
+    group = axis_group(mesh, axis)
+    m = x.amax(dim=-1, keepdim=True)
+    if not solo(group):
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(x - m)
+    return e / all_reduce(e.sum(dim=-1, keepdim=True), group)
 
 
 class TemporalTransformerDetector(nn.Module):
@@ -174,17 +224,40 @@ class TemporalTransformerDetector(nn.Module):
                  mlp_ratio: float = 4.0, mlp_hidden: Optional[int] = None,
                  dropout_rate: float = 0.1, use_flash: bool = True, use_cls: bool = True,
                  mesh: Optional[Any] = None, seq_axis: Optional[str] = None,
+                 seq_strategy: str = "ring", batch_axis: Optional[str] = "data",
                  moe_experts: int = 0, expert_axis: Optional[str] = None,
-                 stage_axis: Optional[str] = None,
+                 stage_axis: Optional[str] = None, pp_microbatches: int = 2,
                  compute_dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        for name, val in (("mesh", mesh), ("seq_axis", seq_axis),
-                          ("expert_axis", expert_axis), ("stage_axis", stage_axis)):
-            if val:
-                raise NotImplementedError(
-                    f"temporal transformer {name}={val!r} is not ported yet "
-                    f"(ROADMAP item {_UNPORTED[name]})")
+        if seq_strategy not in ("ring", "ulysses"):
+            raise ValueError(f"unknown seq_strategy {seq_strategy!r}")
+        if mesh is not None and seq_axis and use_cls:
+            raise ValueError("sequence-parallel mode needs use_cls=False "
+                             "(the +1 cls token breaks even T sharding)")
+        if stage_axis:
+            if mesh is None:
+                raise ValueError("pipeline-parallel mode needs a mesh")
+            if moe_experts or seq_axis:
+                raise ValueError("stage_axis is mutually exclusive with "
+                                 "moe_experts/seq_axis")
+            if depth % axis_size(mesh, stage_axis) != 0:
+                raise ValueError(
+                    f"depth {depth} must divide over the {stage_axis} axis "
+                    f"({axis_size(mesh, stage_axis)} stages)")
+        self.mesh = mesh
+        self.seq_axis = seq_axis if mesh is not None else None
+        self.seq_strategy = seq_strategy
+        self.batch_axis = batch_axis
+        self.stage_axis = stage_axis
+        self.pp_microbatches = pp_microbatches
+        seq_attention = expert_mesh = None
+        if self.seq_axis:
+            seq_attention = functools.partial(
+                ulysses_attention if seq_strategy == "ulysses" else ring_attention,
+                mesh=mesh, seq_axis=seq_axis, batch_axis=batch_axis)
+        if mesh is not None and expert_axis and moe_experts:
+            expert_mesh = (mesh, expert_axis, batch_axis)
         g = generator or torch.Generator().manual_seed(0)
         self.backbone_name = backbone_name
         self.num_classes = num_classes
@@ -207,7 +280,8 @@ class TemporalTransformerDetector(nn.Module):
         self.blocks = nn.ModuleList(
             TemporalBlock(D, num_heads, self.mlp_hidden, _LN_EPS, use_flash,
                           mlp=(MoEMLP(D, self.mlp_hidden, moe_experts, device=device,
-                                      generator=g) if moe_experts else None), **kw)
+                                      generator=g) if moe_experts else None),
+                          seq_attention=seq_attention, expert_mesh=expert_mesh, **kw)
             for _ in range(depth))
         self.norm = skip_init(nn.LayerNorm, D, **kw)
         self.head = skip_init(nn.Linear, D, num_classes, **kw)
@@ -250,26 +324,42 @@ class TemporalTransformerDetector(nn.Module):
         in training, ``(logits, frame_scores, {"moe_load_balance": aux})``,
         aux the blocks' mean load-balance loss (f32)."""
         B, T, _ = feats.shape
+        seq = axis_size(self.mesh, self.seq_axis) if self.seq_axis else 1
+        offset = axis_rank(self.mesh, self.seq_axis) * T if self.seq_axis else 0
         y = L.linear(feats, self.proj.weight, self.proj.bias)
-        y = y + time_encoding(T, self.d_model, y.device).to(y.dtype)
+        y = y + time_encoding(T, self.d_model, y.device, offset).to(y.dtype)
         if self.use_cls:
             cls = self.cls_token.to(y.dtype).expand(B, -1, -1)
             y = torch.cat([cls, y], dim=1)
         moe_aux = 0.0
-        for blk in self.blocks:
-            y = blk(y)
-            if self.moe_experts:
-                y, aux = y
-                moe_aux = moe_aux + aux
+        if self.stage_axis:
+            M = self.pp_microbatches
+            if B % M != 0:
+                raise ValueError(f"batch {B} % microbatches {M} != 0")
+            N = y.shape[1]
+            y = pipeline_blocks(lambda blk, xm: blk(xm), list(self.blocks),
+                                y.reshape(M, B // M, N, self.d_model), self.mesh,
+                                self.stage_axis, self.batch_axis).reshape(B, N, self.d_model)
+        else:
+            for blk in self.blocks:
+                y = blk(y)
+                if self.moe_experts:
+                    y, aux = y
+                    moe_aux = moe_aux + aux
         y = L.layer_norm(y, self.norm.weight, self.norm.bias, _LN_EPS)
         if self.use_cls:
             pooled, tokens = y[:, 0], y[:, 1:]
+        elif self.seq_axis:     # the mean over every rank's frames
+            pooled = all_reduce(y.sum(dim=1, dtype=torch.float32),
+                                axis_group(self.mesh, self.seq_axis))
+            pooled, tokens = (pooled / (T * seq)).to(y.dtype), y
         else:
             pooled, tokens = y.mean(dim=1), y
         pooled = L.dropout(pooled, self.dropout_rate, train, generator)
         logits = L.linear(pooled, self.head.weight, self.head.bias).to(torch.float32)
         norms = torch.linalg.vector_norm(tokens.to(torch.float32), dim=-1)
-        scores = torch.softmax(norms, dim=-1)
+        scores = (_seq_softmax(norms.detach(), self.mesh, self.seq_axis) if self.seq_axis
+                  else torch.softmax(norms, dim=-1))
         if self.moe_experts and train:
             return logits, scores, {"moe_load_balance": moe_aux / self.depth}
         return logits, scores

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from deepfake_video_detection_tpu_torch.ops import attention as A
+from deepfake_video_detection_tpu_torch.parallel.mesh import (
+    tokens_count, tokens_reduced, tokens_sum)
 
 
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -63,13 +65,21 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     enters the running update. Returns ``(y, (new_mean, new_var))``; in
     eval the running stats pass through. Either way the normalisation is
     folded into one scale and shift computed in f32 and cast to x's dtype,
-    as in the JAX layer."""
+    as in the JAX layer. Within ``parallel.mesh.reducing`` the moments and
+    the count are the global batch's (JAX's mean over a sharded batch),
+    summed over the ranks holding other frames, the backward through that
+    sum."""
     if train:
         dims = tuple(range(x.ndim - 1))
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=dims)
-        var = (xf * xf).mean(dim=dims) - mean * mean
         n = x.numel() // x.shape[-1]
+        if tokens_reduced():
+            sums = tokens_sum(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+            n = tokens_count(n)
+            mean, var = sums[0] / n, sums[1] / n - (sums[0] / n) ** 2
+        else:
+            mean = xf.mean(dim=dims)
+            var = (xf * xf).mean(dim=dims) - mean * mean
         unbiased = var * (n / max(n - 1, 1))
         new_stats = ((1 - momentum) * running_mean + momentum * mean,
                      (1 - momentum) * running_var + momentum * unbiased)

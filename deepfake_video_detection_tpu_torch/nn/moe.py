@@ -17,12 +17,24 @@ turns f32 after its first MoE block there too). The router's gradient flows
 through the gate and the load-balance loss's mean probability; the one-hot
 and the fractions carry none.
 
-The expert-parallel path (``apply_expert_parallel``) shards the experts
-over a mesh and is not ported (ROADMAP item 18(c)).
+:meth:`MoEMLP.apply_expert_parallel` is JAX's expert-parallel path: the
+tokens of every rank holding other rows are gathered (JAX routes the
+global token set), packed into an (E, cap, D) buffer by a stable sort
+(``cap = ceil(N/E · capacity_factor)``, overflow tokens get zero), each
+rank of the mesh's ``expert`` axis computes its E/G experts' slice of the
+buffer, and an all-gather over that axis returns every expert's outputs
+(JAX's in/out specs: the tokens are replicated over the expert axis, so
+the dispatch is a slice and the combine a gather). Every rank keeps all the
+experts' weights and uses its slice, as JAX's plan places them (``P()``:
+replicated); their gradients are summed over the world by the train step.
+
+Under ``parallel.mesh.reducing`` the load-balance loss takes its means
+over the global token set (the ranks holding other frames).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -31,6 +43,8 @@ import torch.nn.functional as F
 from torch.nn.utils import skip_init
 
 from deepfake_video_detection_tpu_torch.nn import init as I
+from deepfake_video_detection_tpu_torch.parallel.mesh import (
+    tokens_count, tokens_reduced, tokens_sum)
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 
 
@@ -89,18 +103,60 @@ class MoEMLP(nn.Module):
             return out, load_balance_loss(probs, idx, self.num_experts)
         return out
 
-    def apply_expert_parallel(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MoEMLP.apply_expert_parallel (experts sharded over a mesh) is not "
-            "ported yet (ROADMAP item 18(c): sequence and expert parallelism)")
+    def apply_expert_parallel(self, x: torch.Tensor, mesh, expert_axis: str = "expert",
+                              with_aux: bool = False, batch_axis: Optional[str] = "data"):
+        """(N, D) → (N, D) with the experts split over ``expert_axis``:
+        ``x`` is this rank's tokens (its rows, split over ``batch_axis``)."""
+        from deepfake_video_detection_tpu_torch.parallel.mesh import (
+            all_gather, axis_group, axis_rank, axis_size)
+
+        E = self.num_experts
+        G = axis_size(mesh, expert_axis)
+        assert E % G == 0, "num_experts must divide the expert axis"
+        n_local = x.shape[0]
+        data_group = axis_group(mesh, batch_axis)
+        xs = all_gather(x, data_group) if data_group is not None else x
+        N, D = xs.shape
+        cap = max(1, math.ceil(N / E * self.capacity_factor))
+        idx, gate, probs = self._route(xs)
+        sort = torch.argsort(idx, stable=True)             # tokens grouped by e
+        sorted_e = idx[sort]
+        rank = torch.arange(N, device=x.device) - torch.searchsorted(
+            sorted_e, sorted_e, side="left")
+        slot = torch.where(rank < cap, sorted_e * cap + rank,
+                           torch.full_like(rank, E * cap))  # E*cap = dropped
+        buf = xs.new_zeros((E * cap + 1, D)).index_copy(0, slot, xs[sort])
+        buf = buf[:-1].reshape(E, cap, D)
+        g, per = axis_rank(mesh, expert_axis), E // G
+        dt = _promoted(x.dtype)
+        h = F.gelu(torch.matmul(buf[g * per:(g + 1) * per].to(dt), self.w1[g * per:(g + 1) * per].to(dt)))
+        out_local = torch.matmul(h, self.w2[g * per:(g + 1) * per].to(dt))
+        expert_group = axis_group(mesh, expert_axis)
+        out_buf = (all_gather(out_local, expert_group)
+                   if expert_group is not None else out_local)        # (E, cap, D)
+        flat = torch.cat([out_buf.reshape(E * cap, D), out_buf.new_zeros((1, D))])
+        # JAX scatters the outputs into a buffer of x's dtype
+        y = xs.new_zeros((N, D)).index_copy(0, sort, flat[slot].to(xs.dtype))
+        out = y * gate[:, None]
+        lo = axis_rank(mesh, batch_axis) * n_local if data_group is not None else 0
+        out = out[lo:lo + n_local]
+        if with_aux:
+            return out, load_balance_loss(probs, idx, E, global_tokens=True)
+        return out
 
     def forward(self, x: torch.Tensor, with_aux: bool = False):
         return self.apply_dense(x, with_aux)
 
 
 def load_balance_loss(router_probs: torch.Tensor, expert_idx: torch.Tensor,
-                      num_experts: int) -> torch.Tensor:
-    """Switch-transformer auxiliary loss: E · Σ_e fraction_e · prob_e."""
-    fraction = F.one_hot(expert_idx, num_experts).to(torch.float32).mean(dim=0)
-    prob = router_probs.to(torch.float32).mean(dim=0)
-    return num_experts * torch.sum(fraction * prob)
+                      num_experts: int, global_tokens: bool = False) -> torch.Tensor:
+    """Switch-transformer auxiliary loss: E · Σ_e fraction_e · prob_e, the
+    means over the global token set within ``parallel.mesh.reducing``
+    (``global_tokens``: the caller's tokens are already all of them)."""
+    one_hot = F.one_hot(expert_idx, num_experts).to(torch.float32)
+    probs = router_probs.to(torch.float32)
+    if global_tokens or not tokens_reduced():
+        return num_experts * torch.sum(one_hot.mean(dim=0) * probs.mean(dim=0))
+    sums = tokens_sum(torch.stack([one_hot.sum(dim=0), probs.sum(dim=0)]))
+    n = tokens_count(probs.shape[0])
+    return num_experts * torch.sum((sums[0] / n) * (sums[1] / n))

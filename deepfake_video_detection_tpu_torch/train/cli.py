@@ -31,11 +31,19 @@ threads, ``--detector center|mtcnn|none``, ``--face_size``,
 ``--labels_csv``, ``--cache-clips``); on a host without libav set
 ``VIDEO_BACKEND=cv2``. ``--steps_per_call > 1`` is not ported and raises
 ``NotImplementedError`` naming ROADMAP. The temporal model takes
-``--d_model``, ``--depth``, ``--heads`` and ``--moe_experts`` (a top-1
-mixture of experts in every block, trained densely on the one card, as the
-JAX CLI does on one device; ``model_config`` records it); of the JAX CLI's
-parallelism flags only ``--expert_par`` is offered, and a degree above 1
-raises ``NotImplementedError`` (ROADMAP item 18(c)).
+``--d_model``, ``--depth`` and ``--heads``.
+
+The JAX CLI's parallelism flags (``parallel/strategy.py::add_parallel_args``:
+``--mesh``, ``--fsdp``, ``--seq``/``--seq_par``, ``--pp_stages``/
+``--pp_microbatches``, ``--moe_experts``/``--expert_par``) resolve through
+``build_plan`` at this run's world size, one process per device:
+
+    torchrun --nproc_per_node 4 -m deepfake_video_detection_tpu_torch.train.cli \
+        --data_dir faces/ --model pretrained --mesh data=2,model=2
+
+(``--device cpu`` runs the ranks over gloo). With more than one rank and no
+parallel flag the run is pure data parallelism over all ranks, as JAX's
+``make_mesh()`` over all devices. Rank 0 writes the checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -54,6 +62,10 @@ from deepfake_video_detection_tpu_torch.models.cnn_lstm import CNNLSTMHybrid
 from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
 from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
     TemporalTransformerDetector)
+from deepfake_video_detection_tpu_torch.parallel.mesh import (
+    is_main_process, make_mesh, world_size)
+from deepfake_video_detection_tpu_torch.parallel.strategy import (
+    add_parallel_args, build_plan)
 from deepfake_video_detection_tpu_torch.train.progressive import ProgressiveFineTuner
 from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -81,7 +93,9 @@ def build_model(name: str, num_frames: int, vit_variant: str = "vit_tiny_patch16
                 {"model_type": "pretrained", "backbone": backbone})
     tkw = dict(temporal_kwargs or {})
     return (TemporalTransformerDetector(backbone, **tkw, **kw), None,
-            {"model_type": "temporal", "backbone": backbone, **tkw})
+            {"model_type": "temporal", "backbone": backbone,
+             **{k: tkw[k] for k in ("d_model", "depth", "num_heads", "moe_experts",
+                                    "mlp_ratio", "mlp_hidden", "use_cls") if k in tkw}})
 
 
 def main(argv=None) -> int:
@@ -130,14 +144,13 @@ def main(argv=None) -> int:
     ap.add_argument("--d_model", type=int, default=256, help="temporal model width")
     ap.add_argument("--depth", type=int, default=4, help="temporal transformer blocks")
     ap.add_argument("--heads", type=int, default=4, help="temporal attention heads")
-    ap.add_argument("--moe_experts", type=int, default=0,
-                    help="experts per block MLP (temporal); dense on one card")
-    ap.add_argument("--expert_par", type=int, default=0,
-                    help="expert-parallel degree (above 1 is not ported)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (the card by default)")
+                    help="torch device to train on (the card by default; "
+                         "cuda:LOCAL_RANK under torchrun)")
+    add_parallel_args(ap)
     args = ap.parse_args(argv)
-    moe_plan = _moe_plan(args)
+    plan, par_kwargs = build_plan(args, args.model, args.num_frames,
+                                  depth=args.depth, device=args.device)
 
     if args.from_videos:
         ds = VideoClipsDataset(args.data_dir, num_frames=args.num_frames,
@@ -149,9 +162,7 @@ def main(argv=None) -> int:
                                recursive=args.recursive)
     train_ds, val_ds = ds.split(0.2)
     temporal_kwargs = dict(d_model=args.d_model, depth=args.depth,
-                           num_heads=args.heads)
-    if args.moe_experts > 0:
-        temporal_kwargs["moe_experts"] = args.moe_experts
+                           num_heads=args.heads, **par_kwargs)
     model, adjacency, model_config = build_model(
         args.model, args.num_frames, args.vit_variant, args.backbone,
         temporal_kwargs, bf16=args.bf16, device=args.device)
@@ -167,14 +178,16 @@ def main(argv=None) -> int:
     if args.progressive:
         if args.model != "pretrained":
             ap.error("--progressive requires --model pretrained")
+        if plan is not None and not plan.pure_dp:
+            ap.error("--progressive composes with data parallelism only; "
+                     "drop the model-parallel flags")
         if args.ema_decay:
             ap.error("--progressive rebuilds the optimizer per stage and "
                      "does not carry the EMA slot; drop --ema_decay")
-        return _run_progressive(args, model, train_ds, val_ds, cfg)
+        return _run_progressive(args, model, train_ds, val_ds, cfg,
+                                plan.mesh if plan is not None else default_mesh(args.device))
 
-    if moe_plan:
-        print(f"parallelism plan: {moe_plan} over 1 devices")
-    trainer = Trainer(model, train_ds, val_ds, cfg, device=args.device)
+    trainer = make_trainer(model, train_ds, val_ds, cfg, plan, args.device, Trainer)
     state = None
     resume = args.resume or args.checkpoint
     if resume:
@@ -183,22 +196,25 @@ def main(argv=None) -> int:
     return 0
 
 
-def _moe_plan(args) -> str:
-    """The JAX ``parallel/strategy.py::build_plan``'s checks of the MoE
-    flags on one device, and its plan's description (empty without MoE):
-    the experts run densely; expert parallelism raises."""
-    if args.moe_experts <= 0:
-        return ""
-    if args.model not in ("temporal", "temporal_transformer"):
-        raise ValueError("--moe_experts requires --model temporal")
-    if args.expert_par > 1:
-        raise NotImplementedError(
-            f"--expert_par {args.expert_par} (experts sharded over devices) is not "
-            "ported yet (ROADMAP item 18(c): sequence and expert parallelism)")
-    return f"dp=1,moe={args.moe_experts}e(dense)"
+def default_mesh(device):
+    """JAX's ``make_mesh() if len(jax.devices()) > 1 else None``: all ranks
+    on ``data`` when this run has more than one."""
+    return make_mesh(device=device) if world_size() > 1 else None
 
 
-def _run_progressive(args, model, train_ds, val_ds, cfg) -> int:
+def make_trainer(model, train_ds, val_ds, cfg, plan, device, trainer_cls=Trainer):
+    """The CLIs' ``trainer_cls``: under ``plan`` (printing its line), else
+    pure DP over every rank of a multi-rank run, else one device."""
+    if plan is not None:
+        if is_main_process():
+            print(f"parallelism plan: {plan.description} over "
+                  f"{plan.n_devices} devices")
+        return trainer_cls(model, train_ds, val_ds, cfg, plan=plan, device=device)
+    return trainer_cls(model, train_ds, val_ds, cfg, mesh=default_mesh(device),
+                       device=device)
+
+
+def _run_progressive(args, model, train_ds, val_ds, cfg, mesh=None) -> int:
     """The three stages through the standard Trainer: each stage gets a
     fresh masked AdamW at its lr (constant, no EMA), warm-starts from the
     previous stage's best checkpoint (stage 0 from ``--resume`` or
@@ -213,8 +229,8 @@ def _run_progressive(args, model, train_ds, val_ds, cfg) -> int:
                             ema_decay=None,
                             out_dir=os.path.join(cfg.out_dir,
                                                  f"stage{sc['stage']}_{sc['name']}"))
-        trainer = Trainer(model, train_ds, val_ds, stage_cfg, tx=ft.make_optimizer(),
-                          device=args.device)
+        trainer = Trainer(model, train_ds, val_ds, stage_cfg, mesh=mesh,
+                          tx=ft.make_optimizer(), device=args.device)
         state = trainer.warm_start(prev_best) if prev_best else None
         print(f"progressive stage {sc['stage']} ({sc['name']}): lr={sc['lr']:g}, "
               f"epochs={sc['epochs']}, unfreeze_blocks={sc['unfreeze_blocks']}")

@@ -12,8 +12,10 @@ threshold sweep each epoch, so the best epoch's ``calibration_best.json``
 is written beside ``checkpoint_best.npz`` (``--torch-export`` adds
 ``checkpoint_best.pt``), with ``training_history.csv``, best-by-
 ``--best_metric`` and the interrupt checkpoint. ``--resume`` reads a native
-``.npz`` or a reference ``.pt``. The parallelism flags are not offered
-(ROADMAP item 18); ``--steps_per_call > 1`` raises ``NotImplementedError``.
+``.npz`` or a reference ``.pt``. The parallelism flags are the JAX CLI's
+(``--mesh``, ``--fsdp``; ``--mesh model=N`` shards every member's head),
+one process per device under ``torchrun``; ``--steps_per_call > 1`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.models.backbone_detector import EnsembleDetector
+from deepfake_video_detection_tpu_torch.parallel.strategy import add_parallel_args, build_plan
+from deepfake_video_detection_tpu_torch.train.cli import make_trainer
 from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -53,8 +57,13 @@ def main(argv=None) -> int:
     ap.add_argument("--grad_accum", type=int, default=1,
                     help="microbatches accumulated per optimizer step")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (the card by default)")
+                    help="torch device to train on (the card by default; "
+                         "cuda:LOCAL_RANK under torchrun)")
+    add_parallel_args(ap, temporal=False)
     args = ap.parse_args(argv)
+    # members keep BackboneDetector's leaf names (models.i.fc1.weight), so
+    # the detector's TP rules apply to every member
+    plan, _ = build_plan(args, "pretrained", args.num_frames, device=args.device)
 
     backbones = [b.strip() for b in args.backbones.split(",") if b.strip()]
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
@@ -74,7 +83,7 @@ def main(argv=None) -> int:
         grad_accum=args.grad_accum,
         model_config={"model_type": "ensemble", "backbones": backbones,
                       "ensemble_method": args.ensemble_method})
-    trainer = Trainer(model, train_ds, val_ds, cfg, device=args.device)
+    trainer = make_trainer(model, train_ds, val_ds, cfg, plan, args.device, Trainer)
     state = trainer.resume(args.resume) if args.resume else None
     trainer.train(state)
     return 0

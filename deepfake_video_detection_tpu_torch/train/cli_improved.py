@@ -19,7 +19,8 @@ on the card, forward and backward. ``--init-from`` warm-starts (params
 only) and ``--resume`` resumes from a native ``.npz`` or a reference
 ``.pt``. ``training_history.csv`` is also copied to
 ``training_metrics_improved.csv``, the reference's name. The parallelism
-flags are not offered (ROADMAP item 18).
+flags are the JAX CLI's (``--mesh``, ``--fsdp``), one process per device
+under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import torch
 
 from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
 from deepfake_video_detection_tpu_torch.models.gcn import FrameGraphDetector
+from deepfake_video_detection_tpu_torch.parallel.strategy import add_parallel_args, build_plan
+from deepfake_video_detection_tpu_torch.train.cli import make_trainer
 from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -63,8 +66,11 @@ def build_trainer(argv=None):
     ap.add_argument("--grad_accum", type=int, default=1,
                     help="microbatches accumulated per optimizer step")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (the card by default)")
+                    help="torch device to train on (the card by default; "
+                         "cuda:LOCAL_RANK under torchrun)")
+    add_parallel_args(ap, temporal=False)
     args = ap.parse_args(argv)
+    plan, _ = build_plan(args, "vit_gcn", args.num_frames, device=args.device)
 
     ds = VideoFacesDataset(args.data_dir, num_frames=args.num_frames,
                            recursive=args.recursive)
@@ -89,7 +95,7 @@ def build_trainer(argv=None):
         model_config={"model_type": "vit_gcn", "vit_variant": variant,
                       "backbone": flavor},
     )
-    return Trainer(model, train_ds, val_ds, cfg, device=args.device), args
+    return make_trainer(model, train_ds, val_ds, cfg, plan, args.device, Trainer), args
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,10 @@ Counterpart of ``deepfake_video_detection_tpu/train/losses.py``: weighted
 cross-entropy with label smoothing, focal loss over smoothed targets, and
 BCE-with-logits. Every per-sample loss is reduced by the torch-semantics
 weighted mean ``sum(w·x) / sum(w)``, ``w`` the class weight times the
-validity mask, so the loader's padded slots carry no gradient.
+validity mask, so the loader's padded slots carry no gradient. Within
+``parallel.mesh.reducing`` the denominator ``sum(w)`` is the global
+batch's (summed over the ranks holding other rows), so each rank's loss is
+its rows' share of the global mean and the shares add up to it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from deepfake_video_detection_tpu_torch.parallel.mesh import rows_sum
 
 Weights = Optional[Union[torch.Tensor, np.ndarray, Sequence[float]]]
 
@@ -36,7 +41,7 @@ def _weighted_mean(per_sample: torch.Tensor, labels: torch.Tensor,
         w = w * cw[labels.long()]
     if sample_mask is not None:
         w = w * sample_mask.to(torch.float32)
-    return torch.sum(per_sample * w) / torch.clamp(torch.sum(w), min=1e-8)
+    return torch.sum(per_sample * w) / torch.clamp(rows_sum(torch.sum(w)), min=1e-8)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -19,7 +19,10 @@ with optax's semantics where they differ from ``torch.optim``:
 
 Schedules are functions of the step evaluated on the host, so a step needs
 no device sync for them. Parameters and state are updated in place under
-``torch.no_grad`` (the JAX package returns new arrays).
+``torch.no_grad`` (the JAX package returns new arrays). Under FSDP2 the
+parameters, their gradients and the state slots built on them are
+DTensors: the arithmetic runs on their local shards, and the clip's global
+norm sums the shards' squares over their mesh (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -89,6 +92,31 @@ def cosine_warm_restarts(base_lr: float, t_0: int = 10, t_mult: int = 2,
 # ---------------------------------------------------------------------------
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """``sqrt(Σ ‖t‖²)`` in f32 (``optax.global_norm``); a DTensor's square
+    sum is taken over its shards on every rank of its mesh."""
+    from torch.distributed.tensor import DTensor
+
+    tensors = list(tensors)
+    sharded = [t for t in tensors if isinstance(t, DTensor)]
+    total = sum(torch.sum(torch.square(t.to(torch.float32)))
+                for t in tensors if not isinstance(t, DTensor))
+    if sharded:
+        from deepfake_video_detection_tpu_torch.parallel.mesh import all_reduce
+
+        part = sum(torch.sum(torch.square(t.to_local().to(torch.float32)))
+                   for t in sharded)
+        total = total + all_reduce(part, sharded[0].device_mesh.get_group())
+    return torch.sqrt(total)
+
+
 class Optimizer:
     """The update of the JAX ``build_optimizer`` over named parameters.
 
@@ -136,19 +164,23 @@ class Optimizer:
              state: Dict[str, Any]) -> None:
         """One update: ``params`` and ``state`` change in place."""
         names = [n for n in params if self._trainable(n)]
-        p = [params[n] for n in names]
-        g = [grads[n] if grads.get(n) is not None else torch.zeros_like(params[n])
-             for n in names]
+        p = [_local(params[n]) for n in names]
+        g_full = [grads[n] if grads.get(n) is not None else torch.zeros_like(params[n])
+                  for n in names]
+        g = [_local(t) for t in g_full]
         if self.grad_clip is not None and g:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(g)).to(torch.float32))
+            if any(a is not b for a, b in zip(g, g_full)):
+                norm = global_norm(g_full)
+            else:
+                norm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(g)).to(torch.float32))
             factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                  self.grad_clip / norm)
             g = torch._foreach_mul(g, factor)
         count = int(state["count"])
         if self.name in ("adam", "adamw"):
-            mu = [state["mu"][n] for n in names]
-            nu = [state["nu"][n] for n in names]
+            mu = [_local(state["mu"][n]) for n in names]
+            nu = [_local(state["nu"][n]) for n in names]
             torch._foreach_mul_(mu, _B1)
             torch._foreach_add_(mu, g, alpha=1.0 - _B1)
             torch._foreach_mul_(nu, _B2)
@@ -161,7 +193,7 @@ class Optimizer:
             if self.name == "adamw":
                 torch._foreach_add_(u, p, alpha=self.weight_decay)
         else:
-            tr = [state["trace"][n] for n in names]
+            tr = [_local(state["trace"][n]) for n in names]
             torch._foreach_mul_(tr, _MOMENTUM)
             torch._foreach_add_(tr, g)
             u = [t.clone() for t in tr]
@@ -170,8 +202,9 @@ class Optimizer:
         if self.ema_decay is not None:
             ema, upd = state["ema"], dict(zip(names, u))
             for n, pn in params.items():
+                pn, en = _local(pn), _local(ema[n])
                 new = pn + upd[n] if n in upd else pn
-                ema[n].add_(new - ema[n], alpha=1.0 - self.ema_decay)
+                en.add_(new - en, alpha=1.0 - self.ema_decay)
         torch._foreach_add_(p, u)
         state["count"] = count + 1
 

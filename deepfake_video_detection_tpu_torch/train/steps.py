@@ -22,6 +22,16 @@ the reported loss includes them; in the accumulating step each microbatch
 adds ``weight · aux / accum`` and the reported loss stays the weighted mean
 of the microbatches' task losses, as in the JAX package. Under ``remat``
 the aux comes out of ``torch.utils.checkpoint`` with the logits.
+
+Every step runs through a ``runtime`` (``parallel/strategy.py::
+ParallelRuntime``). Under a plan's mesh, with ranks each holding their part
+of the batch, a step computes what JAX's step computes over the global
+batch: the forward runs within the runtime's reductions (the loss's global
+weight sums, batch norm's global moments), each rank backpropagates its
+share of the objective into ``.grad`` (the way FSDP2's hooks take
+gradients), the runtime sums the gradients over the ranks, and the metrics
+are the global batch's. Without a plan the runtime is one device's, and
+each of those reductions is the identity.
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from deepfake_video_detection_tpu_torch.nn.layers import frozen_running_stats
-from deepfake_video_detection_tpu_torch.train.optim import Optimizer
+from deepfake_video_detection_tpu_torch.parallel.mesh import rows_sum
+from deepfake_video_detection_tpu_torch.parallel.strategy import ParallelRuntime
+from deepfake_video_detection_tpu_torch.train.optim import Optimizer, global_norm
 from deepfake_video_detection_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -79,14 +91,9 @@ def _hits(logits: torch.Tensor, labels: torch.Tensor,
     return (hit & valid).sum(), valid.sum()
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(Σ ‖t‖²)`` in f32 (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in tensors))
-
-
 def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
-                    remat: bool = False, aux_loss_weight: float = 0.01
+                    remat: bool = False, aux_loss_weight: float = 0.01,
+                    runtime: Optional[ParallelRuntime] = None
                     ) -> Callable[[TrainState, dict, Optional[torch.Generator]],
                                   Tuple[TrainState, Metrics]]:
     """``step(state, batch, generator) -> (state, metrics)``. ``batch``:
@@ -94,23 +101,30 @@ def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
     ``valid`` (B,) bool and ``adjacency`` (B, T, T), all on the model's
     device. ``generator`` drives dropout. The state is updated in place
     and returned; the loss includes ``aux_loss_weight`` × the model's aux
-    losses."""
+    losses. ``runtime``: the plan's, or one device's (None)."""
+    runtime = runtime or ParallelRuntime()
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
         params = state.params
-        logits, aux = _forward(model, batch, True, generator, remat)
-        valid = batch.get("valid")
-        loss = loss_fn(logits, batch["labels"], sample_mask=valid)
-        if aux is not None:
-            loss = loss + aux_loss_weight * aux
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = dict(zip(params, grads))
+        for p in params.values():
+            p.grad = None
+        with runtime.context():
+            logits, aux = _forward(model, batch, True, generator, remat)
+            valid = batch.get("valid")
+            task = loss_fn(logits, batch["labels"], sample_mask=valid)
+            runtime.backward(task, aux, aux_loss_weight)
+        grads = runtime.reduce_grads(params)
         grad_norm = global_norm(g for g in grads.values() if g is not None)
         tx.step(params, grads, state.opt_state)
+        for p in params.values():
+            p.grad = None
         state.step += 1
         correct, count = _hits(logits.detach(), batch["labels"], valid)
-        return state, {"loss": loss.detach(), "correct": correct, "count": count,
+        loss, correct, count = runtime.reduce_metrics(task, correct, count)
+        if aux is not None:
+            loss = loss + aux_loss_weight * aux.detach()
+        return state, {"loss": loss, "correct": correct, "count": count,
                        "grad_norm": grad_norm}
 
     return step
@@ -129,7 +143,8 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
                     accum: int, remat: bool = False,
                     prep: Optional[Callable[[dict, Optional[torch.Generator]], dict]] = None,
                     sample_weight_fn: Optional[Callable[..., torch.Tensor]] = None,
-                    aux_loss_weight: float = 0.01):
+                    aux_loss_weight: float = 0.01,
+                    runtime: Optional[ParallelRuntime] = None):
     """One optimizer step whose gradient is accumulated over ``accum``
     microbatches. ``batches``: every leaf shaped ``(accum, B/accum, ...)``.
     Microbatch gradients are combined by their weight sums
@@ -137,7 +152,9 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
     so the result equals the full-batch gradient up to float addition order.
     ``prep(batch, generator)`` (the trainer's augment + normalise) runs per
     microbatch. A model's aux losses add ``aux_loss_weight · aux / accum``
-    each microbatch to the differentiated loss, not to the reported one."""
+    each microbatch to the differentiated loss, not to the reported one.
+    ``runtime``: the plan's, or one device's (None)."""
+    runtime = runtime or ParallelRuntime()
     if sample_weight_fn is None:
         def sample_weight_fn(labels, valid):  # noqa: F811 — default: mask only
             w = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
@@ -146,10 +163,12 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
     def accum_step(state: TrainState, batches: dict,
                    generator: Optional[torch.Generator] = None):
         params = state.params
-        den = torch.sum(sample_weight_fn(batches["labels"], batches.get("valid")),
-                        dim=1)
+        for p in params.values():
+            p.grad = None
+        with runtime.context():
+            den = rows_sum(torch.sum(sample_weight_fn(batches["labels"],
+                                                      batches.get("valid")), dim=1))
         scale = den / torch.clamp(torch.sum(den), min=1e-8)
-        grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
         loss = torch.zeros((), dtype=torch.float32, device=scale.device)
         correct = torch.zeros((), dtype=torch.int64, device=scale.device)
         count = torch.zeros((), dtype=torch.int64, device=scale.device)
@@ -157,21 +176,21 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
             b = {k: v[i] for k, v in batches.items()}
             if prep is not None:
                 b = prep(b, generator)
-            logits, aux = _forward(model, b, True, generator, remat)
-            mean_k = loss_fn(logits, b["labels"], sample_mask=b.get("valid"))
-            scaled = mean_k * scale[i]
-            if aux is not None:
-                scaled = scaled + aux_loss_weight * aux / accum
-            g = torch.autograd.grad(scaled, list(params.values()), allow_unused=True)
-            for n, gi in zip(params, g):
-                if gi is not None:
-                    grads[n] += gi
+            with runtime.context():
+                logits, aux = _forward(model, b, True, generator, remat)
+                mean_k = loss_fn(logits, b["labels"], sample_mask=b.get("valid"))
+                runtime.backward(mean_k * scale[i], None if aux is None else aux / accum,
+                                 aux_loss_weight)
             loss = loss + mean_k.detach() * scale[i]
             c, k = _hits(logits.detach(), b["labels"], b.get("valid"))
             correct, count = correct + c, count + k
-        grad_norm = global_norm(grads.values())
+        grads = runtime.reduce_grads(params)
+        grad_norm = global_norm(g for g in grads.values() if g is not None)
         tx.step(params, grads, state.opt_state)
+        for p in params.values():
+            p.grad = None
         state.step += 1
+        loss, correct, count = runtime.reduce_metrics(loss, correct, count)
         return state, {"loss": loss, "correct": correct, "count": count,
                        "grad_norm": grad_norm}
 

@@ -27,8 +27,23 @@ Differences from the JAX trainer: the model arrives with its weights
 builds the optimizer state around them instead of re-initialising from
 ``seed``; random draws (augment, dropout) come from a ``torch.Generator``
 seeded per epoch as the JAX keys are, so they are seeded but not the same
-numbers. Not ported (each raises ``NotImplementedError``): meshes and
-parallel plans, and ``steps_per_call > 1``.
+numbers. Not ported: ``steps_per_call > 1`` (raises
+``NotImplementedError``).
+
+Multi-device training (``mesh``, a ``DeviceMesh``, for pure data
+parallelism, or ``plan``, ``parallel/strategy.py::build_plan``'s): one
+process per device. The plan's placement is applied once, here
+(``place_model``: FSDP2, the detector's tensor parallelism; the
+``placement [...]`` line and JAX's FSDP warning), or under pure DP every
+rank takes rank 0's weights. Each rank's loader draws the epoch's order
+and loads only its rows of each batch (padded to ``batch_multiple``), and
+its frames under a ``seq`` spec; augmentation draws for the global batch
+and keeps its rows (a world of N augments as a world of one), dropout
+draws from a generator seeded per data rank. The steps run with the
+plan's ``ParallelRuntime``; validation gathers every data rank's rows, so
+every rank scores the whole split. Rank 0 alone writes checkpoints (the
+whole tensors, FSDP shards gathered, in JAX's layout), the history, the
+predictions and the logs.
 """
 
 from __future__ import annotations
@@ -56,9 +71,12 @@ from deepfake_video_detection_tpu_torch.data.dataset import SubsetDataset
 from deepfake_video_detection_tpu_torch.data.loader import Loader, prefetch_to_device
 from deepfake_video_detection_tpu_torch.data.normalize import (
     clip_normalize, imagenet_normalize)
+from deepfake_video_detection_tpu_torch.data.augment import apply_params, draw_params
 from deepfake_video_detection_tpu_torch.evals.metrics import (
     binary_metrics, confusion_matrix, real_score_quantiles, roc_auc,
     threshold_sweep)
+from deepfake_video_detection_tpu_torch.parallel.mesh import (
+    is_main_process, local_device, replicate)
 from deepfake_video_detection_tpu_torch.train import losses as losses_mod
 from deepfake_video_detection_tpu_torch.train import optim as optim_mod
 from deepfake_video_detection_tpu_torch.train.state import TrainState
@@ -119,9 +137,38 @@ class TrainerConfig:
     model_config: Dict[str, Any] = field(default_factory=dict)
 
 
+def _full(t: Any) -> Any:
+    """A DTensor's whole tensor (a collective: every rank calls it), else
+    ``t``; dicts of them recursively."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, dict):
+        return {k: _full(v) for k, v in t.items()}
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``full`` placed as ``like``: this rank's shard of it when ``like`` is
+    a DTensor (FSDP2's even ``Shard(d)`` chunks)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    out = full.to(like.device, like.dtype)
+    if not isinstance(like, DTensor):
+        return out
+    mesh = like.device_mesh
+    for i, pl in enumerate(like.placements):
+        if isinstance(pl, Shard):
+            out = torch.chunk(out, mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+    return DTensor.from_local(out.contiguous(), mesh, like.placements)
+
+
 def _unit(x: torch.Tensor, scaled: bool = False) -> torch.Tensor:
     x = x.to(torch.float32)
     return x if scaled else x / 255.0
+
+
+def _quiet(_msg: str) -> None:
+    """The log of a rank other than 0."""
 
 
 class Trainer:
@@ -132,11 +179,21 @@ class Trainer:
         """``tx``: an optimizer overriding the one the config would build.
         ``device``: the card unless the caller names another; the model is
         moved there."""
-        if mesh is not None or plan is not None:
-            raise NotImplementedError(f"meshes and parallel plans {_NOT_PORTED} (item 18)")
         if config.steps_per_call > 1:
             raise NotImplementedError(f"steps_per_call > 1 {_NOT_PORTED} (item 21)")
+        from deepfake_video_detection_tpu_torch.parallel import strategy
+
+        if plan is None and mesh is not None:
+            plan = strategy.dp_plan(mesh)
+        self.plan = plan
+        self.runtime = None
         self.device = resolve_device(device)
+        if plan is not None:
+            if plan.mesh is None:
+                raise ValueError("the plan was built for another device count "
+                                 "(n_devices); build it for this run's world")
+            self.device = resolve_device(local_device(self.device))
+            self.runtime = strategy.ParallelRuntime(plan.mesh)
         self.model = model.to(self.device)
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -147,8 +204,16 @@ class Trainer:
         self.best_epoch = -1
         self.calibration: Dict[str, float] = {}
         self.start_epoch = 0
+        if plan is not None and not plan.pure_dp:
+            summary = strategy.place_model(self.model, plan.mesh, plan.param_spec_fn)
+            if is_main_process():
+                print(strategy.placement_line(plan, summary))
+            strategy.warn_if_unsharded(plan, summary)
+        elif plan is not None:
+            replicate(self.model)
 
-        os.makedirs(config.out_dir, exist_ok=True)
+        if is_main_process():
+            os.makedirs(config.out_dir, exist_ok=True)
 
         # ---- loss ----
         cw = None
@@ -190,7 +255,7 @@ class Trainer:
 
         # ---- steps ----
         self.train_step = make_train_step(model, self.tx, self.loss_fn,
-                                          remat=config.remat)
+                                          remat=config.remat, runtime=self.runtime)
         self.eval_step = make_eval_step(model)
 
         # ---- adjacency (graph models): a fixed graph over the T frames ----
@@ -213,10 +278,19 @@ class Trainer:
             B, T = batch["frames"].shape[:2]
             return dict(batch, adjacency=self._adjacency.expand(B, T, T))
 
+        def _augment(generator, frames):
+            if self.runtime is None:
+                return augment_batch(generator, frames, aug_cfg)
+            # the global batch's draws, this rank's rows of them
+            rt, B = self.runtime, frames.shape[0]
+            p = draw_params(generator, B * rt.data, (frames.shape[2], frames.shape[3]),
+                            aug_cfg, device=frames.device)
+            lo = rt.data_rank * B
+            return apply_params(frames, {k: v[lo:lo + B] for k, v in p.items()})
+
         def _prep_train(batch, generator):
             if config.augment:
-                frames = norm(augment_batch(generator, batch["frames"], aug_cfg)
-                              / 255.0, scaled=True)
+                frames = norm(_augment(generator, batch["frames"]) / 255.0, scaled=True)
             else:
                 frames = norm(batch["frames"])
             return _with_adjacency(dict(batch, frames=frames))
@@ -232,6 +306,17 @@ class Trainer:
                 raise ValueError(
                     f"batch_size ({config.batch_size}) must be divisible by "
                     f"grad_accum ({config.grad_accum})")
+            if plan is not None and not plan.pure_dp and not plan.scan_of_steps_ok:
+                raise ValueError(
+                    "--grad_accum composes with dp / tp / fsdp plans only — "
+                    "drop --grad_accum or the --seq/--pp_stages/"
+                    "--moe_experts flags")
+            n_data = self.runtime.data if self.runtime is not None else 1
+            if (config.batch_size // config.grad_accum) % max(n_data, 1):
+                raise ValueError(
+                    f"microbatch size ({config.batch_size} / "
+                    f"{config.grad_accum}) must be divisible by the data-axis "
+                    f"size ({n_data})")
 
             def _sample_weight(labels, valid):
                 # the loss's weights (class weight × validity), so microbatch
@@ -246,7 +331,7 @@ class Trainer:
             self.accum_step = make_accum_step(
                 model, self.tx, self.loss_fn, config.grad_accum,
                 remat=config.remat, prep=_prep_train,
-                sample_weight_fn=_sample_weight)
+                sample_weight_fn=_sample_weight, runtime=self.runtime)
 
     # ------------------------------------------------------------------
     # state init / resume
@@ -270,8 +355,19 @@ class Trainer:
             self.model.load_state_dict(load, strict=False)
             return meta
         variables, meta = load_checkpoint(path)
-        self.model.load_state_dict(state_dict_from_jax(variables), strict=True)
+        self._load_state_dict(state_dict_from_jax(variables))
         return meta
+
+    def _load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Strict load; FSDP2's DTensor entries take their shard."""
+        own = self.model.state_dict()
+        if set(own) != set(sd):
+            missing, extra = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+            raise RuntimeError(f"state_dict mismatch: missing {missing[:5]}, "
+                               f"unexpected {extra[:5]}")
+        with torch.no_grad():
+            for k, t in own.items():
+                t.copy_(_shard_like(sd[k], t))
 
     def resume(self, path: str, state: Optional[TrainState] = None) -> TrainState:
         """Restore params, optimizer state, step and epoch from a checkpoint
@@ -280,8 +376,11 @@ class Trainer:
         state = state if state is not None else self.init_state()
         meta = self._load_params(path)
         if meta.get("_opt_leaves") is not None and meta.get("opt_names"):
-            state.opt_state = opt_state_from_leaves(
-                meta["opt_names"], meta["_opt_leaves"], self.device)
+            opt = opt_state_from_leaves(meta["opt_names"], meta["_opt_leaves"],
+                                        self.device)
+            params = state.params
+            state.opt_state = {k: ({n: _shard_like(t, params[n]) for n, t in v.items()}
+                                   if isinstance(v, dict) else v) for k, v in opt.items()}
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.best_value = meta.get("best_value")
         state.step = int(meta.get("step", 0))
@@ -303,9 +402,14 @@ class Trainer:
             base = getattr(ds, "base", ds)
             idx = getattr(ds, "indices", list(range(len(ds))))[:16]
             ds = SubsetDataset(base, idx)
+        shard, mult = (0, 1), 1
+        if self.runtime is not None:
+            shard = (self.runtime.data_rank, self.runtime.data)
+            mult = int(self.plan.batch_multiple)
         loader = Loader(ds, self.cfg.batch_size, shuffle=train,
                         weighted=train and self.cfg.balance == "sampler",
-                        seed=self.cfg.seed, num_workers=4)
+                        seed=self.cfg.seed, num_workers=4,
+                        pad_to_multiple=mult, shard=shard)
         # indices come from rng(seed + epoch): a fresh order per epoch, and a
         # resumed run at epoch k draws the order an uninterrupted run would
         loader.epoch = epoch
@@ -315,19 +419,39 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(
             self.cfg.seed * 9973 + epoch)
 
+    def _model_generator(self, epoch: int) -> torch.Generator:
+        """Dropout's draws under a mesh: a stream for each data rank (the
+        ranks of one data row draw alike)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed * 9973 + epoch + 1_000_003 * (self.runtime.data_rank + 1))
+
+    def _frames_shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's frames under a plan whose ``frames`` spec splits the
+        clip axis (the loader already took the rows)."""
+        spec = self.plan.batch_spec("frames") if self.plan is not None else ()
+        if len(spec) < 2 or spec[1] is None:
+            return batch
+        from deepfake_video_detection_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+        n, r = axis_size(self.plan.mesh, spec[1]), axis_rank(self.plan.mesh, spec[1])
+        T = batch["frames"].shape[1] // n
+        return dict(batch, frames=batch["frames"][:, r * T:(r + 1) * T])
+
     def _device_batches(self, ds, train: bool, epoch: int = 0):
-        return prefetch_to_device(self._make_loader(ds, train, epoch), self.device)
+        return prefetch_to_device(self._make_loader(ds, train, epoch), self.device,
+                                  transform=self._frames_shard)
 
     def train_epoch(self, state: TrainState, epoch: int) -> tuple:
         if self.accum_step is not None:
             return self._train_epoch_accum(state, epoch)
         gen = self._generator(epoch)
+        model_gen = gen if self.runtime is None else self._model_generator(epoch)
         tot_loss, tot_correct, tot_count = 0.0, 0, 0
         t0 = time.time()
         for batch in self._device_batches(self.train_ds, True, epoch):
             batch.pop("paths", None)
             batch = self._prep_train(batch, gen)
-            state, metrics = self.train_step(state, batch, gen)
+            state, metrics = self.train_step(state, batch, model_gen)
             n = int(metrics["count"])
             tot_loss += float(metrics["loss"]) * n
             tot_correct += int(metrics["correct"])
@@ -344,6 +468,8 @@ class Trainer:
         run as one optimizer step."""
         gen = self._generator(epoch)
         a, B = self.cfg.grad_accum, self.cfg.batch_size
+        if self.runtime is not None:      # this rank's rows of each batch
+            B //= self.runtime.data
         tot_loss, tot_correct, tot_count = 0.0, 0, 0
         t0 = time.time()
         for batch in self._device_batches(self.train_ds, True, epoch):
@@ -404,6 +530,12 @@ class Trainer:
                 probs_all.append(probs)
                 labels_all.append(labels)
                 paths_all.extend([p for p, v in zip(paths, valid) if v])
+        if self.runtime is not None:      # every data rank's rows, in order
+            parts = self.runtime.gather_rows((probs_all, labels_all, paths_all, losses))
+            probs_all = [a for p in parts for a in p[0]]
+            labels_all = [a for p in parts for a in p[1]]
+            paths_all = [a for p in parts for a in p[2]]
+            losses = [a for p in parts for a in p[3]]
         probs = np.concatenate(probs_all) if probs_all else np.zeros((0, 2))
         labels = np.concatenate(labels_all) if labels_all else np.zeros((0,), np.int64)
         prob_fake = probs[:, self.fake_index] if probs.size else np.zeros((0,))
@@ -418,7 +550,7 @@ class Trainer:
             rq = real_score_quantiles(labels, prob_fake, fake_index=self.fake_index)
             if rq is not None:
                 m["real_score_quantiles"] = rq
-        if write_preds:
+        if write_preds and is_main_process():
             self._write_preds_csv(epoch, paths_all, labels, preds, prob_fake)
         return m
 
@@ -436,7 +568,7 @@ class Trainer:
 
     def _write_history(self):
         """Rewrite ``training_history.csv`` each epoch."""
-        if not self.history:
+        if not self.history or not is_main_process():
             return
         path = os.path.join(self.cfg.out_dir, "training_history.csv")
         keys = sorted({k for row in self.history for k in row
@@ -459,6 +591,8 @@ class Trainer:
         }
         if metrics.get("real_score_quantiles") is not None:
             self.calibration["real_score_quantiles"] = metrics["real_score_quantiles"]
+        if not is_main_process():
+            return
         with open(os.path.join(self.cfg.out_dir, "calibration_best.json"), "w") as f:
             json.dump(self.calibration, f, indent=2)
 
@@ -477,17 +611,21 @@ class Trainer:
         if ema is not None:
             # the metrics were scored on the EMA weights: tag both files
             meta = dict(meta, metrics_scored_on="ema")
-        save_checkpoint(path, self.model.state_dict(), meta,
-                        opt_state=state.opt_state if with_opt else None,
-                        step=state.step)
+        # whole tensors on every rank (FSDP2 gathers its shards), rank 0 writes
+        sd = _full(self.model.state_dict())
+        opt_state = _full(state.opt_state) if with_opt else None
+        ema = _full(ema) if ema is not None else None
+        if not is_main_process():
+            return
+        save_checkpoint(path, sd, meta, opt_state=opt_state, step=state.step)
         if ema is not None:
             # the EMA params with the live batch-norm statistics, as served
             save_checkpoint(os.path.join(self.cfg.out_dir, f"{name}_ema.npz"),
-                            {k: ema.get(k, v) for k, v in self.model.state_dict().items()},
+                            {k: ema.get(k, v) for k, v in sd.items()},
                             meta, step=state.step)
         if self.cfg.keep_torch_export:
             save_torch_checkpoint(os.path.join(self.cfg.out_dir, f"{name}.pt"),
-                                  self.model.state_dict(), layout="model_config",
+                                  sd, layout="model_config",
                                   meta={"model_config": self.cfg.model_config})
 
     # ------------------------------------------------------------------
@@ -522,6 +660,8 @@ class Trainer:
     def train(self, state: Optional[TrainState] = None,
               log: Callable[[str], None] = print) -> TrainState:
         state = state if state is not None else self.init_state()
+        if not is_main_process():
+            log = _quiet
         epoch = self.start_epoch
         with self._sigterm_as_interrupt():
             try:

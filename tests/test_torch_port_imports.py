@@ -20,7 +20,9 @@ assert {port.__name__ + m for m in (
     ".data.faces", ".models.mtcnn", ".data.prepare", ".data.video_dataset",
     ".serve.app", ".serve.jobs", ".serve.auth", ".serve.auth_sqlite", ".serve.chat",
     ".serve.templates", ".serve.detector", ".agents.active_learning", ".agents.telemetry",
-    ".utils.profiling", ".nn.moe", ".models.vlm_gan")} <= set(names)
+    ".utils.profiling", ".nn.moe", ".models.vlm_gan", ".parallel.mesh",
+    ".parallel.multihost", ".parallel.strategy", ".parallel.pipeline",
+    ".ops.ring_attention", ".ops.ulysses_attention")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -160,10 +160,49 @@ def test_bf16_tokens_promote_as_in_jax(moe_and_x):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-6)
 
 
-def test_expert_parallel_path_raises(moe_and_x):
-    moe = moe_and_x[3]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 18\(c\)"):
-        moe.apply_expert_parallel(_t(moe_and_x[2]), None)
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of one rank in this process (in-process store),
+    torn down after the test."""
+    import torch.distributed as dist
+
+    from deepfake_video_detection_tpu_torch.parallel.mesh import init_world
+
+    init_world("cpu")
+    yield
+    dist.destroy_process_group()
+
+
+def test_expert_parallel_path_raises(moe_and_x, world_of_one):
+    """The expert-parallel path (once unported) at G = 1 on a world of one,
+    with ``capacity_factor`` 0.5 so tokens overflow (capacity 4 of 32):
+    outputs (dropped tokens zero), the aux loss and the gradients of x and
+    every leaf against JAX's ``apply_expert_parallel`` on one device."""
+    from jax.sharding import Mesh
+    from torch.distributed.device_mesh import init_device_mesh
+
+    jmoe, params, x, _ = moe_and_x
+    jmoe = JM.MoEMLP(d_model=8, hidden=16, num_experts=4, capacity_factor=0.5)
+    moe = M.MoEMLP(8, 16, 4, capacity_factor=0.5, device="cpu")
+    moe.load_state_dict(state_dict_from_jax(params), strict=True)
+    jmesh = Mesh(np.asarray(jax.devices()[:1]), ("expert",))
+    dout = np.random.default_rng(1).normal(size=x.shape).astype(np.float32)
+    (ref, ref_aux), vjp = jax.vjp(
+        lambda p, x: jmoe.apply_expert_parallel(p, x, jmesh, "expert", with_aux=True),
+        params, jnp.asarray(x))
+    gp, gx = vjp((jnp.asarray(dout), jnp.float32(1.0)))
+    assert (np.abs(np.asarray(ref)).sum(-1) == 0).sum() > 0      # dropped tokens
+
+    xt = _t(x).requires_grad_()
+    mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("expert",))
+    out, aux = moe.apply_expert_parallel(xt, mesh, "expert", with_aux=True)
+    (torch.sum(out * _t(dout)) + aux).backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-6)
+    np.testing.assert_allclose(float(aux.detach()), float(ref_aux), atol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), atol=1e-5)
+    ref_g = state_dict_from_jax(gp)
+    for n, p in moe.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref_g[n].numpy(), atol=1e-5, err_msg=n)
 
 
 # ---------------------------------------------------------------------------
@@ -414,12 +453,18 @@ def test_cli_trains_an_moe_model_that_jax_rebuilds(clips, tmp_path, capsys):
 
 
 def test_cli_moe_flags_stop_as_jax_does(clips, tmp_path):
-    """``--expert_par 2`` raises naming item 18(c); ``--moe_experts`` on
-    another model stops with JAX's message."""
+    """``--expert_par 2`` on a world of one stops with JAX's ``build_plan``
+    message (one device is not divisible by the expert-parallel degree 2);
+    ``--moe_experts`` on another model stops with JAX's message."""
     base = ["--data_dir", clips, "--out_dir", str(tmp_path), "--device", "cpu",
             "--moe_experts", "2"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 18\(c\)"):
+    with pytest.raises(ValueError) as ours:
         cli.main(base + ["--model", "temporal", "--expert_par", "2"])
+    with pytest.raises(ValueError) as ref:
+        jax_build_plan(argparse.Namespace(moe_experts=2, expert_par=2), "temporal", 16,
+                       n_devices=1)
+    assert str(ours.value) == str(ref.value) == \
+        "1 devices not divisible by the expert-parallel degree 2"
     with pytest.raises(ValueError) as ours:
         cli.main(base + ["--model", "pretrained"])
     with pytest.raises(ValueError) as ref:

@@ -238,13 +238,54 @@ def test_temporal_checkpoints_cross_both_ways(tmp_path):
     np.testing.assert_allclose(logits.numpy(), ref_logits, atol=ATOL)
 
 
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of one rank in this process (in-process store),
+    torn down after the test."""
+    import torch.distributed as dist
+
+    from deepfake_video_detection_tpu_torch.parallel.mesh import init_world
+
+    init_world("cpu")
+    yield
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("name,value", [("mesh", object()), ("seq_axis", "seq"),
                                         ("stage_axis", "stage"), ("expert_axis", "expert")])
-def test_unported_temporal_modes_raise(name, value):
-    """The multi-device modes; ``moe_experts`` and ``use_flash=False`` are
-    ported (``test_torch_port_moe.py``)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 18\([bcd]\)"):
-        T.TemporalTransformerDetector("tinyconv", device="cpu", **{name: value})
+def test_unported_temporal_modes_raise(world_of_one, name, value):
+    """Each multi-device mode (once unported, now ported) builds on a
+    world-of-one ``DeviceMesh`` and its forward matches JAX's one-device
+    forward: the mesh alone, sequence parallelism (ring, ``use_cls=False``),
+    the pipeline (2 microbatches) and expert parallelism (4 experts, the
+    JAX model's ``apply_expert_parallel`` on one device, drops included)."""
+    from jax.sharding import Mesh
+    from torch.distributed.device_mesh import init_device_mesh
+
+    axis = {"mesh": "model", "seq_axis": "seq", "stage_axis": "stage",
+            "expert_axis": "expert"}[name]
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", axis))
+    kw = {"mesh": mesh}
+    jkw = {}
+    if name != "mesh":
+        kw[name] = value
+    if name == "seq_axis":
+        kw["use_cls"] = jkw["use_cls"] = False
+    if name == "stage_axis":
+        kw["pp_microbatches"] = 2
+    if name == "expert_axis":
+        kw["moe_experts"] = jkw["moe_experts"] = 4
+        jkw.update(mesh=Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "expert")),
+                   expert_axis="expert")
+    jmodel, variables, _ = _models(seed=3, **jkw)
+    model = T.TemporalTransformerDetector("tinyconv", device="cpu", **SMALL, **kw)
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    x = _frames(3, B=2, T=8)
+    ref_logits, ref_scores = _jax_forward(jmodel, variables, x)
+    with torch.no_grad():
+        logits, scores = model(_t(x))
+    np.testing.assert_allclose(logits.numpy(), ref_logits, atol=ATOL)
+    np.testing.assert_allclose(scores.numpy(), ref_scores, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
