@@ -242,7 +242,21 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    over B0 (f32, the CLI's defaults) with 4 experts through
    ``apply_expert_parallel`` at G = 1 (capacity at every token) against
    the dense MoE, and as a pipeline at S = 1, M = 2 against the loop.
-17. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
+17. ``steps_per_call > 1`` (``multi_step``): ViT-B/16 (bf16) and B0 (f32)
+   at the CLI's batch (8 clips x 16 frames of 224 px, the last batch with
+   a padded clip), ``make_multi_step`` at k = 4 over one stacked transfer
+   against four ``make_train_step`` calls on the same batches from the
+   same weights (Adam, augment and dropout off): the group's loss, the
+   last grad norm and the update within ``PAR_TOL``, ms per optimizer step
+   and peak memory of both, K2 and K4 12 a ViT step; then ``train/cli.py
+   --steps_per_call 4`` for one epoch (B0, 19 training clips in batches of
+   4: a group and the tail of 3).
+18. Serving data parallelism (``serve_dp``): B0 and ViT-B/16 Predictors
+   (bf16) over two replicas on the card against one replica: the same
+   clips under 8 clients (median clips/s of ``ROUNDS``) and a request of
+   3 windows padded to 4; ``prob_fake`` within ``PROB_TOL``, every bucket
+   a multiple of 2, each replica's shards one K1 launch each.
+19. Summary: the ``{"kernels": [...]}`` line (K1, K1's YUV entry, K2-K6,
    each with its launches on every path and, for K2-K6, by route beside
    its f32 row; K2 and K4 with their cases at the legacy phase's shapes
    and at the conv-net training phase's, (8, 4, 17, 64) f32 and bf16; K4
@@ -252,6 +266,13 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
 
 Any failure exits non-zero before the last line. Without a CUDA device it
 exits 2 and prints no result.
+
+``python3 chip_smoke.py serve_dp`` (a machine with several cards, one
+process): phase 18 with the Predictors over every visible card
+(``device="cuda"`` with ``SERVE_DP=1``) against card 0 alone, under 8 and
+32 clients, with K1 and K2 launches by card; exits 2 with fewer than two
+cards.
+``torchrun --nproc_per_node 4 chip_smoke.py multi``: see ``multi_card``.
 """
 
 from __future__ import annotations
@@ -460,6 +481,14 @@ PAR_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "moment": 1e-4, "update": 1e-2, "los
 # plain versions: bf16 of max |ref| (PERF.md §2), f32 absolute
 RING_TOL = {"bf16": {"fwd": BF16_TOL_REL, "bwd": BF16_TOL_REL},
             "f32": {"fwd": K2_TOL_F32, "bwd": K4_TOL_F32}}
+# the multi-step phase: k optimizer steps a call against k single steps at
+# the CLI's batch (the flash calls a step by model), then the CLI flag on a
+# training split of 19 clips (batches 4, 4, 4, 4 and a tail of 3)
+MULTI_STEP = {"k": 4, "clips": 8, "frames": 16, "size": 224, "timed_calls": 2,
+              "flash": {"vit": 12, "b0": 0}, "cli_clips": 23, "cli_batch": 4}
+# serving data parallelism: two replicas on the one card (the serve_dp
+# phase), every card with ``chip_smoke.py serve_dp``
+SERVE_DP = {"frames": 8, "size": 224, "windows": 3, "clients_cards": (8, 32)}
 
 
 class SmokeFailure(RuntimeError):
@@ -1197,20 +1226,7 @@ def serve_convnet(torch, A, P, smi: str, ensemble: bool):
               for _ in range(n)]
 
     def concurrent(fn):
-        out, barrier = [None] * n, threading.Barrier(n)
-
-        def client(i):
-            barrier.wait()
-            out[i] = fn(i)
-
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
-        t = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        _require(not any(th.is_alive() for th in threads), f"a concurrent {what} request hung")
-        return out, time.perf_counter() - t
+        return _concurrent(fn, n, what)
 
     # the first requests of a process pay one-time host costs (the first
     # host-to-device copies of each size): every measurement is taken in
@@ -4005,6 +4021,9 @@ def web_app(torch, A, P, smi: str):
 
 def _reset_counts(A, P) -> None:
     P.fused_normalize.launches = P.fused_normalize_yuv.launches = 0
+    for f in (P.fused_normalize, P.fused_normalize_yuv, A.flash_attention_fwd,
+              A.flash_attention_bwd):
+        f.launches_by_device.clear()
     for f in (A.flash_attention_fwd, A.flash_attention_bwd):
         f.launches = f.launches_long = f.launches_split = f.launches_f32 = 0
 
@@ -5053,6 +5072,364 @@ def parallel_seq(torch, A, P, smi: str, data: str) -> dict:
     return paths
 
 
+def _group_metrics(ms: list) -> dict:
+    """k steps' metrics reduced as ``make_multi_step`` reduces them."""
+    count = sum(int(m["count"]) for m in ms)
+    return {"loss": sum(float(m["loss"]) * int(m["count"]) for m in ms) / max(count, 1),
+            "grad_norm": float(ms[-1]["grad_norm"]), "count": count}
+
+
+def _multi_step_case(torch, A, P, smi: str, name: str, build, dtype: str) -> dict:
+    """``make_multi_step`` at k over one stacked group against k
+    ``make_train_step`` calls on the same k batches from the same weights
+    (augment and dropout off; the batches sent to the card as the trainer
+    sends them: one transfer a group, or one a batch): the group's loss,
+    the last grad norm and the update (``PAR_TOL``), ms per optimizer step,
+    peak memory and launches per step of each path. Returns the multi-step
+    path's launches."""
+    from deepfake_video_detection_tpu_torch.data.loader import batch_to_device
+    from deepfake_video_detection_tpu_torch.data.normalize import imagenet_normalize
+    from deepfake_video_detection_tpu_torch.train import losses as Loss
+    from deepfake_video_detection_tpu_torch.train import optim as O
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+    from deepfake_video_detection_tpu_torch.train.steps import make_multi_step, make_train_step
+
+    k, B, T, size = (MULTI_STEP[key] for key in ("k", "clips", "frames", "size"))
+    rng = np.random.default_rng(3)
+    batches = [{"frames": rng.integers(0, 256, (B, T, size, size, 3), dtype=np.uint8),
+                "labels": (np.arange(B) + i) % 2,
+                "valid": np.arange(B) < B - int(i == k - 1)} for i in range(k)]
+    group = {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+    cw = torch.tensor([0.8, 1.2], device="cuda")
+
+    def loss_fn(logits, labels, sample_mask=None):
+        return Loss.cross_entropy_loss(logits, labels, class_weights=cw,
+                                       sample_mask=sample_mask)
+
+    def prep(b, _gen):
+        return dict(b, frames=imagenet_normalize(b["frames"]))
+
+    recs = {}
+    for path in ("single", "multi"):
+        model = build()
+        opt = O.build_optimizer("adam", 1e-4, grad_clip=1.0)
+        state = TrainState.create(model, opt)
+        step = make_train_step(model, opt, loss_fn)
+        multi = make_multi_step(model, opt, loss_fn, k, prep=prep)
+
+        def call(state):
+            if path == "multi":
+                return multi(state, batch_to_device(group, "cuda"))
+            ms = []
+            for b in batches:
+                state, m = step(state, prep(batch_to_device(b, "cuda"), None))
+                ms.append(m)
+            return state, _group_metrics(ms)
+
+        before = _full_params(state.params)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(A, P)
+        state, m = call(state)
+        torch.cuda.synchronize()
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "count": int(m["count"]), "steps": state.step,
+               "optimizer_count": state.opt_state["count"],
+               "launches": _counts(A, P),
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        after = _full_params(state.params)
+        # on the host: the other path's peak must not count this one's update
+        rec["update"] = {n: (after[n] - before[n]).cpu() for n in before}
+        del before, after
+        t = time.perf_counter()
+        for _ in range(MULTI_STEP["timed_calls"]):
+            state, m = call(state)
+        float(m["loss"])
+        rec["ms_per_step"] = (time.perf_counter() - t) / (MULTI_STEP["timed_calls"] * k) * 1e3
+        recs[path] = rec
+        del model, opt, state, step, multi
+        gc.collect()
+        torch.cuda.empty_cache()
+    single, mult = recs["single"], recs["multi"]
+    a, b = mult.pop("update"), single.pop("update")
+    diffs = {"loss": abs(mult["loss"] - single["loss"]) / abs(single["loss"]),
+             "grad_norm": abs(mult["grad_norm"] - single["grad_norm"]) / single["grad_norm"],
+             "update": math.sqrt(sum(float(torch.sum(torch.square(a[n] - b[n]))) for n in b))
+             / math.sqrt(sum(float(torch.sum(torch.square(b[n]))) for n in b))}
+    for key, d in diffs.items():
+        _require(d <= PAR_TOL[key], f"multi_step {name}: {key} differs by {d} > "
+                 f"{PAR_TOL[key]} (multi {mult.get(key)}, single {single.get(key)})")
+    _require(mult["steps"] == mult["optimizer_count"] == k,
+             f"multi_step {name}: {mult['steps']} steps, optimizer count "
+             f"{mult['optimizer_count']}, not {k}")
+    _require(mult["count"] == single["count"] == k * B - 1,
+             f"multi_step {name}: counted {mult['count']} and {single['count']} clips")
+    flash = MULTI_STEP["flash"][name]
+    for path, rec in recs.items():
+        got = {key: rec["launches"][key] for key in ("K2", "K4")}
+        _require(got == {key: flash * k for key in got},
+                 f"multi_step {name} {path}: flash launches {got}, not {flash} a step")
+    per_step = {key: mult["launches"][key] / k for key in ("K2", "K4")}
+    _emit({"phase": f"multi_step_{name}", "card": smi, "dtype": dtype, "k": k,
+           "batch": [B, T, size], **{f"{key}_rel_diff": v for key, v in diffs.items()},
+           "tol": {key: PAR_TOL[key] for key in diffs},
+           "ms_per_step": {"multi": mult["ms_per_step"], "single": single["ms_per_step"]},
+           "max_memory_allocated_bytes": {"multi": mult["max_memory_allocated_bytes"],
+                                          "single": single["max_memory_allocated_bytes"]},
+           "group_bytes": int(group["frames"].nbytes), "launches_per_step": per_step,
+           "multi": mult, "single": single})
+    print(f"multi_step {name}: {mult['ms_per_step']:.2f} ms a step (single "
+          f"{single['ms_per_step']:.2f}), peak "
+          f"{mult['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+          f"({single['max_memory_allocated_bytes'] / 2**30:.2f}) on {smi}", flush=True)
+    return mult["launches"]
+
+
+def _multi_step_cli(torch, smi: str) -> dict:
+    """``train/cli.py --steps_per_call k`` for one epoch (B0, the CLI's
+    ``pretrained`` default): a training split of 19 clips in batches of 4,
+    one group of 4 and the tail of 3 alone; exit 0, one multi-step call,
+    the checkpoint's step is 5."""
+    import shutil
+    import tempfile
+
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import load_checkpoint
+    from deepfake_video_detection_tpu_torch.train import cli
+    from deepfake_video_detection_tpu_torch.train import trainer as trainer_mod
+
+    root = tempfile.mkdtemp(prefix="dfdt_multistep_")
+    try:
+        data, out = os.path.join(root, "faces"), os.path.join(root, "run")
+        os.makedirs(data)
+        _write_faces(data, MULTI_STEP["cli_clips"], MULTI_STEP["frames"], MULTI_STEP["size"])
+        calls = []
+        orig = trainer_mod.make_multi_step
+
+        def counted(*args, **kwargs):
+            multi = orig(*args, **kwargs)
+
+            def call(*a, **kw):
+                calls.append(1)
+                return multi(*a, **kw)
+            return call
+
+        t = time.perf_counter()
+        with mock.patch.object(trainer_mod, "make_multi_step", counted):
+            rc = cli.main(["--data_dir", data, "--model", "pretrained", "--epochs", "1",
+                           "--batch_size", str(MULTI_STEP["cli_batch"]),
+                           "--num_frames", str(MULTI_STEP["frames"]),
+                           "--steps_per_call", str(MULTI_STEP["k"]), "--out_dir", out])
+        wall = time.perf_counter() - t
+        _require(rc == 0, f"cli --steps_per_call: exit {rc}")
+        _require(len(calls) == 1, f"cli --steps_per_call: {len(calls)} multi-step calls")
+        _, meta = load_checkpoint(os.path.join(out, "checkpoint_best.npz"))
+        _require(meta["step"] == 5, f"cli --steps_per_call: step {meta['step']}, not 5")
+        rec = {"phase": "multi_step_cli", "card": smi, "model": "efficientnet_b0",
+               "steps_per_call": MULTI_STEP["k"], "train_clips": 19,
+               "batch": MULTI_STEP["cli_batch"], "steps": meta["step"], "wall_s": wall}
+        _emit(rec)
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def multi_step(torch, A, P, smi: str):
+    """The multi-step phase: ViT-B/16 (bf16) and B0 (f32, no flash call)
+    at the CLI's batch, then the CLI flag. Returns launches by path."""
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+
+    def vit():
+        return BackboneDetector("vit_base_patch16_224", dropout_rate=0.0,
+                                compute_dtype=torch.bfloat16, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+
+    def b0():
+        m = BackboneDetector("efficientnet_b0", dropout_rate=0.0, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        m.backbone.drop_path_rate = 0.0
+        return m
+
+    paths = {"multi_step_vit": _multi_step_case(torch, A, P, smi, "vit", vit, "bf16"),
+             "multi_step_b0": _multi_step_case(torch, A, P, smi, "b0", b0, "f32")}
+    _multi_step_cli(torch, smi)
+    return paths
+
+
+def _concurrent(fn, n: int, what: str):
+    """``fn(i)`` on ``n`` threads released together: (results, wall s)."""
+    out, barrier = [None] * n, threading.Barrier(n)
+
+    def client(i):
+        barrier.wait()
+        out[i] = fn(i)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    _require(not any(th.is_alive() for th in threads), f"a concurrent {what} request hung")
+    return out, time.perf_counter() - t
+
+
+def _serve_dp_model(torch, A, P, smi: str, name: str, build, devices, clients) -> dict:
+    """One model served by a Predictor over ``devices`` (None: every
+    visible card, as ``device="cuda"`` with ``SERVE_DP=1`` gives) against a
+    Predictor on card 0 alone: the same clips from each client count
+    (median clips/s of ``ROUNDS`` rounds) and a windowed request of
+    ``SERVE_DP["windows"]`` windows. Gates: ``prob_fake`` of every request and window within
+    ``PROB_TOL`` of the one-card Predictor's, every bucket a multiple of
+    the replicas, each replica's shards each one K1 launch, K1 on every
+    card. Returns the launches of both Predictors' requests."""
+    from deepfake_video_detection_tpu_torch.serve.predict import Predictor
+
+    T, size, W = SERVE_DP["frames"], SERVE_DP["size"], SERVE_DP["windows"]
+    os.environ.update({"MAX_FRAMES": str(T), "SERVE_WINDOWS": "1", "FACE_SIZE": str(size),
+                       "SERVE_MICROBATCH": "1", "SERVE_DP": "1"})
+    rng = np.random.default_rng(4)
+    faces = [rng.integers(0, 256, (T, size, size, 3), dtype=np.uint8)
+             for _ in range(max(clients))]
+    long_clip = rng.integers(0, 256, (W * T, size, size, 3), dtype=np.uint8)
+    depth = {"vit": 12, "b0": 0}[name]
+    recs, total = {}, {k: 0 for k in ("K1", "K1-YUV", "K2", "K3", "K4", "K5", "K6")}
+    for label in ("one_card", "replicas"):
+        t0 = time.perf_counter()
+        if label == "one_card":
+            pred = Predictor(build(), None, "pretrained", device="cuda:0")
+        else:
+            pred = Predictor(build(), None, "pretrained", devices=devices)
+        _require(pred.warmup_done.wait(timeout=600), f"serve_dp {name} {label}: no warmup")
+        _require(pred.warmup_error is None,
+                 f"serve_dp {name} {label}: warmup failed: {pred.warmup_error!r}")
+        n_dp = max(1, len(pred._replicas))
+        buckets = pred._batcher.bucket_sizes()
+        _require(all(b % n_dp == 0 for b in buckets),
+                 f"serve_dp {name}: buckets {buckets} over {n_dp} replicas")
+        if label == "replicas":
+            _require(n_dp == (len(devices) if devices else torch.cuda.device_count()) > 1,
+                     f"serve_dp {name}: {n_dp} replicas")
+        rec = {"replicas": n_dp, "devices": [str(r.device) for r in pred._replicas]
+               or [str(pred.device)], "buckets": buckets,
+               "setup_s": time.perf_counter() - t0, "clips_per_s": {}, "prob_fake": {}}
+        _reset_counts(A, P)
+        shards0 = [r.batches for r in pred._replicas]
+        steps0 = pred._batcher.batches_run
+        for n in clients:
+            walls = []
+            for _ in range(ROUNDS):
+                res, sec = _concurrent(
+                    lambda i: pred.predict_faces(faces[i], video_id=f"c{i}"), n,
+                    f"serve_dp {name}")
+                walls.append(sec)
+                for i, r in enumerate(res):
+                    _check_result(r, T, f"serve_dp {name} {label} client {i}")
+            rec["clips_per_s"][n] = n / float(np.median(walls))
+            rec["prob_fake"][n] = [r["prob_fake"] for r in res]
+        win = pred._predict_pretrained(long_clip, "windows", windows=W)
+        _check_result(win, T, f"serve_dp {name} {label} windowed request")
+        _require(win.get("windows", {}).get("count") == W,
+                 f"serve_dp {name}: windows {win.get('windows')}")
+        rec["windows_prob_fake"] = win["windows"]["prob_fake"]
+        torch.cuda.synchronize()
+        c = _counts(A, P)
+        for key in total:
+            total[key] += c[key]
+        rec["launches"] = c
+        rec["k1_by_card"] = dict(P.fused_normalize.launches_by_device)
+        rec["k2_by_card"] = dict(A.flash_attention_fwd.launches_by_device)
+        steps = pred._batcher.batches_run - steps0
+        if label == "replicas":
+            shards = [r.batches - s for r, s in zip(pred._replicas, shards0)]
+            rec["shards_by_replica"] = shards
+            # each batcher step and the windowed scan give each replica a shard
+            _require(shards == [steps + 1] * n_dp,
+                     f"serve_dp {name}: shards {shards} for {steps} batcher steps")
+            _require(c["K1"] == sum(shards) and c["K2"] == depth * sum(shards),
+                     f"serve_dp {name}: launches {c} for shards {shards}")
+            cards = {r.device.index for r in pred._replicas}
+            _require(all(rec["k1_by_card"].get(i, 0) > 0 for i in cards),
+                     f"serve_dp {name}: K1 by card {rec['k1_by_card']}")
+        else:
+            _require(c["K1"] == steps + 1 and c["K2"] == depth * (steps + 1),
+                     f"serve_dp {name} one card: launches {c} for {steps} steps")
+        rec["batcher_steps"] = steps
+        pred.close()
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs[label] = rec
+    one, dp = recs["one_card"], recs["replicas"]
+    diffs = [abs(a - b) for n in clients for a, b in zip(dp["prob_fake"][n], one["prob_fake"][n])]
+    diffs += [abs(a - b) for a, b in zip(dp["windows_prob_fake"], one["windows_prob_fake"])]
+    _require(max(diffs) <= PROB_TOL,
+             f"serve_dp {name}: prob_fake differs by {max(diffs)} from one card")
+    _emit({"phase": f"serve_dp_{name}", "card": smi, "frames_per_clip": T, "clients": clients,
+           "windows": W, "prob_fake_max_abs_diff": max(diffs), "prob_tol": PROB_TOL,
+           "replicas": dp, "one_card": one})
+    for n in clients:
+        print(f"serve_dp {name}: {n} clients {dp['clips_per_s'][n]:.1f} clips/s over "
+              f"{dp['replicas']} replicas ({one['clips_per_s'][n]:.1f} on one card), K1 by "
+              f"card {dp['k1_by_card']}", flush=True)
+    return total
+
+
+def serve_dp(torch, A, P, smi: str, devices=None, clients=(8,)):
+    """Serving data parallelism for B0 and ViT-B/16 (bf16, random weights,
+    B0's BN statistics from U(0.5, 1.5)): :func:`_serve_dp_model` for each.
+    Returns launches by path."""
+    from deepfake_video_detection_tpu_torch.models.backbone_detector import BackboneDetector
+    from deepfake_video_detection_tpu_torch.serve.predict import serving_dtype
+
+    dtype = serving_dtype("cuda")
+
+    def b0():
+        m = BackboneDetector("efficientnet_b0", compute_dtype=dtype, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        _randomize_bn(torch, m, CONV["bn_seed"])
+        return m
+
+    def vit():
+        return BackboneDetector("vit_base_patch16_224", compute_dtype=dtype, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+
+    return {f"serve_dp_{name}": _serve_dp_model(torch, A, P, smi, name, build, devices,
+                                                clients)
+            for name, build in (("b0", b0), ("vit", vit))}
+
+
+def serve_dp_cards() -> int:
+    """``python3 chip_smoke.py serve_dp``: the Predictors over every visible
+    card (``device="cuda"`` with ``SERVE_DP=1``) against card 0 alone,
+    under 8 and 32 clients. Exits 2 with fewer than two cards."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke serve_dp: needs at least two cards, found {n}", file=sys.stderr)
+        return 2
+    from deepfake_video_detection_tpu_torch.ops import _build
+    from deepfake_video_detection_tpu_torch.ops import attention as A
+    from deepfake_video_detection_tpu_torch.ops import preprocess as P
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    smi = _smi()
+    print(smi, flush=True)
+    t = time.perf_counter()
+    _build.build_all()
+    paths = serve_dp(torch, A, P, smi, devices=None, clients=SERVE_DP["clients_cards"])
+    _emit({"phase": "serve_dp_cards", "cards": n, "seconds": time.perf_counter() - t,
+           "launches": paths})
+    print(_smi(), flush=True)
+    _emit({"ok": True, "serve_dp": True,
+           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}})
+    return 0
+
+
 def long_clips(torch, A, P, smi: str, device: str = "cuda"):
     """The long-clip phases on one synthetic set; returns launches by path."""
     import shutil
@@ -5122,9 +5499,14 @@ MULTI_MODES = (
 def multi_card(argv) -> int:
     """Each of ``MULTI_MODES`` at this run's world (four ranks) against the
     no-plan step: the first step's loss, grad norm and update (‖Δ_plan −
-    Δ‖ / ‖Δ‖ over every parameter, FSDP2's gathered), batch norm's running
-    statistics, the second step's loss, and on the card the flash launches
-    and the step's time beside the no-plan step's on the whole batch."""
+    Δ‖ / ‖Δ‖ over every parameter, FSDP2's shards and the pipeline stages'
+    blocks gathered), batch norm's running statistics, the second step's
+    loss, and on the card the flash launches and the step's time beside the
+    no-plan step's on the whole batch. Each rank's parameter count before
+    and after the placement; under the pipelines also the step with every
+    block kept on every stage (the placement before stage-local blocks:
+    its parameters and peak memory). Then ``dp_k2``: ``make_multi_step`` at
+    k = 2 under the ViT-B/16 DP plan against two whole-batch steps."""
     import argparse
 
     import torch
@@ -5141,12 +5523,12 @@ def multi_card(argv) -> int:
     from deepfake_video_detection_tpu_torch.train import losses as Loss
     from deepfake_video_detection_tpu_torch.train import optim as O
     from deepfake_video_detection_tpu_torch.train.state import TrainState
-    from deepfake_video_detection_tpu_torch.train.steps import make_train_step
+    from deepfake_video_detection_tpu_torch.train.steps import make_multi_step, make_train_step
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py multi")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--modes", default=",".join(m[0] for m in MULTI_MODES))
+    ap.add_argument("--modes", default=",".join([m[0] for m in MULTI_MODES] + ["dp_k2"]))
     args = ap.parse_args(argv)
     cuda = args.device == "cuda"
     if cuda and not torch.cuda.is_available():
@@ -5204,13 +5586,13 @@ def multi_card(argv) -> int:
                                                        sample_mask=sample_mask),
                                runtime=runtime)
         state = TrainState.create(model, opt)
-        before = _full_params(state.params)
+        before = whole(state.params, runtime)
         _reset_flash(A)
         state, m = step(state, batch)
         launches = {"fwd": A.flash_attention_fwd.launches, "bwd": A.flash_attention_bwd.launches}
         rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                "launches": launches}
-        after = _full_params(state.params)
+        after = whole(state.params, runtime)
         update = {n: after[n] - before[n] for n in before}
         stats = {n: b.detach().float().clone() for n, b in model.named_buffers()
                  if n.endswith(("running_mean", "running_var"))}
@@ -5227,10 +5609,21 @@ def multi_card(argv) -> int:
             rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
         return rec, update, stats
 
+    def whole(params, runtime):
+        """Every parameter whole: FSDP2's shards and the stages' blocks."""
+        full = _full_params(params)
+        return runtime.gather_stages(full) if runtime is not None else full
+
     def rel_l2(a, b):
-        num = math.sqrt(sum(float(torch.sum(torch.square(a[n] - b[n]))) for n in b))
+        num = math.sqrt(sum(float(torch.sum(torch.square(a[n].to(b[n].device) - b[n])))
+                            for n in b))
         den = math.sqrt(sum(float(torch.sum(torch.square(b[n]))) for n in b))
         return num / den if den > 0 else 0.0
+
+    def held(model):
+        """(parameters, block parameters) this rank holds."""
+        return (sum(p.numel() for p in model.parameters()),
+                sum(p.numel() for n, p in model.named_parameters() if n.startswith("blocks.")))
 
     wanted = set(args.modes.split(","))
     for name, family, flags, dtype in MULTI_MODES:
@@ -5258,11 +5651,12 @@ def multi_card(argv) -> int:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         model = build(family, kw, dtype)
-        # what every rank holds: the whole model (FSDP2 aside), the
-        # temporal blocks included under the pipeline
-        n_params = sum(p.numel() for p in model.parameters())
-        n_blocks = sum(p.numel() for n, p in model.named_parameters() if n.startswith("blocks."))
+        # before the placement every rank holds the whole model; after it,
+        # a pipeline stage holds its own blocks (FSDP2 counts whole tensors)
+        n_params, n_blocks = held(model)
         summary = place_model(model, plan.mesh, plan.param_spec_fn)
+        n_held, n_blocks_held = held(model)
+        stages = plan.mesh_shape.get("stage", 1)
         rt = ParallelRuntime(plan.mesh)
         local = shard_batch(batch, plan.mesh, specs=plan.batch_spec)
         rec, update, stats = run(model, local, rt)
@@ -5279,20 +5673,46 @@ def multi_card(argv) -> int:
                 "backend": dist.get_backend(), "rank": rank, "plan": plan.description,
                 "placement": placement_line(plan, summary), "dtype": dtype,
                 "batch": [B, T, size], "params": n_params, "block_params": n_blocks,
+                "params_held": n_held, "block_params_held": n_blocks_held,
                 **{f"{k}_rel_diff": v for k, v in diffs.items()},
                 "tol": {k: gate[k] for k in diffs}, "plan_step": rec, "no_plan_step": ref}
         bad = [k for k, v in diffs.items() if not v <= gate[k]]
+        if n_blocks_held != n_blocks // stages or n_held != n_params - n_blocks + n_blocks_held:
+            bad.append(f"holds {n_held} parameters, {n_blocks_held} in blocks")
         if cuda and family != "b0" and not (rec["launches"]["fwd"] and rec["launches"]["bwd"]):
             bad.append("no flash launch")
+        del model, rt, update
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        if stages > 1:
+            # the placement before stage-local blocks, for its memory: every
+            # stage holds, updates and all-reduces every block
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            with mock.patch.object(TemporalTransformerDetector, "keep_stage_blocks",
+                                   lambda self: None), \
+                    mock.patch.object(ParallelRuntime, "stage_local", lambda self, n: False):
+                kept = build(family, kw, dtype)
+                place_model(kept, plan.mesh, plan.param_spec_fn)
+                kept_rec, _, _ = run(kept, local, ParallelRuntime(plan.mesh))
+            line["all_blocks_kept"] = {"params_held": held(kept)[0], **{
+                k: kept_rec.get(k) for k in ("loss", "grad_norm", "loss2", "step_ms",
+                                             "max_memory_allocated_bytes")}}
+            if abs(kept_rec["loss2"] - rec["loss2"]) > tol["loss"] * abs(rec["loss2"]):
+                bad.append("the step with every block kept differs")
+            del kept, kept_rec
         flags_ok = torch.tensor([float(bool(bad))], device=dev)
         dist.all_reduce(flags_ok)
         if rank == 0 or bad:
             _emit(line)
         _require(float(flags_ok) == 0, f"multi {name}: {bad or 'another rank failed'}")
-        del model, rt, update, ref_update
+        del ref_update
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
+    if "dp_k2" in wanted:
+        _multi_dp_steps_per_call(torch, args, dev, smi, build, shapes["vit"], px["vit"])
     dist.barrier()
     if rank == 0:
         _emit({"ok": True, "multi": True, "world": world, "backend": dist.get_backend(),
@@ -5301,6 +5721,110 @@ def multi_card(argv) -> int:
                           "count": torch.cuda.device_count() if cuda else 0}})
     dist.destroy_process_group()
     return 0
+
+
+def _multi_dp_steps_per_call(torch, args, dev, smi: str, build, shape, size) -> None:
+    """``--steps_per_call 2`` under the ViT-B/16 DP plan (``--mesh
+    data=4``): one ``make_multi_step`` call over this rank's rows of two
+    batches (each with a padded clip) against two steps on the whole
+    batches on this rank's card, SGD: the group's loss, the last grad
+    norm and the update within ``MULTI_TOL``, 12 forward and 12 backward
+    flash launches a step, ms per optimizer step of each."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from deepfake_video_detection_tpu_torch.ops import attention as A
+    from deepfake_video_detection_tpu_torch.parallel.mesh import shard_batch
+    from deepfake_video_detection_tpu_torch.parallel.strategy import (
+        ParallelRuntime, build_plan, place_model)
+    from deepfake_video_detection_tpu_torch.train import losses as Loss
+    from deepfake_video_detection_tpu_torch.train import optim as O
+    from deepfake_video_detection_tpu_torch.train.state import TrainState
+    from deepfake_video_detection_tpu_torch.train.steps import make_multi_step, make_train_step
+
+    cuda = dev.type == "cuda"
+    B, T = shape
+    g = torch.Generator().manual_seed(11)
+    batches = [{"frames": torch.randn((B, T, size, size, 3), generator=g).to(dev),
+                "labels": ((torch.arange(B) + i) % 2).to(dev),
+                "valid": (torch.arange(B) < B - 1).to(dev)} for i in range(2)]
+    plan, _ = build_plan(argparse.Namespace(
+        mesh="data=4", fsdp=False, seq="none", seq_par=1, pp_stages=1, pp_microbatches=2,
+        moe_experts=0, expert_par=0), "pretrained", T, device=args.device)
+    cw = torch.tensor([0.8, 1.2], device=dev)
+
+    def loss_fn(lg, lb, sample_mask=None):
+        return Loss.cross_entropy_loss(lg, lb, class_weights=cw, sample_mask=sample_mask)
+
+    recs = {}
+    for path in ("whole", "plan"):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        model = build("vit", {}, "bf16")
+        opt = O.build_optimizer("sgd", 1e-2, grad_clip=1.0)
+        if path == "plan":
+            place_model(model, plan.mesh, plan.param_spec_fn)
+            multi = make_multi_step(model, opt, loss_fn, 2, runtime=ParallelRuntime(plan.mesh))
+            local = [shard_batch(b, plan.mesh) for b in batches]
+            group = {k: torch.stack([part[k] for part in local]) for k in local[0]}
+
+            def call(st):
+                return multi(st, group)
+        else:
+            step = make_train_step(model, opt, loss_fn)
+
+            def call(st):
+                ms = []
+                for b in batches:
+                    st, m = step(st, b)
+                    ms.append(m)
+                return st, _group_metrics(ms)
+
+        state = TrainState.create(model, opt)
+        before = _full_params(state.params)
+        _reset_flash(A)
+        state, m = call(state)
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "count": int(m["count"]), "steps": state.step,
+               "launches": {"fwd": A.flash_attention_fwd.launches,
+                            "bwd": A.flash_attention_bwd.launches}}
+        after = _full_params(state.params)
+        update = {n: after[n] - before[n] for n in before}
+        if cuda:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(2):
+                state, m = call(state)
+            float(m["loss"])
+            rec["ms_per_step"] = (time.perf_counter() - t) / 4 * 1e3
+            rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        recs[path] = (rec, update)
+        del model, opt, state, before, after
+    (rec, update), (ref, ref_update) = recs["plan"], recs["whole"]
+    num = math.sqrt(sum(float(torch.sum(torch.square(update[n] - ref_update[n])))
+                        for n in ref_update))
+    den = math.sqrt(sum(float(torch.sum(torch.square(t))) for t in ref_update.values()))
+    diffs = {"loss": abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]),
+             "grad_norm": abs(rec["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+             "update": num / den}
+    tol = MULTI_TOL["bf16"]
+    gate = {"loss": tol["loss"], "grad_norm": tol["grad_norm"], "update": tol["grad_norm"]}
+    bad = [k for k, v in diffs.items() if not v <= gate[k]]
+    if rec["count"] != ref["count"] or rec["steps"] != 2:
+        bad.append(f"counted {rec['count']} clips in {rec['steps']} steps")
+    if cuda and rec["launches"] != {"fwd": 24, "bwd": 24}:
+        bad.append(f"flash launches {rec['launches']}")
+    flag = torch.tensor([float(bool(bad))], device=dev)
+    dist.all_reduce(flag)
+    if dist.get_rank() == 0 or bad:
+        _emit({"phase": "multi_dp_k2", "card": smi, "world": dist.get_world_size(),
+               "rank": dist.get_rank(), "plan": plan.description, "steps_per_call": 2,
+               "batch": [B, T, size], **{f"{k}_rel_diff": v for k, v in diffs.items()},
+               "tol": gate, "plan_step": rec, "no_plan_step": ref})
+    _require(float(flag) == 0, f"multi dp_k2: {bad or 'another rank failed'}")
 
 
 def _reset_flash(A) -> None:
@@ -5427,6 +5951,13 @@ def main() -> int:
     par_launches, par_f32 = timed("parallel", parallel, torch, A, P, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    multi_launches = timed("multi_step", multi_step, torch, A, P, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_launches = timed("serve_dp", serve_dp, torch, A, P, smi,
+                        [torch.device("cuda", 0)] * 2)
+    gc.collect()
+    torch.cuda.empty_cache()
     # f32 launches by path (every other launch is bf16)
     f32_paths = {"f32_training": {"K2": trained_f32["K2"], "K4": trained_f32["K4"]},
                  **legacy_f32, **convnet_f32, **improved_f32, **video_f32, **gan_f32,
@@ -5446,8 +5977,8 @@ def main() -> int:
              "f32_training": trained_f32,
              **explained, **video_paths, **web_paths, **legacy_paths, **convnet_paths,
              **improved_launches,
-             **video_launches, **gan_launches, **par_launches,
-             **timed("long_clips", long_clips, torch, A, P, smi)}
+             **video_launches, **gan_launches, **par_launches, **multi_launches,
+             **dp_launches, **timed("long_clips", long_clips, torch, A, P, smi)}
     phase_s["total"] = time.perf_counter() - t_start
     _emit({"phase": "seconds", **phase_s})
 
@@ -5521,6 +6052,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["multi"]:
             sys.exit(multi_card(sys.argv[2:]))
+        if sys.argv[1:] == ["serve_dp"]:
+            sys.exit(serve_dp_cards())
         sys.exit(main())
     except SystemExit:
         raise

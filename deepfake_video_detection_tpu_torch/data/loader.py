@@ -11,7 +11,8 @@ it load and yield only its rows of each batch (padded to
 hands each device its rows of the global batch.
 :func:`prefetch_to_device` keeps ``size`` batches in flight to the card:
 each batch is copied into pinned host memory and sent with a
-``non_blocking`` copy, so the transfer overlaps the previous step.
+``non_blocking`` copy (:func:`batch_to_device`), so the transfer overlaps
+the previous step.
 """
 
 from __future__ import annotations
@@ -113,32 +114,38 @@ class Loader:
                 }
 
 
+def batch_to_device(batch: Dict[str, Any], device: Any) -> Dict[str, Any]:
+    """A host batch's numpy arrays as tensors on ``device``, through pinned
+    memory and ``non_blocking`` copies when it is a CUDA device; other
+    entries are dropped."""
+    import torch
+
+    device = torch.device(device)
+    dev = {}
+    for k, v in batch.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        dev[k] = t
+    return dev
+
+
 def prefetch_to_device(iterator, device: Any = "cuda", size: int = 2,
                        transform=None):
     """Wrap a host batch iterator with a ``size``-deep device prefetch queue.
 
-    Each batch's numpy arrays become tensors on ``device`` (through pinned
-    memory and ``non_blocking`` copies when it is a CUDA device);
-    ``paths`` stays a host list and other entries are dropped.
-    ``transform(batch)`` runs right after the transfer is queued, on the
-    consumer thread."""
-    import torch
-
-    device = torch.device(device)
+    Each batch goes to ``device`` by :func:`batch_to_device`; ``paths``
+    stays a host list. ``transform(batch)`` runs right after the transfer
+    is queued, on the consumer thread."""
     queue: collections.deque = collections.deque()
 
     def put(batch):
         paths = batch.pop("paths", None)
-        dev = {}
-        for k, v in batch.items():
-            if not isinstance(v, np.ndarray):
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            else:
-                t = t.to(device)
-            dev[k] = t
+        dev = batch_to_device(batch, device)
         if transform is not None:
             dev = transform(dev)
         if paths is not None:

@@ -52,9 +52,12 @@ sees this rank's part of the batch:
   ``MoEMLP.apply_expert_parallel``.
 * ``stage_axis``: the blocks run as a GPipe pipeline of
   ``pp_microbatches`` microbatches (``parallel/pipeline.py``); stage s
-  applies blocks s·depth/S … The parameters keep the loop layout (every
-  rank holds all blocks and uses its own), so a pipeline checkpoint loads
-  in both packages' loaders as a loop-layout one.
+  applies blocks s·depth/S … The model is built whole; the plan's
+  placement (:meth:`TemporalTransformerDetector.keep_stage_blocks`) then
+  frees the other stages' blocks, as JAX's ``pp_param_pspec`` places them,
+  and each block keeps its loop-layout name (``blocks.i.…``), so a
+  checkpoint gathered from the stages loads in both packages' loaders as a
+  loop-layout one.
 """
 
 from __future__ import annotations
@@ -218,6 +221,14 @@ def _seq_softmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return e / all_reduce(e.sum(dim=-1, keepdim=True), group)
 
 
+class _HeldElsewhere(nn.Module):
+    """The place of a block that another pipeline stage holds: no
+    parameters, and no forward."""
+
+    def forward(self, x):
+        raise RuntimeError("this block is held by another pipeline stage")
+
+
 class TemporalTransformerDetector(nn.Module):
     def __init__(self, backbone_name: str = "efficientnet_b0", num_classes: int = 2,
                  d_model: int = 256, depth: int = 4, num_heads: int = 4,
@@ -305,6 +316,17 @@ class TemporalTransformerDetector(nn.Module):
             norm.weight.copy_(I.ones(self.d_model))
             norm.bias.copy_(I.zeros(self.d_model))
         self.cls_token.copy_(I.trunc_normal(self.cls_token.shape, g, std=0.02))
+
+    def keep_stage_blocks(self) -> None:
+        """Under ``stage_axis``: free the blocks the other stages apply
+        (their parameters, and so their gradients and optimizer slots),
+        keeping this stage's, ``pipeline_blocks``' s·depth/S …, under their
+        ``blocks.i`` names; the others' places hold :class:`_HeldElsewhere`."""
+        S, s = axis_size(self.mesh, self.stage_axis), axis_rank(self.mesh, self.stage_axis)
+        L = self.depth
+        for i in range(L):
+            if not s * L // S <= i < (s + 1) * L // S:
+                self.blocks[i] = _HeldElsewhere()
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None):

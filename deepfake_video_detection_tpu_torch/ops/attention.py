@@ -279,6 +279,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         flash_attention_fwd.launches_long += int(N > _SHORT_MAX)
         flash_attention_fwd.launches_split += int(splits > 1)
         flash_attention_fwd.launches_f32 += int(not bf16)
+        by = flash_attention_fwd.launches_by_device
+        by[q.device.index] = by.get(q.device.index, 0) + 1
     return (out[..., :d] if padded else out), lse
 
 
@@ -328,6 +330,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention_bwd.launches_long += int(N > _SHORT_MAX)
         flash_attention_bwd.launches_split += int(splits > 1)
         flash_attention_bwd.launches_f32 += int(not bf16)
+        by = flash_attention_bwd.launches_by_device
+        by[q.device.index] = by.get(q.device.index, 0) + 1
     if padded:
         return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
@@ -339,9 +343,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # package's streaming kernels (K3 forward, K5/K6 backward);
 # ``launches_split`` those that took the split route (S > 1, with its
 # combine or reduce kernel); ``launches_f32`` those of f32 inputs (the
-# 3xTF32 kernels); ``launches`` counts them all.
+# 3xTF32 kernels); ``launches`` counts them all, ``launches_by_device`` by
+# card index (a dict, emptied by callers).
 for _f in (flash_attention_fwd, flash_attention_bwd):
     _f.launches = _f.launches_long = _f.launches_split = _f.launches_f32 = 0
+    _f.launches_by_device = {}
 
 
 class FlashAttention(torch.autograd.Function):

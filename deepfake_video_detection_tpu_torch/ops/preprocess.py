@@ -90,13 +90,21 @@ def fused_normalize(frames_u8: torch.Tensor,
         int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(frames_u8.device).cuda_stream)
     _build.check(lib, status, "fused_normalize")
-    with _count_lock:
-        fused_normalize.launches += 1
+    _count(fused_normalize, frames_u8.device)
     return out
 
 
-# kernel launches since the last reset (a plain integer, set to 0 by callers)
+def _count(fn, device: torch.device) -> None:
+    """One launch of ``fn``'s kernel on ``device``."""
+    with _count_lock:
+        fn.launches += 1
+        fn.launches_by_device[device.index] = fn.launches_by_device.get(device.index, 0) + 1
+
+
+# kernel launches since the last reset (a plain integer, set to 0 by callers),
+# and by card index (a dict, emptied by callers)
 fused_normalize.launches = 0
+fused_normalize.launches_by_device = {}
 
 
 def fused_normalize_yuv_plain(packed_u8: torch.Tensor, height: int, width: int,
@@ -143,10 +151,10 @@ def fused_normalize_yuv(packed_u8: torch.Tensor, height: int, width: int,
         height, width, int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(packed_u8.device).cuda_stream)
     _build.check(lib, status, "fused_normalize_yuv")
-    with _count_lock:
-        fused_normalize_yuv.launches += 1
+    _count(fused_normalize_yuv, packed_u8.device)
     return out
 
 
-# kernel launches since the last reset (a plain integer, set to 0 by callers)
+# kernel launches since the last reset, in all and by card index
 fused_normalize_yuv.launches = 0
+fused_normalize_yuv.launches_by_device = {}

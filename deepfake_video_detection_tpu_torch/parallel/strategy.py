@@ -20,22 +20,24 @@ collectives, the port (:func:`place_model`) does this:
 * TP (``model``): ``BackboneDetector.tensor_parallel`` makes each rank
   compute its slice of ``conv_head``'s output channels, with one
   all-reduce where the head contracts them (``ta0``, ``fc1``).
-* SP, PP and EP live in the model (``models/temporal_transformer.py``, the
+* PP (``stage``): the temporal model's ``keep_stage_blocks`` frees the
+  blocks the other stages apply, so stage s holds, updates and
+  checkpoints only its depth/S blocks, as JAX's :func:`pp_param_pspec`
+  places the stacked blocks over ``stage``.
+* SP, PP and EP run in the model (``models/temporal_transformer.py``, the
   ``mesh`` kwargs :func:`build_plan` returns).
 
-Under TP, PP and EP every rank keeps every parameter and computes only its
+Under TP and EP every rank keeps every parameter and computes only its
 share; the gradients are summed over the world, where the other ranks'
-share is zero. Only FSDP stores 1/N of the parameters. For EP that is
-JAX's placement too (its plan gives every leaf ``P()``, and the expert
-buffer is replicated over ``expert``, so the dispatch is a slice). Under
-PP JAX shards the stacked blocks over ``stage`` (:func:`pp_param_pspec`)
-and here each stage also holds, updates and all-reduces the other stages'
-blocks (ROADMAP item 24).
+share is zero. For EP that is JAX's placement too (its plan gives every
+leaf ``P()``, and the expert buffer is replicated over ``expert``, so the
+dispatch is a slice).
 
 :class:`ParallelRuntime` is what a train step does across the ranks: the
 loss's and batch norm's reductions (``parallel/mesh.py::reducing``), the
-backward of each rank's share of the objective, the gradient sums and the
-metrics' sums.
+backward of each rank's share of the objective, the gradient sums, the
+gradient's global norm, the metrics' sums, and the gathering of the
+stages' blocks for a checkpoint.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import torch.distributed as dist
 
 from deepfake_video_detection_tpu_torch.parallel.mesh import (
     Spec, axis_group, axis_rank, axis_size, init_world, reducing, solo)
+from deepfake_video_detection_tpu_torch.train.optim import global_norm
 
 
 # ---------------------------------------------------------------------------
@@ -137,14 +140,16 @@ def sharding_summary(model: torch.nn.Module,
 def place_model(model: torch.nn.Module, mesh, spec_fn: Callable[..., Spec]
                 ) -> Tuple[int, int, float]:
     """Apply the plan's placement to ``model`` (FSDP2 for ``data`` specs,
-    ``tensor_parallel`` for ``model`` specs) and return its
-    :func:`sharding_summary`."""
+    ``tensor_parallel`` for ``model`` specs, ``keep_stage_blocks`` for
+    ``stage`` specs) and return its :func:`sharding_summary`."""
     from torch.distributed.tensor import Shard
 
     summary = sharding_summary(model, spec_fn)
     specs = {p: spec_fn(n, jax_shape(p.shape)) for n, p in model.named_parameters()}
     if any("model" in s for s in specs.values()):
         model.tensor_parallel(mesh, "model")
+    if any("stage" in s for s in specs.values()):
+        model.keep_stage_blocks()
     sharded = {p: torch_dim(s.index("data"), p.ndim)
                for p, s in specs.items() if "data" in s}
     if sharded:
@@ -424,6 +429,7 @@ class ParallelRuntime:
 
     def __init__(self, mesh=None):
         self.mesh = mesh
+        self.stage_group = None
         if mesh is None:
             self.world = self.data = self.replicas = 1
             self.data_rank, self.second = 0, None
@@ -440,6 +446,13 @@ class ParallelRuntime:
         # statistics reduce over those ranks
         self.tokens_group = mesh.get_group() if len(names) == 1 else (
             dist.group.WORLD if self.second == "seq" else self.data_group)
+        if self.second == "stage":        # each stage holds its own blocks
+            self.stage_group = axis_group(mesh, "stage")
+
+    def stage_local(self, name: str) -> bool:
+        """Whether parameter ``name`` is held by one pipeline stage alone
+        (:func:`pp_param_pspec`'s ``blocks.*`` under a ``stage`` axis)."""
+        return self.stage_group is not None and pp_param_pspec(name) == ("stage",)
 
     def context(self):
         if self.mesh is None:
@@ -455,18 +468,19 @@ class ParallelRuntime:
 
     def reduce_grads(self, params: Dict[str, torch.Tensor]
                      ) -> Dict[str, Optional[torch.Tensor]]:
-        plain = [p for p in params.values() if p.requires_grad and not _is_dtensor(p)]
-        for p in plain:       # a stage's other blocks, unused leaves: zero
+        """Sum the gradients: plain parameters over the world, a stage's
+        own blocks over its ``data`` group, FSDP2's shards over the second
+        axis."""
+        plain = {n: p for n, p in params.items() if p.requires_grad and not _is_dtensor(p)}
+        for p in plain.values():  # leaves the forward did not use: zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if plain and self.world > 1:
-            flat = torch.cat([p.grad.reshape(-1).to(torch.float32) for p in plain])
-            dist.all_reduce(flat)
-            off = 0
-            for p in plain:
-                n = p.grad.numel()
-                p.grad.copy_(flat[off:off + n].view_as(p.grad))
-                off += n
+        shared = [p for n, p in plain.items() if not self.stage_local(n)]
+        own = [p for n, p in plain.items() if self.stage_local(n)]
+        if self.world > 1:
+            _all_reduce_grads(shared, None)
+        if own and not solo(self.data_group):
+            _all_reduce_grads(own, self.data_group)
         if self.mesh is None:
             return {n: p.grad for n, p in params.items()}
         group = axis_group(self.mesh, self.second)
@@ -477,6 +491,42 @@ class ParallelRuntime:
                 if not solo(group):
                     dist.all_reduce(local, group=group)
         return {n: p.grad for n, p in params.items()}
+
+    def grad_norm(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        """The global norm of the summed gradients (f32): under the
+        pipeline the stages' blocks' squares are summed over ``stage``."""
+        live = {n: g for n, g in grads.items() if g is not None}
+        if self.stage_group is None:
+            return global_norm(live.values())
+        shared = global_norm(g for n, g in live.items() if not self.stage_local(n))
+        local = shared.new_zeros(())
+        for n, g in live.items():
+            if self.stage_local(n):
+                local = local + torch.sum(torch.square(g.to(torch.float32)))
+        if not solo(self.stage_group):
+            dist.all_reduce(local, group=self.stage_group)
+        return torch.sqrt(torch.square(shared) + local)
+
+    def gather_stages(self, tensors: Dict[str, Any]) -> Dict[str, Any]:
+        """``tensors`` (by parameter name) with every stage's blocks, the
+        other stages' on the host, in the no-plan order: what a checkpoint
+        writes. A collective over ``stage`` (every rank calls it); the
+        identity without a pipeline."""
+        if self.stage_group is None:
+            return tensors
+        mine = {n: t.detach().cpu() for n, t in tensors.items() if self.stage_local(n)}
+        parts = [None] * axis_size(self.mesh, "stage")
+        dist.all_gather_object(parts, mine, group=self.stage_group)
+        blocks = {n: t for part in parts for n, t in part.items()}
+        out = {}
+        for n, t in tensors.items():      # the blocks where this stage's were
+            if not self.stage_local(n):
+                out[n] = t
+            elif blocks:
+                out.update(blocks)
+                blocks = {}
+        out.update(blocks)
+        return out
 
     def reduce_metrics(self, loss: torch.Tensor, correct: torch.Tensor,
                        count: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -493,6 +543,20 @@ class ParallelRuntime:
         out = [None] * self.data
         dist.all_gather_object(out, arrays, group=self.data_group)
         return out
+
+
+def _all_reduce_grads(params, group) -> None:
+    """Sum the parameters' gradients over ``group`` (the world: None) as
+    one flat f32 buffer."""
+    if not params:
+        return
+    flat = torch.cat([p.grad.reshape(-1).to(torch.float32) for p in params])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(flat[off:off + n].view_as(p.grad))
+        off += n
 
 
 def placement_line(plan: ParallelPlan, summary: Tuple[int, int, float]) -> str:

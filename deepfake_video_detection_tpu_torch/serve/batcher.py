@@ -11,7 +11,9 @@ call:
 * a batch launches when ``max_batch`` items are waiting or the oldest item
   has waited ``max_wait_s``;
 * batches are padded up to a power-of-two bucket by repeating the last item,
-  so the device sees a handful of batch shapes (each warmed at start-up).
+  so the device sees a handful of batch shapes (each warmed at start-up);
+  with ``bucket_multiple`` > 1 (serving data parallelism) every bucket is a
+  multiple of it, so a batch splits evenly over the replicas.
 
 Items are host arrays, stacked once on the host so one batch is one
 host→device copy. ``fn`` may return tensors on any device: each output is
@@ -28,9 +30,9 @@ import numpy as np
 import torch
 
 
-def _bucket(n: int, max_batch: int) -> int:
-    """Smallest power of two ≥ n, capped at ``max_batch``."""
-    b = 1
+def _bucket(n: int, max_batch: int, multiple: int = 1) -> int:
+    """Smallest ``multiple * 2^k`` ≥ n, capped at ``max_batch``."""
+    b = max(1, multiple)
     while b < n:
         b *= 2
     return min(b, max_batch)
@@ -69,8 +71,16 @@ class MicroBatcher:
     passed through unsliced.
     """
 
-    def __init__(self, max_batch: int = 16, max_wait_s: float = 0.004):
-        self.max_batch = max(1, int(max_batch))
+    def __init__(self, max_batch: int = 16, max_wait_s: float = 0.004,
+                 bucket_multiple: int = 1):
+        self.bucket_multiple = max(1, int(bucket_multiple))
+        # the cap stays a multiple of bucket_multiple, so a full batch still
+        # splits evenly
+        max_batch = max(1, int(max_batch))
+        if self.bucket_multiple > 1:
+            max_batch = max(self.bucket_multiple,
+                            (max_batch // self.bucket_multiple) * self.bucket_multiple)
+        self.max_batch = max_batch
         self.max_wait_s = float(max_wait_s)
         self._cond = threading.Condition()
         # key -> [fn, out_axes, first_arrival_ts, [entries]]
@@ -112,7 +122,7 @@ class MicroBatcher:
         return entry.result
 
     def _call_direct(self, fn, item, out_axes):
-        outputs = fn(np.asarray(item)[None])
+        outputs = fn(np.stack([np.asarray(item)] * self.bucket_multiple))
         if not isinstance(outputs, tuple):
             outputs = (outputs,)
         outputs = tuple(to_host(o) for o in outputs)
@@ -123,7 +133,7 @@ class MicroBatcher:
     def bucket_sizes(self) -> List[int]:
         """Every distinct padded batch size ``_execute`` can produce — the
         single source of truth for warmup."""
-        return sorted({_bucket(n, self.max_batch)
+        return sorted({_bucket(n, self.max_batch, self.bucket_multiple)
                        for n in range(1, self.max_batch + 1)})
 
     def close(self) -> None:
@@ -175,7 +185,7 @@ class MicroBatcher:
     def _execute(self, fn, out_axes, entries: List[_Entry]) -> None:
         try:
             n = len(entries)
-            b = _bucket(n, self.max_batch)
+            b = _bucket(n, self.max_batch, self.bucket_multiple)
             items = [e.item for e in entries]
             items += [items[-1]] * (b - n)  # repeat-pad to the bucket
             outputs = fn(np.stack([np.asarray(x) for x in items]))

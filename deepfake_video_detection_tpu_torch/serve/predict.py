@@ -1,6 +1,6 @@
 """Serving inference engine for the pretrained detector, its ensemble, the
 temporal transformer and the legacy CNN+LSTM and frame-graph detectors, on
-one CUDA card.
+the CUDA cards.
 
 Counterpart of ``deepfake_video_detection_tpu/serve/predict.py`` for
 ``model_type="pretrained"`` (a single ``BackboneDetector``: EfficientNet,
@@ -52,16 +52,35 @@ or temporal model, the flash forward (K2) and backward (K4). ``SERVE_EXPLAIN``
 (default on) gates it; ``SERVE_EXPLAIN_WARMUP`` explains a blank clip in the
 warmup. A failed explanation leaves the verdict as it is, is logged and is
 kept in ``explain_error``.
+
+Serving data parallelism, opt-in: with ``device="cuda"`` (no index),
+``SERVE_DP=1``, ``SERVE_MICROBATCH`` on (the default), a pretrained,
+ensemble or temporal model and more than one visible card, or with an
+explicit ``devices=`` list, the Predictor holds one replica of the model on
+each of those devices (``"cuda:i"`` serves on card i alone). The JAX
+package turns it on by default (``SERVE_DP`` unset); here it stays off
+unless asked for, since replicas driven by threads of one process serve
+fewer clips a second than one card does. Every micro-batch
+bucket is then a multiple of the replica count; each coalesced batch is
+split into equal row shards, each shard runs its forward (K1 or its YUV
+entry, then the model) on its replica's card in that replica's own thread,
+under that card as the thread's current device, and the outputs are
+gathered in row order. The windowed scan pads its W windows up to a
+multiple of the replica count with the last window. Explanations run on the
+first replica. A replica that fails is an error of the request or of the
+warmup: nothing falls back to fewer cards.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as _fut
 import contextlib
+import copy
 import json
 import logging
 import os
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -194,23 +213,77 @@ def make_legacy_forward(model: torch.nn.Module, model_type: str, device: Any):
     return fwd
 
 
+def serving_devices(model_type: str, device: Any = "cuda",
+                    devices: Optional[Sequence[Any]] = None) -> List[torch.device]:
+    """The devices a Predictor serves on: ``devices`` when given, else every
+    visible card for ``device="cuda"`` (no index) when ``SERVE_DP=1`` and
+    serving data parallelism applies (a pretrained, ensemble or temporal
+    model, ``SERVE_MICROBATCH`` on, more than one card), else ``device``
+    alone. More than one device where data parallelism does not apply
+    raises."""
+    dp = model_type in _PRETRAINED_TYPES and env_bool("SERVE_MICROBATCH", True)
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices= names no device")
+        if len(devs) > 1 and not dp:
+            raise ValueError(
+                f"serving over {len(devs)} devices needs a pretrained, ensemble or "
+                f"temporal model with SERVE_MICROBATCH on")
+        return devs
+    dev = resolve_device(device)
+    if dp and env_bool("SERVE_DP", False) and dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+class _Replica:
+    """One copy of the served model on one device, with the persistent
+    thread that runs its shards of each batch there: the card is the
+    thread's current device, so the kernels launch into its streams."""
+
+    def __init__(self, model: torch.nn.Module, device: torch.device, is_ensemble: bool,
+                 face_size: int):
+        self.model, self.device = model, device
+        self.forward, self.forward_yuv = make_forward_fns(model, is_ensemble, face_size)
+        self.batches = 0      # shards run, counted on the replica's thread
+        # never shut down: a request that reaches the Predictor after close()
+        # still runs here; the idle thread ends when the pool is collected
+        self._pool = _fut.ThreadPoolExecutor(1, thread_name_prefix=f"replica-{device}")
+
+    def submit(self, rows: np.ndarray, yuv: bool) -> _fut.Future:
+        return self._pool.submit(self._run, rows, yuv)
+
+    def _run(self, rows: np.ndarray, yuv: bool) -> tuple:
+        with torch.cuda.device(self.device) if self.device.type == "cuda" else _NULL_CTX:
+            x = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+            out = tuple(to_host(o) for o in (self.forward_yuv if yuv else self.forward)(x))
+        self.batches += 1
+        return out
+
+
 class Predictor:
-    """Holds the model on its device and the serving forwards; thread-safe
-    for requests."""
+    """Holds the model on its device (or a replica on each of its devices)
+    and the serving forwards; thread-safe for requests."""
 
     def __init__(self, model: torch.nn.Module,
                  variables: Optional[Dict[str, torch.Tensor]],
                  model_type: str, checkpoint_path: Optional[str] = None,
                  enhanced_agent: Optional[Any] = None,
-                 extractor: Optional[Any] = None, device: Any = "cuda"):
+                 extractor: Optional[Any] = None, device: Any = "cuda",
+                 devices: Optional[Sequence[Any]] = None):
         """``variables``: a ``state_dict`` loaded strictly into ``model``,
         or None to serve the weights the model holds. ``enhanced_agent``:
         an ``agents.enhanced.EnhancedDecisionAgent``, consulted for
         ensembles. ``extractor``: a ``FaceExtractor`` (by default one on
-        ``device``, configured from the environment)."""
+        the first device, configured from the environment). ``devices``:
+        the replicas' devices (:func:`serving_devices` picks them from
+        ``device`` when None)."""
         if model_type not in _PRETRAINED_TYPES + _LEGACY_TYPES:
             raise ValueError(f"unknown model_type {model_type!r}")
-        self.device = resolve_device(device)
+        devs = serving_devices(model_type, device, devices)
+        self.device = devs[0]
         if variables is not None:
             model.load_state_dict(variables, strict=True)
         self.model = model.to(self.device).eval()
@@ -220,6 +293,8 @@ class Predictor:
         self.extractor = extractor or FaceExtractor(device=self.device)
 
         self._batcher = None
+        self._replicas: List[_Replica] = []
+        self._n_dp = len(devs)
         if model_type in _LEGACY_TYPES:
             self._forward_legacy = make_legacy_forward(self.model, model_type, self.device)
         else:
@@ -227,6 +302,11 @@ class Predictor:
             size = self.extractor.face_size
             self._forward, self._forward_yuv = make_forward_fns(self.model, is_ensemble,
                                                                 size)
+            if self._n_dp > 1:
+                # the model as it is served (int8 weights included), copied
+                self._replicas = [_Replica(self.model, self.device, is_ensemble, size)] + [
+                    _Replica(copy.deepcopy(self.model).to(d), d, is_ensemble, size)
+                    for d in devs[1:]]
 
         # dynamic micro-batching: concurrent requests coalesce into one
         # batched device step. The item functions are bound once so the
@@ -235,10 +315,10 @@ class Predictor:
         if model_type not in _LEGACY_TYPES and env_bool("SERVE_MICROBATCH", True):
             self._batcher = MicroBatcher(
                 max_batch=max(1, env_int("SERVE_MICROBATCH_MAX", 16)),
-                max_wait_s=env_float("SERVE_MICROBATCH_WAIT_MS", 4.0) / 1e3)
-            self._fwd_item = lambda stacked: self._forward(self._to_device(stacked))
-            self._fwd_yuv_item = lambda stacked: self._forward_yuv(
-                self._to_device(stacked))
+                max_wait_s=env_float("SERVE_MICROBATCH_WAIT_MS", 4.0) / 1e3,
+                bucket_multiple=self._n_dp)
+            self._fwd_item = lambda stacked: self._run(stacked, yuv=False)
+            self._fwd_yuv_item = lambda stacked: self._run(stacked, yuv=True)
 
         # admission control for the host-bound extraction stage (decode and
         # face detection): without it, many concurrent requests each run
@@ -264,11 +344,32 @@ class Predictor:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _run(self, rows: np.ndarray, yuv: bool) -> tuple:
+        """The serving forward (RGB or packed YUV) on a host batch: on the
+        one device, or split into equal row shards, one a replica, and
+        gathered on the host in row order."""
+        if not self._replicas:
+            return (self._forward_yuv if yuv else self._forward)(self._to_device(rows))
+        n, r = divmod(rows.shape[0], self._n_dp)
+        if r:
+            raise ValueError(f"a batch of {rows.shape[0]} does not split over "
+                             f"{self._n_dp} replicas")
+        futures = [rep.submit(rows[i * n:(i + 1) * n], yuv)
+                   for i, rep in enumerate(self._replicas)]
+        _fut.wait(futures)
+        parts = [f.result() for f in futures]
+        # (probs, logits, frame_scores, member_logits): member logits are
+        # (M, B, C), batch axis 1
+        return tuple(None if parts[0][j] is None else
+                     np.concatenate([p[j] for p in parts], axis=ax)
+                     for j, ax in enumerate((0, 0, 0, 1)))
+
     def warmup(self) -> None:
         """Run the RGB and the packed-YUV forward once at every batch shape
-        serving can produce: batch 1, the windowed scan's W, and every
-        micro-batch bucket (the legacy path: its one shape, a 16-frame
-        clip)."""
+        serving can produce, on every replica: the replica count (1 on one
+        device), the windowed scan's W padded to a multiple of it, and
+        every micro-batch bucket (the legacy path: its one shape, a
+        16-frame clip)."""
         try:
             T = max(1, min(64, env_int("MAX_FRAMES", 8)))
             size = self.extractor.face_size
@@ -278,18 +379,17 @@ class Predictor:
                 to_host(self._forward_legacy(frames))
                 return
             windows = max(1, min(64, env_int("SERVE_WINDOWS", 1)))
-            batch_sizes = [1]
+            n_dp = self._n_dp
+            batch_sizes = [n_dp]
             if windows > 1:
-                batch_sizes.append(windows)
+                batch_sizes.append(-(-windows // n_dp) * n_dp)
             if self._batcher is not None:
                 batch_sizes.extend(self._batcher.bucket_sizes())
             for b in dict.fromkeys(batch_sizes):  # dedupe, keep order
-                packed = torch.zeros((b, T, size * size * 3 // 2),
-                                     dtype=torch.uint8, device=self.device)
-                to_host(self._forward_yuv(packed)[0])
-                frames = torch.zeros((b, T, size, size, 3), dtype=torch.uint8,
-                                     device=self.device)
-                to_host(self._forward(frames)[0])
+                to_host(self._run(np.zeros((b, T, size * size * 3 // 2), np.uint8),
+                                  yuv=True)[0])
+                to_host(self._run(np.zeros((b, T, size, size, 3), np.uint8),
+                                  yuv=False)[0])
             if env_bool("SERVE_EXPLAIN", True) and env_bool("SERVE_EXPLAIN_WARMUP", False):
                 # off by default: most deployments never explain
                 self.explain_faces(np.zeros((T, size, size, 3), np.uint8))
@@ -300,6 +400,9 @@ class Predictor:
             self.warmup_done.set()
 
     def close(self) -> None:
+        """Close the batcher. Requests in flight and later ones still get
+        their verdicts: the batcher drains what it holds and runs a later
+        request alone, on the same device or replicas."""
         if self._batcher is not None:
             self._batcher.close()
 
@@ -455,7 +558,6 @@ class Predictor:
             }
 
         win_payload = None
-        fwd = self._forward_yuv if packed_yuv else self._forward
         if windows > 1:
             # windowed scan: one batched forward over (W, T, ...) — the
             # windows are the batch, so this bypasses the request batcher
@@ -466,8 +568,18 @@ class Predictor:
                 faces = np.concatenate([faces, pad])
             faces_w = np.asarray(faces[:need]).reshape(
                 (windows, T) + faces.shape[1:])
+            # over several replicas the windows must split evenly: repeat
+            # the last, and slice the outputs back
+            w_pad = -(-windows // self._n_dp) * self._n_dp
+            if w_pad > windows:
+                faces_w = np.concatenate(
+                    [faces_w, np.repeat(faces_w[-1:], w_pad - windows, axis=0)])
             probs, logits, frame_scores, member_logits = (
-                to_host(o) for o in fwd(self._to_device(faces_w)))
+                to_host(o) for o in self._run(faces_w, packed_yuv))
+            probs, logits, frame_scores = probs[:windows], logits[:windows], \
+                frame_scores[:windows]
+            if member_logits is not None:
+                member_logits = member_logits[:, :windows]
         elif self._batcher is not None:
             # coalesce with concurrent requests into one device step; each
             # output comes back as this request's length-1 slice
@@ -475,6 +587,7 @@ class Predictor:
             probs, logits, frame_scores, member_logits = self._batcher.call(
                 item_fn, np.asarray(faces), out_axes=(0, 0, 0, 1))
         else:
+            fwd = self._forward_yuv if packed_yuv else self._forward
             probs, logits, frame_scores, member_logits = (
                 to_host(o) for o in fwd(self._to_device(np.asarray(faces)[None])))
         probs_all = np.asarray(probs)          # (W or 1, C)

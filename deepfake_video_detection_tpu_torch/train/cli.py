@@ -29,8 +29,9 @@ stage's best checkpoint copied to ``<out_dir>/checkpoint_best.npz``.
 (``data/video_dataset.py``: decoding and face extraction in the loader's
 threads, ``--detector center|mtcnn|none``, ``--face_size``,
 ``--labels_csv``, ``--cache-clips``); on a host without libav set
-``VIDEO_BACKEND=cv2``. ``--steps_per_call > 1`` is not ported and raises
-``NotImplementedError`` naming ROADMAP. The temporal model takes
+``VIDEO_BACKEND=cv2``. ``--steps_per_call k`` runs k optimizer steps a
+call over one stacked transfer (``Trainer``'s multi-step epoch). The
+temporal model takes
 ``--d_model``, ``--depth`` and ``--heads``.
 
 The JAX CLI's parallelism flags (``parallel/strategy.py::add_parallel_args``:
@@ -117,7 +118,9 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--recursive", action="store_true")
     ap.add_argument("--no-augment", action="store_true")
-    ap.add_argument("--steps_per_call", type=int, default=1)
+    ap.add_argument("--steps_per_call", type=int, default=1,
+                    help="optimizer steps a call, over one stacked transfer of "
+                         "their batches")
     ap.add_argument("--grad_accum", type=int, default=1,
                     help="microbatches accumulated per optimizer step")
     ap.add_argument("--torch-export", action="store_true")

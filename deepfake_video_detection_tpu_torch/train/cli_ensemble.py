@@ -14,8 +14,8 @@ is written beside ``checkpoint_best.npz`` (``--torch-export`` adds
 ``--best_metric`` and the interrupt checkpoint. ``--resume`` reads a native
 ``.npz`` or a reference ``.pt``. The parallelism flags are the JAX CLI's
 (``--mesh``, ``--fsdp``; ``--mesh model=N`` shards every member's head),
-one process per device under ``torchrun``; ``--steps_per_call > 1`` raises
-``NotImplementedError``.
+one process per device under ``torchrun``; ``--steps_per_call k`` runs k
+optimizer steps a call.
 """
 
 from __future__ import annotations
@@ -53,7 +53,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 activations (params stay f32)")
     ap.add_argument("--no-augment", dest="no_augment", action="store_true")
-    ap.add_argument("--steps_per_call", type=int, default=1)
+    ap.add_argument("--steps_per_call", type=int, default=1,
+                    help="optimizer steps a call, over one stacked transfer of "
+                         "their batches")
     ap.add_argument("--grad_accum", type=int, default=1,
                     help="microbatches accumulated per optimizer step")
     ap.add_argument("--device", default="cuda",

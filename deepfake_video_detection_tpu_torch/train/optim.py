@@ -140,7 +140,7 @@ class Optimizer:
         self.trainable_mask = dict(trainable_mask) if trainable_mask is not None else None
         self.ema_decay = ema_decay
 
-    def _trainable(self, name: str) -> bool:
+    def trainable(self, name: str) -> bool:
         return self.trainable_mask is None or bool(self.trainable_mask.get(name, True))
 
     def slots(self):
@@ -151,7 +151,7 @@ class Optimizer:
     @torch.no_grad()
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         state: Dict[str, Any] = {"count": 0, "plateau_factor": 1.0}
-        train = [n for n in params if self._trainable(n)]
+        train = [n for n in params if self.trainable(n)]
         for slot in self.slots():
             names = list(params) if slot == "ema" else train
             state[slot] = {n: (params[n].detach().clone() if slot == "ema"
@@ -161,17 +161,20 @@ class Optimizer:
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
              grads: Mapping[str, Optional[torch.Tensor]],
-             state: Dict[str, Any]) -> None:
-        """One update: ``params`` and ``state`` change in place."""
-        names = [n for n in params if self._trainable(n)]
+             state: Dict[str, Any], norm: Optional[torch.Tensor] = None) -> None:
+        """One update: ``params`` and ``state`` change in place. ``norm``:
+        the trainable gradients' global norm for the clip when the caller
+        has it (the train steps: under a pipeline a stage holds only its
+        blocks' gradients); else it is computed here."""
+        names = [n for n in params if self.trainable(n)]
         p = [_local(params[n]) for n in names]
         g_full = [grads[n] if grads.get(n) is not None else torch.zeros_like(params[n])
                   for n in names]
         g = [_local(t) for t in g_full]
         if self.grad_clip is not None and g:
-            if any(a is not b for a, b in zip(g, g_full)):
+            if norm is None and any(a is not b for a, b in zip(g, g_full)):
                 norm = global_norm(g_full)
-            else:
+            elif norm is None:
                 norm = torch.linalg.vector_norm(
                     torch.stack(torch._foreach_norm(g)).to(torch.float32))
             factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),

@@ -5,6 +5,8 @@ loss, backward and optimizer update in one call, with the metrics the
 trainer reads (loss, correct, count, grad_norm). The JAX package compiles
 each step into one XLA program; here a step runs eagerly, and its metrics
 stay tensors on the device until the caller reads them.
+:func:`make_multi_step` runs k such steps in one call over a stacked group
+of batches (the JAX package's ``lax.scan`` of steps).
 
 ``remat=True`` recomputes the forward in the backward
 (``torch.utils.checkpoint``) as ``jax.checkpoint`` does; dropout draws are
@@ -44,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from deepfake_video_detection_tpu_torch.nn.layers import frozen_running_stats
 from deepfake_video_detection_tpu_torch.parallel.mesh import rows_sum
 from deepfake_video_detection_tpu_torch.parallel.strategy import ParallelRuntime
-from deepfake_video_detection_tpu_torch.train.optim import Optimizer, global_norm
+from deepfake_video_detection_tpu_torch.train.optim import Optimizer, global_norm  # noqa: F401 (re-exported)
 from deepfake_video_detection_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -91,6 +93,24 @@ def _hits(logits: torch.Tensor, labels: torch.Tensor,
     return (hit & valid).sum(), valid.sum()
 
 
+def _update(runtime: ParallelRuntime, tx: Optimizer, params: Dict[str, torch.Tensor],
+            state: TrainState) -> torch.Tensor:
+    """The step after the backward: sum the gradients over the ranks, take
+    their global norm, update the parameters and the optimizer state, clear
+    ``.grad``, count the step. Returns the norm. The clip reads the same
+    norm; under a freeze mask it reads the trainable gradients' alone, as
+    optax's ``multi_transform`` clips only its trainable part."""
+    grads = runtime.reduce_grads(params)
+    grad_norm = runtime.grad_norm(grads)
+    clip_norm = grad_norm if tx.trainable_mask is None else runtime.grad_norm(
+        {n: g for n, g in grads.items() if tx.trainable(n)})
+    tx.step(params, grads, state.opt_state, norm=clip_norm)
+    for p in params.values():
+        p.grad = None
+    state.step += 1
+    return grad_norm
+
+
 def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
                     remat: bool = False, aux_loss_weight: float = 0.01,
                     runtime: Optional[ParallelRuntime] = None
@@ -114,12 +134,7 @@ def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
             valid = batch.get("valid")
             task = loss_fn(logits, batch["labels"], sample_mask=valid)
             runtime.backward(task, aux, aux_loss_weight)
-        grads = runtime.reduce_grads(params)
-        grad_norm = global_norm(g for g in grads.values() if g is not None)
-        tx.step(params, grads, state.opt_state)
-        for p in params.values():
-            p.grad = None
-        state.step += 1
+        grad_norm = _update(runtime, tx, params, state)
         correct, count = _hits(logits.detach(), batch["labels"], valid)
         loss, correct, count = runtime.reduce_metrics(task, correct, count)
         if aux is not None:
@@ -130,13 +145,44 @@ def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
     return step
 
 
-def make_multi_step(*args, **kwargs):
-    """Several optimizer steps per device dispatch (``lax.scan`` in the JAX
-    package) are a JAX dispatch device; on the card their counterpart is a
-    CUDA graph, not ported yet."""
-    raise NotImplementedError(
-        "steps_per_call > 1 is not ported (ROADMAP Queue 1 item 21: CUDA graphs for "
-        "the train step)")
+def make_multi_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
+                    k: int, remat: bool = False, aux_loss_weight: float = 0.01,
+                    prep: Optional[Callable[[dict, Optional[torch.Generator]], dict]] = None,
+                    runtime: Optional[ParallelRuntime] = None):
+    """``k`` optimizer steps in one call: ``multi(state, batches, generator,
+    dropout_generator=None) -> (state, metrics)``. ``batches``: the single
+    step's batch dict with every leaf stacked on a leading axis of length
+    ``k``, already on the device (one transfer for the group). Each step is
+    :func:`make_train_step`'s, after ``prep(batch_i, generator)`` (the
+    trainer's augment + normalise) when given; dropout draws from
+    ``dropout_generator`` (default ``generator``). ``state.step`` and the
+    optimizer's count advance by ``k``. The metrics are the JAX package's
+    reduction of the k steps': the count-weighted mean loss, the summed
+    ``correct`` and ``count``, the last step's ``grad_norm``.
+    ``runtime``: the plan's, or one device's (None)."""
+    step = make_train_step(model, tx, loss_fn, remat=remat,
+                           aux_loss_weight=aux_loss_weight, runtime=runtime)
+
+    def multi(state: TrainState, batches: dict,
+              generator: Optional[torch.Generator] = None,
+              dropout_generator: Optional[torch.Generator] = None):
+        if batches["labels"].shape[0] != k:
+            raise ValueError(f"a group of {batches['labels'].shape[0]} batches for "
+                             f"{k} steps")
+        dropout_generator = generator if dropout_generator is None else dropout_generator
+        ms = []
+        for i in range(k):
+            b = {key: v[i] for key, v in batches.items()}
+            if prep is not None:
+                b = prep(b, generator)
+            state, m = step(state, b, dropout_generator)
+            ms.append(m)
+        count = sum(m["count"] for m in ms)
+        loss = sum(m["loss"] * m["count"] for m in ms) / torch.clamp(count, min=1)
+        return state, {"loss": loss, "correct": sum(m["correct"] for m in ms),
+                       "count": count, "grad_norm": ms[-1]["grad_norm"]}
+
+    return multi
 
 
 def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tensor],
@@ -184,12 +230,7 @@ def make_accum_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
             loss = loss + mean_k.detach() * scale[i]
             c, k = _hits(logits.detach(), b["labels"], b.get("valid"))
             correct, count = correct + c, count + k
-        grads = runtime.reduce_grads(params)
-        grad_norm = global_norm(g for g in grads.values() if g is not None)
-        tx.step(params, grads, state.opt_state)
-        for p in params.values():
-            p.grad = None
-        state.step += 1
+        grad_norm = _update(runtime, tx, params, state)
         loss, correct, count = runtime.reduce_metrics(loss, correct, count)
         return state, {"loss": loss, "correct": correct, "count": count,
                        "grad_norm": grad_norm}

@@ -27,8 +27,14 @@ Differences from the JAX trainer: the model arrives with its weights
 builds the optimizer state around them instead of re-initialising from
 ``seed``; random draws (augment, dropout) come from a ``torch.Generator``
 seeded per epoch as the JAX keys are, so they are seeded but not the same
-numbers. Not ported: ``steps_per_call > 1`` (raises
-``NotImplementedError``).
+numbers.
+
+``steps_per_call = k > 1`` runs the full-size batches in groups of k
+(``train/steps.py::make_multi_step``): each group is stacked on the host
+and goes to the card in one transfer, through the same two-deep prefetch
+as single batches; the odd-shaped tail batch takes the single step. The
+k steps draw augmentation and dropout in the order k single steps draw
+them, so the epoch trains as the plain loop does.
 
 Multi-device training (``mesh``, a ``DeviceMesh``, for pure data
 parallelism, or ``plan``, ``parallel/strategy.py::build_plan``'s): one
@@ -42,8 +48,9 @@ and keeps its rows (a world of N augments as a world of one), dropout
 draws from a generator seeded per data rank. The steps run with the
 plan's ``ParallelRuntime``; validation gathers every data rank's rows, so
 every rank scores the whole split. Rank 0 alone writes checkpoints (the
-whole tensors, FSDP shards gathered, in JAX's layout), the history, the
-predictions and the logs.
+whole tensors, FSDP shards and the pipeline stages' blocks and their
+optimizer slots gathered, in JAX's layout), the history, the predictions
+and the logs; a resume gives each rank its share.
 """
 
 from __future__ import annotations
@@ -81,11 +88,9 @@ from deepfake_video_detection_tpu_torch.train import losses as losses_mod
 from deepfake_video_detection_tpu_torch.train import optim as optim_mod
 from deepfake_video_detection_tpu_torch.train.state import TrainState
 from deepfake_video_detection_tpu_torch.train.steps import (
-    make_accum_step, make_eval_step, make_train_step)
+    make_accum_step, make_eval_step, make_multi_step, make_train_step)
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
 
 _METRIC_ALIASES = {
     "acc": "accuracy", "accuracy": "accuracy", "val_acc": "accuracy",
@@ -131,7 +136,7 @@ class TrainerConfig:
     augment: bool = True
     normalize: str = "imagenet"       # imagenet | clip | unit (x/255 only)
     compute_dtype: str = "float32"
-    steps_per_call: int = 1           # only 1 is ported
+    steps_per_call: int = 1           # optimizer steps per call (groups of k batches)
     grad_accum: int = 1               # microbatches per optimizer step
     ema_decay: Optional[float] = None  # params EMA, validated and served
     model_config: Dict[str, Any] = field(default_factory=dict)
@@ -167,6 +172,24 @@ def _unit(x: torch.Tensor, scaled: bool = False) -> torch.Tensor:
     return x if scaled else x / 255.0
 
 
+def _groups(batches, k: int):
+    """The loader's batches in groups of ``k`` full-shape batches, each
+    leaf stacked on a leading axis of ``k`` (``paths`` dropped); a batch of
+    another shape (the tail), and what precedes it short of a group, pass
+    singly in their order."""
+    group = []
+    for batch in batches:
+        if group and batch["frames"].shape != group[0]["frames"].shape:
+            yield from group
+            group = []
+        group.append(batch)
+        if len(group) == k:
+            yield {key: np.stack([b[key] for b in group]) for key in group[0]
+                   if key != "paths"}
+            group = []
+    yield from group
+
+
 def _quiet(_msg: str) -> None:
     """The log of a rank other than 0."""
 
@@ -179,12 +202,16 @@ class Trainer:
         """``tx``: an optimizer overriding the one the config would build.
         ``device``: the card unless the caller names another; the model is
         moved there."""
-        if config.steps_per_call > 1:
-            raise NotImplementedError(f"steps_per_call > 1 {_NOT_PORTED} (item 21)")
         from deepfake_video_detection_tpu_torch.parallel import strategy
 
         if plan is None and mesh is not None:
             plan = strategy.dp_plan(mesh)
+        if plan is not None and not plan.pure_dp and config.steps_per_call > 1 \
+                and not plan.scan_of_steps_ok:
+            raise ValueError(
+                "steps_per_call > 1 (scan-of-steps) composes with dp / tp / "
+                "fsdp plans only — drop --steps_per_call or the "
+                "--seq/--pp_stages/--moe_experts flags")
         self.plan = plan
         self.runtime = None
         self.device = resolve_device(device)
@@ -299,9 +326,21 @@ class Trainer:
         self._prep_eval = lambda batch: _with_adjacency(
             dict(batch, frames=norm(batch["frames"])))
 
+        # ---- k optimizer steps per call over one stacked group ----
+        self.multi_step = None
+        if config.steps_per_call > 1:
+            self.multi_step = make_multi_step(
+                model, self.tx, self.loss_fn, config.steps_per_call,
+                remat=config.remat, prep=_prep_train, runtime=self.runtime)
+
         # ---- gradient accumulation: exact big-batch steps, 1/a the memory --
         self.accum_step = None
         if config.grad_accum > 1:
+            if config.steps_per_call > 1:
+                raise ValueError(
+                    "--grad_accum and --steps_per_call are mutually "
+                    "exclusive: one fuses k optimizer steps per dispatch, "
+                    "the other splits one step into microbatches")
             if config.batch_size % config.grad_accum:
                 raise ValueError(
                     f"batch_size ({config.batch_size}) must be divisible by "
@@ -358,11 +397,18 @@ class Trainer:
         self._load_state_dict(state_dict_from_jax(variables))
         return meta
 
+    def _held_elsewhere(self, name: str, own) -> bool:
+        """Whether ``name`` is a block another pipeline stage holds."""
+        return name not in own and self.runtime is not None and \
+            self.runtime.stage_local(name)
+
     def _load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
-        """Strict load; FSDP2's DTensor entries take their shard."""
+        """Strict load; FSDP2's DTensor entries take their shard, and a
+        pipeline stage its blocks."""
         own = self.model.state_dict()
-        if set(own) != set(sd):
-            missing, extra = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+        missing = sorted(set(own) - set(sd))
+        extra = sorted(k for k in set(sd) - set(own) if not self._held_elsewhere(k, own))
+        if missing or extra:
             raise RuntimeError(f"state_dict mismatch: missing {missing[:5]}, "
                                f"unexpected {extra[:5]}")
         with torch.no_grad():
@@ -379,7 +425,8 @@ class Trainer:
             opt = opt_state_from_leaves(meta["opt_names"], meta["_opt_leaves"],
                                         self.device)
             params = state.params
-            state.opt_state = {k: ({n: _shard_like(t, params[n]) for n, t in v.items()}
+            state.opt_state = {k: ({n: _shard_like(t, params[n]) for n, t in v.items()
+                                    if not self._held_elsewhere(n, params)}
                                    if isinstance(v, dict) else v) for k, v in opt.items()}
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.best_value = meta.get("best_value")
@@ -448,10 +495,18 @@ class Trainer:
         model_gen = gen if self.runtime is None else self._model_generator(epoch)
         tot_loss, tot_correct, tot_count = 0.0, 0, 0
         t0 = time.time()
-        for batch in self._device_batches(self.train_ds, True, epoch):
+        if self.multi_step is None:
+            batches = self._device_batches(self.train_ds, True, epoch)
+        else:   # one transfer a group of k
+            batches = prefetch_to_device(_groups(self._make_loader(self.train_ds, True, epoch),
+                                                 self.cfg.steps_per_call), self.device)
+        for batch in batches:
             batch.pop("paths", None)
-            batch = self._prep_train(batch, gen)
-            state, metrics = self.train_step(state, batch, model_gen)
+            if batch["labels"].dim() == 2:      # a stacked group
+                state, metrics = self.multi_step(state, batch, gen, model_gen)
+            else:
+                state, metrics = self.train_step(state, self._prep_train(batch, gen),
+                                                 model_gen)
             n = int(metrics["count"])
             tot_loss += float(metrics["loss"]) * n
             tot_correct += int(metrics["correct"])
@@ -611,10 +666,13 @@ class Trainer:
         if ema is not None:
             # the metrics were scored on the EMA weights: tag both files
             meta = dict(meta, metrics_scored_on="ema")
-        # whole tensors on every rank (FSDP2 gathers its shards), rank 0 writes
-        sd = _full(self.model.state_dict())
-        opt_state = _full(state.opt_state) if with_opt else None
-        ema = _full(ema) if ema is not None else None
+        # whole tensors on every rank (FSDP2 gathers its shards, the stages
+        # their blocks), rank 0 writes
+        gather = self.runtime.gather_stages if self.runtime is not None else (lambda d: d)
+        sd = gather(_full(self.model.state_dict()))
+        opt_state = ({k: gather(v) if isinstance(v, dict) else v
+                      for k, v in _full(state.opt_state).items()} if with_opt else None)
+        ema = gather(_full(ema)) if ema is not None else None
         if not is_main_process():
             return
         save_checkpoint(path, sd, meta, opt_state=opt_state, step=state.step)

@@ -595,14 +595,17 @@ def test_training_cli_trains_the_default_backbone(model, faces_dir, tmp_path):
     assert jax_flatten(jv["state"]["backbone"])
 
 
-def test_entry_points_need_the_card_without_a_device(monkeypatch, faces_dir):
+def test_entry_points_need_the_card_without_a_device(monkeypatch, faces_dir, tmp_path):
     """Without a card and without ``--device cpu`` the ensemble CLI and the
-    conv-net CLI models raise; they never carry on on the CPU."""
+    conv-net CLI models raise; they never carry on on the CPU. Asked for
+    the CPU, the ensemble CLI trains with ``--steps_per_call 2`` (its 8
+    training clips: one group of two batches)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_ensemble.main(["--data_dir", faces_dir])
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--data_dir", faces_dir, "--model", "temporal"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_ensemble.main(["--data_dir", faces_dir, "--steps_per_call", "2",
-                           "--device", "cpu"])
+    assert cli_ensemble.main(["--data_dir", faces_dir, "--steps_per_call", "2", "--epochs",
+                              "1", "--batch_size", "4", "--num_frames", "2", "--out_dir",
+                              str(tmp_path / "k2"), "--device", "cpu"]) == 0
+    assert (tmp_path / "k2" / "checkpoint_best.npz").exists()

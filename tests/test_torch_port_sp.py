@@ -20,9 +20,14 @@ shape over the parent's 8 host devices:
   batch) under the plans ``build_plan`` gives for ``--seq ring``,
   ``--seq ulysses``, ``--moe_experts 4 --expert_par 2`` and
   ``--pp_stages 2``, against JAX's step under JAX's plan: loss, grad norm
-  and every parameter;
+  and every parameter (the stages' blocks gathered); under the pipeline
+  each rank holds its stage's block and that block's optimizer slots
+  alone;
 * the training CLI for one epoch under ``--seq ring``, ``--pp_stages 2``
-  and the expert-parallel flags: rank 0's checkpoint in JAX's loader.
+  and the expert-parallel flags: rank 0's checkpoint in JAX's loader and
+  in the no-plan port; the ``--pp_stages 2`` checkpoint holds every block
+  and its Adam moments, each rank of a ``--pp_stages 2`` ``Trainer``
+  resumes its stage's share, and a no-plan ``Trainer`` resumes it whole.
 
 Single-process tests hold Ulysses' two errors and ``build_plan`` (every
 description, batch multiple, model kwarg and message over a table of
@@ -196,6 +201,10 @@ def _rank_steps(out, d):
     from deepfake_video_detection_tpu_torch.train.state import TrainState
     from deepfake_video_detection_tpu_torch.train.steps import make_train_step
 
+    def blocks(names):
+        return np.asarray(sorted({int(n.split(".")[1]) for n in names
+                                  if n.startswith("blocks.")}))
+
     batch = {k: torch.from_numpy(v) for k, v in _step_batch().items()}
     for case, flags in STEP_FLAGS.items():
         plan, kw = build_plan(_flags(**flags), "temporal", T, depth=TEMPORAL["depth"],
@@ -204,16 +213,22 @@ def _rank_steps(out, d):
         model.load_state_dict(torch.load(d / f"step_{case}.pt"), strict=True)
         place_model(model, plan.mesh, plan.param_spec_fn)
         opt = O.build_optimizer("sgd", 0.5, grad_clip=1.0)
+        rt = ParallelRuntime(plan.mesh)
         step = make_train_step(
             model, opt, lambda lg, lb, sample_mask=None: Loss.cross_entropy_loss(
-                lg, lb, class_weights=CW, sample_mask=sample_mask),
-            runtime=ParallelRuntime(plan.mesh))
+                lg, lb, class_weights=CW, sample_mask=sample_mask), runtime=rt)
         state, m = step(TrainState.create(model, opt),
                         shard_batch(batch, plan.mesh, specs=plan.batch_spec))
         out[f"step_{case}"] = {"loss": m["loss"].numpy(), "grad_norm": m["grad_norm"].numpy(),
                                "correct": m["correct"].numpy(), "count": m["count"].numpy(),
                                "desc": np.asarray(plan.description),
-                               **{k: v.numpy() for k, v in model.state_dict().items()}}
+                               "held_blocks": blocks(state.params),
+                               "slot_blocks": blocks(state.opt_state["trace"]),
+                               "block_numel": np.asarray(sum(
+                                   p.numel() for n, p in state.params.items()
+                                   if n.startswith("blocks."))),
+                               **{k: v.numpy()
+                                  for k, v in rt.gather_stages(model.state_dict()).items()}}
 
 
 CLI_FLAGS = {"ring": ["--seq", "ring"], "pp": ["--pp_stages", "2"],
@@ -235,6 +250,29 @@ def _rank_cli(d):
         assert cli.main(_cli_args(d, case)) == 0
 
 
+def _rank_resume(out, d):
+    """A ``--pp_stages 2`` ``Trainer`` resumes the CLI's pipeline
+    checkpoint: this rank's parameters and Adam moments."""
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+    from deepfake_video_detection_tpu_torch.parallel.strategy import build_plan
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    plan, kw = build_plan(_flags(**STEP_FLAGS["pp"]), "temporal", T, depth=TEMPORAL["depth"],
+                          device="cpu")
+    model = TemporalTransformerDetector("tinyconv", device="cpu", **TEMPORAL, **kw)
+    ds = VideoFacesDataset(str(d / "faces"), num_frames=T)
+    trainer = Trainer(model, ds, ds, TrainerConfig(out_dir=str(d / "resume_pp"), epochs=2,
+                                                   batch_size=4, num_frames=T),
+                      plan=plan, device="cpu")
+    state = trainer.resume(str(d / "cli_pp" / "checkpoint_epoch_0.npz"))
+    out["resume_pp"] = {"step": np.asarray(state.step),
+                        **{f"param.{n}": p.detach().numpy() for n, p in state.params.items()},
+                        **{f"mu.{n}": t.numpy() for n, t in state.opt_state["mu"].items()},
+                        **{f"nu.{n}": t.numpy() for n, t in state.opt_state["nu"].items()}}
+
+
 def _rank_main(rank: int, world: int, d: pathlib.Path) -> None:
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -249,6 +287,7 @@ def _rank_main(rank: int, world: int, d: pathlib.Path) -> None:
                          "data_stage": _mesh((2, 2), ("data", "stage"))})
     _rank_steps(out, d)
     _rank_cli(d)
+    _rank_resume(out, d)
     for name, arrays in out.items():
         np.savez(d / f"{name}.{rank}.npz", **arrays)
     dist.barrier()
@@ -473,6 +512,66 @@ def test_temporal_step_matches_jax_under_the_plan(world, case):
         for k, want in ref.items():
             np.testing.assert_allclose(got[k], want.numpy(), rtol=1e-4, atol=1e-6,
                                        err_msg=f"{k} rank {rank}")
+
+
+def test_pipeline_stage_holds_only_its_blocks(world):
+    """Under ``--pp_stages 2`` (data=2 x stage=2, depth 2) rank r holds
+    block r % 2 alone, its parameters (half the blocks') and its optimizer
+    slots; under the other plans every rank holds both blocks (the dense
+    ones under the sequence plans, twice the pipeline stage's)."""
+    whole = int(_load(world, "step_ring", 0)["block_numel"])
+    for case in STEP_FLAGS:
+        for rank in range(WORLD):
+            got = _load(world, f"step_{case}", rank)
+            want = [rank % 2] if case == "pp" else [0, 1]
+            assert got["held_blocks"].tolist() == got["slot_blocks"].tolist() == want, \
+                (case, rank)
+            if case != "ep":
+                assert int(got["block_numel"]) == (whole // 2 if case == "pp" else whole)
+
+
+def test_pipeline_checkpoint_resumes_per_stage_and_whole(world, tmp_path):
+    """The ``--pp_stages 2`` CLI's checkpoint holds both blocks' weights and
+    Adam moments (gathered to rank 0). A ``Trainer`` under the plan gives
+    each rank its stage's share of them, and a no-plan ``Trainer`` on one
+    process resumes all of them."""
+    from deepfake_video_detection_tpu_torch.checkpoint.bridge import (
+        load_checkpoint, opt_state_from_leaves)
+    from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
+    from deepfake_video_detection_tpu_torch.models.temporal_transformer import (
+        TemporalTransformerDetector)
+    from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    path = world / "cli_pp" / "checkpoint_epoch_0.npz"
+    variables, meta = load_checkpoint(str(path))
+    sd = state_dict_from_jax(variables)
+    opt = opt_state_from_leaves(meta["opt_names"], meta["_opt_leaves"], "cpu")
+    block_names = [k for k in sd if k.startswith("blocks.")]
+    assert {int(k.split(".")[1]) for k in block_names} == {0, 1}
+    for slot in ("mu", "nu"):
+        assert set(block_names) <= set(opt[slot]), slot
+    for rank in range(WORLD):
+        got = _load(world, "resume_pp", rank)
+        assert int(got["step"]) == int(meta["step"])
+        held = {k[len("param."):] for k in got if k.startswith("param.")}
+        assert {int(k.split(".")[1]) for k in held if k.startswith("blocks.")} == {rank % 2}
+        assert held == set(sd) - {k for k in block_names
+                                  if int(k.split(".")[1]) != rank % 2}
+        for n in held:
+            np.testing.assert_array_equal(got[f"param.{n}"], sd[n].numpy(), err_msg=n)
+            for slot in ("mu", "nu"):
+                np.testing.assert_array_equal(got[f"{slot}.{n}"], opt[slot][n].numpy(),
+                                              err_msg=f"{slot} {n}")
+    model = TemporalTransformerDetector("tinyconv", device="cpu", **TEMPORAL)
+    ds = VideoFacesDataset(str(world / "faces"), num_frames=T)
+    trainer = Trainer(model, ds, ds, TrainerConfig(out_dir=str(tmp_path), epochs=2,
+                                                   batch_size=4, num_frames=T), device="cpu")
+    state = trainer.resume(str(path))
+    assert state.step == int(meta["step"]) and trainer.start_epoch == 1
+    for n, t in model.state_dict().items():
+        np.testing.assert_array_equal(t.numpy(), sd[n].numpy(), err_msg=n)
+    for n, t in state.opt_state["mu"].items():
+        np.testing.assert_array_equal(t.numpy(), opt["mu"][n].numpy(), err_msg=n)
 
 
 @pytest.mark.parametrize("case", list(CLI_FLAGS))

@@ -269,8 +269,15 @@ def test_accum_step_matches_full_batch_and_remat():
     for k in p0:
         np.testing.assert_allclose(p1[k].numpy(), p0[k].numpy(), rtol=1e-4, atol=1e-6)
         np.testing.assert_array_equal(p2[k].numpy(), p0[k].numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.make_multi_step(None, None, None, 2)
+    # and make_multi_step runs: two of those batches as one group of 2
+    model = _port_model(seed=5)
+    opt = O.build_optimizer("sgd", 0.5, grad_clip=None)
+    multi = S.make_multi_step(model, opt, loss, 2)
+    st, m = multi(TrainState.create(model, opt),
+                  {"frames": frames.reshape(2, 2, *frames.shape[1:]),
+                   "labels": labels.reshape(2, 2), "valid": valid.reshape(2, 2)})
+    assert st.step == 2 and st.opt_state["count"] == 2 and int(m["count"]) == 3
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
 
 
 def test_bf16_compute_keeps_f32_params_and_bf16_activations():
