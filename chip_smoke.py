@@ -14,7 +14,12 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    library is waited for at once and the conv-net phases (3-6) run while the
    flash libraries compile. The tensor-core flash kernels at d = 64 (every
    main path): bf16 unsplit and split, f32 (3xTF32), and the split route's
-   combine and reduce kernels must spill nothing (``-Xptxas -v``).
+   combine and reduce kernels must spill nothing (``-Xptxas -v``); the bf16
+   forward's Hopper kernels at d = 64 must hold wgmma products (HGMMA) and
+   TMA loads (UTMALDG) in the built library's SASS (``cuobjdump -sass``),
+   and ptxas must not have serialized their products (note C7515).
+   The ``build`` line gives their registers, dynamic shared memory, spills
+   and both counts.
 3. K1: the fused-normalize kernel's RGB and packed-YUV420 entries against
    their plain versions at the serving shapes, timed by events and by
    device, beside their bound and the plain versions' times.
@@ -46,8 +51,9 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
    f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
    route (``splits`` > 1: split kernels, then the combine or reduce
-   kernel); every main-path case is bf16. Then the split sweep: the long-N
-   calls' device time at every split count, beside the policy's.
+   kernel; the bf16 forward's route is the Hopper one, ``FWD_ROUTES``);
+   every main-path case is bf16. Then the split sweep: the long-N calls'
+   device time at every split count, beside the policy's.
 8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
    generator, f32 params, bf16 activations) behind a ``Predictor`` with
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
@@ -314,8 +320,11 @@ K4_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:209"
 K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
 K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 
-# each flash source routes by dtype between two hand-written kernels
+# each flash source routes by dtype between two hand-written kernels; the
+# bf16 forward runs the Hopper kernels (TMA loads, mbarriers, wgmma), the
+# bf16 backward mma.sync
 ROUTES = {"bf16": "tensor-core bf16", "f32": "tensor-core 3xTF32"}
+FWD_ROUTES = {"bf16": "Hopper bf16: TMA, mbarriers, wgmma", "f32": ROUTES["f32"]}
 # the flash kernels' bound by dtype: f32 is bound by the tensor cores' rate
 # for 3xTF32, the old CUDA-core figure is kept beside it (bound_ms_cuda_core)
 FLASH_PEAK = {"bf16": "bf16", "f32": "tf32x3"}
@@ -627,14 +636,15 @@ def _session_device_ms(torch, fn, iters: int = 20):
 
 def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
     """The kernels one flash call launches, by name: f32 runs the 3xTF32
-    kernels, bf16 the bf16 ones, unsplit (S = 1) or split with the combine
-    (forward) or reduce (backward) kernel."""
+    kernels, bf16 the bf16 ones (the forward's Hopper kernels: TMA and
+    wgmma), unsplit (S = 1) or split with the combine (forward) or reduce
+    (backward) kernel."""
     if direction == "fwd":
         if dtype == "f32":
             return ["flash_fwd_tf32_kernel"]
         if splits == 1:
-            return ["flash_fwd_bf16_kernel"]
-        return ["flash_fwd_split_bf16_kernel", "flash_fwd_combine_kernel"]
+            return ["flash_fwd_bf16_wgmma_kernel"]
+        return ["flash_fwd_split_bf16_wgmma_kernel", "flash_fwd_combine_kernel"]
     if dtype == "f32":
         return ["flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"]
     if splits == 1:
@@ -669,15 +679,42 @@ def _ptxas_stats(log: str) -> list:
 
 # the tensor-core flash kernels, bf16 unsplit and split and f32 (templates
 # on the padded head dim), and the split route's combine and reduce kernels
-TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)_kernel"
+TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)(_wgmma)?_kernel"
                        r"|flash_(fwd_combine|bwd_reduce)_kernel")
 TC_KERNELS_D64 = 11
+# the bf16 forward's Hopper kernels, whose SASS must hold wgmma products
+# (HGMMA) and TMA loads (UTMALDG)
+HOPPER_KERNEL = re.compile(r"flash_fwd(_split)?_bf16_wgmma_kernel")
+HOPPER_OPCODES = ("HGMMA", "UTMALDG")
+
+
+def sass_counts(lib_path, opcodes=HOPPER_OPCODES) -> dict:
+    """Each kernel's count of each opcode in a built library's SASS
+    (``cuobjdump -sass``, the toolkit's beside ``nvcc``), by mangled name."""
+    from deepfake_video_detection_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = counts.setdefault(line.split("Function :")[1].strip(), dict.fromkeys(opcodes, 0))
+        elif cur is not None:
+            for op in opcodes:
+                cur[op] += op in line
+    return counts
 
 
 def check_build(build_log: dict) -> list:
     """The tensor-core flash kernels at d = 64 (every main path: bf16 and
     the f32 training step) and the split route's combine and reduce kernels
-    spill nothing; returns their ptxas records."""
+    spill nothing, and the bf16 forward's kernels at d = 64 hold HGMMA and
+    UTMALDG instructions; returns their ptxas records (with their dynamic
+    shared memory and SASS counts for the Hopper kernels)."""
+    from deepfake_video_detection_tpu_torch.ops import _build
+    from deepfake_video_detection_tpu_torch.ops import attention as A
+
     logs = [build_log.get(os.path.basename(src), "") for src in (K2_SOURCE, K4_SOURCE)]
     if not all(logs):
         print("  ptxas: flash libraries built by an earlier run, no stats", flush=True)
@@ -686,15 +723,32 @@ def check_build(build_log: dict) -> list:
     for src, log in zip(("flash_fwd.cu", "flash_bwd.cu"), logs):
         for st in _ptxas_stats(log):
             m = TC_KERNEL.search(st["function"])
-            if m and ("Li64E" in st["function"] or m.group(4)):
+            if m and ("Li64E" in st["function"] or m.group(5)):
                 tc.append(dict(st, source=src, kernel=m.group(0)))
+    sass = sass_counts(_build.library_path("flash_fwd.cu"))
     for st in tc:
+        if HOPPER_KERNEL.search(st["kernel"]):
+            st["dynamic_smem_bytes"] = A._fwd_smem(64)
+            st["sass"] = next((c for name, c in sass.items() if name == st["function"]),
+                              dict.fromkeys(HOPPER_OPCODES, 0))
         print(f"  ptxas[{st['source']}] {st['kernel']}: {st['registers']} registers, "
-              f"{st['spill_stores']} bytes spill stores", flush=True)
+              f"{st['spill_stores']} bytes spill stores"
+              + (f", {st['dynamic_smem_bytes']} bytes dynamic shared memory, SASS {st['sass']}"
+                 if "sass" in st else ""), flush=True)
+    # ptxas's notes on the products (C75xx); C7515 says it serialized them
+    notes = [line.strip() for line in logs[0].splitlines() if "wgmma" in line]
+    for line in notes:
+        print(f"  ptxas[flash_fwd.cu] {line}", flush=True)
     _require(len(tc) == TC_KERNELS_D64,
              f"expected {TC_KERNELS_D64} flash kernels at d = 64 in the ptxas logs, got {tc}")
     _require(all(st["spill_stores"] == 0 for st in tc),
              f"a tensor-core flash kernel spills at d = 64: {tc}")
+    hopper = [st for st in tc if "sass" in st]
+    _require(len(hopper) == 2 and all(st["sass"][op] > 0 for st in hopper
+                                      for op in HOPPER_OPCODES),
+             f"the bf16 forward's kernels at d = 64 lack HGMMA or UTMALDG: {hopper}")
+    _require(not any("C7515" in line for line in notes),
+             "ptxas serialized the bf16 forward's wgmma products (C7515)")
     return tc
 
 
@@ -803,7 +857,9 @@ def check_k2(torch, A, gen):
              (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer"),
              (8, 4, 17, 64, torch.float32, True,
               CONV_ROW + "the training CLI's --model temporal step over B0"),
-             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16")]
+             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16"),
+             (2, 4, 300, 128, torch.bfloat16, True, "d = 128: two 64-column boxes a tile"),
+             (1, 2, 700, 256, torch.bfloat16, False, "d = 256: 32-key tiles, split")]
     for B, H, N, d, dt, strided, note in specs:
         if strided:
             qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
@@ -826,7 +882,7 @@ def check_k2(torch, A, gen):
         nbytes, ops = 4 * B * H * N * d * itemsize + 4 * B * H * N, 4.0 * B * H * N * N * d
         bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
-               "dtype": name, "route": ROUTES[name], "splits": splits,
+               "dtype": name, "route": FWD_ROUTES[name], "splits": splits,
                "strided_qkv": strided, "note": note,
                "max_abs_err": err, "ref_max_abs": ref_max, "rel_err": err / ref_max,
                "tol": BF16_TOL_REL if name == "bf16" else K2_TOL_F32,
@@ -986,7 +1042,7 @@ def sweep_splits(torch, A, gen):
     for direction, (B, H, N, d) in SWEEP:
         q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, torch.bfloat16, True)
         if direction == "fwd":
-            tiles, policy = -(-N // 64), A._long_splits(B, H, N, d)[0]
+            tiles, policy = -(-N // A._fwd_key_tile(d)), A._long_splits(B, H, N, d)[0]
 
             def call():
                 return A.flash_attention_fwd(q, k, v)
@@ -5995,7 +6051,8 @@ def main() -> int:
         if f32_case is not None:
             # the f32 route's launches beside the bf16 route's
             f32 = sum(c.get(kid, 0) for c in f32_paths.values())
-            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
+            routes = FWD_ROUTES if source == K2_SOURCE else ROUTES
+            e["launches_by_route"] = {routes["bf16"]: e["launches"] - f32, routes["f32"]: f32}
             e["f32"] = {k: f32_case.get(k) for k in case_keys}
         # the legacy phase's shapes (3 or 6 heads), the conv-net training
         # phase's (the temporal model over B0: 4 heads, N = 17) and an

@@ -12,13 +12,26 @@ dK/dV pass (FlashAttention-2) that stream row tiles. Each kernel streams
 over any N, so each covers both TPU regimes. Each source routes by dtype,
 both routes on the tensor cores: bf16 as bf16 products with f32 sums, f32
 as 3xTF32 (each f32 operand split into two tf32 terms, three products in
-place of one, f32 sums: the error of a plain f32 product). The kernels take
-rows of 16-byte multiples; for an input whose rows are not (d not a
-multiple of 8 bf16 or 4 f32 elements, a B/H/N stride not a multiple of as
-many elements, or unaligned data), the wrapper hands the kernel a
-contiguous copy zero-padded to that multiple in d, with the scale of the
-true d, and slices the result back. On CPU tensors each wrapper takes its
-plain version, a dense f32 computation.
+place of one, f32 sums: the error of a plain f32 product).
+
+The bf16 forward is built for Hopper (FlashAttention-3's shape): a producer
+warp loads the Q tile and rings of K and V tiles by TMA into shared memory
+(128-byte swizzled, completing on mbarriers), and a consumer warpgroup
+takes S = QKᵀ and O += P·V as ``wgmma`` products, P from registers as two
+bf16 terms (hi + lo), the next tile's S issued before the softmax of the
+last one finishes its P·V. What bounds it on an H100: bytes at the ViT
+shape (N = 197), the tile body's rate at the long clips' (N = 1025).
+It reads q, k and v through 4-D tensor maps whose geometry
+:func:`_tma_geometry` computes from each tensor's shape and strides, so the
+views of a fused QKV projection go in as they are; columns past d, up to a
+multiple of 64, and rows past N come from TMA's zero fill. An input TMA
+cannot describe (a byte stride not a multiple of 16, unaligned data) or
+with d not a multiple of 8 goes to the kernel as a contiguous copy
+zero-padded to a multiple of 8 in d, with the scale of the true d, and the
+result is sliced back. The other kernels take rows of 16-byte multiples
+(d not a multiple of 8 bf16 or 4 f32 elements, a B/H/N stride not a
+multiple of as many elements, or unaligned data get the same copy). On CPU
+tensors each wrapper takes its plain version, a dense f32 computation.
 
 The split route (bf16 at N > 512, the regime of the TPU's streaming
 kernels K3, K5 and K6). One block per (64-row tile, head) leaves most of
@@ -43,6 +56,7 @@ without a copy. O, dQ, dK and dV come back as ``(B, H, N, d)`` views of
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import math
@@ -65,19 +79,21 @@ _count_lock = threading.Lock()
 # The split policy, for the bf16 kernels' tiles: 64 query (key) rows per
 # block; the forward streams key tiles of 64 (32 above d = 128), the
 # backward tiles of 32 rows. The card runs _SMS times the blocks an SM
-# holds at once (a wave): 3 of the split forward and of the dK/dV pass (146
-# and 168 registers a thread at d = 64, ptxas), fewer where the shared
-# memory of a larger d allows fewer. S minimises waves x tiles per split
-# (the streamed tiles the slowest SM walks) + _SPLIT_COST x S (a split's
-# partials, written once and read again by the combine or reduce kernel),
-# the smallest S on a tie, over the counts that keep each split at least
-# _SPLIT_MIN_TILES tiles (the 2-stage cp.async ring overlaps one tile's
-# copy with the other's products) and the partials at most
+# holds at once (a wave): 3 of the split forward and of the dK/dV pass
+# (160 threads of 122 registers and 128 of 168 at d = 64, ptxas), fewer
+# where the shared memory of a larger d allows fewer. S minimises waves x
+# tiles per split (the streamed tiles the slowest SM walks) + _SPLIT_COST
+# x S (a split's partials, written once and read again by the combine or
+# reduce kernel), the smallest S on a tie, over the counts that keep each
+# split at least _SPLIT_MIN_TILES tiles (a 2-stage ring overlaps one
+# tile's copy with the other's products) and the partials at most
 # _SPLIT_SCRATCH_CAP bytes. Tuned on an H100 against the split sweep of
 # `chip_smoke.py` (PERF.md): a fixed fill target (the smallest S that fills
 # one wave) put the N = 4097 backward into 2 waves of long blocks (0.357
 # against 0.304 ms at its best S), and waves x tiles alone split the short
-# calls into more blocks than their partials repay.
+# calls into more blocks than their partials repay. The Hopper forward kept
+# these constants: at the long-clip evaluation shape the policy's S is the
+# sweep's best, elsewhere within 11 % of it (PERF.md).
 _SMS = 132                          # streaming multiprocessors of an H100
 _ROW_TILE = 64
 _BWD_TILE = 32
@@ -86,8 +102,8 @@ _BLOCKS_PER_SM = 3
 _SPLIT_COST = 0.5
 _SPLIT_MIN_TILES = 2
 _SPLIT_SCRATCH_CAP = 256 << 20
-# ctypes array types of 12 and 24 strides, made once
-_STRIDE_ARRAYS = {n: ctypes.c_longlong * n for n in (12, 24)}
+# the bf16 forward's TMA box: 64 columns, one 128-byte swizzled row
+_TMA_BOX_COLS = 64
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -130,7 +146,7 @@ def _fwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:     # once per loaded library
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -150,6 +166,19 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _fwd_key_tile(d: int) -> int:
+    """Keys per K/V tile of the bf16 forward at head dim d: 64, and 32
+    above d = 128 (the kernel pads d to DP, a multiple of 64)."""
+    return 64 if _cdiv(d, 64) * 64 <= 128 else 32
+
+
+def _fwd_smem(d: int) -> int:
+    """Dynamic shared memory of a bf16 forward block at head dim d: the Q
+    tile and two-stage K and V rings at d padded to a multiple of 64, nine
+    8-byte barriers and 1 KB for aligning the base to 1024 bytes."""
+    return 2 * _cdiv(d, 64) * 64 * (_ROW_TILE + 4 * _fwd_key_tile(d)) + 9 * 8 + 1024
+
+
 def _split_count(blocks: int, tiles: int, per_sm: int, split_bytes: int) -> int:
     slots = _SMS * per_sm
     most = max(1, min(tiles // _SPLIT_MIN_TILES, _SPLIT_SCRATCH_CAP // split_bytes))
@@ -167,14 +196,13 @@ def _long_splits(B: int, H: int, N: int, d: int, bf16: bool = True
     always gets the same S."""
     if not bf16 or N <= _SHORT_MAX:
         return 1, 1
-    dp = _cdiv(d, 8) * 8                    # the head dim the kernel sees
-    DP = _cdiv(dp, 16) * 16
-    key_tile = 64 if DP <= 128 else 32
-    fwd_smem = 2 * (_ROW_TILE + 4 * key_tile) * (DP + 8)
-    bwd_smem = 2 * (2 * _ROW_TILE + 4 * _BWD_TILE) * (DP + 8) + 4 * 4 * _BWD_TILE
+    dp = _cdiv(d, 8) * 8                    # the head dim the kernels see
+    key_tile = _fwd_key_tile(d)
+    bwd_dp = _cdiv(dp, 16) * 16             # the backward's mma depth
+    bwd_smem = 2 * (2 * _ROW_TILE + 4 * _BWD_TILE) * (bwd_dp + 8) + 4 * 4 * _BWD_TILE
     blocks = B * H * _cdiv(N, _ROW_TILE)
     s_fwd = _split_count(blocks, _cdiv(N, key_tile),
-                         min(_BLOCKS_PER_SM, _SMEM_PER_SM // fwd_smem),
+                         min(_BLOCKS_PER_SM, _SMEM_PER_SM // _fwd_smem(d)),
                          4 * B * H * N * (dp + 1))
     s_bwd = _split_count(blocks, _cdiv(N, _BWD_TILE),
                          min(_BLOCKS_PER_SM, _SMEM_PER_SM // bwd_smem),
@@ -238,8 +266,28 @@ def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, -t.shape[-1] % _row_elems(t))).contiguous()
 
 
-def _strides(*ts: torch.Tensor):
-    return _STRIDE_ARRAYS[3 * len(ts)](*(s for t in ts for s in t.stride()[:3]))
+def _tma_geometry(t: torch.Tensor, rows: int):
+    """The 4-D tensor map through which the bf16 forward reads ``t``, a
+    ``(B, H, N, d)`` tensor: ``(dims, strides, box)`` with dims ``(d, N, H,
+    B)`` innermost first, the byte strides of N, H and B, and the box one
+    TMA load fills, ``(64, rows)`` (64 columns: one 128-byte swizzled row).
+    None where TMA cannot describe ``t``: the last axis strided, data not
+    16-byte aligned, or a byte stride that is not a positive multiple of 16
+    below 2**40."""
+    B, H, N, d = t.shape
+    sb, sh, sn, sd = t.stride()
+    es = t.element_size()
+    strides = (sn * es, sh * es, sb * es)
+    if sd != 1 or t.data_ptr() % 16 \
+            or any(st <= 0 or st % 16 or st >= 1 << 40 for st in strides):
+        return None
+    return (d, N, H, B), strides, (_TMA_BOX_COLS, rows)
+
+
+def _strides(*ts: torch.Tensor) -> array.array:
+    """The B/H/N strides of ``ts`` as a C array of int64 (its address:
+    ``.buffer_info()[0]``; cheaper to build than a ctypes array)."""
+    return array.array("q", [s for t in ts for s in t.stride()[:3]])
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -258,9 +306,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     B, H, N, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
-    padded = not _tc_aligned(q, k, v)
+    if bf16:
+        rows = (_ROW_TILE,) + (_fwd_key_tile(d),) * 2   # the box rows of Q, K, V
+        geos = [_tma_geometry(t, r) for t, r in zip((q, k, v), rows)]
+        padded = d % 8 != 0 or None in geos
+    else:
+        padded = not _tc_aligned(q, k, v)
     if padded:
         q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+        if bf16:    # a contiguous copy always has a tensor map
+            geos = [_tma_geometry(t, r) for t, r in zip((q, k, v), rows)]
     dp = q.shape[-1]
     splits = _long_splits(B, H, N, d, bf16)[0]
     out = _heads_view(B, H, N, dp, q)
@@ -268,11 +323,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     # partial O (B*H, S, N, dp) and lse (B*H, S, N) of the split route
     part, part_ptr = _partials(B * H * N * (dp + 1), splits, q)
     strides = _strides(q, k, v, out)
+    tma = None
+    if bf16:        # the tensor maps of q, k, v and out
+        geos.append(_tma_geometry(out, _ROW_TILE))
+        tma = array.array("q", [x for g in geos for f in g for x in f])
     lib = _fwd_library()
     status = lib.dfdt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, N, dp, int(bf16), ctypes.addressof(strides),
-        scale, splits, part_ptr, torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), B, H, N, dp, int(bf16), strides.buffer_info()[0],
+        scale, splits, part_ptr, torch.cuda.current_stream(q.device).cuda_stream,
+        None if tma is None else tma.buffer_info()[0])
     _build.check(lib, status, "flash_attention_fwd")
     with _count_lock:
         flash_attention_fwd.launches += 1
@@ -322,7 +382,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, N, dp, int(bf16),
-        ctypes.addressof(strides), scale, splits, part_ptr,
+        strides.buffer_info()[0], scale, splits, part_ptr,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "flash_attention_bwd")
     with _count_lock:

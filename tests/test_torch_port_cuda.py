@@ -93,6 +93,8 @@ def test_fused_normalize_yuv_kernel_matches_plain(shape, dtype):
     (16, 6, 197, 64, torch.float32, True),        # the ViT-GNN CLIs, 16 images
     (8, 4, 17, 64, torch.float32, True),          # --model temporal over B0, 8 x 16 frames
     (8, 4, 17, 64, torch.bfloat16, True),         # the same with --bf16
+    (2, 4, 300, 128, torch.bfloat16, True),       # d = 128: two 64-column boxes a tile
+    (1, 2, 700, 256, torch.bfloat16, True),       # d = 256: 32-key tiles, split
 ])
 def test_flash_kernel_matches_plain(B, H, N, d, dtype, strided):
     gen = _cuda_generator()
@@ -234,6 +236,8 @@ def test_f32_kernels_propagate_nan():
     (4, 4, 513, 64),                              # the first split length
     (1, 4, 1025, 64),                             # a 1024-frame clip
     (1, 4, 4097, 64),                             # a clip of minutes
+    (1, 4, 1025, 128),                            # d = 128
+    (1, 2, 700, 256),                             # d = 256: 32-key forward tiles
 ])
 def test_flash_split_route_matches_plain(B, H, N, d):
     """bf16 at N > 512 takes the split kernels (S > 1; at N = 513 and 1025 S
@@ -244,7 +248,7 @@ def test_flash_split_route_matches_plain(B, H, N, d):
     s_fwd, s_bwd = A._long_splits(B, H, N, d)
     assert s_fwd > 1 and s_bwd > 1
     if N < 4096:
-        assert -(-N // 64) % s_fwd and -(-N // 32) % s_bwd
+        assert -(-N // A._fwd_key_tile(d)) % s_fwd and -(-N // 32) % s_bwd
     q, k, v, _, _, dout = _bwd_inputs(gen, B, H, N, d, torch.bfloat16, True)
     f0, b0 = A.flash_attention_fwd.launches_split, A.flash_attention_bwd.launches_split
     out, lse = A.flash_attention_fwd(q, k, v)

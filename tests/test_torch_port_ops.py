@@ -216,12 +216,15 @@ def test_split_policy_splits_the_long_clip_shapes(shape):
 @pytest.mark.parametrize("shape", [
     (2, 4, 1025, 64), (1, 4, 641, 64), (2, 4, 513, 64), (1, 4, 4097, 64),
     (2, 12, 640, 64), (1, 1, 700, 256), (3, 2, 2000, 36), (1, 4, 65536, 64),
+    (1, 4, 1025, 128), (1, 2, 700, 192),
 ])
 def test_split_policy_keeps_two_tiles_per_split_and_no_split_past_n(shape):
-    """The kernels give split s the streamed tiles [s T / S, (s + 1) T / S):
+    """The kernels give split s the streamed tiles [s T / S, (s + 1) T / S)
+    (the forward's key tiles of ``_fwd_key_tile``, the backward's of 32):
     each split keeps at least 2 tiles, and each starts below N."""
     B, H, N, d = shape
-    fwd_tile = 64 if -(-d // 16) * 16 <= 128 else 32
+    fwd_tile = A._fwd_key_tile(d)
+    assert fwd_tile == (64 if d <= 128 else 32)
     for splits, tile in zip(A._long_splits(*shape), (fwd_tile, 32)):
         tiles = -(-N // tile)
         bounds = [s * tiles // splits for s in range(splits + 1)]
