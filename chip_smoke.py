@@ -15,9 +15,10 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    flash libraries compile. The tensor-core flash kernels at d = 64 (every
    main path): bf16 unsplit and split, f32 (3xTF32), and the split route's
    combine and reduce kernels must spill nothing (``-Xptxas -v``); the bf16
-   forward's Hopper kernels at d = 64 must hold wgmma products (HGMMA) and
-   TMA loads (UTMALDG) in the built library's SASS (``cuobjdump -sass``),
-   and ptxas must not have serialized their products (note C7515).
+   Hopper kernels at d = 64 (the forward's two, the backward's four) must
+   hold wgmma products (HGMMA) and TMA loads (UTMALDG) in the built
+   libraries' SASS (``cuobjdump -sass``), and ptxas must not have
+   serialized their products in either source (notes C7514, C7515, C7520).
    The ``build`` line gives their registers, dynamic shared memory, spills
    and both counts.
 3. K1: the fused-normalize kernel's RGB and packed-YUV420 entries against
@@ -51,7 +52,7 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
    f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
    route (``splits`` > 1: split kernels, then the combine or reduce
-   kernel; the bf16 forward's route is the Hopper one, ``FWD_ROUTES``);
+   kernel; both bf16 routes are the Hopper ones, ``ROUTES``);
    every main-path case is bf16. Then the split sweep: the long-N calls'
    device time at every split count, beside the policy's.
 8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
@@ -320,11 +321,9 @@ K4_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:209"
 K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
 K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 
-# each flash source routes by dtype between two hand-written kernels; the
-# bf16 forward runs the Hopper kernels (TMA loads, mbarriers, wgmma), the
-# bf16 backward mma.sync
-ROUTES = {"bf16": "tensor-core bf16", "f32": "tensor-core 3xTF32"}
-FWD_ROUTES = {"bf16": "Hopper bf16: TMA, mbarriers, wgmma", "f32": ROUTES["f32"]}
+# each flash source routes by dtype between two hand-written kernels: bf16
+# to the Hopper kernels (TMA loads, mbarriers, wgmma), f32 to 3xTF32
+ROUTES = {"bf16": "Hopper bf16: TMA, mbarriers, wgmma", "f32": "tensor-core 3xTF32"}
 # the flash kernels' bound by dtype: f32 is bound by the tensor cores' rate
 # for 3xTF32, the old CUDA-core figure is kept beside it (bound_ms_cuda_core)
 FLASH_PEAK = {"bf16": "bf16", "f32": "tf32x3"}
@@ -636,9 +635,8 @@ def _session_device_ms(torch, fn, iters: int = 20):
 
 def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
     """The kernels one flash call launches, by name: f32 runs the 3xTF32
-    kernels, bf16 the bf16 ones (the forward's Hopper kernels: TMA and
-    wgmma), unsplit (S = 1) or split with the combine (forward) or reduce
-    (backward) kernel."""
+    kernels, bf16 the Hopper ones (TMA and wgmma), unsplit (S = 1) or split
+    with the combine (forward) or reduce (backward) kernel."""
     if direction == "fwd":
         if dtype == "f32":
             return ["flash_fwd_tf32_kernel"]
@@ -648,8 +646,8 @@ def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
     if dtype == "f32":
         return ["flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"]
     if splits == 1:
-        return ["flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"]
-    return ["flash_bwd_dq_split_bf16_kernel", "flash_bwd_dkv_split_bf16_kernel",
+        return ["flash_bwd_dq_bf16_wgmma_kernel", "flash_bwd_dkv_bf16_wgmma_kernel"]
+    return ["flash_bwd_dq_split_bf16_wgmma_kernel", "flash_bwd_dkv_split_bf16_wgmma_kernel",
             "flash_bwd_reduce_kernel"]
 
 
@@ -682,9 +680,10 @@ def _ptxas_stats(log: str) -> list:
 TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)(_wgmma)?_kernel"
                        r"|flash_(fwd_combine|bwd_reduce)_kernel")
 TC_KERNELS_D64 = 11
-# the bf16 forward's Hopper kernels, whose SASS must hold wgmma products
-# (HGMMA) and TMA loads (UTMALDG)
-HOPPER_KERNEL = re.compile(r"flash_fwd(_split)?_bf16_wgmma_kernel")
+# the bf16 Hopper kernels (forward 2, backward 4), whose SASS must hold
+# wgmma products (HGMMA) and TMA loads (UTMALDG)
+HOPPER_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_bf16_wgmma_kernel")
+HOPPER_KERNELS_D64 = 6
 HOPPER_OPCODES = ("HGMMA", "UTMALDG")
 
 
@@ -709,8 +708,9 @@ def sass_counts(lib_path, opcodes=HOPPER_OPCODES) -> dict:
 def check_build(build_log: dict) -> list:
     """The tensor-core flash kernels at d = 64 (every main path: bf16 and
     the f32 training step) and the split route's combine and reduce kernels
-    spill nothing, and the bf16 forward's kernels at d = 64 hold HGMMA and
-    UTMALDG instructions; returns their ptxas records (with their dynamic
+    spill nothing, the bf16 Hopper kernels at d = 64 (forward and backward)
+    hold HGMMA and UTMALDG instructions, and ptxas serialized the products
+    of neither source; returns their ptxas records (with their dynamic
     shared memory and SASS counts for the Hopper kernels)."""
     from deepfake_video_detection_tpu_torch.ops import _build
     from deepfake_video_detection_tpu_torch.ops import attention as A
@@ -725,30 +725,33 @@ def check_build(build_log: dict) -> list:
             m = TC_KERNEL.search(st["function"])
             if m and ("Li64E" in st["function"] or m.group(5)):
                 tc.append(dict(st, source=src, kernel=m.group(0)))
-    sass = sass_counts(_build.library_path("flash_fwd.cu"))
+    sass = {src: sass_counts(_build.library_path(src)) for src in ("flash_fwd.cu", "flash_bwd.cu")}
     for st in tc:
-        if HOPPER_KERNEL.search(st["kernel"]):
-            st["dynamic_smem_bytes"] = A._fwd_smem(64)
-            st["sass"] = next((c for name, c in sass.items() if name == st["function"]),
-                              dict.fromkeys(HOPPER_OPCODES, 0))
+        m = HOPPER_KERNEL.search(st["kernel"])
+        if m:
+            st["dynamic_smem_bytes"] = (A._fwd_smem(64) if m.group(1) == "fwd"
+                                        else A._bwd_smem(64)[m.group(1) == "bwd_dkv"])
+            st["sass"] = sass[st["source"]].get(st["function"], dict.fromkeys(HOPPER_OPCODES, 0))
         print(f"  ptxas[{st['source']}] {st['kernel']}: {st['registers']} registers, "
               f"{st['spill_stores']} bytes spill stores"
               + (f", {st['dynamic_smem_bytes']} bytes dynamic shared memory, SASS {st['sass']}"
                  if "sass" in st else ""), flush=True)
-    # ptxas's notes on the products (C75xx); C7515 says it serialized them
-    notes = [line.strip() for line in logs[0].splitlines() if "wgmma" in line]
-    for line in notes:
-        print(f"  ptxas[flash_fwd.cu] {line}", flush=True)
+    # ptxas's notes on the products (C75xx); C7514, C7515 and C7520 say it
+    # serialized them
+    notes = [(src, line.strip()) for src, log in zip(("flash_fwd.cu", "flash_bwd.cu"), logs)
+             for line in log.splitlines() if "wgmma" in line]
+    for src, line in notes:
+        print(f"  ptxas[{src}] {line}", flush=True)
     _require(len(tc) == TC_KERNELS_D64,
              f"expected {TC_KERNELS_D64} flash kernels at d = 64 in the ptxas logs, got {tc}")
     _require(all(st["spill_stores"] == 0 for st in tc),
              f"a tensor-core flash kernel spills at d = 64: {tc}")
     hopper = [st for st in tc if "sass" in st]
-    _require(len(hopper) == 2 and all(st["sass"][op] > 0 for st in hopper
-                                      for op in HOPPER_OPCODES),
-             f"the bf16 forward's kernels at d = 64 lack HGMMA or UTMALDG: {hopper}")
-    _require(not any("C7515" in line for line in notes),
-             "ptxas serialized the bf16 forward's wgmma products (C7515)")
+    _require(len(hopper) == HOPPER_KERNELS_D64 and all(st["sass"][op] > 0 for st in hopper
+                                                       for op in HOPPER_OPCODES),
+             f"the bf16 Hopper kernels at d = 64 lack HGMMA or UTMALDG: {hopper}")
+    _require(not any("serialized" in line for _, line in notes),
+             f"ptxas serialized the bf16 kernels' wgmma products: {notes}")
     return tc
 
 
@@ -882,7 +885,7 @@ def check_k2(torch, A, gen):
         nbytes, ops = 4 * B * H * N * d * itemsize + 4 * B * H * N, 4.0 * B * H * N * N * d
         bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
-               "dtype": name, "route": FWD_ROUTES[name], "splits": splits,
+               "dtype": name, "route": ROUTES[name], "splits": splits,
                "strided_qkv": strided, "note": note,
                "max_abs_err": err, "ref_max_abs": ref_max, "rel_err": err / ref_max,
                "tol": BF16_TOL_REL if name == "bf16" else K2_TOL_F32,
@@ -1027,9 +1030,10 @@ def check_k4(torch, A, gen):
 
 
 # the long-N calls whose split counts the sweep measures: the main paths'
-# (evaluation forward, training forward and backward) and a clip of minutes
+# (evaluation forward, training forward and backward), a clip of minutes and
+# the K5/K6 regime's row of 12 heads
 SWEEP = (("fwd", (2, 4, 1025, 64)), ("fwd", (1, 4, 641, 64)), ("bwd", (1, 4, 641, 64)),
-         ("fwd", (1, 4, 4097, 64)), ("bwd", (1, 4, 4097, 64)))
+         ("fwd", (1, 4, 4097, 64)), ("bwd", (1, 4, 4097, 64)), ("bwd", (2, 12, 640, 64)))
 SWEEP_MAX_SPLITS = 16
 
 
@@ -1047,7 +1051,7 @@ def sweep_splits(torch, A, gen):
             def call():
                 return A.flash_attention_fwd(q, k, v)
         else:
-            tiles, policy = -(-N // 32), A._long_splits(B, H, N, d)[1]
+            tiles, policy = -(-N // A._bwd_tile(d)), A._long_splits(B, H, N, d)[1]
 
             def call():
                 return A.flash_attention_bwd(q, k, v, out, lse, dout)
@@ -6051,8 +6055,7 @@ def main() -> int:
         if f32_case is not None:
             # the f32 route's launches beside the bf16 route's
             f32 = sum(c.get(kid, 0) for c in f32_paths.values())
-            routes = FWD_ROUTES if source == K2_SOURCE else ROUTES
-            e["launches_by_route"] = {routes["bf16"]: e["launches"] - f32, routes["f32"]: f32}
+            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
             e["f32"] = {k: f32_case.get(k) for k in case_keys}
         # the legacy phase's shapes (3 or 6 heads), the conv-net training
         # phase's (the temporal model over B0: 4 heads, N = 17) and an

@@ -126,10 +126,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cstdio>
-
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "tma_map.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -573,58 +572,6 @@ flash_fwd_combine_kernel(CombineArgs a, long long rows) {
   if (c == 0) a.lse[row] = mx + logf(l_safe);
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda by the runtime's entry-point
-// query (so the library links against the CUDA runtime alone); null where
-// libcuda has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A CUresult of cuTensorMapEncodeTiled comes back to the caller as this plus
-// the code (dfdt_error_string names it).
-constexpr int kTmaErrorBase = 100000;
-
-// The 4-D tensor map of one bf16 operand from the wrapper's geometry
-// (ops/attention.py::_tma_geometry): dims (d, N, H, B), the byte strides of
-// N, H and B, and the box (64 columns, `rows`), which must be the kernel's.
-int encode_map(CUtensorMap* map, const void* ptr, const long long* geo, int d, int N, int H,
-               int B, int rows) {
-  if (geo[0] != d || geo[1] != N || geo[2] != H || geo[3] != B || geo[7] != 64 ||
-      geo[8] != rows)
-    return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)geo[0], (cuuint64_t)geo[1], (cuuint64_t)geo[2],
-                              (cuuint64_t)geo[3]};
-  const cuuint64_t strides[3] = {(cuuint64_t)geo[4], (cuuint64_t)geo[5], (cuuint64_t)geo[6]};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTmaErrorBase + (int)r;
-}
-
 // geo: 9 values per operand (q, k, v, o), as encode_map reads them
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, const long long* geo,
@@ -634,10 +581,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const long
   if (a.splits > n_tiles) return (int)cudaErrorInvalidValue;  // no split without keys
   const bool split = a.splits > 1;
   CUtensorMap mq, mk, mv, mo;
-  int err = encode_map(&mq, q, geo, a.d, a.N, a.H, B, C::BM);
-  if (!err) err = encode_map(&mk, k, geo + 9, a.d, a.N, a.H, B, C::BN);
-  if (!err) err = encode_map(&mv, v, geo + 18, a.d, a.N, a.H, B, C::BN);
-  if (!err && !split) err = encode_map(&mo, o, geo + 27, a.d, a.N, a.H, B, C::BM);
+  int err = dfdt::encode_map(&mq, q, geo, a.d, a.N, a.H, B, C::BM);
+  if (!err) err = dfdt::encode_map(&mk, k, geo + 9, a.d, a.N, a.H, B, C::BN);
+  if (!err) err = dfdt::encode_map(&mv, v, geo + 18, a.d, a.N, a.H, B, C::BN);
+  if (!err && !split) err = dfdt::encode_map(&mo, o, geo + 27, a.d, a.N, a.H, B, C::BM);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       split ? (const void*)flash_fwd_split_bf16_wgmma_kernel<DP>
@@ -875,12 +822,4 @@ extern "C" int dfdt_fwd_trace(long long* out, int blocks) {
 }
 #endif
 
-extern "C" const char* dfdt_error_string(int code) {
-  if (code >= kTmaErrorBase) {
-    static thread_local char msg[96];
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused the tensor map (CUresult %d)",
-             code - kTmaErrorBase);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+extern "C" const char* dfdt_error_string(int code) { return dfdt::error_string(code); }

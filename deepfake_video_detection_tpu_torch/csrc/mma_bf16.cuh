@@ -1,24 +1,21 @@
-// Warp-level building blocks of the bf16 tensor-core flash kernels
-// (flash_fwd.cu, flash_bwd.cu), as inline PTX for sm_90a: 16- and 4-byte
-// cp.async copies from global into shared memory (zero-filling what lies
-// outside the tensor), ldmatrix fragment loads, and the m16n8k16 bf16 mma
-// with f32 accumulators; and what the split route of both sources shares
-// (a block's rows and run of streamed tiles, the f32 partial rows).
+// Warp-level building blocks of the flash kernels (flash_fwd.cu,
+// flash_bwd.cu), as inline PTX for sm_90a: 16- and 4-byte cp.async copies
+// from global into shared memory (zero-filling what lies outside the
+// tensor), ldmatrix fragment loads (the 3xTF32 kernels, mma_tf32.cuh), the
+// rounding of f32 accumulators into the bf16 A operand of the next product;
+// and what the split route of both sources shares (a block's rows and run
+// of streamed tiles, the f32 partial rows).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
 // l of a warp, g = l / 4, t = l % 4:
 //   A 16x16 (4 regs of 2 bf16): a0 = (row g, cols 2t..2t+1), a1 = (row g+8,
 //     same cols), a2 = (row g, cols 2t+8..2t+9), a3 = (row g+8, cols 2t+8..)
-//   B 16x8 (2 regs): b0 = (k rows 2t..2t+1, col g), b1 = (k rows 2t+8.., col g)
 //   C 16x8 (4 f32): c0, c1 = (row g, cols 2t, 2t+1), c2, c3 = (row g+8, ...)
 // So the C fragments of two neighbouring 8-column tiles, rounded to bf16 in
-// pairs, are the A fragment of one 16-deep k-step: an attention kernel feeds
-// P (or dS) from its accumulators straight into the next product.
-//
-// Shared-memory tiles hold rows of DP bf16 padded to LD = DP + 8 elements:
-// LD / 2 words is 4 mod 8, so the 8 rows one ldmatrix phase reads start in 8
-// distinct 4-bank groups, free of bank conflicts for every DP that is a
-// multiple of 16.
+// pairs, are the A fragment of one 16-deep k-step. A wgmma accumulator is
+// that C layout repeated and its register A operand takes this A layout
+// (wgmma_tma.cuh), so an attention kernel feeds P (or dS) from its
+// accumulators straight into the next product.
 
 #pragma once
 
@@ -64,23 +61,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// the same, each matrix transposed on the way into the registers
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a * b on the tensor cores: (16x16 bf16) x (16x8 bf16) -> 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // two f32 rounded to bf16, `lo` in the low half (the lower column index)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -111,27 +91,6 @@ __device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4
     hi[i] = *reinterpret_cast<const uint32_t*>(&h);
     lo[i] = *reinterpret_cast<const uint32_t*>(&l);
   }
-}
-
-// Byte offsets of this lane's ldmatrix row address (rows of LD bf16):
-// the A fragment of the 16x16 block at (0, 0) of a row-major tile
-template <int LD>
-__device__ __forceinline__ uint32_t a_off(int lane) {
-  return 2 * ((lane & 15) * LD + (lane >> 4) * 8);
-}
-// B fragments of two 8-wide n-tiles from a tile stored [n][k] (rows are the
-// output columns, e.g. K for Q.K^T): regs 0, 1 for rows 0-7, regs 2, 3 for
-// rows 8-15, each over 16 k columns
-template <int LD>
-__device__ __forceinline__ uint32_t bn_off(int lane) {
-  return 2 * (((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8);
-}
-// B fragments of two 8-wide n-tiles from a tile stored [k][n] (rows are the
-// reduction index, e.g. V for P.V), by ldsm_x4_t: regs 0, 1 for columns 0-7,
-// regs 2, 3 for columns 8-15, over 16 k rows
-template <int LD>
-__device__ __forceinline__ uint32_t bk_off(int lane) {
-  return 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8);
 }
 
 // Rows [row0, row0 + ROWS) of one (b, h) slice, columns [0, DP) of T (bf16

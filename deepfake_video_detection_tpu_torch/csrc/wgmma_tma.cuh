@@ -1,4 +1,5 @@
-// Hopper's building blocks of the bf16 flash forward (flash_fwd.cu), as
+// Hopper's building blocks of the bf16 flash kernels (flash_fwd.cu,
+// flash_bwd.cu), as
 // inline PTX for sm_90a: mbarriers, TMA tile loads (cp.async.bulk.tensor)
 // that complete on an mbarrier, and warpgroup products (wgmma.mma_async)
 // with bf16 operands and f32 accumulators.
@@ -54,6 +55,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival once every cp.async this thread has issued so far has landed
+// (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // one arrival that also announces `bytes` of TMA transactions to come

@@ -14,24 +14,29 @@ both routes on the tensor cores: bf16 as bf16 products with f32 sums, f32
 as 3xTF32 (each f32 operand split into two tf32 terms, three products in
 place of one, f32 sums: the error of a plain f32 product).
 
-The bf16 forward is built for Hopper (FlashAttention-3's shape): a producer
-warp loads the Q tile and rings of K and V tiles by TMA into shared memory
-(128-byte swizzled, completing on mbarriers), and a consumer warpgroup
-takes S = QKᵀ and O += P·V as ``wgmma`` products, P from registers as two
-bf16 terms (hi + lo), the next tile's S issued before the softmax of the
-last one finishes its P·V. What bounds it on an H100: bytes at the ViT
-shape (N = 197), the tile body's rate at the long clips' (N = 1025).
-It reads q, k and v through 4-D tensor maps whose geometry
-:func:`_tma_geometry` computes from each tensor's shape and strides, so the
-views of a fused QKV projection go in as they are; columns past d, up to a
-multiple of 64, and rows past N come from TMA's zero fill. An input TMA
-cannot describe (a byte stride not a multiple of 16, unaligned data) or
-with d not a multiple of 8 goes to the kernel as a contiguous copy
-zero-padded to a multiple of 8 in d, with the scale of the true d, and the
-result is sliced back. The other kernels take rows of 16-byte multiples
-(d not a multiple of 8 bf16 or 4 f32 elements, a B/H/N stride not a
-multiple of as many elements, or unaligned data get the same copy). On CPU
-tensors each wrapper takes its plain version, a dense f32 computation.
+The bf16 kernels are built for Hopper (FlashAttention-3's shape): one
+thread (of a producer warp in the forward, of the warpgroup in the
+backward) loads a block's own tiles and rings of streamed tiles by TMA into
+shared memory (128-byte swizzled, completing on mbarriers), and a
+warpgroup takes every product as a ``wgmma``. The forward takes
+S = QKᵀ and O += P·V, P from registers as two bf16 terms (hi + lo), the
+next tile's S issued before the softmax of the last one finishes its P·V.
+The backward's dQ pass takes S = QKᵀ, dP = dO·Vᵀ and dQ += dS·K, its dK/dV
+pass Sᵀ = KQᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q, P and dS from
+registers rounded once to bf16. What bounds them on an H100: bytes at the
+ViT shape (N = 197), the tile body's rate at the long clips' (N = 1025).
+They read q, k, v (and O, dO) and the backward writes dq, dk, dv through
+4-D tensor maps whose geometry :func:`_tma_geometry` computes from each
+tensor's shape and strides, so the views of a fused QKV projection and dO's
+head-merge view go in as they are; columns past d, up to a multiple of 64,
+and rows past N come from TMA's zero fill. An input TMA cannot describe (a
+byte stride not a multiple of 16, unaligned data) or with d not a multiple
+of 8 goes to the kernel as a contiguous copy zero-padded to a multiple of 8
+in d, with the scale of the true d, and the result is sliced back. The f32
+kernels take rows of 16-byte multiples (d not a multiple of 4, a B/H/N
+stride not a multiple of 4 elements, or unaligned data get the same copy).
+On CPU tensors each wrapper takes its plain version, a dense f32
+computation.
 
 The split route (bf16 at N > 512, the regime of the TPU's streaming
 kernels K3, K5 and K6). One block per (64-row tile, head) leaves most of
@@ -78,10 +83,11 @@ _count_lock = threading.Lock()
 
 # The split policy, for the bf16 kernels' tiles: 64 query (key) rows per
 # block; the forward streams key tiles of 64 (32 above d = 128), the
-# backward tiles of 32 rows. The card runs _SMS times the blocks an SM
-# holds at once (a wave): 3 of the split forward and of the dK/dV pass
-# (160 threads of 122 registers and 128 of 168 at d = 64, ptxas), fewer
-# where the shared memory of a larger d allows fewer. S minimises waves x
+# backward tiles of 64 rows (_bwd_tile), and runs d / 64 blocks a row tile
+# above d = 64. The card runs _SMS times the blocks an SM holds at once (a
+# wave): 3 of the split forward (160 threads of 122 registers at d = 64,
+# ptxas), _BWD_BLOCKS_PER_SM of the backward's dK/dV pass, fewer where the
+# shared memory of a larger d allows fewer. S minimises waves x
 # tiles per split (the streamed tiles the slowest SM walks) + _SPLIT_COST
 # x S (a split's partials, written once and read again by the combine or
 # reduce kernel), the smallest S on a tie, over the counts that keep each
@@ -93,16 +99,20 @@ _count_lock = threading.Lock()
 # against 0.304 ms at its best S), and waves x tiles alone split the short
 # calls into more blocks than their partials repay. The Hopper forward kept
 # these constants: at the long-clip evaluation shape the policy's S is the
-# sweep's best, elsewhere within 11 % of it (PERF.md).
+# sweep's best, elsewhere within 11 % of it (PERF.md). So did the Hopper
+# backward: its sweep's best S >= 2 at (2, 4, 513, 64), (2, 12, 640, 64) and
+# (1, 4, 4097, 64), 13 % above it at (1, 4, 641, 64) (S = 4 against 3); S = 1
+# itself read faster than any split wherever the unsplit grid nearly fills
+# the card ((2, 12, 640, 64), (1, 4, 4097, 64); PERF.md).
 _SMS = 132                          # streaming multiprocessors of an H100
 _ROW_TILE = 64
-_BWD_TILE = 32
 _SMEM_PER_SM = 227 * 1024
 _BLOCKS_PER_SM = 3
+_BWD_BLOCKS_PER_SM = 2
 _SPLIT_COST = 0.5
 _SPLIT_MIN_TILES = 2
 _SPLIT_SCRATCH_CAP = 256 << 20
-# the bf16 forward's TMA box: 64 columns, one 128-byte swizzled row
+# the bf16 kernels' TMA box: 64 columns, one 128-byte swizzled row
 _TMA_BOX_COLS = 64
 
 
@@ -157,7 +167,7 @@ def _bwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -179,10 +189,33 @@ def _fwd_smem(d: int) -> int:
     return 2 * _cdiv(d, 64) * 64 * (_ROW_TILE + 4 * _fwd_key_tile(d)) + 9 * 8 + 1024
 
 
-def _split_count(blocks: int, tiles: int, per_sm: int, split_bytes: int) -> int:
+def _bwd_tile(d: int) -> int:
+    """Rows per streamed tile of the bf16 backward at head dim d (K/V
+    tiles in the dQ pass, Q/dO tiles in the dK/dV pass): 64 at every d, as
+    many as a block owns, so one tensor map a tensor serves both passes."""
+    return _ROW_TILE
+
+
+def _bwd_smem(d: int) -> Tuple[int, int]:
+    """Dynamic shared memory of a bf16 backward block at head dim d, ``(dQ
+    pass, dK/dV pass)``: 64-row bf16 tiles at d padded to a multiple of 64
+    (Q, dO, O and a K/V ring; K, V and a Q/dO ring; 3 stages, 2 above
+    d = 128), the f32 D rows (dQ) or each stage's lse and D rows (dK/dV),
+    the 8-byte barriers and 1 KB for aligning the base to 1024 bytes."""
+    dp = _cdiv(d, 64) * 64
+    stages = 3 if dp <= 128 else 2
+    tile = _ROW_TILE * dp * 2
+    ring = stages * 2 * _bwd_tile(d) * dp * 2
+    dq = 3 * tile + ring + 4 * _ROW_TILE + 8 * (2 + 2 * stages) + 1024
+    dkv = 2 * tile + ring + 4 * stages * 2 * _bwd_tile(d) + 8 * (1 + 2 * stages) + 1024
+    return dq, dkv
+
+
+def _split_count(blocks: int, tiles: int, per_sm: int, split_bytes: int,
+                 least: int = 1) -> int:
     slots = _SMS * per_sm
     most = max(1, min(tiles // _SPLIT_MIN_TILES, _SPLIT_SCRATCH_CAP // split_bytes))
-    return min(range(1, most + 1),
+    return min(range(min(least, most), most + 1),
                key=lambda s: _cdiv(blocks * s, slots) * _cdiv(tiles, s) + _SPLIT_COST * s)
 
 
@@ -197,16 +230,17 @@ def _long_splits(B: int, H: int, N: int, d: int, bf16: bool = True
     if not bf16 or N <= _SHORT_MAX:
         return 1, 1
     dp = _cdiv(d, 8) * 8                    # the head dim the kernels see
-    key_tile = _fwd_key_tile(d)
-    bwd_dp = _cdiv(dp, 16) * 16             # the backward's mma depth
-    bwd_smem = 2 * (2 * _ROW_TILE + 4 * _BWD_TILE) * (bwd_dp + 8) + 4 * 4 * _BWD_TILE
     blocks = B * H * _cdiv(N, _ROW_TILE)
-    s_fwd = _split_count(blocks, _cdiv(N, key_tile),
+    s_fwd = _split_count(blocks, _cdiv(N, _fwd_key_tile(d)),
                          min(_BLOCKS_PER_SM, _SMEM_PER_SM // _fwd_smem(d)),
                          4 * B * H * N * (dp + 1))
-    s_bwd = _split_count(blocks, _cdiv(N, _BWD_TILE),
-                         min(_BLOCKS_PER_SM, _SMEM_PER_SM // bwd_smem),
-                         3 * 4 * B * H * N * dp)
+    # the backward runs a block a 64-column block of d, and splits every
+    # call at N > 512 that its scratch cap allows (S >= 2: the K5/K6 regime's
+    # route), though its sweep reads S = 1 faster where the unsplit grid
+    # nearly fills the card (ROADMAP)
+    s_bwd = _split_count(blocks * _cdiv(d, 64), _cdiv(N, _bwd_tile(d)),
+                         min(_BWD_BLOCKS_PER_SM, _SMEM_PER_SM // max(_bwd_smem(d))),
+                         3 * 4 * B * H * N * dp, least=2)
     return s_fwd, s_bwd
 
 
@@ -267,7 +301,7 @@ def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
 
 
 def _tma_geometry(t: torch.Tensor, rows: int):
-    """The 4-D tensor map through which the bf16 forward reads ``t``, a
+    """The 4-D tensor map through which a bf16 kernel reads or writes ``t``, a
     ``(B, H, N, d)`` tensor: ``(dims, strides, box)`` with dims ``(d, N, H,
     B)`` innermost first, the byte strides of N, H and B, and the box one
     TMA load fills, ``(64, rows)`` (64 columns: one 128-byte swizzled row).
@@ -351,7 +385,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cotangent ``dout``, from the forward's ``out`` and ``lse``. All of
     q, k, v, out, dout ``(B, H, N, d)`` in one dtype; lse f32 ``(B, H, N)``.
     A tensor whose last axis is not contiguous is copied; any other strides
-    go to the kernel as they are."""
+    that a tensor map (bf16) or the f32 kernels describe go to the kernel as
+    they are."""
     _check_inputs(q, k, v, out, dout)
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
             or lse.device != q.device:
@@ -367,9 +402,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, N, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
-    padded = not _tc_aligned(q, k, v, out, dout)
+    ins = (q, k, v, out, dout)
+    # every tile of the backward, own or streamed, is 64 rows (_bwd_tile):
+    # one tensor map a tensor
+    rows = _bwd_tile(d)
+    if bf16:
+        geos = [_tma_geometry(t, rows) for t in ins]
+        padded = d % 8 != 0 or None in geos
+    else:
+        padded = not _tc_aligned(*ins)
     if padded:
-        q, k, v, out, dout = (_pad_head_dim(t) for t in (q, k, v, out, dout))
+        q, k, v, out, dout = ins = tuple(_pad_head_dim(t) for t in ins)
+        if bf16:    # a contiguous copy always has a tensor map
+            geos = [_tma_geometry(t, rows) for t in ins]
     dp = q.shape[-1]
     splits = _long_splits(B, H, N, d, bf16)[1]
     dq, dk, dv = (_heads_view(B, H, N, dp, q) for _ in range(3))
@@ -377,13 +422,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # partial dQ, dK and dV, each (B*H, S, N, dp), of the split route
     part, part_ptr = _partials(3 * B * H * N * dp, splits, q)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
+    tma = None
+    if bf16:        # the tensor maps of q, k, v, out, dout, dq, dk and dv
+        geos += [_tma_geometry(t, rows) for t in (dq, dk, dv)]
+        tma = array.array("q", [x for g in geos for f in g for x in f])
     lib = _bwd_library()
     status = lib.dfdt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, N, dp, int(bf16),
         strides.buffer_info()[0], scale, splits, part_ptr,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        None if tma is None else tma.buffer_info()[0])
     _build.check(lib, status, "flash_attention_bwd")
     with _count_lock:
         flash_attention_bwd.launches += 1

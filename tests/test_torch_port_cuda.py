@@ -233,14 +233,14 @@ def test_f32_kernels_propagate_nan():
 
 
 @pytest.mark.parametrize("B,H,N,d", [
-    (4, 4, 513, 64),                              # the first split length
+    (4, 4, 641, 64),                              # S divides neither pass's 11 tiles
     (1, 4, 1025, 64),                             # a 1024-frame clip
     (1, 4, 4097, 64),                             # a clip of minutes
     (1, 4, 1025, 128),                            # d = 128
     (1, 2, 700, 256),                             # d = 256: 32-key forward tiles
 ])
 def test_flash_split_route_matches_plain(B, H, N, d):
-    """bf16 at N > 512 takes the split kernels (S > 1; at N = 513 and 1025 S
+    """bf16 at N > 512 takes the split kernels (S > 1; at N = 641 and 1025 S
     does not divide the streamed tiles, so the splits are uneven): forward
     and backward against the plain versions, and a rerun of the backward
     bit-identical."""
@@ -248,7 +248,7 @@ def test_flash_split_route_matches_plain(B, H, N, d):
     s_fwd, s_bwd = A._long_splits(B, H, N, d)
     assert s_fwd > 1 and s_bwd > 1
     if N < 4096:
-        assert -(-N // A._fwd_key_tile(d)) % s_fwd and -(-N // 32) % s_bwd
+        assert -(-N // A._fwd_key_tile(d)) % s_fwd and -(-N // A._bwd_tile(d)) % s_bwd
     q, k, v, _, _, dout = _bwd_inputs(gen, B, H, N, d, torch.bfloat16, True)
     f0, b0 = A.flash_attention_fwd.launches_split, A.flash_attention_bwd.launches_split
     out, lse = A.flash_attention_fwd(q, k, v)

@@ -220,12 +220,13 @@ def test_split_policy_splits_the_long_clip_shapes(shape):
 ])
 def test_split_policy_keeps_two_tiles_per_split_and_no_split_past_n(shape):
     """The kernels give split s the streamed tiles [s T / S, (s + 1) T / S)
-    (the forward's key tiles of ``_fwd_key_tile``, the backward's of 32):
-    each split keeps at least 2 tiles, and each starts below N."""
+    (the forward's key tiles of ``_fwd_key_tile``, the backward's of
+    ``_bwd_tile``): each split keeps at least 2 tiles, and each starts below
+    N."""
     B, H, N, d = shape
     fwd_tile = A._fwd_key_tile(d)
     assert fwd_tile == (64 if d <= 128 else 32)
-    for splits, tile in zip(A._long_splits(*shape), (fwd_tile, 32)):
+    for splits, tile in zip(A._long_splits(*shape), (fwd_tile, A._bwd_tile(d))):
         tiles = -(-N // tile)
         bounds = [s * tiles // splits for s in range(splits + 1)]
         assert splits >= 1

@@ -22,6 +22,7 @@ exits 1 at the first failure.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import json
 import os
@@ -68,18 +69,52 @@ def _short(mangled: str) -> str:
     return f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else (m.group(1) if m else mangled)
 
 
+def build_report(source: str, short) -> None:
+    """Build ``source`` alone and print its kernels' ptxas lines (registers,
+    spills, the HGMMA and UTMALDG counts of their SASS) and ptxas's notes on
+    the wgmma products (C75xx), by code and kernel (``short`` names one)."""
+    from deepfake_video_detection_tpu_torch.ops import _build
+
+    secs = _build.build_all([source])
+    log = _build.build_log.get(source, "")
+    sass = cs.sass_counts(_build.library_path(source))
+    stem = os.path.splitext(source)[0]
+    for st in cs._ptxas_stats(log):
+        if stem in st["function"]:
+            _emit({"kernel": short(st["function"]), "registers": st["registers"],
+                   "spill_stores": st["spill_stores"], "sass": sass.get(st["function"])})
+    notes = collections.Counter(
+        (m.group(1), short(line)) for line in log.splitlines()
+        if (m := re.search(r"\((C75\d\d)\)", line)))
+    _emit({"ptxas_notes": {f"{c} {k}": n for (c, k), n in sorted(notes.items())},
+           "messages": sorted({re.sub(r"'.*", "", re.sub(r"line \d+", "line N", line.strip()))
+                               for line in log.splitlines() if "(C75" in line}),
+           "build_s": secs})
+
+
+@contextlib.contextmanager
+def traced(source: str, macro: str):
+    """``source`` built again with ``-D<macro>`` (its cycle marks), loaded in
+    place of its library while the block runs; yields the library."""
+    from deepfake_video_detection_tpu_torch.ops import _build
+
+    path = _build.BUILD_DIR / f"lib{os.path.splitext(source)[0]}-trace.so"
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}", "-o", str(path),
+                        str(_build.CSRC_DIR / source)], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"traced build failed:\n{r.stdout[-4000:]}{r.stderr[-4000:]}")
+    kept = _build.load(source)
+    lib = _build._libs[source] = ctypes.CDLL(str(path))
+    try:
+        yield lib
+    finally:
+        _build._libs[source] = kept
+
+
 def _trace(torch, A, _build, gen) -> None:
     """Median cycles of each phase of a block (``FWD_MARK``) at ``TRACED``,
     from a build of the source with the marks compiled in."""
-    path = _build.BUILD_DIR / "libflash_fwd-trace.so"
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DDFDT_FWD_TRACE", "-o",
-                        str(path), str(_build.CSRC_DIR / "flash_fwd.cu")],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"traced build failed:\n{r.stdout[-4000:]}")
-    kept = _build._libs["flash_fwd.cu"]
-    lib = _build._libs["flash_fwd.cu"] = ctypes.CDLL(str(path))
-    try:
+    with traced("flash_fwd.cu", "DFDT_FWD_TRACE") as lib:
         for B, H, N, d in TRACED:
             q, k, v = _qkv(torch, gen, B, H, N, d, True)
             splits = A._long_splits(B, H, N, d)[0]
@@ -96,8 +131,6 @@ def _trace(torch, A, _build, gen) -> None:
             _emit({"trace": [B, H, N, d], "splits": splits, "key_tiles_a_block": tiles,
                    "median_cycles": dict(zip(PHASES, np.median(steps, axis=0).tolist())),
                    "median_block_cycles": float(np.median(marks[:, 5] - marks[:, 0]))})
-    finally:
-        _build._libs["flash_fwd.cu"] = kept
 
 
 def main(argv) -> int:
@@ -111,21 +144,7 @@ def main(argv) -> int:
         print("flash_fwd_check: no CUDA device", file=sys.stderr)
         return 2
     _emit({"nvidia_smi": cs._smi(), "torch": torch.__version__, "cuda": torch.version.cuda})
-    secs = _build.build_all(["flash_fwd.cu"])
-    log = _build.build_log.get("flash_fwd.cu", "")
-    sass = cs.sass_counts(_build.library_path("flash_fwd.cu"))
-    for st in cs._ptxas_stats(log):
-        if "flash_fwd" in st["function"]:
-            _emit({"kernel": _short(st["function"]), "registers": st["registers"],
-                   "spill_stores": st["spill_stores"], "sass": sass.get(st["function"])})
-    # ptxas's notes on the wgmma products (C75xx), counted by code and kernel
-    notes = collections.Counter(
-        (m.group(1), _short(line)) for line in log.splitlines()
-        if (m := re.search(r"\((C75\d\d)\)", line)))
-    _emit({"ptxas_notes": {f"{c} {k}": n for (c, k), n in sorted(notes.items())},
-           "examples": sorted({re.sub(r"'.*", "", line.strip())
-                               for line in log.splitlines() if "(C75" in line})[:6],
-           "build_s": secs})
+    build_report("flash_fwd.cu", _short)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
