@@ -52,7 +52,8 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
    f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
    route (``splits`` > 1: split kernels, then the combine or reduce
-   kernel; both bf16 routes are the Hopper ones, ``ROUTES``);
+   kernel; both bf16 routes and the f32 backward are Hopper kernels,
+   ``ROUTES``);
    every main-path case is bf16. Then the split sweep: the long-N calls'
    device time at every split count, beside the policy's.
 8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
@@ -321,9 +322,18 @@ K4_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:209"
 K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
 K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 
-# each flash source routes by dtype between two hand-written kernels: bf16
-# to the Hopper kernels (TMA loads, mbarriers, wgmma), f32 to 3xTF32
-ROUTES = {"bf16": "Hopper bf16: TMA, mbarriers, wgmma", "f32": "tensor-core 3xTF32"}
+# each flash source routes by dtype between hand-written kernels: bf16 to
+# the Hopper kernels (TMA loads, mbarriers, wgmma); f32 to 3xTF32, the
+# forward on mma.sync, the backward on the Hopper kernels' parts (tf32 wgmma)
+ROUTES = {"bf16": "Hopper bf16: TMA, mbarriers, wgmma",
+          "f32 fwd": "tensor-core 3xTF32: mma.sync, cp.async",
+          "f32 bwd": "Hopper 3xTF32: TMA, mbarriers, tf32 wgmma"}
+
+
+def _route(direction: str, dtype: str) -> str:
+    """The route a flash call takes: ``direction`` "fwd" or "bwd", ``dtype``
+    "bf16" or "f32"."""
+    return ROUTES["bf16" if dtype == "bf16" else f"f32 {direction}"]
 # the flash kernels' bound by dtype: f32 is bound by the tensor cores' rate
 # for 3xTF32, the old CUDA-core figure is kept beside it (bound_ms_cuda_core)
 FLASH_PEAK = {"bf16": "bf16", "f32": "tf32x3"}
@@ -359,6 +369,14 @@ F32_STEP_TOL_NORM = 1e-3
 # quantities by tens of percent
 LONG_TOL_NORM = 1e-3        # temporal parameters' grad norm, relative
 LONG_TOL_SCORES = 5e-2      # f32 frame scores: max error over max |ref|
+# the long-clip training gate (long_step_gate): the logits are bf16, and
+# each path's f32 sum order picks a side of a rounding boundary, so a logit
+# may differ by one bf16 ulp between them (PERF.md §6); the q, k and v
+# slices of each block's qkv weight gradient, relative distance, 5x the
+# largest reading of an H100 (q, k 4.8e-2: bf16 rounding through dS = P (dP
+# - D); v 6.2e-3; PERF.md §6)
+LONG_TOL_LOGIT_ULPS = 2
+LONG_TOL_ATTN_GRAD = {"q": 0.25, "k": 0.25, "v": 3e-2}
 
 # the long-clip phase: the temporal transformer at the training CLI's
 # defaults over ViT-B/16 features; one synthetic set of 1024-frame clips
@@ -635,8 +653,9 @@ def _session_device_ms(torch, fn, iters: int = 20):
 
 def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
     """The kernels one flash call launches, by name: f32 runs the 3xTF32
-    kernels, bf16 the Hopper ones (TMA and wgmma), unsplit (S = 1) or split
-    with the combine (forward) or reduce (backward) kernel."""
+    kernels (the backward's on tf32 wgmma), bf16 the Hopper ones (TMA and
+    wgmma), unsplit (S = 1) or split with the combine (forward) or reduce
+    (backward) kernel."""
     if direction == "fwd":
         if dtype == "f32":
             return ["flash_fwd_tf32_kernel"]
@@ -644,7 +663,7 @@ def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
             return ["flash_fwd_bf16_wgmma_kernel"]
         return ["flash_fwd_split_bf16_wgmma_kernel", "flash_fwd_combine_kernel"]
     if dtype == "f32":
-        return ["flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel"]
+        return ["flash_bwd_dq_tf32_wgmma_kernel", "flash_bwd_dkv_tf32_wgmma_kernel"]
     if splits == 1:
         return ["flash_bwd_dq_bf16_wgmma_kernel", "flash_bwd_dkv_bf16_wgmma_kernel"]
     return ["flash_bwd_dq_split_bf16_wgmma_kernel", "flash_bwd_dkv_split_bf16_wgmma_kernel",
@@ -680,10 +699,11 @@ def _ptxas_stats(log: str) -> list:
 TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)(_wgmma)?_kernel"
                        r"|flash_(fwd_combine|bwd_reduce)_kernel")
 TC_KERNELS_D64 = 11
-# the bf16 Hopper kernels (forward 2, backward 4), whose SASS must hold
-# wgmma products (HGMMA) and TMA loads (UTMALDG)
-HOPPER_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_bf16_wgmma_kernel")
-HOPPER_KERNELS_D64 = 6
+# the Hopper kernels (bf16 forward 2, bf16 backward 4, f32 backward 2),
+# whose SASS must hold wgmma products (HGMMA: tf32 wgmma is HGMMA too) and
+# TMA loads (UTMALDG)
+HOPPER_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)_wgmma_kernel")
+HOPPER_KERNELS_D64 = 8
 HOPPER_OPCODES = ("HGMMA", "UTMALDG")
 
 
@@ -708,9 +728,9 @@ def sass_counts(lib_path, opcodes=HOPPER_OPCODES) -> dict:
 def check_build(build_log: dict) -> list:
     """The tensor-core flash kernels at d = 64 (every main path: bf16 and
     the f32 training step) and the split route's combine and reduce kernels
-    spill nothing, the bf16 Hopper kernels at d = 64 (forward and backward)
-    hold HGMMA and UTMALDG instructions, and ptxas serialized the products
-    of neither source; returns their ptxas records (with their dynamic
+    spill nothing, the Hopper kernels at d = 64 (the bf16 forward and
+    backward, the f32 backward) hold HGMMA and UTMALDG instructions, and
+    ptxas serialized the products of neither source; returns their ptxas records (with their dynamic
     shared memory and SASS counts for the Hopper kernels)."""
     from deepfake_video_detection_tpu_torch.ops import _build
     from deepfake_video_detection_tpu_torch.ops import attention as A
@@ -729,8 +749,9 @@ def check_build(build_log: dict) -> list:
     for st in tc:
         m = HOPPER_KERNEL.search(st["kernel"])
         if m:
-            st["dynamic_smem_bytes"] = (A._fwd_smem(64) if m.group(1) == "fwd"
-                                        else A._bwd_smem(64)[m.group(1) == "bwd_dkv"])
+            st["dynamic_smem_bytes"] = (A._fwd_smem(64) if m.group(1) == "fwd" else
+                                        A._bwd_smem(64, m.group(3) == "bf16")[
+                                            m.group(1) == "bwd_dkv"])
             st["sass"] = sass[st["source"]].get(st["function"], dict.fromkeys(HOPPER_OPCODES, 0))
         print(f"  ptxas[{st['source']}] {st['kernel']}: {st['registers']} registers, "
               f"{st['spill_stores']} bytes spill stores"
@@ -749,9 +770,9 @@ def check_build(build_log: dict) -> list:
     hopper = [st for st in tc if "sass" in st]
     _require(len(hopper) == HOPPER_KERNELS_D64 and all(st["sass"][op] > 0 for st in hopper
                                                        for op in HOPPER_OPCODES),
-             f"the bf16 Hopper kernels at d = 64 lack HGMMA or UTMALDG: {hopper}")
+             f"the Hopper kernels at d = 64 lack HGMMA or UTMALDG: {hopper}")
     _require(not any("serialized" in line for _, line in notes),
-             f"ptxas serialized the bf16 kernels' wgmma products: {notes}")
+             f"ptxas serialized the Hopper kernels' wgmma products: {notes}")
     return tc
 
 
@@ -885,7 +906,7 @@ def check_k2(torch, A, gen):
         nbytes, ops = 4 * B * H * N * d * itemsize + 4 * B * H * N, 4.0 * B * H * N * N * d
         bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
-               "dtype": name, "route": ROUTES[name], "splits": splits,
+               "dtype": name, "route": _route("fwd", name), "splits": splits,
                "strided_qkv": strided, "note": note,
                "max_abs_err": err, "ref_max_abs": ref_max, "rel_err": err / ref_max,
                "tol": BF16_TOL_REL if name == "bf16" else K2_TOL_F32,
@@ -1001,7 +1022,7 @@ def check_k4(torch, A, gen):
         nbytes, ops = 8 * B * H * N * d * itemsize + 4 * B * H * N, 10.0 * B * H * N * N * d
         bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_bwd", "shape": [B, H, N, d],
-               "dtype": name, "route": ROUTES[name], "splits": splits,
+               "dtype": name, "route": _route("bwd", name), "splits": splits,
                "strided": strided, "note": note,
                "max_abs_err": max(errs.values()), "errs": errs, "rel_errs": rel_errs,
                "tol": BF16_TOL_REL if name == "bf16" else K4_TOL_F32,
@@ -1011,6 +1032,9 @@ def check_k4(torch, A, gen):
                "kernel_device_ms": _device_ms(torch, bwd, _flash_kernels("bwd", name, splits),
                                               parts=parts),
                "kernel_device_ms_by_kernel": parts,
+               # each pass's device ms (the split route's reduce kernel aside)
+               "pass_device_ms": {p: next((v for k, v in parts.items() if f"_{p}_" in k), None)
+                                  for p in ("dq", "dkv")},
                "kernel_queued_ms": _queued_ms(torch, bwd),
                "plain_ms": _time_ms(torch, lambda: A.flash_attention_bwd_plain(
                    q, k, v, out, lse, dout)),
@@ -4099,12 +4123,102 @@ def _counts(A, P) -> dict:
             "K5": bwd.launches_long, "K6": bwd.launches_long}
 
 
+def bf16_ulps(torch, a, b) -> float:
+    """The largest gap between two f32 tensors of bf16 values, in bf16 ulps
+    (8 significant bits) at the larger magnitude of each pair."""
+    big = torch.maximum(a.abs(), b.abs()).float().clamp_min(2.0 ** -126)
+    return float(((a.float() - b.float()).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7))
+                 .max())
+
+
+def long_step_gate(torch, A, P, model, trainer, train_ds, device: str = "cuda"):
+    """One step of the temporal blocks through the kernels against the plain
+    versions, on the backbone features of one augmented batch with the same
+    dropout draws (swapping the backbone's attention too would hold 12 f32
+    score slabs of 640 x 12 x 197^2), at the model's weights. Returns
+    (record, batch); the record's ``holds`` is the gate.
+
+    At the weights of one epoch the loss is saturated (~0.009) and the
+    logits are bf16, so one bf16 ulp of a logit moves the loss by ~1.5 % and
+    the grad norm by ~1.3 % (PERF.md §6), and which side of a rounding
+    boundary each path lands on follows its f32 sum order. So the gate holds
+    (a) every logit of the kernel path within ``LONG_TOL_LOGIT_ULPS`` bf16
+    ulps of the plain path's, and (b) the kernel path's loss and gradients
+    against the plain path run again with its logits moved onto the kernel
+    path's (a constant offset of at most those ulps, through which the
+    gradient passes unchanged): the loss bit for bit (it is a function of
+    the logits alone, so (a) holds it), the temporal parameters' grad norm
+    within ``LONG_TOL_NORM``, and the q, k and v rows of each block's qkv
+    weight gradient (what dQ, dK and dV of its attention feed) within
+    ``LONG_TOL_ATTN_GRAD`` of relative distance. The rounding of a logit
+    then moves neither side. The grad norm alone missed broken kernels: it
+    is dominated by parameters outside the attention, and the loss reads
+    the cls token alone, so rows far from it barely reach it (PERF.md, PR
+    21). The plain path's own loss and grad norm are recorded beside
+    them."""
+    from deepfake_video_detection_tpu_torch.train.steps import global_norm
+
+    batch = next(iter(trainer._device_batches(train_ds, True)))
+    batch.pop("paths", None)
+    batch = trainer._prep_train(batch, torch.Generator(device=device).manual_seed(1))
+    frames = batch["frames"]
+    with torch.no_grad():
+        feats = model.backbone(frames.reshape((-1,) + tuple(frames.shape[2:])))
+    feats = feats.reshape(frames.shape[0], frames.shape[1], -1)
+    params = [p for n, p in model.named_parameters() if not n.startswith("backbone.")]
+
+    names = [n for n, p in model.named_parameters() if not n.startswith("backbone.")]
+
+    def step(offset=None):
+        logits, _ = model.forward_temporal(
+            feats, train=True, generator=torch.Generator(device=device).manual_seed(2))
+        if offset is not None:
+            logits = logits + offset
+        loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
+        grads = torch.autograd.grad(loss, params)
+        return logits.detach(), float(loss.detach()), float(global_norm(grads)), grads
+
+    logits_k, loss_k, norm_k, grads_k = step()
+    _reset_counts(A, P)
+    with _plain_attention(A):
+        logits_p, loss_p, norm_p, _ = step()
+        _, loss_x, norm_x, grads_x = step(logits_k - logits_p)
+    _require(not any(_counts(A, P).values()), f"the plain step launched {_counts(A, P)}")
+    ulps = bf16_ulps(torch, logits_k, logits_p)
+    d_norm = abs(norm_k - norm_x) / norm_x
+    # the q, k and v rows of each block's qkv weight gradient: what dQ, dK
+    # and dV of the block's attention feed
+    attn = {}
+    for name, gk, gx in zip(names, grads_k, grads_x):
+        if name.endswith("attn.qkv.weight"):
+            for i, part in enumerate("qkv"):
+                a, b = (g.float().chunk(3, dim=0)[i] for g in (gk, gx))
+                attn[f"{name.split('.attn')[0]}.{part}"] = float(
+                    torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    _require(len(attn) == 3 * model.depth, f"qkv gradients of {sorted(attn)}")
+    worst = max(attn.values())
+    attn_ok = all(v <= LONG_TOL_ATTN_GRAD[k[-1]] for k, v in attn.items())
+    rec = {"logits_kernels": logits_k.float().cpu().tolist(),
+           "logits_plain": logits_p.float().cpu().tolist(), "logit_gap_ulps": ulps,
+           "loss_kernels": loss_k, "loss_plain_at_kernel_logits": loss_x,
+           "grad_norm_kernels": norm_k, "grad_norm_plain_at_kernel_logits": norm_x,
+           "grad_norm_rel_diff": d_norm, "attn_grad_rel_dist": attn,
+           "attn_grad_rel_dist_max": worst,
+           "loss_plain": loss_p, "grad_norm_plain": norm_p,
+           "loss_rel_diff_vs_plain": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_norm_rel_diff_vs_plain": abs(norm_k - norm_p) / norm_p,
+           "tol": {"logit_ulps": LONG_TOL_LOGIT_ULPS, "grad_norm": LONG_TOL_NORM,
+                   "attn_grad": LONG_TOL_ATTN_GRAD}}
+    rec["holds"] = (ulps <= LONG_TOL_LOGIT_ULPS and loss_k == loss_x
+                    and d_norm <= LONG_TOL_NORM and attn_ok)
+    return rec, batch
+
+
 def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda"):
     """Train the temporal transformer one epoch at T = 640 through Trainer,
     check it, time a step. Returns (launches by kernel, record, model)."""
     from deepfake_video_detection_tpu_torch.data.dataset import VideoFacesDataset
     from deepfake_video_detection_tpu_torch.train import cli
-    from deepfake_video_detection_tpu_torch.train.steps import global_norm
     from deepfake_video_detection_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     T, B = LONG["train_frames"], 1
@@ -4157,35 +4271,8 @@ def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda")
                  "calibration_best.json", "preds_epoch_0.csv"):
         _require(os.path.exists(os.path.join(out, name)), f"no {name}")
 
-    # one step of the temporal blocks, kernels vs plain versions: loss and
-    # the temporal parameters' grad norm on the backbone features of one
-    # augmented batch, with the same dropout draws (swapping the backbone's
-    # attention too would hold 12 f32 score slabs of 640 x 12 x 197^2)
-    batch = next(iter(trainer._device_batches(train_ds, True)))
-    batch.pop("paths", None)
-    batch = trainer._prep_train(batch, torch.Generator(device=device).manual_seed(1))
-    frames = batch["frames"]
-    with torch.no_grad():
-        feats = model.backbone(frames.reshape((-1,) + tuple(frames.shape[2:])))
-    feats = feats.reshape(frames.shape[0], frames.shape[1], -1)
-    params = [p for n, p in model.named_parameters() if not n.startswith("backbone.")]
-
-    def loss_and_norm():
-        logits, _ = model.forward_temporal(
-            feats, train=True, generator=torch.Generator(device=device).manual_seed(2))
-        loss = trainer.loss_fn(logits, batch["labels"], sample_mask=batch["valid"])
-        return float(loss.detach()), float(global_norm(torch.autograd.grad(loss, params)))
-
-    loss_k, norm_k = loss_and_norm()
-    _reset_counts(A, P)
-    with _plain_attention(A):
-        loss_p, norm_p = loss_and_norm()
-    _require(not any(_counts(A, P).values()), f"the plain step launched {_counts(A, P)}")
-    d_loss = abs(loss_k - loss_p) / abs(loss_p)
-    d_norm = abs(norm_k - norm_p) / norm_p
-    _require(d_loss <= STEP_TOL_LOSS and d_norm <= LONG_TOL_NORM,
-             f"temporal step kernels vs plain: loss {loss_k} vs {loss_p}, "
-             f"grad norm {norm_k} vs {norm_p}")
+    gate, batch = long_step_gate(torch, A, P, model, trainer, train_ds, device)
+    _require(gate["holds"], f"temporal step kernels vs plain: {gate}")
 
     step_ms = _time_ms(torch, lambda: step_fn(state, batch, None), iters=3, warmup=1)
     rec = {"phase": "long_clip_training", "card": smi, "model": "temporal",
@@ -4195,13 +4282,8 @@ def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda")
            "setup_s": setup_s, "epoch_s": epoch_s, "train_steps": steps,
            "val_batches": val_batches, "step_metrics": step_metrics,
            "epoch_train_loss": trainer.history[-1]["train_loss"],
-           "launches": launches,
-           "step_loss_kernels": loss_k, "step_loss_plain": loss_p,
-           "step_grad_norm_kernels": norm_k, "step_grad_norm_plain": norm_p,
-           "step_loss_rel_diff": d_loss, "step_grad_norm_rel_diff": d_norm,
-           "step_tol": {"loss": STEP_TOL_LOSS, "grad_norm": LONG_TOL_NORM},
-           "step_ms": step_ms, "frames_per_s": B * T / step_ms * 1e3,
-           "max_memory_allocated_bytes": peak_bytes}
+           "launches": launches, "step_gate": gate, "step_ms": step_ms,
+           "frames_per_s": B * T / step_ms * 1e3, "max_memory_allocated_bytes": peak_bytes}
     _emit(rec)
     print(f"long-clip training step {step_ms:.1f} ms at {T} frames "
           f"({B * T / step_ms * 1e3:.1f} frames/s), peak {peak_bytes / 2**30:.2f} GiB "
@@ -6055,7 +6137,9 @@ def main() -> int:
         if f32_case is not None:
             # the f32 route's launches beside the bf16 route's
             f32 = sum(c.get(kid, 0) for c in f32_paths.values())
-            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
+            direction = "fwd" if name.endswith("fwd") else "bwd"
+            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32,
+                                      _route(direction, "f32"): f32}
             e["f32"] = {k: f32_case.get(k) for k in case_keys}
         # the legacy phase's shapes (3 or 6 heads), the conv-net training
         # phase's (the temporal model over B0: 4 heads, N = 17) and an

@@ -89,30 +89,48 @@
 // no atomics, reruns are bit-identical.
 //
 // f32 (the training CLI's default without --bf16; the f32 gate is atol =
-// rtol = 1e-3) runs flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel
-// at every N (f32 has no split route): K4's regime and, at N > 512, K5's
-// and K6's. Two passes as above (blocks of 4 warps of 16 rows, 64-row
-// blocks, row tile fastest, D fused into the dQ pass, a 2-stage cp.async
-// ring of 32-row streamed tiles, 16 above d = 128; P and dS formed on the
-// accumulator fragments and fed to the next product with no shared memory;
-// no atomics, so reruns are bit-identical), with every product on the
-// tensor cores as 3xTF32 (mma_tf32.cuh): each f32 operand split into two
-// tf32 terms, three mma.m16n8k8 tf32 products for one f32 product, f32
-// sums. What bounds it on an H100: at (128, 12, 197, 64) it moves ~621 MB
-// (0.185 ms at 3.35 TB/s) and does 38.2 GFLOP, x 3 at 495 TFLOP/s tf32 =
-// 0.231 ms: operations. In practice instruction issue bounds it, as the
-// forward (mma_tf32.cuh: the splits, three mma.sync a product; the split by
-// truncation and integer rounding in place of cvt.rna.tf32.f32 took 35 %
-// off). f32 tiles sit in shared memory in rows padded to DP + 4 floats (DP
-// = d rounded up to 32, 64, 128 or 256); operands stored [n][k] (K for Q
-// K^T, Q and dO in the dK/dV pass's S^T and dP^T) load by ldmatrix on f32
-// rows, operands stored [k][n] (K for dS K, dO for P^T dO, Q for dS^T Q) by
-// 32-bit loads in the relabelled k order of the accumulator fragments.
-// Dynamic shared memory (128 + 4 BN) (DP + 4) * 4 bytes plus the f32 rows:
-// 69,888 (dQ) and 70,144 (dK/dV) at d = 64. d must be a multiple of 4 with
-// 16-byte aligned rows (the wrapper's zero-padded copy otherwise); the f32
-// kernels take element strides for the B, H and N axes (the last axis
-// contiguous), so dO goes in as the strided view autograd hands over.
+// rtol = 1e-3) runs flash_bwd_dq_tf32_wgmma_kernel and
+// flash_bwd_dkv_tf32_wgmma_kernel at every N (f32 has no split route): K4's
+// regime and, at N > 512, K5's and K6's. Two passes as above (one warpgroup
+// a block owning 64 rows, row tile fastest, D fused into the dQ pass, each
+// block writing one column block of its outputs: 64 columns, 32 at d <= 32;
+// no atomics, so reruns are bit-identical), every product f32-accurate as
+// 3xTF32 on tf32 wgmma: each operand split into big (x truncated to tf32)
+// and small (x - big rounded to tf32, cvt.rna's rounding), a product taken
+// k-step by k-step as small.big + big.small + big.big with f32 sums. Thread
+// 0 loads the block's own tiles once (and, in the dQ pass up to d = 128, O
+// for D) and the streamed tiles (32 rows, 16 above d = 128) through a ring
+// of 2 stages (dQ up to d = 128) or 1 by TMA, through f32 tensor maps whose
+// boxes are 32 columns (one 128-byte swizzled row) by 32 (16) rows. tf32
+// wgmma reads shared-memory operands K-major only, so the design is built
+// around that: (1) the own side's operands of S = Q K^T and dP = dO V^T (dQ
+// pass) and of S^T = K Q^T and dP^T = V dO^T (dK/dV pass) are A operands,
+// read from the landed tiles into registers 2 k-steps at a time (the next
+// 2 while a group runs) and split there; (2) once a streamed tile lands,
+// the warpgroup splits it in shared memory (big written back in place,
+// small beside it), the K-major B operand of those products, and writes big
+// and small of the block's output columns transposed (K^T; Q^T and dO^T),
+// the K-major B operand of dQ += dS K, dK += dS^T Q and dV += P^T dO, whose
+// A operands (dS, dS^T, P^T) come from the accumulators and are split in
+// registers; the transposed rows are stored in the relabelled order of
+// mma_tf32.cuh (accumulator column 2t as k = t, 2t + 1 as k = t + 4), so an
+// accumulator feeds the next product with no shuffle. Big is written
+// explicitly, so no product depends on what the tensor core does with the
+// low 13 bits of an f32 operand. Turning those three products around
+// instead (dQ^T = K^T dS^T and so on: K, Q and dO as A operands read from
+// their tiles, dS and P written as B tiles) took no transposes but more
+// time: the writes, a proxy fence and a barrier between the softmax and
+// the products cost more than the transposes did (PERF.md §6). Each
+// product is retired before the next step (a group in flight across a
+// loop's back edge made ptxas serialize the bf16 products), and two blocks
+// run on an SM at d = 64 to overlap one block's splits and softmax with
+// the other's products: at d = 64 (ptxas, sm_90a) the dQ pass 197-198
+// registers and 99,624 bytes of dynamic shared memory, the dK/dV pass 227
+// registers and 99,864 bytes; no spill. What bounds it on an H100: at (128,
+// 12, 197, 64) it moves ~621 MB (0.185 ms at 3.35 TB/s) and does 38.2 GFLOP,
+// x 3 at 495 TFLOP/s tf32 = 0.231 ms: operations. Above d = 128, D reads O
+// and dO from global memory, so the wrapper hands over 16-byte rows (d a
+// multiple of 4; a zero-padded copy otherwise).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -202,18 +220,45 @@ __device__ __forceinline__ BwdWork bwd_work(int N, int H, int splits) {
 // each block of pass p (0: dQ, 1: dK/dV) stores clock64() at entry (0),
 // once the block's own tiles and the first streamed tile have arrived (1),
 // after the first streamed tile's products are issued (2), after the tile
-// loop's last product (3) and after the epilogue (4).
+// loop's last product (3) and after the epilogue (4). The f32 passes also
+// sum, over their streamed tiles, the cycles of four phases of a tile
+// (5-8): waiting for it and splitting it (barriers included), the products
+// over the head dim (S, dP), the softmax (P, dS; the stage's release
+// included) and the products of P or dS.
 #ifdef DFDT_BWD_TRACE
 constexpr int kTraceBlocks = 1 << 16;
-__device__ long long g_bwd_trace[2][kTraceBlocks][5];
+constexpr int kTraceSlots = 9;
+__device__ long long g_bwd_trace[2][kTraceBlocks][kTraceSlots];
 #define BWD_MARK(p, k)                                 \
   do {                                                 \
     if (threadIdx.x == 0 && blockIdx.x < kTraceBlocks) \
       g_bwd_trace[p][blockIdx.x][k] = clock64();       \
   } while (0)
+#define BWD_PHASES long long bwd_t = clock64(), bwd_ph[4] = {0, 0, 0, 0}
+#define BWD_PHASE(k)                  \
+  do {                                \
+    const long long bwd_now = clock64(); \
+    bwd_ph[k] += bwd_now - bwd_t;     \
+    bwd_t = bwd_now;                  \
+  } while (0)
+#define BWD_PHASES_STORE(p)                                                   \
+  do {                                                                        \
+    if (threadIdx.x == 0 && blockIdx.x < kTraceBlocks)                        \
+      for (int bwd_k = 0; bwd_k < 4; ++bwd_k)                                 \
+        g_bwd_trace[p][blockIdx.x][5 + bwd_k] = bwd_ph[bwd_k];                \
+  } while (0)
 #else
 #define BWD_MARK(p, k) \
   do {                 \
+  } while (0)
+#define BWD_PHASES \
+  do {             \
+  } while (0)
+#define BWD_PHASE(k) \
+  do {               \
+  } while (0)
+#define BWD_PHASES_STORE(p) \
+  do {                      \
   } while (0)
 #endif
 
@@ -857,371 +902,676 @@ int launch_bf16(const BwdArgs& a, const long long* geo, int B, cudaStream_t stre
   return (int)cudaGetLastError();
 }
 
-// ---- f32: the 3xTF32 tensor-core kernels ----
+// ---- f32: 3xTF32 on Hopper (TMA, mbarriers, tf32 wgmma) ----
 
-template <int DP> struct TfBwd {
-  static constexpr int THREADS = 128;             // 4 warps of 16 rows
-  static constexpr int ROWS = 64;                 // rows a block owns
-  static constexpr int BN = DP <= 128 ? 32 : 16;  // rows per streamed tile
-  static constexpr int LD = DP + 4;               // floats per shared-memory row
-  static constexpr size_t tiles = sizeof(float) * (2 * ROWS + 4 * BN) * LD;
-  static constexpr size_t dq_smem = tiles + sizeof(float) * ROWS;
-  static constexpr size_t dkv_smem = tiles + sizeof(float) * 4 * BN;
+// The f32 passes' geometry at padded head dim DP (32, 64, 128 or 256): one
+// warpgroup owns 64 rows (query rows in the dQ pass, key rows in the dK/dV
+// pass) and streams BN-row tiles of the other side; a block writes OC
+// columns of its outputs (CB blocks a row tile, each recomputing S and dP
+// over the whole d, as the bf16 passes do above d = 64).
+template <int DP> struct TfHopper {
+  static constexpr int THREADS = 128;
+  static constexpr int ROWS = 64;
+  static constexpr int BN = DP <= 128 ? 32 : 16;  // rows of a streamed tile (a TMA box)
+  static constexpr int OC = DP < 64 ? DP : 64;    // output columns of a block
+  static constexpr int CB = DP / OC;
+  static constexpr int KC = 2;  // k-steps of an own-side product a group
+  // raw stages of the streamed ring: the dQ pass keeps a load in flight, the
+  // dK/dV pass has the room for one at d = 64 (two blocks an SM)
+  static constexpr int DQ_ST = DP <= 128 ? 2 : 1;
+  static constexpr int DKV_ST = 1;
+  static constexpr uint32_t OWN = ROWS * DP * 4;  // a 64-row f32 tile, 1024-byte aligned
+  static constexpr uint32_t STR = BN * DP * 4;    // a streamed tile
+  static constexpr uint32_t TT = OC * 128;        // a transposed tile: OC rows of 128 bytes
+  // the dQ pass loads O by TMA into its small-term tiles (free until the
+  // first split) where they hold a 64-row tile, up to d = 128; above, D
+  // reads O from global memory
+  static constexpr bool O_TMA = 2 * BN >= ROWS;
+  // dQ pass: Q, dO | the ring (K, V a stage) | K_s, V_s, K^T big, K^T small |
+  // D of the block's rows | barriers: own full, full x ST, empty x ST
+  static constexpr uint32_t DQ_RING = 2 * OWN;
+  static constexpr uint32_t DQ_CONV = DQ_RING + DQ_ST * 2 * STR;
+  static constexpr uint32_t DQ_D = DQ_CONV + 2 * STR + 2 * TT;
+  static constexpr uint32_t DQ_BAR = DQ_D + ROWS * 4;
+  static constexpr size_t dq_smem = DQ_BAR + (1 + 2 * DQ_ST) * 8 + 1024;  // + base alignment
+  // dK/dV pass: K, V | the ring (Q, dO a stage) | Q_s, dO_s, Q^T and dO^T
+  // big and small | lse and D rows of two tiles | barriers, as above
+  static constexpr uint32_t DKV_RING = 2 * OWN;
+  static constexpr uint32_t DKV_CONV = DKV_RING + DKV_ST * 2 * STR;
+  static constexpr uint32_t DKV_LD = DKV_CONV + 2 * STR + 4 * TT;
+  static constexpr uint32_t DKV_BAR = DKV_LD + 2 * 2 * BN * 4;
+  static constexpr size_t dkv_smem = DKV_BAR + (1 + 2 * DKV_ST) * 8 + 1024;
 };
 
-// S = A0 B0^T and T = A1 B1^T for one warp in f32 by 3xTF32: A0, A1 the
-// warp's 16 rows at a0/a1 (a_off_f32 layout), B0, B1 the streamed tile's
-// rows at b0/b1 (bn_off_f32 layout). The k-steps run outermost, so each A
-// fragment is split once a tile. LAST as in two_products.
-template <int DP, int BN, bool LAST>
-__device__ __forceinline__ void two_products_tf32(float (&s)[BN / 8][4], float (&t)[BN / 8][4],
-                                                  uint32_t a0, uint32_t a1, uint32_t b0,
-                                                  uint32_t b1, int live) {
-  constexpr int LD = DP + 4;
+// Byte offset of element (r, c) of an f32 tile of `rows` rows as TMA stores
+// it: 32-column blocks of rows * 128 bytes, each row 128-byte swizzled.
+__device__ __forceinline__ uint32_t sw_f32(int r, int c, int rows) {
+  return (c >> 5) * rows * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// Rows [row0, row0 + ROWS_) of a tensor map into shared memory at dst: its
+// 32-column blocks one after another, each as ROWS_ / BN boxes of BN rows
+// (every f32 map has BN-row boxes), completing on bar.
+template <int DP, int ROWS_, int BN>
+__device__ __forceinline__ void load_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row0, int h, int b) {
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+  for (int cb = 0; cb < DP / 32; ++cb)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = t[j][e] = 0.f;
+    for (int rb = 0; rb < ROWS_ / BN; ++rb)
+      dfdt::tma_load_4d(dst + cb * ROWS_ * 128 + rb * BN * 128, map, bar, cb * 32, row0 + rb * BN,
+                        h, b);
+}
+
+// The byte offset of this thread's chunk `it` of a streamed tile in
+// split_tile's order: 64 chunks (8 rows x 8) a block of rows, two warps a
+// block, each warp rows 0-3 at even chunks and 4-7 at odd ones or the
+// reverse, so each group of 8 lanes takes a 128-byte row.
+template <int BN>
+__device__ __forceinline__ uint32_t chunk_off(int it) {
+  const int i = threadIdx.x + it * 128, lane = i & 31, blk = i >> 6, pc = lane & 7;
+  const int r = (blk % (BN / 8)) * 8 + (lane >> 3) + 4 * ((pc & 1) ^ ((i >> 5) & 1));
+  return (blk / (BN / 8)) * BN * 128 + r * 128 + pc * 16;
+}
+
+// v[0..3] = v[k..3], v[0..k-1] (k in 0..3), by selects: no local memory
+__device__ __forceinline__ void rotate4(uint32_t (&v)[4], int k) {
+  if (k & 1) {
+    const uint32_t t = v[0];
+    v[0] = v[1];
+    v[1] = v[2];
+    v[2] = v[3];
+    v[3] = t;
+  }
+  if (k & 2) {
+    uint32_t t = v[0];
+    v[0] = v[2];
+    v[2] = t;
+    t = v[1];
+    v[1] = v[3];
+    v[3] = t;
+  }
+}
+
+// A streamed tile (BN rows at raw, as TMA landed it) split for 3xTF32 by
+// every thread of the block: big (x truncated to tf32) written back in place
+// and small (x - big rounded to tf32) at sm, the same layout, both the K-major
+// B operand of S = A X^T. With TRANS, columns [c0, c0 + OC) also go
+// transposed to tb (big) and ts (small): row n holds column c0 + n, its BN
+// rows along the 128-byte row in the relabelled k order of an accumulator A
+// operand (row 8j + 2t at k-step j's position t, 8j + 2t + 1 at t + 4), the
+// K-major B operand of acc += P X. Every access is free of bank conflicts:
+// a warp takes 8 rows of a 32-column block (chunk_off), each group of 8
+// lanes the 8 16-byte chunks of a 128-byte row (the 16-byte loads and
+// stores), and each lane writes its 4 transposed values starting at the
+// (chunk / 2)-th, so that the 32 lanes of each scalar store hit 32 banks.
+template <int DP, int BN, int OC, bool TRANS>
+__device__ __forceinline__ void split_tile(uint32_t raw, uint32_t sm, uint32_t tb, uint32_t ts,
+                                           int c0) {
+  constexpr int IT = DP / 4 * BN / 128;  // chunks a thread
+  static_assert(DP / 4 * BN % 128 == 0, "a tile's chunks spread evenly over the block");
+  // every chunk of the thread read before the first write (the accesses are
+  // ordered asm, so a write would hold the next chunk's read behind it)
+  float4 x[IT];
 #pragma unroll
-  for (int kd = 0; kd < DP / 8; ++kd) {
-    uint32_t r0[4], r1[4];
-    dfdt::ldsm_x4(r0, a0 + kd * 32);
-    dfdt::ldsm_x4(r1, a1 + kd * 32);
-    dfdt::FragA x0, x1;
-    dfdt::split_a(x0, r0);
-    dfdt::split_a(x1, r1);
+  for (int it = 0; it < IT; ++it) x[it] = dfdt::ld_shared_v4(raw + chunk_off<BN>(it));
 #pragma unroll
-    for (int np = 0; np < BN / 16; ++np) {
-      if (!LAST || np * 16 < live) {
-        uint32_t y0[4], y1[4];
-        dfdt::ldsm_x4(y0, b0 + 4 * (np * 16 * LD + kd * 8));
-        dfdt::ldsm_x4(y1, b1 + 4 * (np * 16 * LD + kd * 8));
-        dfdt::FragB f;
-        dfdt::split_b(f, __uint_as_float(y0[0]), __uint_as_float(y0[1]));
-        dfdt::mma_3xtf32(s[2 * np], x0, f);
-        dfdt::split_b(f, __uint_as_float(y0[2]), __uint_as_float(y0[3]));
-        dfdt::mma_3xtf32(s[2 * np + 1], x0, f);
-        dfdt::split_b(f, __uint_as_float(y1[0]), __uint_as_float(y1[1]));
-        dfdt::mma_3xtf32(t[2 * np], x1, f);
-        dfdt::split_b(f, __uint_as_float(y1[2]), __uint_as_float(y1[3]));
-        dfdt::mma_3xtf32(t[2 * np + 1], x1, f);
+  for (int it = 0; it < IT; ++it) {
+    const int i = threadIdx.x + it * 128, lane = i & 31, blk = i >> 6, pc = lane & 7;
+    const int r = (blk % (BN / 8)) * 8 + (lane >> 3) + 4 * ((pc & 1) ^ ((i >> 5) & 1));
+    const uint32_t off = chunk_off<BN>(it);
+    uint32_t big[4], small[4];
+    dfdt::split_tf32(x[it].x, big[0], small[0]);
+    dfdt::split_tf32(x[it].y, big[1], small[1]);
+    dfdt::split_tf32(x[it].z, big[2], small[2]);
+    dfdt::split_tf32(x[it].w, big[3], small[3]);
+    dfdt::st_shared_v4(raw + off, big[0], big[1], big[2], big[3]);
+    dfdt::st_shared_v4(sm + off, small[0], small[1], small[2], small[3]);
+    if constexpr (TRANS) {
+      const int lc = pc ^ (r & 7);                               // the chunk's 4 columns
+      const int col = (blk / (BN / 8)) * 32 + lc * 4 - c0;  // of x.x
+      if (col >= 0 && col < OC) {
+        const int kp = (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);  // r's relabelled position
+        const int rot = (lc >> 1) & 3;                             // value e + rot first
+        rotate4(big, rot);
+        rotate4(small, rot);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int nr = col + ((e + rot) & 3);
+          const uint32_t to = nr * 128 + (((kp >> 2) ^ (nr & 7)) << 4) + (kp & 3) * 4;
+          dfdt::st_shared_b32(tb + to, big[e]);
+          dfdt::st_shared_b32(ts + to, small[e]);
+        }
       }
     }
   }
 }
 
-// acc += X Y for one warp in f32 by 3xTF32: X is 16 x BN, the C fragments
-// x (relabelled k order); Y the streamed tile stored [k][n] at y
-// (bk_off_f32 added), read by 32-bit loads. LAST as in product_into.
-template <int DP, int BN, bool LAST>
-__device__ __forceinline__ void product_into_tf32(float (&acc)[DP / 8][4],
-                                                  const float (&x)[BN / 8][4], const float* y,
-                                                  int live) {
-  constexpr int LD = DP + 4;
+// s = A0 X0^T and t = A1 X1^T over the head dim, 64 x BN x DP, 3xTF32: A0,
+// A1 64-row own tiles (raw f32, as TMA stores them) read into registers and
+// split there, KC k-steps at a time; X0, X1 streamed tiles split by
+// split_tile (big at x?b, small at x?s), read K-major. Each k-step issues
+// small(A) big(X), big(A) small(X), then big(A) big(X); each KC k-steps are
+// one group. The A registers are double-buffered: the next KC k-steps are
+// read and split while a group runs, once the group before it (the last
+// reader of that buffer) is retired.
+template <int DP, int BN, int KC>
+__device__ __forceinline__ void own_products(float (&s)[BN / 8][4], float (&t)[BN / 8][4],
+                                             uint32_t a0, uint32_t a1, uint32_t x0b,
+                                             uint32_t x0s, uint32_t x1b, uint32_t x1s, int warp,
+                                             int lane) {
+  constexpr int NC = DP / 8 / KC;  // groups
+  const int r = warp * 16 + lane / 4, c = lane % 4;
+  uint32_t ab[2][KC][4], as[2][KC][4], bb[2][KC][4], bs[2][KC][4];
+  auto load = [&](int k0, uint32_t(&xb)[KC][4], uint32_t(&xs)[KC][4], uint32_t(&yb)[KC][4],
+                  uint32_t(&ys)[KC][4]) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 8; ++kk) {
-    if (!LAST || kk * 8 < live) {
-      dfdt::FragA a;
-      dfdt::c_to_a_tf32<BN / 8>(a, x, kk);
+    for (int kk = 0; kk < KC; ++kk) {
+      const int col = (k0 + kk) * 8 + c;
+      const uint32_t o[4] = {sw_f32(r, col, 64), sw_f32(r + 8, col, 64), sw_f32(r, col + 4, 64),
+                             sw_f32(r + 8, col + 4, 64)};
 #pragma unroll
-      for (int jd = 0; jd < DP / 8; ++jd) {
-        dfdt::FragB b;
-        dfdt::load_b_kn<LD>(b, y, kk, jd);
-        dfdt::mma_3xtf32(acc[jd], a, b);
+      for (int e = 0; e < 4; ++e) {
+        dfdt::split_tf32(dfdt::ld_shared_f32(a0 + o[e]), xb[kk][e], xs[kk][e]);
+        dfdt::split_tf32(dfdt::ld_shared_f32(a1 + o[e]), yb[kk][e], ys[kk][e]);
       }
-    }
-  }
-}
-
-// The dQ pass in f32 (both passes are compiled for 1 block per SM: with no
-// minimum, ptxas held the dK/dV pass to 168 registers at d = 64 and spilled).
-// One block per (64-row query tile, b*h), row tile
-// fastest: D for the tile's rows, then a walk over every K/V tile
-// accumulating dQ = sum dS K, written times the scale.
-template <int DP>
-__global__ void __launch_bounds__(TfBwd<DP>::THREADS, 1)
-flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ o,
-                         const float* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ dvec, float* __restrict__ dq, Strides sq,
-                         Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq, int H,
-                         int N, int d, float scale) {
-  using C = TfBwd<DP>;
-  constexpr int BN = C::BN, LD = C::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sdO = sQ + C::ROWS * LD;
-  float* sK = sdO + C::ROWS * LD;  // two stages
-  float* sV = sK + 2 * BN * LD;    // two stages
-  float* sD = sV + 2 * BN * LD;
-
-  const dfdt::Work w = dfdt::block_work<C::ROWS, BN>(N, 1);
-  const int bh = w.bh;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int row0 = w.row0;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wrow0 = row0 + warp * 16;
-  const bool active = wrow0 < N;
-
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N,
-                                                    d);
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sdO, dob, sdo.n, row0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
-  dfdt::cp_async_commit();
-
-  // D = rowsum(dO * O): two lanes per row, 16-byte reads
-  {
-    const int r = threadIdx.x / 2;
-    const int gr = row0 + r;
-    float part = 0.f;
-    if (gr < N) {
-      const float* orow = o + b * so.b + h * so.h + gr * so.n;
-      const float* drow = dob + gr * sdo.n;
-      for (int c = (threadIdx.x % 2) * 4; c < d; c += 8) {
-        const float4 x = *reinterpret_cast<const float4*>(orow + c);
-        const float4 y = *reinterpret_cast<const float4*>(drow + c);
-        part = fmaf(x.x, y.x, part);
-        part = fmaf(x.y, y.y, part);
-        part = fmaf(x.z, y.z, part);
-        part = fmaf(x.w, y.w, part);
-      }
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    if (threadIdx.x % 2 == 0) {
-      sD[r] = part;
-      if (gr < N) dvec[(long long)bh * N + gr] = part;
-    }
-  }
-
-  const float sl2 = scale * kLog2e;
-  float lrow[2], drow[2] = {0.f, 0.f};  // lse (log2 units) and D of rows g, g + 8
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gr = wrow0 + lane / 4 + 8 * i;
-    lrow[i] = gr < N ? lse[(long long)bh * N + gr] * kLog2e : 0.f;
-  }
-  float acc[DP / 8][4] = {};
-  const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
-  const uint32_t wdO = dfdt::smem_u32(sdO + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
-  const int n_tiles = (N + BN - 1) / BN;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
-                                                   (t + 1) * BN, N, d);
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
-                                                   (t + 1) * BN, N, d);
-      dfdt::cp_async_commit();
-      dfdt::cp_async_wait<1>();
-    } else {
-      dfdt::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (active) {
-      if (t == 0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) drow[i] = sD[warp * 16 + lane / 4 + 8 * i];
-      }
-      const int key0 = t * BN;
-      const int kv = min(BN, N - key0);
-      float* tK = sK + st * BN * LD;
-      const uint32_t uK = dfdt::smem_u32(tK);
-      const uint32_t uV = dfdt::smem_u32(sV + st * BN * LD);
-      // LAST: the tile that holds key N - 1 (masked, with skips)
-      auto step = [&](auto last) {
-        constexpr bool LAST = decltype(last)::value;
-        // S = Q K^T, dP = dO V^T
-        float s[BN / 8][4], dp[BN / 8][4];
-        two_products_tf32<DP, BN, LAST>(s, dp, wQ, wdO, uK + dfdt::bn_off_f32<LD>(lane),
-                                        uV + dfdt::bn_off_f32<LD>(lane), kv);
-        // dS = P (dP - D), P = exp(S scale - L) and 0 on keys >= N
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool live = !LAST || key0 + j * 8 + 2 * (lane % 4) + (e & 1) < N;
-            const float p = live ? exp2f(fmaf(s[j][e], sl2, -lrow[e >> 1])) : 0.f;
-            s[j][e] = p * (dp[j][e] - drow[e >> 1]);
-          }
-        // dQ += dS K
-        product_into_tf32<DP, BN, LAST>(acc, s, tK + dfdt::bk_off_f32<LD>(lane), kv);
-      };
-      if (kv == BN)
-        step(std::false_type{});
-      else
-        step(std::true_type{});
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-  const float mul[2] = {scale, scale};
-  dfdt::store_rows_f32<DP>(dq + b * sdq.b + h * sdq.h, sdq.n, acc, mul, wrow0, N, d,
-                                   lane);
-}
-
-// The dK/dV pass in f32. One block per (64-key tile, b*h), row tile
-// fastest: a walk over every Q/dO tile (with its lse and D rows)
-// accumulating dV = sum P^T dO and dK = sum dS^T Q (written times the
-// scale); P = 0 on query rows >= N.
-template <int DP>
-__global__ void __launch_bounds__(TfBwd<DP>::THREADS, 1)
-flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ dvec,
-                          float* __restrict__ dk, float* __restrict__ dv, Strides sq,
-                          Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
-                          int N, int d, float scale) {
-  using C = TfBwd<DP>;
-  constexpr int BN = C::BN, LD = C::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + C::ROWS * LD;
-  float* sQ = sV + C::ROWS * LD;  // two stages
-  float* sdO = sQ + 2 * BN * LD;  // two stages
-  float* sL = sdO + 2 * BN * LD;  // two stages
-  float* sD = sL + 2 * BN;        // two stages
-
-  const dfdt::Work w = dfdt::block_work<C::ROWS, BN>(N, 1);
-  const int bh = w.bh;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int key0 = w.row0;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wkey0 = key0 + warp * 16;
-  const bool active = wkey0 < N;
-
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lb = lse + (long long)bh * N;
-  const float* db = dvec + (long long)bh * N;
-  // query tile `tile` (its Q, dO, lse and D rows) into stage `st`
-  auto load_queries = [&](int tile, int st) {
-    const int q0 = tile * BN;
-    dfdt::tile_async<DP, LD, BN, C::THREADS>(sQ + st * BN * LD, qb, sq.n, q0, N, d);
-    dfdt::tile_async<DP, LD, BN, C::THREADS>(sdO + st * BN * LD, dob, sdo.n, q0, N, d);
-    for (int i = threadIdx.x; i < 2 * BN; i += C::THREADS) {
-      const int r = i % BN;
-      const bool ok = q0 + r < N;
-      const float* src = i < BN ? lb : db;
-      dfdt::cp_async4((i < BN ? sL : sD) + st * BN + r, ok ? src + q0 + r : src, ok);
     }
   };
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sK, k + b * sk.b + h * sk.h, sk.n, key0, N,
-                                                    d);
-  dfdt::tile_async<DP, LD, C::ROWS, C::THREADS>(sV, v + b * sv.b + h * sv.h, sv.n, key0, N,
-                                                    d);
-  load_queries(0, 0);
-  dfdt::cp_async_commit();
-
-  const float sl2 = scale * kLog2e;
-  float acc_dk[DP / 8][4] = {}, acc_dv[DP / 8][4] = {};
-  const uint32_t wK = dfdt::smem_u32(sK + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
-  const uint32_t wV = dfdt::smem_u32(sV + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
-  const int n_tiles = (N + BN - 1) / BN;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
-      load_queries(t + 1, st ^ 1);
-      dfdt::cp_async_commit();
-      dfdt::cp_async_wait<1>();
-    } else {
-      dfdt::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (active) {
-      const int q0 = t * BN;
-      const int qv = min(BN, N - q0);
-      const float* tQ = sQ + st * BN * LD;
-      const float* tdO = sdO + st * BN * LD;
-      const float* tL = sL + st * BN;
-      const float* tD = sD + st * BN;
-      // LAST: the tile that holds query row N - 1 (masked, with skips)
-      auto step = [&](auto last) {
-        constexpr bool LAST = decltype(last)::value;
-        // S^T = K Q^T, dP^T = V dO^T
-        float s[BN / 8][4], dp[BN / 8][4];
-        two_products_tf32<DP, BN, LAST>(s, dp, wK, wV,
-                                        dfdt::smem_u32(tQ) + dfdt::bn_off_f32<LD>(lane),
-                                        dfdt::smem_u32(tdO) + dfdt::bn_off_f32<LD>(lane), qv);
-        // P^T (0 on query rows >= N: their lse is not a logsumexp) and dS^T
+  load(0, ab[0], as[0], bb[0], bs[0]);
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
+  for (int g = 0; g < NC; ++g) {
+    const int u = g & 1;
+    dfdt::fence_regs(s);
+    dfdt::fence_regs(t);
+    dfdt::fence_regs(ab[u]);
+    dfdt::fence_regs(as[u]);
+    dfdt::fence_regs(bb[u]);
+    dfdt::fence_regs(bs[u]);
+    dfdt::wgmma_fence();
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = j * 8 + 2 * (lane % 4) + (e & 1);
-            const float p = !LAST || q0 + col < N
-                                ? exp2f(fmaf(s[j][e], sl2, -tL[col] * kLog2e))
-                                : 0.f;
-            s[j][e] = p;
-            dp[j][e] = p * (dp[j][e] - tD[col]);
-          }
-        // dV += P^T dO, dK += dS^T Q
-        product_into_tf32<DP, BN, LAST>(acc_dv, s, tdO + dfdt::bk_off_f32<LD>(lane), qv);
-        product_into_tf32<DP, BN, LAST>(acc_dk, dp, tQ + dfdt::bk_off_f32<LD>(lane), qv);
-      };
-      if (qv == BN)
-        step(std::false_type{});
-      else
-        step(std::true_type{});
+    for (int kk = 0; kk < KC; ++kk) {
+      const int kd = g * KC + kk;
+      const uint32_t off = ((kd / 4) * BN * 128 + (kd % 4) * 32) >> 4;
+      const uint64_t d0b = dfdt::desc_sw128(x0b, 16, 1024) + off;
+      const uint64_t d0s = dfdt::desc_sw128(x0s, 16, 1024) + off;
+      const uint64_t d1b = dfdt::desc_sw128(x1b, 16, 1024) + off;
+      const uint64_t d1s = dfdt::desc_sw128(x1s, 16, 1024) + off;
+      dfdt::wgmma_tf32<BN>(s, as[u][kk], d0b, kd > 0);
+      dfdt::wgmma_tf32<BN>(s, ab[u][kk], d0s, 1);
+      dfdt::wgmma_tf32<BN>(s, ab[u][kk], d0b, 1);
+      dfdt::wgmma_tf32<BN>(t, bs[u][kk], d1b, kd > 0);
+      dfdt::wgmma_tf32<BN>(t, bb[u][kk], d1s, 1);
+      dfdt::wgmma_tf32<BN>(t, bb[u][kk], d1b, 1);
     }
-    __syncthreads();
+    dfdt::wgmma_commit();
+    if (g + 1 < NC) {
+      dfdt::wgmma_wait<1>();  // group g - 1, the last reader of the other buffer, is done
+      dfdt::fence_regs(ab[u ^ 1]);
+      dfdt::fence_regs(as[u ^ 1]);
+      dfdt::fence_regs(bb[u ^ 1]);
+      dfdt::fence_regs(bs[u ^ 1]);
+      load((g + 1) * KC, ab[u ^ 1], as[u ^ 1], bb[u ^ 1], bs[u ^ 1]);
+    }
   }
-  if (!active) return;
-  const float mul_dk[2] = {scale, scale}, one[2] = {1.f, 1.f};
-  dfdt::store_rows_f32<DP>(dk + b * sdk.b + h * sdk.h, sdk.n, acc_dk, mul_dk, wkey0, N,
-                                   d, lane);
-  dfdt::store_rows_f32<DP>(dv + b * sdv.b + h * sdv.h, sdv.n, acc_dv, one, wkey0, N, d,
-                                   lane);
+  dfdt::wgmma_wait<0>();
+  dfdt::fence_regs(s);
+  dfdt::fence_regs(t);
+  dfdt::fence_regs(ab);  // live until the products that read them are done
+  dfdt::fence_regs(as);
+  dfdt::fence_regs(bb);
+  dfdt::fence_regs(bs);
 }
 
-// st: (b, h, n) strides of q, k, v, o, dout, dq, dk, dv
+// acc += X Y, 64 x OC x BN, 3xTF32, as one group (the caller retires it): X
+// (P or dS) from its accumulator, split in registers into the A operands of
+// its BN / 8 k-steps (columns relabelled), Y transposed by split_tile (big at
+// yb, small at ys), read K-major. xb and xs hold the A operands: the caller
+// fences them after the wait, as the product reads them until it is done.
+template <int BN, int OC>
+__device__ __forceinline__ void issue_xy_tf32(float (&acc)[OC / 8][4], const float (&x)[BN / 8][4],
+                                              uint32_t (&xb)[BN / 8][4],
+                                              uint32_t (&xs)[BN / 8][4], uint32_t yb,
+                                              uint32_t ys) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    dfdt::split_tf32(x[j][0], xb[j][0], xs[j][0]);
+    dfdt::split_tf32(x[j][2], xb[j][1], xs[j][1]);
+    dfdt::split_tf32(x[j][1], xb[j][2], xs[j][2]);
+    dfdt::split_tf32(x[j][3], xb[j][3], xs[j][3]);
+  }
+  dfdt::fence_regs(acc);
+  dfdt::fence_regs(xb);
+  dfdt::fence_regs(xs);
+  dfdt::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const uint64_t db = dfdt::desc_sw128(yb, 16, 1024) + ((j * 32) >> 4);
+    const uint64_t ds = dfdt::desc_sw128(ys, 16, 1024) + ((j * 32) >> 4);
+    dfdt::wgmma_tf32<OC>(acc, xs[j], db, 1);
+    dfdt::wgmma_tf32<OC>(acc, xb[j], ds, 1);
+    dfdt::wgmma_tf32<OC>(acc, xb[j], db, 1);
+  }
+  dfdt::wgmma_commit();
+}
+
+// A 64 x OC accumulator times mul into the 64-row f32 tile at dst (as TMA
+// stores it), then by thread 0 to the tensor map's rows [row0, row0 + 64),
+// columns [c0, c0 + OC): rows past N and columns past d stay unwritten.
+template <int OC, int BN>
+__device__ __forceinline__ void stage_f32(uint32_t dst, const float (&acc)[OC / 8][4], float mul,
+                                          int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < OC / 8; ++j)
+      dfdt::st_shared_v2(dst + sw_f32(r, j * 8 + 2 * (lane % 4), 64), acc[j][2 * i] * mul,
+                         acc[j][2 * i + 1] * mul);
+  }
+}
+
+template <int OC, int BN>
+__device__ __forceinline__ void store_f32(const CUtensorMap* map, uint32_t src, int c0, int row0,
+                                          int h, int b) {
+#pragma unroll
+  for (int cb = 0; cb < OC / 32; ++cb)
+#pragma unroll
+    for (int rb = 0; rb < 64 / BN; ++rb)
+      dfdt::tma_store_4d(map, src + cb * 64 * 128 + rb * BN * 128, c0 + cb * 32, row0 + rb * BN,
+                         h, b);
+}
+
+// The dQ pass in f32. One block per (64-row query tile, output column block
+// cg, b*h), row tile fastest. Thread 0 loads Q and dO once and the K/V tiles
+// through the ring by TMA; every thread computes D = rowsum(dO * O) of its
+// row from global memory while they land (column block 0 writes it). Per
+// K/V tile the warpgroup splits K and V (K also transposed: columns of cg),
+// takes S = Q K^T and dP = dO V^T, releases the stage, forms P = exp(S scale
+// - L) (0 on keys >= N) and dS = P (dP - D) on the accumulators and takes
+// dQ += dS K; dQ goes out times the scale by TMA stores.
 template <int DP>
-cudaError_t launch_tf32(const float* q, const float* k, const float* v, const float* o,
-                        const float* dout, const float* lse, float* dvec, float* dq, float* dk,
-                        float* dv, const Strides* st, int B, int H, int N, int d, float scale,
-                        cudaStream_t stream) {
-  using C = TfBwd<DP>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::dq_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel<DP>,
+__global__ void __launch_bounds__(TfHopper<DP>::THREADS, 1)
+flash_bwd_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap to,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tdq,
+                               const float* __restrict__ o, const float* __restrict__ dout,
+                               Strides so, Strides sdo, const float* __restrict__ lse,
+                               float* __restrict__ dvec, int H, int N, int d, float scale) {
+  BWD_MARK(0, 0);
+  using C = TfHopper<DP>;
+  constexpr int BN = C::BN, OC = C::OC, ST = C::DQ_ST;
+  constexpr uint32_t OWN = C::OWN, STR = C::STR, TT = C::TT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = dfdt::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // the same address, generic
+  float* sD = reinterpret_cast<float*>(gbase + C::DQ_D);
+  const uint32_t sQ = base, sdO = base + OWN;
+  const uint32_t ring = base + C::DQ_RING;  // stage st: K at ring + 2 st STR, V a tile on
+  const uint32_t sKs = base + C::DQ_CONV, sVs = sKs + STR, sKtb = sVs + STR, sKts = sKtb + TT;
+  const uint32_t own_full = base + C::DQ_BAR;
+  auto full = [&](int st) { return own_full + 8 + 8 * st; };
+  auto empty = [&](int st) { return own_full + 8 + 8 * (ST + st); };
+
+  const BwdWork w = bwd_work<C::CB, false>(N, H, 1);
+  const int n = (N + BN - 1) / BN;  // K/V tiles
+  const bool leader = threadIdx.x == 0;
+  auto load_kv = [&](int i) {
+    const int st = i % ST;
+    dfdt::mbar_expect_tx(full(st), 2 * STR);
+    load_f32<DP, BN, BN>(ring + 2 * st * STR, &tk, full(st), i * BN, w.h, w.b);
+    load_f32<DP, BN, BN>(ring + (2 * st + 1) * STR, &tv, full(st), i * BN, w.h, w.b);
+  };
+  if (leader) {
+    dfdt::tma_prefetch(&tq);
+    dfdt::tma_prefetch(&tk);
+    dfdt::tma_prefetch(&tv);
+    dfdt::tma_prefetch(&tdo);
+    if (C::O_TMA) dfdt::tma_prefetch(&to);
+    dfdt::mbar_init(own_full, 1);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      dfdt::mbar_init(full(st), 1);
+      dfdt::mbar_init(empty(st), C::THREADS);
+    }
+    dfdt::mbar_fence_init();
+    dfdt::mbar_expect_tx(own_full, (C::O_TMA ? 3 : 2) * OWN);
+    load_f32<DP, 64, BN>(sQ, &tq, own_full, w.row0, w.h, w.b);
+    load_f32<DP, 64, BN>(sdO, &tdo, own_full, w.row0, w.h, w.b);
+    if (C::O_TMA) load_f32<DP, 64, BN>(sKs, &to, own_full, w.row0, w.h, w.b);
+    for (int i = 0; i < ST && i < n; ++i) load_kv(i);
+  }
+  __syncthreads();
+
+  // D = rowsum(dO * O): two threads a row, 16-byte reads of the same
+  // positions of both tiles once they land (O in the small-term tiles), or
+  // of both rows from global memory
+  if constexpr (C::O_TMA) {
+    dfdt::mbar_wait(own_full, 0);
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    float sum = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < DP / 32; ++cb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t off = cb * 64 * 128 + r * 128 + (((half * 4 + c) ^ (r & 7)) << 4);
+        const float4 x = *reinterpret_cast<const float4*>(gbase + (sKs - base) + off);
+        const float4 y = *reinterpret_cast<const float4*>(gbase + OWN + off);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
+        sum = fmaf(x.z, y.z, sum);
+        sum = fmaf(x.w, y.w, sum);
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      sD[r] = sum;
+      if (w.cg == 0 && w.row0 + r < N) dvec[(long long)w.bh * N + w.row0 + r] = sum;
+    }
+  } else {
+    const int r = threadIdx.x / 2, gr = w.row0 + r;
+    float sum = 0.f;
+    if (gr < N) {
+      const float* orow = o + w.b * so.b + w.h * so.h + gr * so.n;
+      const float* drow = dout + w.b * sdo.b + w.h * sdo.h + gr * sdo.n;
+      // every load issued before the first sum (a loop bounded by d alone
+      // waited for each pair in turn)
+      float4 x[DP / 8], y[DP / 8];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = j * 8 + (threadIdx.x % 2) * 4;
+        const float4 zero = {0.f, 0.f, 0.f, 0.f};
+        x[j] = c < d ? *reinterpret_cast<const float4*>(orow + c) : zero;
+        y[j] = c < d ? *reinterpret_cast<const float4*>(drow + c) : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        sum = fmaf(x[j].x, y[j].x, sum);
+        sum = fmaf(x[j].y, y[j].y, sum);
+        sum = fmaf(x[j].z, y[j].z, sum);
+        sum = fmaf(x[j].w, y[j].w, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (threadIdx.x % 2 == 0) {
+      sD[r] = sum;
+      if (w.cg == 0 && gr < N) dvec[(long long)w.bh * N + gr] = sum;
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq4 = lane % 4;
+  const float sl2 = scale * kLog2e;
+  float lrow[2];  // lse of rows g, g + 8 in log2 units (0 past N)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w.row0 + warp * 16 + lane / 4 + 8 * i;
+    lrow[i] = row < N ? lse[(long long)w.bh * N + row] * kLog2e : 0.f;
+  }
+  __syncthreads();  // D is in sD, and O's tile is free for the first split
+  const float drow[2] = {sD[warp * 16 + lane / 4], sD[warp * 16 + lane / 4 + 8]};
+
+  float acc[OC / 8][4] = {};  // dQ, column block cg
+  float s[BN / 8][4], dp[BN / 8][4];
+  uint32_t xb[BN / 8][4], xs[BN / 8][4];  // dS as tf32 A operands
+  if (!C::O_TMA) dfdt::mbar_wait(own_full, 0);
+  BWD_PHASES;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % ST;
+    const uint32_t tK = ring + 2 * st * STR, tV = tK + STR;
+    dfdt::mbar_wait(full(st), (i / ST) & 1);
+    if (i == 0) BWD_MARK(0, 1);
+    dfdt::named_bar_sync(1, C::THREADS);  // every warp is past the last tile's dQ product
+    split_tile<DP, BN, OC, true>(tK, sKs, sKtb, sKts, w.cg * OC);
+    split_tile<DP, BN, OC, false>(tV, sVs, 0, 0, 0);
+    dfdt::fence_proxy_async();
+    dfdt::named_bar_sync(1, C::THREADS);
+    BWD_PHASE(0);
+    own_products<DP, BN, C::KC>(s, dp, sQ, sdO, tK, sKs, tV, sVs, warp, lane);
+    BWD_PHASE(1);
+    dfdt::mbar_arrive(empty(st));
+    if (leader && i + ST < n) {
+      dfdt::mbar_wait(empty(st), (i / ST) & 1);
+      load_kv(i + ST);
+    }
+    const int live = N - i * BN;  // keys of the tile below N
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * tq4 + (e & 1);
+        const float p = col < live ? exp2_ftz(fmaf(s[j][e], sl2, -lrow[e >> 1])) : 0.f;
+        s[j][e] = p * (dp[j][e] - drow[e >> 1]);
+      }
+    BWD_PHASE(2);
+    issue_xy_tf32<BN, OC>(acc, s, xb, xs, sKtb, sKts);  // dQ += dS K
+    dfdt::wgmma_wait<0>();
+    dfdt::fence_regs(acc);
+    dfdt::fence_regs(xb);
+    dfdt::fence_regs(xs);
+    BWD_PHASE(3);
+    if (i == 0) BWD_MARK(0, 2);
+  }
+  BWD_MARK(0, 3);
+  BWD_PHASES_STORE(0);
+  // dQ through the Q tile (free once every warp is past its last S)
+  __syncthreads();
+  stage_f32<OC, BN>(sQ, acc, scale, warp, lane);
+  dfdt::fence_proxy_async();
+  __syncthreads();
+  if (leader) {
+    store_f32<OC, BN>(&tdq, sQ, w.cg * OC, w.row0, w.h, w.b);
+    dfdt::tma_store_commit();
+    dfdt::tma_store_wait_read();
+  }
+  BWD_MARK(0, 4);
+}
+
+// The dK/dV pass in f32. One block per (64-key tile, output column block cg,
+// b*h), row tile fastest. Thread 0 loads K and V once and the Q/dO tiles
+// through the ring by TMA; every thread loads one of the next tile's lse or
+// D rows by cp.async (0 past N), tracked by its stage's full barrier. Per
+// Q/dO tile the warpgroup splits Q and dO (both also transposed: columns of
+// cg), takes S^T = K Q^T and dP^T = V dO^T, releases the stage, forms P^T =
+// exp(S^T scale - L) (0 on query rows >= N) and dS^T = P^T (dP^T - D), and
+// takes dV += P^T dO and dK += dS^T Q; dK (times the scale) and dV go out by
+// TMA stores.
+template <int DP>
+__global__ void __launch_bounds__(TfHopper<DP>::THREADS, 1)
+flash_bwd_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap tdk,
+                                const __grid_constant__ CUtensorMap tdv,
+                                const float* __restrict__ lse, const float* __restrict__ dvec,
+                                int H, int N, float scale) {
+  BWD_MARK(1, 0);
+  using C = TfHopper<DP>;
+  constexpr int BN = C::BN, OC = C::OC, ST = C::DKV_ST;
+  constexpr uint32_t OWN = C::OWN, STR = C::STR, TT = C::TT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = dfdt::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* sLD = reinterpret_cast<float*>(smem_raw + (base - raw) + C::DKV_LD);  // tile parity p:
+  // lse at sLD + 2 BN p, D BN on
+  const uint32_t sK = base, sV = base + OWN;
+  const uint32_t ring = base + C::DKV_RING;  // stage st: Q at ring + 2 st STR, dO a tile on
+  const uint32_t sQs = base + C::DKV_CONV, sdOs = sQs + STR;
+  const uint32_t sQtb = sdOs + STR, sQts = sQtb + TT, sdOtb = sQts + TT, sdOts = sdOtb + TT;
+  const uint32_t own_full = base + C::DKV_BAR;
+  auto full = [&](int st) { return own_full + 8 + 8 * st; };
+  auto empty = [&](int st) { return own_full + 8 + 8 * (ST + st); };
+
+  const BwdWork w = bwd_work<C::CB, false>(N, H, 1);
+  const int n = (N + BN - 1) / BN;  // Q/dO tiles
+  const bool leader = threadIdx.x == 0;
+  auto load_q = [&](int i) {
+    const int st = i % ST;
+    dfdt::mbar_expect_tx(full(st), 2 * STR);
+    load_f32<DP, BN, BN>(ring + 2 * st * STR, &tq, full(st), i * BN, w.h, w.b);
+    load_f32<DP, BN, BN>(ring + (2 * st + 1) * STR, &tdo, full(st), i * BN, w.h, w.b);
+  };
+  // by every thread: one lse (threads 0 .. BN-1) or D (BN .. 2BN-1) row of
+  // tile i into its parity's rows, 0 past N; every thread arrives on the
+  // stage's full barrier once its copies land
+  auto load_ld = [&](int i) {
+    if (threadIdx.x < 2 * BN) {
+      const int row = i * BN + threadIdx.x % BN;
+      const bool ok = row < N;
+      const float* src = threadIdx.x < BN ? lse : dvec;
+      dfdt::cp_async4(sLD + (i & 1) * 2 * BN + threadIdx.x,
+                      src + (ok ? (long long)w.bh * N + row : 0), ok);
+    }
+    dfdt::mbar_arrive_cp_async(full(i % ST));
+  };
+  if (leader) {
+    dfdt::tma_prefetch(&tq);
+    dfdt::tma_prefetch(&tk);
+    dfdt::tma_prefetch(&tv);
+    dfdt::tma_prefetch(&tdo);
+    dfdt::mbar_init(own_full, 1);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      dfdt::mbar_init(full(st), 1 + C::THREADS);  // the transactions' arrival and the rows'
+      dfdt::mbar_init(empty(st), C::THREADS);
+    }
+    dfdt::mbar_fence_init();
+    dfdt::mbar_expect_tx(own_full, 2 * OWN);
+    load_f32<DP, 64, BN>(sK, &tk, own_full, w.row0, w.h, w.b);
+    load_f32<DP, 64, BN>(sV, &tv, own_full, w.row0, w.h, w.b);
+    for (int i = 0; i < ST && i < n; ++i) load_q(i);
+  }
+  __syncthreads();
+  load_ld(0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq4 = lane % 4;
+  const float sl2 = scale * kLog2e;
+  float acc_dk[OC / 8][4] = {}, acc_dv[OC / 8][4] = {};  // column block cg
+  float s[BN / 8][4], dp[BN / 8][4];
+  uint32_t pb[BN / 8][4], ps[BN / 8][4], xb[BN / 8][4], xs[BN / 8][4];  // P^T, dS^T
+  dfdt::mbar_wait(own_full, 0);
+  BWD_PHASES;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % ST;
+    const uint32_t tQ = ring + 2 * st * STR, tdO = tQ + STR;
+    dfdt::mbar_wait(full(st), (i / ST) & 1);
+    if (i == 0) BWD_MARK(1, 1);
+    // every warp is past the last tile's products and its lse and D rows
+    dfdt::named_bar_sync(1, C::THREADS);
+    if (i + 1 < n) load_ld(i + 1);
+    split_tile<DP, BN, OC, true>(tQ, sQs, sQtb, sQts, w.cg * OC);
+    split_tile<DP, BN, OC, true>(tdO, sdOs, sdOtb, sdOts, w.cg * OC);
+    dfdt::fence_proxy_async();
+    dfdt::named_bar_sync(1, C::THREADS);
+    BWD_PHASE(0);
+    own_products<DP, BN, C::KC>(s, dp, sK, sV, tQ, sQs, tdO, sdOs, warp, lane);
+    BWD_PHASE(1);
+    dfdt::mbar_arrive(empty(st));
+    if (leader && i + ST < n) {
+      dfdt::mbar_wait(empty(st), (i / ST) & 1);
+      load_q(i + ST);
+    }
+    const float* tL = sLD + (i & 1) * 2 * BN;
+    const int live = N - i * BN;  // query rows of the tile below N
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(tL + j * 8 + 2 * tq4);
+      const float2 d2 = *reinterpret_cast<const float2*>(tL + BN + j * 8 + 2 * tq4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * tq4 + (e & 1);
+        const float p =
+            col < live ? exp2_ftz(fmaf(s[j][e], sl2, -((e & 1) ? l2.y : l2.x) * kLog2e)) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    BWD_PHASE(2);
+    issue_xy_tf32<BN, OC>(acc_dv, s, pb, ps, sdOtb, sdOts);  // dV += P^T dO
+    issue_xy_tf32<BN, OC>(acc_dk, dp, xb, xs, sQtb, sQts);   // dK += dS^T Q
+    dfdt::wgmma_wait<0>();
+    dfdt::fence_regs(acc_dv);
+    dfdt::fence_regs(acc_dk);
+    dfdt::fence_regs(pb);
+    dfdt::fence_regs(ps);
+    dfdt::fence_regs(xb);
+    dfdt::fence_regs(xs);
+    BWD_PHASE(3);
+    if (i == 0) BWD_MARK(1, 2);
+  }
+  BWD_MARK(1, 3);
+  BWD_PHASES_STORE(1);
+  // dK and dV through the K and V tiles (free once every warp is past its
+  // last S^T and dP^T)
+  __syncthreads();
+  stage_f32<OC, BN>(sK, acc_dk, scale, warp, lane);
+  stage_f32<OC, BN>(sV, acc_dv, 1.f, warp, lane);
+  dfdt::fence_proxy_async();
+  __syncthreads();
+  if (leader) {
+    store_f32<OC, BN>(&tdk, sK, w.cg * OC, w.row0, w.h, w.b);
+    store_f32<OC, BN>(&tdv, sV, w.cg * OC, w.row0, w.h, w.b);
+    dfdt::tma_store_commit();
+    dfdt::tma_store_wait_read();
+  }
+  BWD_MARK(1, 4);
+}
+
+// Arguments of the f32 launch: D's inputs by pointer and strides (read from
+// global memory), everything else by tensor map.
+struct TfArgs {
+  const float *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* dvec;
+  float *dq, *dk, *dv;
+  Strides so, sdo;
+  int H, N, d;
+  float scale;
+};
+
+// geo: 9 values per operand (q, k, v, o, dout, dq, dk, dv), as encode_map
+// reads them; every f32 box BN rows of 32 columns
+template <int DP>
+int launch_tf32(const TfArgs& a, const long long* geo, int B, cudaStream_t stream) {
+  using C = TfHopper<DP>;
+  const void* ptrs[8] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  CUtensorMap m[8];
+  for (int i = 0; i < 8; ++i) {
+    const int err = dfdt::encode_map(&m[i], ptrs[i], geo + 9 * i, a.d, a.N, a.H, B, C::BN, true);
+    if (err) return err;
+  }
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tf32_wgmma_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)C::dq_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_bwd_dkv_tf32_wgmma_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkv_smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * H * ((N + C::ROWS - 1) / C::ROWS);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dq_tf32_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dq_smem, stream>>>(
-      q, k, v, o, dout, lse, dvec, dq, st[0], st[1], st[2], st[3], st[4], st[5], H, N, d, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_tf32_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dkv_smem, stream>>>(
-      q, k, v, dout, lse, dvec, dk, dv, st[0], st[1], st[2], st[4], st[6], st[7], H, N, d, scale);
-  return cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)B * a.H * ((a.N + C::ROWS - 1) / C::ROWS) * C::CB;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_bwd_dq_tf32_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dq_smem, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], a.o, a.dout, a.so, a.sdo, a.lse, a.dvec, a.H, a.N,
+      a.d, a.scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkv_tf32_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dkv_smem, stream>>>(
+      m[0], m[1], m[2], m[4], m[6], m[7], a.lse, a.dvec, a.H, a.N, a.scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 24 element strides, (b, h, n) for q, k, v, o, dout, dq, dk, dv in
 // that order. lse and dvec (scratch for D) are contiguous f32 (B, H, N).
-// bf16 goes to the Hopper kernels, which read q, k, v, o, dout and write dq,
-// dk, dv through tensor maps built from `tma` (9 values for each of the
-// eight, see encode_map; d a multiple of 8; the reduce kernel of the split
-// route writes dq, dk, dv through their strides); f32 goes to the 3xTF32
-// kernels, which take 16-byte rows of q, k, v, o, dout
-// (cudaErrorMisalignedAddress otherwise) and ignore `tma`. splits: 1, or
-// (bf16 only) the splits S of the split route, with `scratch` the caller's
-// f32 buffer of 3*S*B*H*N*d elements for the partials.
+// Both dtypes read q, k, v, dout and write dq, dk, dv through tensor maps
+// built from `tma` (9 values for each of the eight, see encode_map): bf16
+// (d a multiple of 8) goes to the bf16 Hopper kernels, which read o by its
+// map too (the reduce kernel of the split route writes dq, dk, dv through
+// their strides); f32 (d a multiple of 4) to the 3xTF32 Hopper kernels,
+// which read o and dout for D through their strides (16-byte rows). splits:
+// 1, or (bf16 only) the splits S of the split route, with `scratch` the
+// caller's f32 buffer of 3*S*B*H*N*d elements for the partials.
 extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* dvec, void* dq,
                               void* dk, void* dv, int B, int H, int N, int d, int is_bf16,
@@ -1238,21 +1588,17 @@ extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const
   for (int i = 5; i < 8; ++i)
     if (st[i].b % 2 || st[i].h % 2 || st[i].n % 2) return (int)cudaErrorMisalignedAddress;
   if (!is_bf16) {
-    const void* ins[5] = {q, k, v, o, dout};
-    for (int i = 0; i < 5; ++i)
-      if (!dfdt::f32_aligned(ins[i], st[i], d)) return (int)cudaErrorMisalignedAddress;
+    if (tma == nullptr || !dfdt::f32_aligned(o, st[3], d) || !dfdt::f32_aligned(dout, st[4], d))
+      return (int)cudaErrorMisalignedAddress;
     using F = const float*;
-    F fq = static_cast<F>(q), fk = static_cast<F>(k), fv = static_cast<F>(v),
-      fo = static_cast<F>(o), fdo = static_cast<F>(dout);
-    float *fdq = static_cast<float*>(dq), *fdk = static_cast<float*>(dk),
-          *fdv = static_cast<float*>(dv);
-#define DFDT_BWD_TF32(DP) \
-  launch_tf32<DP>(fq, fk, fv, fo, fdo, l, dvv, fdq, fdk, fdv, st, B, H, N, d, scale, s)
-    if (d <= 32) return (int)DFDT_BWD_TF32(32);
-    if (d <= 64) return (int)DFDT_BWD_TF32(64);
-    if (d <= 128) return (int)DFDT_BWD_TF32(128);
-    return (int)DFDT_BWD_TF32(256);
-#undef DFDT_BWD_TF32
+    const TfArgs a{static_cast<F>(q), static_cast<F>(k), static_cast<F>(v), static_cast<F>(o),
+                   static_cast<F>(dout), l, dvv, static_cast<float*>(dq),
+                   static_cast<float*>(dk), static_cast<float*>(dv), st[3], st[4], H, N, d,
+                   scale};
+    if (d <= 32) return launch_tf32<32>(a, tma, B, s);
+    if (d <= 64) return launch_tf32<64>(a, tma, B, s);
+    if (d <= 128) return launch_tf32<128>(a, tma, B, s);
+    return launch_tf32<256>(a, tma, B, s);
   }
   if (tma == nullptr || d % 8) return (int)cudaErrorMisalignedAddress;
   using T = __nv_bfloat16;
@@ -1268,11 +1614,11 @@ extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const
 }
 
 #ifdef DFDT_BWD_TRACE
-// the first `blocks` blocks' cycle marks (5 each) of the last traced launch
-// of pass p (0: dQ, 1: dK/dV)
+// the first `blocks` blocks' cycle marks and phase sums (kTraceSlots each)
+// of the last traced launch of pass p (0: dQ, 1: dK/dV)
 extern "C" int dfdt_bwd_trace(long long* out, int p, int blocks) {
-  return (int)cudaMemcpyFromSymbol(out, g_bwd_trace, sizeof(long long) * 5 * blocks,
-                                   sizeof(long long) * 5 * kTraceBlocks * p);
+  return (int)cudaMemcpyFromSymbol(out, g_bwd_trace, sizeof(long long) * kTraceSlots * blocks,
+                                   sizeof(long long) * kTraceSlots * kTraceBlocks * p);
 }
 #endif
 

@@ -1,7 +1,9 @@
-// Warp-level building blocks of the f32 tensor-core flash kernels
-// (flash_fwd.cu, flash_bwd.cu): f32 products taken as 3xTF32 on the
-// tensor cores with mma.m16n8k8 tf32 and f32 accumulators, as inline PTX for
-// sm_90a, beside the cp.async, ldmatrix and tile wrappers of mma_bf16.cuh.
+// Warp-level building blocks of the f32 tensor-core flash forward
+// (flash_fwd.cu): f32 products taken as 3xTF32 on the tensor cores with
+// mma.m16n8k8 tf32 and f32 accumulators, as inline PTX for sm_90a, beside
+// the cp.async, ldmatrix and tile wrappers of mma_bf16.cuh. The f32 backward
+// (flash_bwd.cu, tf32 wgmma) shares the split (split_tf32) and the 16-byte
+// row rule (f32_aligned).
 //
 // 3xTF32. An f32 operand x is taken as two tf32 terms (10 explicit mantissa
 // bits each): big, x truncated to tf32, and small = tf32(x - big), rounded

@@ -1,25 +1,33 @@
-// Hopper's building blocks of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu), as
-// inline PTX for sm_90a: mbarriers, TMA tile loads (cp.async.bulk.tensor)
+// Hopper's building blocks of the flash kernels (flash_fwd.cu, flash_bwd.cu),
+// as inline PTX for sm_90a: mbarriers, TMA tile loads (cp.async.bulk.tensor)
 // that complete on an mbarrier, and warpgroup products (wgmma.mma_async)
-// with bf16 operands and f32 accumulators.
+// with f32 accumulators: bf16 operands (the bf16 kernels) and tf32 operands
+// (the f32 backward, 3xTF32).
 //
 // Shared-memory tiles are stored as TMA writes them with a 128-byte swizzle:
-// rows of 64 bf16 (128 bytes), groups of 8 rows (1024 bytes, each group
-// 1024-byte aligned) in which the 16-byte chunk c of row r sits at chunk
-// c ^ (r % 8). A head dim DP > 64 is kept as DP / 64 such column blocks, one
-// after another. wgmma reads these tiles through a matrix descriptor
-// (desc_sw128): the start address, the byte distance between 8-row groups
-// (SBO) and, for operands whose contiguous axis is M or N, between 64-wide
-// column blocks (LBO); each product below covers at most one column block.
+// rows of 128 bytes (64 bf16 or 32 f32), groups of 8 rows (1024 bytes, each
+// group 1024-byte aligned) in which the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8). A head dim DP wider than one row is kept as DP / 64
+// (bf16) or DP / 32 (f32) such column blocks, one after another. wgmma reads
+// these tiles through a matrix descriptor (desc_sw128): the start address,
+// the byte distance between 8-row groups (SBO) and, for operands whose
+// contiguous axis is M or N, between 64-wide column blocks (LBO); each
+// product below covers at most one column block. A k-step is 32 bytes of a
+// row either way: 16 bf16 (k16) or 8 tf32 (k8).
 //
-// Accumulator layout of m64nNk16 (PTX ISA, "wgmma register fragments"): warp
-// w of the warpgroup holds rows 16w..16w+15; within it lane l, g = l / 4,
-// t = l % 4, holds d[j][0..1] = (row g, cols 8j + 2t, +1) and d[j][2..3] =
-// (row g + 8, the same cols): the mma.m16n8 C layout of mma_bf16.cuh repeated
-// over the N / 8 column groups j. An A operand from registers takes the
-// mma.m16n8k16 A layout, so dfdt::c_to_a_split turns two neighbouring column
-// groups of an accumulator into the A operand of one 16-deep k-step.
+// Accumulator layout of m64nNk16 and m64nNk8 (PTX ISA, "wgmma register
+// fragments"): warp w of the warpgroup holds rows 16w..16w+15; within it
+// lane l, g = l / 4, t = l % 4, holds d[j][0..1] = (row g, cols 8j + 2t, +1)
+// and d[j][2..3] = (row g + 8, the same cols): the mma.m16n8 C layout of
+// mma_bf16.cuh repeated over the N / 8 column groups j. An A operand from
+// registers takes the mma.m16n8k16 A layout (bf16), so dfdt::c_to_a_split
+// turns two neighbouring column groups of an accumulator into the A operand
+// of one 16-deep k-step; or the mma.m16n8k8 tf32 A layout (a0 = (row g, k
+// t), a1 = (row g + 8, k t), a2 = (row g, k t + 4), a3 = (row g + 8, k t +
+// 4)), into which one column group of an accumulator goes with its columns
+// relabelled (mma_tf32.cuh: column 2t as k = t, 2t + 1 as k = t + 4). tf32
+// wgmma reads shared-memory operands K-major only (the transpose bits exist
+// for 16-bit types alone).
 
 #pragma once
 
@@ -167,6 +175,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
 
+template <int Q, int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[Q][R][4]) {
+#pragma unroll
+  for (int i = 0; i < Q; ++i) fence_regs(a[i]);
+}
+
 // d (+)= A B, 64 x 64 x 16: A and B from shared memory, both K-major (the
 // reduction axis contiguous); scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
@@ -243,6 +257,107 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4], const uint32_t
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- tf32 wgmma, A from registers (the f32 backward) ----
+
+// d (+)= A B, 64 x N x 8 in tf32 (the operands' low 13 bits are zero): A
+// (the tf32 A fragment above) from registers, B from shared memory K-major
+// (the reduction axis contiguous); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// the same, 64 x 32 x 8
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// the same, 64 x 16 x 8
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[2][4], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "tf32 products take N = 16, 32 or 64");
+  if constexpr (N == 64)
+    wgmma_tf32_n64(d, a, desc_b, scale_d);
+  else if constexpr (N == 32)
+    wgmma_tf32_n32(d, a, desc_b, scale_d);
+  else
+    wgmma_tf32_n16(d, a, desc_b, scale_d);
+}
+
+// ---- shared memory by 32-bit window address ----
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t x, uint32_t y, uint32_t z,
+                                             uint32_t w) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(x), "r"(y), "r"(z),
+               "r"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
 }
 
 }  // namespace dfdt

@@ -14,28 +14,35 @@ both routes on the tensor cores: bf16 as bf16 products with f32 sums, f32
 as 3xTF32 (each f32 operand split into two tf32 terms, three products in
 place of one, f32 sums: the error of a plain f32 product).
 
-The bf16 kernels are built for Hopper (FlashAttention-3's shape): one
-thread (of a producer warp in the forward, of the warpgroup in the
-backward) loads a block's own tiles and rings of streamed tiles by TMA into
-shared memory (128-byte swizzled, completing on mbarriers), and a
-warpgroup takes every product as a ``wgmma``. The forward takes
+The bf16 kernels and the f32 backward are built for Hopper
+(FlashAttention-3's shape): one thread (of a producer warp in the bf16
+forward, of the warpgroup in the backward) loads a block's own tiles and
+rings of streamed tiles by TMA into shared memory (128-byte swizzled,
+completing on mbarriers), and a warpgroup takes every product as a
+``wgmma``. The bf16 forward takes
 S = QKᵀ and O += P·V, P from registers as two bf16 terms (hi + lo), the
 next tile's S issued before the softmax of the last one finishes its P·V.
 The backward's dQ pass takes S = QKᵀ, dP = dO·Vᵀ and dQ += dS·K, its dK/dV
 pass Sᵀ = KQᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q, P and dS from
-registers rounded once to bf16. What bounds them on an H100: bytes at the
-ViT shape (N = 197), the tile body's rate at the long clips' (N = 1025).
-They read q, k, v (and O, dO) and the backward writes dq, dk, dv through
-4-D tensor maps whose geometry :func:`_tma_geometry` computes from each
-tensor's shape and strides, so the views of a fused QKV projection and dO's
-head-merge view go in as they are; columns past d, up to a multiple of 64,
-and rows past N come from TMA's zero fill. An input TMA cannot describe (a
-byte stride not a multiple of 16, unaligned data) or with d not a multiple
-of 8 goes to the kernel as a contiguous copy zero-padded to a multiple of 8
-in d, with the scale of the true d, and the result is sliced back. The f32
-kernels take rows of 16-byte multiples (d not a multiple of 4, a B/H/N
-stride not a multiple of 4 elements, or unaligned data get the same copy).
-On CPU tensors each wrapper takes its plain version, a dense f32
+registers rounded once to bf16. The f32 backward takes the same products
+in 3xTF32 on tf32 ``wgmma``, which reads shared memory K-major only: the
+own side's tiles are A operands split in registers, each streamed tile is
+split in shared memory (big in place, small beside it) and its output
+columns written transposed for the products whose B operand lies MN-major
+(K in dQ += dS·K, Q and dO in the dK/dV pass). What bounds them on an
+H100: bytes at the ViT shape (N = 197), the tile body's rate at the long
+clips' (N = 1025). They read q, k, v (and O, dO) and the backward writes
+dq, dk, dv through 4-D tensor maps whose geometry :func:`_tma_geometry`
+computes from each tensor's shape and strides, so the views of a fused QKV
+projection and dO's head-merge view go in as they are; columns past d, up
+to a whole 128-byte row, and rows past N come from TMA's zero fill. An
+input TMA cannot describe (a byte stride not a multiple of 16, unaligned
+data) or with d not a multiple of 16 bytes' worth (8 bf16, 4 f32) goes to
+the kernel as a contiguous copy zero-padded to that multiple in d, with
+the scale of the true d, and the result is sliced back. The f32 forward
+takes rows of 16-byte multiples by ``cp.async`` (d not a multiple of 4, a
+B/H/N stride not a multiple of 4 elements, or unaligned data get the same
+copy). On CPU tensors each wrapper takes its plain version, a dense f32
 computation.
 
 The split route (bf16 at N > 512, the regime of the TPU's streaming
@@ -112,8 +119,9 @@ _BWD_BLOCKS_PER_SM = 2
 _SPLIT_COST = 0.5
 _SPLIT_MIN_TILES = 2
 _SPLIT_SCRATCH_CAP = 256 << 20
-# the bf16 kernels' TMA box: 64 columns, one 128-byte swizzled row
-_TMA_BOX_COLS = 64
+# the TMA box of a tensor map: one 128-byte swizzled row (64 bf16 or 32 f32
+# columns)
+_TMA_ROW_BYTES = 128
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -189,19 +197,45 @@ def _fwd_smem(d: int) -> int:
     return 2 * _cdiv(d, 64) * 64 * (_ROW_TILE + 4 * _fwd_key_tile(d)) + 9 * 8 + 1024
 
 
-def _bwd_tile(d: int) -> int:
-    """Rows per streamed tile of the bf16 backward at head dim d (K/V
-    tiles in the dQ pass, Q/dO tiles in the dK/dV pass): 64 at every d, as
-    many as a block owns, so one tensor map a tensor serves both passes."""
-    return _ROW_TILE
+def _bwd_tile(d: int, bf16: bool = True) -> int:
+    """Rows per streamed tile of the backward at head dim d (K/V tiles in
+    the dQ pass, Q/dO tiles in the dK/dV pass), and the rows of every box of
+    its tensor maps, so one map a tensor serves both passes: bf16 64 at
+    every d, as many as a block owns; f32 32, 16 above d = 128 (a block's
+    own 64 rows load as several boxes)."""
+    if bf16:
+        return _ROW_TILE
+    return 32 if d <= 128 else 16
 
 
-def _bwd_smem(d: int) -> Tuple[int, int]:
-    """Dynamic shared memory of a bf16 backward block at head dim d, ``(dQ
-    pass, dK/dV pass)``: 64-row bf16 tiles at d padded to a multiple of 64
-    (Q, dO, O and a K/V ring; K, V and a Q/dO ring; 3 stages, 2 above
-    d = 128), the f32 D rows (dQ) or each stage's lse and D rows (dK/dV),
-    the 8-byte barriers and 1 KB for aligning the base to 1024 bytes."""
+def _f32_bwd_dp(d: int) -> int:
+    """The padded head dim of the f32 backward's kernels: 32, 64, 128 or
+    256."""
+    return next(dp for dp in (32, 64, 128, 256) if d <= dp)
+
+
+def _bwd_smem(d: int, bf16: bool = True) -> Tuple[int, int]:
+    """Dynamic shared memory of a backward block at head dim d, ``(dQ
+    pass, dK/dV pass)``, with 1 KB for aligning the base to 1024 bytes and
+    the 8-byte barriers. bf16: 64-row bf16 tiles at d padded to a multiple
+    of 64 (Q, dO, O and a K/V ring; K, V and a Q/dO ring; 3 stages, 2 above
+    d = 128), the f32 D rows (dQ) or each stage's lse and D rows (dK/dV).
+    f32 (``flash_bwd.cu``'s ``TfHopper``): the own 64-row f32 tiles at the
+    padded head dim (Q and dO; K and V), a ring of raw streamed tiles (2
+    stages in the dQ pass up to d = 128, else 1), their small terms, the
+    transposed big and small tiles of the block's output columns (K; Q and
+    dO), and D of the block's rows (dQ) or two tiles' lse and D rows
+    (dK/dV)."""
+    if not bf16:
+        dp = _f32_bwd_dp(d)
+        bn, oc = _bwd_tile(d, False), min(dp, 64)
+        own, tile, tt = _ROW_TILE * dp * 4, bn * dp * 4, oc * 128
+        st_dq, st_dkv = (2 if dp <= 128 else 1), 1
+        dq = 2 * own + st_dq * 2 * tile + 2 * tile + 2 * tt + 4 * _ROW_TILE \
+            + 8 * (1 + 2 * st_dq) + 1024
+        dkv = 2 * own + st_dkv * 2 * tile + 2 * tile + 4 * tt + 2 * 2 * bn * 4 \
+            + 8 * (1 + 2 * st_dkv) + 1024
+        return dq, dkv
     dp = _cdiv(d, 64) * 64
     stages = 3 if dp <= 128 else 2
     tile = _ROW_TILE * dp * 2
@@ -301,10 +335,11 @@ def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
 
 
 def _tma_geometry(t: torch.Tensor, rows: int):
-    """The 4-D tensor map through which a bf16 kernel reads or writes ``t``, a
-    ``(B, H, N, d)`` tensor: ``(dims, strides, box)`` with dims ``(d, N, H,
-    B)`` innermost first, the byte strides of N, H and B, and the box one
-    TMA load fills, ``(64, rows)`` (64 columns: one 128-byte swizzled row).
+    """The 4-D tensor map through which a kernel reads or writes ``t``, a
+    ``(B, H, N, d)`` bf16 or f32 tensor: ``(dims, strides, box)`` with dims
+    ``(d, N, H, B)`` innermost first, the byte strides of N, H and B, and
+    the box one TMA load fills, ``(cols, rows)`` with cols one 128-byte
+    swizzled row (64 bf16, 32 f32).
     None where TMA cannot describe ``t``: the last axis strided, data not
     16-byte aligned, or a byte stride that is not a positive multiple of 16
     below 2**40."""
@@ -315,7 +350,7 @@ def _tma_geometry(t: torch.Tensor, rows: int):
     if sd != 1 or t.data_ptr() % 16 \
             or any(st <= 0 or st % 16 or st >= 1 << 40 for st in strides):
         return None
-    return (d, N, H, B), strides, (_TMA_BOX_COLS, rows)
+    return (d, N, H, B), strides, (_TMA_ROW_BYTES // es, rows)
 
 
 def _strides(*ts: torch.Tensor) -> array.array:
@@ -385,8 +420,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cotangent ``dout``, from the forward's ``out`` and ``lse``. All of
     q, k, v, out, dout ``(B, H, N, d)`` in one dtype; lse f32 ``(B, H, N)``.
     A tensor whose last axis is not contiguous is copied; any other strides
-    that a tensor map (bf16) or the f32 kernels describe go to the kernel as
-    they are."""
+    that a tensor map describes go to the kernel as they are."""
     _check_inputs(q, k, v, out, dout)
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
             or lse.device != q.device:
@@ -403,18 +437,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
     ins = (q, k, v, out, dout)
-    # every tile of the backward, own or streamed, is 64 rows (_bwd_tile):
-    # one tensor map a tensor
-    rows = _bwd_tile(d)
-    if bf16:
-        geos = [_tma_geometry(t, rows) for t in ins]
-        padded = d % 8 != 0 or None in geos
-    else:
-        padded = not _tc_aligned(*ins)
-    if padded:
+    # every box of the backward's maps, own tile or streamed, is _bwd_tile
+    # rows: one tensor map a tensor
+    rows = _bwd_tile(d, bf16)
+    geos = [_tma_geometry(t, rows) for t in ins]
+    padded = d % _row_elems(q) != 0 or None in geos
+    if padded:      # a contiguous copy always has a tensor map
         q, k, v, out, dout = ins = tuple(_pad_head_dim(t) for t in ins)
-        if bf16:    # a contiguous copy always has a tensor map
-            geos = [_tma_geometry(t, rows) for t in ins]
+        geos = [_tma_geometry(t, rows) for t in ins]
     dp = q.shape[-1]
     splits = _long_splits(B, H, N, d, bf16)[1]
     dq, dk, dv = (_heads_view(B, H, N, dp, q) for _ in range(3))
@@ -422,18 +452,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # partial dQ, dK and dV, each (B*H, S, N, dp), of the split route
     part, part_ptr = _partials(3 * B * H * N * dp, splits, q)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
-    tma = None
-    if bf16:        # the tensor maps of q, k, v, out, dout, dq, dk and dv
-        geos += [_tma_geometry(t, rows) for t in (dq, dk, dv)]
-        tma = array.array("q", [x for g in geos for f in g for x in f])
+    # the tensor maps of q, k, v, out, dout, dq, dk and dv
+    geos += [_tma_geometry(t, rows) for t in (dq, dk, dv)]
+    tma = array.array("q", [x for g in geos for f in g for x in f])
     lib = _bwd_library()
     status = lib.dfdt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, N, dp, int(bf16),
         strides.buffer_info()[0], scale, splits, part_ptr,
-        torch.cuda.current_stream(q.device).cuda_stream,
-        None if tma is None else tma.buffer_info()[0])
+        torch.cuda.current_stream(q.device).cuda_stream, tma.buffer_info()[0])
     _build.check(lib, status, "flash_attention_bwd")
     with _count_lock:
         flash_attention_bwd.launches += 1
@@ -453,7 +481,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # package's streaming kernels (K3 forward, K5/K6 backward);
 # ``launches_split`` those that took the split route (S > 1, with its
 # combine or reduce kernel); ``launches_f32`` those of f32 inputs (the
-# 3xTF32 kernels); ``launches`` counts them all, ``launches_by_device`` by
+# 3xTF32 kernels: the forward's mma.sync kernel, the backward's Hopper
+# passes); ``launches`` counts them all, ``launches_by_device`` by
 # card index (a dict, emptied by callers).
 for _f in (flash_attention_fwd, flash_attention_bwd):
     _f.launches = _f.launches_long = _f.launches_split = _f.launches_f32 = 0
