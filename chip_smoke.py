@@ -52,8 +52,7 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
    f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
    route (``splits`` > 1: split kernels, then the combine or reduce
-   kernel; both bf16 routes and the f32 backward are Hopper kernels,
-   ``ROUTES``);
+   kernel; every route is Hopper kernels, ``ROUTES``);
    every main-path case is bf16. Then the split sweep: the long-N calls'
    device time at every split count, beside the policy's.
 8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
@@ -322,18 +321,10 @@ K4_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:209"
 K5_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:85"
 K6_REPLACES = "deepfake_video_detection_tpu/ops/attention.py:119"
 
-# each flash source routes by dtype between hand-written kernels: bf16 to
-# the Hopper kernels (TMA loads, mbarriers, wgmma); f32 to 3xTF32, the
-# forward on mma.sync, the backward on the Hopper kernels' parts (tf32 wgmma)
+# each flash source routes by dtype between hand-written Hopper kernels
+# (TMA loads, mbarriers, wgmma): bf16 products, or f32 as 3xTF32 on tf32 wgmma
 ROUTES = {"bf16": "Hopper bf16: TMA, mbarriers, wgmma",
-          "f32 fwd": "tensor-core 3xTF32: mma.sync, cp.async",
-          "f32 bwd": "Hopper 3xTF32: TMA, mbarriers, tf32 wgmma"}
-
-
-def _route(direction: str, dtype: str) -> str:
-    """The route a flash call takes: ``direction`` "fwd" or "bwd", ``dtype``
-    "bf16" or "f32"."""
-    return ROUTES["bf16" if dtype == "bf16" else f"f32 {direction}"]
+          "f32": "Hopper 3xTF32: TMA, mbarriers, tf32 wgmma"}
 # the flash kernels' bound by dtype: f32 is bound by the tensor cores' rate
 # for 3xTF32, the old CUDA-core figure is kept beside it (bound_ms_cuda_core)
 FLASH_PEAK = {"bf16": "bf16", "f32": "tf32x3"}
@@ -653,12 +644,11 @@ def _session_device_ms(torch, fn, iters: int = 20):
 
 def _flash_kernels(direction: str, dtype: str, splits: int) -> list:
     """The kernels one flash call launches, by name: f32 runs the 3xTF32
-    kernels (the backward's on tf32 wgmma), bf16 the Hopper ones (TMA and
-    wgmma), unsplit (S = 1) or split with the combine (forward) or reduce
-    (backward) kernel."""
+    Hopper kernels (tf32 wgmma), bf16 the bf16 ones, unsplit (S = 1) or
+    split with the combine (forward) or reduce (backward) kernel."""
     if direction == "fwd":
         if dtype == "f32":
-            return ["flash_fwd_tf32_kernel"]
+            return ["flash_fwd_tf32_wgmma_kernel"]
         if splits == 1:
             return ["flash_fwd_bf16_wgmma_kernel"]
         return ["flash_fwd_split_bf16_wgmma_kernel", "flash_fwd_combine_kernel"]
@@ -699,11 +689,11 @@ def _ptxas_stats(log: str) -> list:
 TC_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)(_wgmma)?_kernel"
                        r"|flash_(fwd_combine|bwd_reduce)_kernel")
 TC_KERNELS_D64 = 11
-# the Hopper kernels (bf16 forward 2, bf16 backward 4, f32 backward 2),
-# whose SASS must hold wgmma products (HGMMA: tf32 wgmma is HGMMA too) and
-# TMA loads (UTMALDG)
+# the Hopper kernels (bf16 forward 2, bf16 backward 4, f32 forward 1, f32
+# backward 2), whose SASS must hold wgmma products (HGMMA: tf32 wgmma is
+# HGMMA too) and TMA loads (UTMALDG)
 HOPPER_KERNEL = re.compile(r"flash_(fwd|bwd_dq|bwd_dkv)(_split)?_(bf16|tf32)_wgmma_kernel")
-HOPPER_KERNELS_D64 = 8
+HOPPER_KERNELS_D64 = 9
 HOPPER_OPCODES = ("HGMMA", "UTMALDG")
 
 
@@ -728,8 +718,8 @@ def sass_counts(lib_path, opcodes=HOPPER_OPCODES) -> dict:
 def check_build(build_log: dict) -> list:
     """The tensor-core flash kernels at d = 64 (every main path: bf16 and
     the f32 training step) and the split route's combine and reduce kernels
-    spill nothing, the Hopper kernels at d = 64 (the bf16 forward and
-    backward, the f32 backward) hold HGMMA and UTMALDG instructions, and
+    spill nothing, the Hopper kernels at d = 64 (the forward and backward
+    of both dtypes) hold HGMMA and UTMALDG instructions, and
     ptxas serialized the products of neither source; returns their ptxas records (with their dynamic
     shared memory and SASS counts for the Hopper kernels)."""
     from deepfake_video_detection_tpu_torch.ops import _build
@@ -749,9 +739,9 @@ def check_build(build_log: dict) -> list:
     for st in tc:
         m = HOPPER_KERNEL.search(st["kernel"])
         if m:
-            st["dynamic_smem_bytes"] = (A._fwd_smem(64) if m.group(1) == "fwd" else
-                                        A._bwd_smem(64, m.group(3) == "bf16")[
-                                            m.group(1) == "bwd_dkv"])
+            bf16 = m.group(3) == "bf16"
+            st["dynamic_smem_bytes"] = (A._fwd_smem(64, bf16) if m.group(1) == "fwd" else
+                                        A._bwd_smem(64, bf16)[m.group(1) == "bwd_dkv"])
             st["sass"] = sass[st["source"]].get(st["function"], dict.fromkeys(HOPPER_OPCODES, 0))
         print(f"  ptxas[{st['source']}] {st['kernel']}: {st['registers']} registers, "
               f"{st['spill_stores']} bytes spill stores"
@@ -906,7 +896,7 @@ def check_k2(torch, A, gen):
         nbytes, ops = 4 * B * H * N * d * itemsize + 4 * B * H * N, 4.0 * B * H * N * N * d
         bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_fwd", "shape": [B, H, N, d],
-               "dtype": name, "route": _route("fwd", name), "splits": splits,
+               "dtype": name, "route": ROUTES[name], "splits": splits,
                "strided_qkv": strided, "note": note,
                "max_abs_err": err, "ref_max_abs": ref_max, "rel_err": err / ref_max,
                "tol": BF16_TOL_REL if name == "bf16" else K2_TOL_F32,
@@ -1022,7 +1012,7 @@ def check_k4(torch, A, gen):
         nbytes, ops = 8 * B * H * N * d * itemsize + 4 * B * H * N, 10.0 * B * H * N * N * d
         bound, by = _bound_ms(nbytes, ops, FLASH_PEAK[name])
         rec = {"kernel": "flash_attention_bwd", "shape": [B, H, N, d],
-               "dtype": name, "route": _route("bwd", name), "splits": splits,
+               "dtype": name, "route": ROUTES[name], "splits": splits,
                "strided": strided, "note": note,
                "max_abs_err": max(errs.values()), "errs": errs, "rel_errs": rel_errs,
                "tol": BF16_TOL_REL if name == "bf16" else K4_TOL_F32,
@@ -6137,9 +6127,7 @@ def main() -> int:
         if f32_case is not None:
             # the f32 route's launches beside the bf16 route's
             f32 = sum(c.get(kid, 0) for c in f32_paths.values())
-            direction = "fwd" if name.endswith("fwd") else "bwd"
-            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32,
-                                      _route(direction, "f32"): f32}
+            e["launches_by_route"] = {ROUTES["bf16"]: e["launches"] - f32, ROUTES["f32"]: f32}
             e["f32"] = {k: f32_case.get(k) for k in case_keys}
         # the legacy phase's shapes (3 or 6 heads), the conv-net training
         # phase's (the temporal model over B0: 4 heads, N = 17) and an

@@ -943,26 +943,6 @@ template <int DP> struct TfHopper {
   static constexpr size_t dkv_smem = DKV_BAR + (1 + 2 * DKV_ST) * 8 + 1024;
 };
 
-// Byte offset of element (r, c) of an f32 tile of `rows` rows as TMA stores
-// it: 32-column blocks of rows * 128 bytes, each row 128-byte swizzled.
-__device__ __forceinline__ uint32_t sw_f32(int r, int c, int rows) {
-  return (c >> 5) * rows * 128 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
-}
-
-// Rows [row0, row0 + ROWS_) of a tensor map into shared memory at dst: its
-// 32-column blocks one after another, each as ROWS_ / BN boxes of BN rows
-// (every f32 map has BN-row boxes), completing on bar.
-template <int DP, int ROWS_, int BN>
-__device__ __forceinline__ void load_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int row0, int h, int b) {
-#pragma unroll
-  for (int cb = 0; cb < DP / 32; ++cb)
-#pragma unroll
-    for (int rb = 0; rb < ROWS_ / BN; ++rb)
-      dfdt::tma_load_4d(dst + cb * ROWS_ * 128 + rb * BN * 128, map, bar, cb * 32, row0 + rb * BN,
-                        h, b);
-}
-
 // The byte offset of this thread's chunk `it` of a streamed tile in
 // split_tile's order: 64 chunks (8 rows x 8) a block of rows, two warps a
 // block, each warp rows 0-3 at even chunks and 4-7 at odd ones or the
@@ -1068,8 +1048,8 @@ __device__ __forceinline__ void own_products(float (&s)[BN / 8][4], float (&t)[B
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       const int col = (k0 + kk) * 8 + c;
-      const uint32_t o[4] = {sw_f32(r, col, 64), sw_f32(r + 8, col, 64), sw_f32(r, col + 4, 64),
-                             sw_f32(r + 8, col + 4, 64)};
+      const uint32_t o[4] = {dfdt::sw_f32(r, col, 64), dfdt::sw_f32(r + 8, col, 64),
+                             dfdt::sw_f32(r, col + 4, 64), dfdt::sw_f32(r + 8, col + 4, 64)};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         dfdt::split_tf32(dfdt::ld_shared_f32(a0 + o[e]), xb[kk][e], xs[kk][e]);
@@ -1165,7 +1145,7 @@ __device__ __forceinline__ void stage_f32(uint32_t dst, const float (&acc)[OC / 
     const int r = warp * 16 + lane / 4 + 8 * i;
 #pragma unroll
     for (int j = 0; j < OC / 8; ++j)
-      dfdt::st_shared_v2(dst + sw_f32(r, j * 8 + 2 * (lane % 4), 64), acc[j][2 * i] * mul,
+      dfdt::st_shared_v2(dst + dfdt::sw_f32(r, j * 8 + 2 * (lane % 4), 64), acc[j][2 * i] * mul,
                          acc[j][2 * i + 1] * mul);
   }
 }
@@ -1222,8 +1202,8 @@ flash_bwd_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_kv = [&](int i) {
     const int st = i % ST;
     dfdt::mbar_expect_tx(full(st), 2 * STR);
-    load_f32<DP, BN, BN>(ring + 2 * st * STR, &tk, full(st), i * BN, w.h, w.b);
-    load_f32<DP, BN, BN>(ring + (2 * st + 1) * STR, &tv, full(st), i * BN, w.h, w.b);
+    dfdt::load_f32<DP, BN, BN>(ring + 2 * st * STR, &tk, full(st), i * BN, w.h, w.b);
+    dfdt::load_f32<DP, BN, BN>(ring + (2 * st + 1) * STR, &tv, full(st), i * BN, w.h, w.b);
   };
   if (leader) {
     dfdt::tma_prefetch(&tq);
@@ -1239,9 +1219,9 @@ flash_bwd_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     dfdt::mbar_fence_init();
     dfdt::mbar_expect_tx(own_full, (C::O_TMA ? 3 : 2) * OWN);
-    load_f32<DP, 64, BN>(sQ, &tq, own_full, w.row0, w.h, w.b);
-    load_f32<DP, 64, BN>(sdO, &tdo, own_full, w.row0, w.h, w.b);
-    if (C::O_TMA) load_f32<DP, 64, BN>(sKs, &to, own_full, w.row0, w.h, w.b);
+    dfdt::load_f32<DP, 64, BN>(sQ, &tq, own_full, w.row0, w.h, w.b);
+    dfdt::load_f32<DP, 64, BN>(sdO, &tdo, own_full, w.row0, w.h, w.b);
+    if (C::O_TMA) dfdt::load_f32<DP, 64, BN>(sKs, &to, own_full, w.row0, w.h, w.b);
     for (int i = 0; i < ST && i < n; ++i) load_kv(i);
   }
   __syncthreads();
@@ -1409,8 +1389,8 @@ flash_bwd_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_q = [&](int i) {
     const int st = i % ST;
     dfdt::mbar_expect_tx(full(st), 2 * STR);
-    load_f32<DP, BN, BN>(ring + 2 * st * STR, &tq, full(st), i * BN, w.h, w.b);
-    load_f32<DP, BN, BN>(ring + (2 * st + 1) * STR, &tdo, full(st), i * BN, w.h, w.b);
+    dfdt::load_f32<DP, BN, BN>(ring + 2 * st * STR, &tq, full(st), i * BN, w.h, w.b);
+    dfdt::load_f32<DP, BN, BN>(ring + (2 * st + 1) * STR, &tdo, full(st), i * BN, w.h, w.b);
   };
   // by every thread: one lse (threads 0 .. BN-1) or D (BN .. 2BN-1) row of
   // tile i into its parity's rows, 0 past N; every thread arrives on the
@@ -1438,8 +1418,8 @@ flash_bwd_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     dfdt::mbar_fence_init();
     dfdt::mbar_expect_tx(own_full, 2 * OWN);
-    load_f32<DP, 64, BN>(sK, &tk, own_full, w.row0, w.h, w.b);
-    load_f32<DP, 64, BN>(sV, &tv, own_full, w.row0, w.h, w.b);
+    dfdt::load_f32<DP, 64, BN>(sK, &tk, own_full, w.row0, w.h, w.b);
+    dfdt::load_f32<DP, 64, BN>(sV, &tv, own_full, w.row0, w.h, w.b);
     for (int i = 0; i < ST && i < n; ++i) load_q(i);
   }
   __syncthreads();

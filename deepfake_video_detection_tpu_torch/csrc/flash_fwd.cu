@@ -88,39 +88,75 @@
 // kernel takes 48 registers.
 //
 // f32 (the training CLI's and the evaluator's default without --bf16; the
-// f32 gates are 1e-4 absolute on O, 1e-3 on lse) runs flash_fwd_tf32_kernel
-// at every N (f32 has no split route): K2's regime and, at N > 512, K3's.
-// Every product runs on the tensor cores as 3xTF32 (mma_tf32.cuh): each f32
-// operand split into two tf32 terms, three mma.m16n8k8 tf32 products for
-// one f32 product, f32 sums, so O keeps the error of f32 arithmetic (one
-// tf32 term misses 1e-4). What bounds it on an H100: at (128, 12, 197, 64)
-// it moves 311 MB (0.093 ms at 3.35 TB/s) and does 15.3 GFLOP, x 3 at
-// 495 TFLOP/s tf32 = 0.093 ms: both alike. In practice it is bound by
-// instruction issue: each operand element is split in registers (big
-// truncated, a subtraction, small rounded by two integer operations: four
-// instructions; cvt.rna.tf32.f32 for both terms, five each after ptxas,
-// took 47 % more time), and every product is three mma.sync. Design: one
-// block of 4 warps per (64-row query tile, b*h), each warp 16 query rows,
-// row tile fastest, the online softmax on the C fragments (softmax_tile),
-// with f32 tiles in shared memory,
-// rows padded to DP + 4 floats (DP = d rounded up to 32, 64, 128 or 256;
-// conflict-free for both kinds of read below): the Q tile once, K/V tiles of
-// 32 keys through a 2-stage 16-byte cp.async ring (64-key tiles took 2 blocks
-// an SM and were slower). Q and K fragments load by ldmatrix on f32 rows
-// with no transpose; V's by 32-bit loads, since ldmatrix.trans would cut
-// each f32 word in half. P goes from the accumulators into P.V as its A
-// operand with no shared memory: accumulator column 2t is taken as k = t and
-// 2t + 1 as k = t + 4, and V's rows are read in that order. Dynamic shared
-// memory (64 + 4 * 32) (DP + 4) * 4 bytes: 52,224 at d = 64. d must be a
-// multiple of 4 with 16-byte aligned rows (the wrapper's zero-padded copy
-// otherwise).
+// f32 gates are 1e-4 absolute on O, 1e-3 on lse) runs
+// flash_fwd_tf32_wgmma_kernel at every N (f32 has no split route): K2's
+// regime and, at N > 512, K3's. Every product is f32-accurate as 3xTF32 on
+// tf32 wgmma (mma_tf32.cuh): each operand split into big (x truncated to
+// tf32) and small (x - big rounded to tf32), a product taken k-step by
+// k-step as small.big + big.small + big.big with f32 sums, so O keeps the
+// error of f32 arithmetic (one tf32 term misses 1e-4). What bounds it on an
+// H100: at (128, 12, 197, 64) it moves 311 MB (0.093 ms at 3.35 TB/s) and
+// does 15.3 GFLOP, x 3 at 495 TFLOP/s tf32 = 0.093 ms: both alike; with the
+// tiles' padding (197 rows to 256, 197 keys to 224) the tensor cores do
+// ~1.5x that. In practice a block's time is latency: per key tile the
+// warpgroup splits K, transposes V and runs the softmax, ~3,700 cycles with
+// three blocks an SM (tools/flash_fwd_check.py --dtype f32 --trace,
+// PERF.md), where the tile's 72 products take ~770 at the tensor cores'
+// full rate. Design: one block per (64-row query tile, b*h), row tile
+// fastest, one warpgroup (128 threads) whose thread 0 sets up the
+// mbarriers and loads by TMA through f32 tensor maps (d, N, H, B) with the
+// caller's byte strides, boxes of 32 columns (one 128-byte swizzled row):
+// the Q tile once, then K/V tiles of 32 keys into a ring of 2 stages (1
+// above d = 128), K and V of a tile sharing a stage and its full mbarrier.
+// tf32 wgmma reads shared memory K-major only, so: (1) Q lands K-major for
+// S = Q K^T; up to d = 64 it is split once a block, big into registers as
+// the A operand (32 registers) and small written back over the Q tile as
+// an A operand from shared memory, which brings the kernel to 146
+// registers and three blocks an SM (both terms in registers took 174, two
+// blocks and more time, PERF.md; bounded to 168, ptxas serialized the
+// products);
+// above d = 64 both terms are read and split 2 k-steps at a time (1 at
+// d = 256) while the group before runs; (2) each K tile is split in shared
+// memory (big written back in place, explicitly truncated, small beside
+// it), the K-major B operand of S (split_k_tile); (3) each V tile lands
+// N-major, so the warpgroup writes it transposed into big and small tiles
+// (row n holds column n of V, its 32 keys in the relabelled order of an
+// accumulator A operand: accumulator column 2t as k = t, 2t + 1 as
+// k = t + 4), the K-major B operand of O += P V, whose A operands are P's
+// two terms split in registers from the accumulators (transpose_v_tile:
+// each lane gathers the 4 keys of one output chunk by 32-bit loads and
+// stores it whole, every address the same for every tile). S takes wgmma
+// m64n32k8 products, P V m64n64k8 (m64n32k8 at d = 32), a k-step's three
+// in the order small.big, big.small, big.big. The online softmax runs on
+// S's accumulators (online_softmax: ex2 on the scores times scale*log2(e)
+// folded into an FMA, lse back in the natural log on store). Each tile's
+// two splits overlap a product: at tile i the warpgroup forms P_i and
+// issues O += P_i V_i, splits K_{i+1} while it runs, issues S_{i+1} = Q
+// K_{i+1}^T, waits for P V and transposes V_{i+1} while S runs, then waits
+// for S; a named barrier after each split (and before the V transpose
+// overwrites V_i's) stands for the stage's empty mbarrier, so thread 0
+// refills the stage at once. No group is in flight across the loop's back
+// edge. S_{i+1} is issued after tile i's softmax, not before it as in the
+// bf16 kernel: a split must land before the product that reads it, and
+// this order hides both splits, the larger phases, under a product each.
+// The V transpose is a call (__noinline__): every inlined form of the loop
+// tried made ptxas (CUDA 12.9) exit with a segmentation fault. Keys past N
+// arrive as TMA's zero fill and the tile that holds key N - 1 masks
+// them (its products still run every k-step); O goes out through the Q
+// tile's shared memory (free by then) by TMA stores, which drop rows past N
+// and columns past d. Dynamic shared memory at d = 64: 64 * 256 (Q) + 2 * 2
+// * 32 * 256 (the ring) + 32 * 256 (K's small term) + 2 * 64 * 128 (V^T's
+// terms) + 24 bytes of barriers + 1 KB to align the base: 74,776 bytes.
+// The wrapper hands over d a multiple of 4 with 16-byte row strides (a
+// zero-padded copy otherwise).
 //
 // Both: there is no grouping of heads per program (_short_group): it existed
 // because a TPU grid runs in sequence, while this grid fills the 132 SMs in
 // parallel (at N > 512 the f32 grid is as short of blocks as the bf16 one
-// was before its split route). O is written through element strides for the
-// B, H and N axes; the f32 kernel reads Q, K and V through them as well (the
-// last axis contiguous), the bf16 kernels through their tensor maps.
+// was before its split route). Every kernel reads Q, K and V through tensor
+// maps; O is written through a tensor map too, but for the split route's
+// combine kernel, which writes it through element strides for the B, H and
+// N axes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -142,8 +178,8 @@ struct Strides {
   long long b, h, n;
 };
 
-// The online-softmax update of one tile for one warp, on the C fragments
-// s of its scores (both dtypes' tile bodies): LAST masks keys >= N to -1e30;
+// The online-softmax update of one tile for one warp, on the accumulator
+// fragments s of its scores (both dtypes' tile bodies): LAST masks keys >= N to -1e30;
 // the max is taken on the raw scores (sl2 > 0) and the scale folds into the
 // exponent's FMA; m (log2 units) and l are rescaled, alpha is the factor
 // for the accumulator, and s becomes P.
@@ -187,19 +223,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m)[2],
     }
 }
 
-// online_softmax and the accumulator's rescale, for the f32 kernel's warps
-template <int NT, int DP, bool LAST>
-__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[DP / 8][4],
-                                             float (&m)[2], float (&l)[2], int key0, int N,
-                                             float sl2, int tq) {
-  float alpha[2];
-  online_softmax<NT, LAST>(s, m, l, alpha, key0, N, sl2, tq);
-#pragma unroll
-  for (int jd = 0; jd < DP / 8; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
-}
-
 // ---- bf16: the Hopper kernel (TMA, mbarriers, wgmma, a producer warp) ----
 
 template <int DP> struct HopperFwd {
@@ -220,21 +243,48 @@ template <int DP> struct HopperFwd {
 };
 
 // Cycle marks of a block's phases, kept only in the build that
-// tools/flash_fwd_check.py --trace makes (-DDFDT_FWD_TRACE): consumer thread
-// 0 of each block stores clock64() at entry (0), once Q and the first K
-// tile have arrived (1), once the first S is done (2), after the tile loop
-// (3), after the last P.V (4) and after the epilogue (5).
+// tools/flash_fwd_check.py --trace makes (-DDFDT_FWD_TRACE): thread 0 of
+// each block stores clock64() at entry (0), once Q and the first K tile have
+// arrived (1), once the first S is done (2), after the tile loop (3), after
+// the last P.V (4) and after the epilogue (5). The f32 kernel also sums, over
+// the tiles after the first, the cycles of four phases of a tile (6-9): the
+// softmax, P's split and the issue of P.V; the wait for the next K/V tile,
+// K's split and the issue of S; the wait for P.V and V's transpose; the wait
+// for S, the barrier and the refill.
 #ifdef DFDT_FWD_TRACE
 constexpr int kTraceBlocks = 1 << 16;
-__device__ long long g_fwd_trace[kTraceBlocks][6];
+constexpr int kTraceSlots = 10;
+__device__ long long g_fwd_trace[kTraceBlocks][kTraceSlots];
 #define FWD_MARK(k)                                    \
   do {                                                 \
     if (threadIdx.x == 0 && blockIdx.x < kTraceBlocks) \
       g_fwd_trace[blockIdx.x][k] = clock64();          \
   } while (0)
+#define FWD_PHASES long long fwd_t = clock64(), fwd_ph[4] = {0, 0, 0, 0}
+#define FWD_PHASE(k)                     \
+  do {                                   \
+    const long long fwd_now = clock64(); \
+    fwd_ph[k] += fwd_now - fwd_t;        \
+    fwd_t = fwd_now;                     \
+  } while (0)
+#define FWD_PHASES_STORE                                                \
+  do {                                                                  \
+    if (threadIdx.x == 0 && blockIdx.x < kTraceBlocks)                  \
+      for (int fwd_k = 0; fwd_k < 4; ++fwd_k)                           \
+        g_fwd_trace[blockIdx.x][6 + fwd_k] = fwd_ph[fwd_k];             \
+  } while (0)
 #else
 #define FWD_MARK(k) \
   do {              \
+  } while (0)
+#define FWD_PHASES \
+  do {             \
+  } while (0)
+#define FWD_PHASE(k) \
+  do {               \
+  } while (0)
+#define FWD_PHASES_STORE \
+  do {                   \
   } while (0)
 #endif
 
@@ -608,173 +658,426 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const long
   return (int)cudaGetLastError();
 }
 
-// ---- f32: the 3xTF32 tensor-core kernel ----
+// ---- f32: 3xTF32 on Hopper (TMA, mbarriers, tf32 wgmma) ----
 
+// The f32 forward's geometry at padded head dim DP (32, 64, 128 or 256):
+// one warpgroup a 64-row query tile, K/V tiles of 32 keys.
 template <int DP> struct TfFwd {
-  static constexpr int THREADS = 128;  // 4 warps of 16 query rows
-  static constexpr int BM = 64;        // query rows per block
-  static constexpr int BN = 32;        // keys per K/V tile (64 was slower)
-  static constexpr int LD = DP + 4;    // floats per shared-memory row
-  static constexpr size_t smem = sizeof(float) * (BM + 4 * BN) * LD;
+  static constexpr int THREADS = 128;
+  static constexpr int BM = 64;                   // query rows per block
+  static constexpr int BN = 32;                   // keys per K/V tile (one 128-byte row of V^T)
+  static constexpr int ST = DP <= 128 ? 2 : 1;    // stages of the K/V ring
+  static constexpr int NB = DP < 64 ? DP : 64;    // columns of one P.V product
+  // up to d = 64 Q is split once: big kept in registers, small written over
+  // its tile (an A operand from shared memory), so that three blocks fit an
+  // SM; above, both terms are read and split KC k-steps a group
+  static constexpr bool QREG = DP <= 64;
+  static constexpr int KC = DP <= 128 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = QREG ? 3 : 1;  // blocks an SM the registers must allow
+  static constexpr int QN = QREG ? DP / 8 : 2 * KC;  // k-steps of Q's terms in registers
+  static constexpr uint32_t Q_BYTES = BM * DP * 4;
+  static constexpr uint32_t TILE = BN * DP * 4;   // a K or V tile
+  static constexpr uint32_t VT = DP * 128;        // V^T's big or small term: DP rows of 128 bytes
+  // Q | the ring (K, V a stage) | K's small term | V^T big, small | barriers:
+  // Q full, full x ST
+  static constexpr uint32_t RING = Q_BYTES;
+  static constexpr uint32_t KS = RING + ST * 2 * TILE;
+  static constexpr uint32_t VTB = KS + TILE;
+  static constexpr uint32_t BAR = VTB + 2 * VT;
+  static constexpr size_t smem = BAR + (1 + ST) * 8 + 1024;  // + alignment of the base
 };
 
-// One K/V tile for one warp, in f32 by 3xTF32 (mma_tf32.cuh): S = Q K^T,
-// the online-softmax update, acc += P V. LAST (the tile that holds key
-// N - 1) masks keys >= N and skips the steps wholly at or past N.
-template <int DP, int BN, bool LAST>
-__device__ __forceinline__ void fwd_tile_tf32(float (&acc)[DP / 8][4], float (&m)[2],
-                                              float (&l)[2], uint32_t wQ, uint32_t tK,
-                                              const float* tV, int key0, int N, float sl2,
-                                              int tq) {
-  constexpr int LD = DP + 4, NT = BN / 8;
-  const int kv = LAST ? N - key0 : BN;  // live keys of this tile
-
-  // S = Q K^T, the k-steps outermost so each Q fragment is split once a tile
-  float s[NT][4] = {};
+// K's tile (32 rows at kt, as TMA landed it) split for 3xTF32 by the
+// warpgroup: big (x truncated to tf32) written back in place, small at ks,
+// the same layout: the K-major B operand of S = Q K^T. Thread t takes the
+// 16-byte chunks t + 128 i, G at a time (all read before the first write:
+// the accesses are ordered asm), so a warp's 8 lanes take a 128-byte row.
+// (flash_bwd.cu's split_tile, which holds all of a thread's chunks at once,
+// took 28 % more time at d = 256 here, PERF.md.)
+template <int DP>
+__device__ __forceinline__ void split_k_tile(uint32_t kt, uint32_t ks) {
+  constexpr int IT = 32 * DP / 4 / 128;  // chunks a thread
+  constexpr int G = IT < 4 ? IT : 4;
 #pragma unroll
-  for (int kd = 0; kd < DP / 8; ++kd) {
-    uint32_t r[4];
-    dfdt::ldsm_x4(r, wQ + kd * 32);
-    dfdt::FragA a;
-    dfdt::split_a(a, r);
+  for (int i0 = 0; i0 < IT; i0 += G) {
+    float4 x[G];
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      if (!LAST || np * 16 < kv) {
-        uint32_t bk[4];
-        dfdt::ldsm_x4(bk, tK + 4 * (np * 16 * LD + kd * 8));
-        dfdt::FragB b0, b1;
-        dfdt::split_b(b0, __uint_as_float(bk[0]), __uint_as_float(bk[1]));
-        dfdt::split_b(b1, __uint_as_float(bk[2]), __uint_as_float(bk[3]));
-        dfdt::mma_3xtf32(s[2 * np], a, b0);
-        dfdt::mma_3xtf32(s[2 * np + 1], a, b1);
-      }
-    }
-  }
-
-  softmax_tile<NT, DP, LAST>(s, acc, m, l, key0, N, sl2, tq);
-
-  // acc += P V: P from the accumulators in the relabelled k order, V's B
-  // fragments by 32-bit reads of rows 2t and 2t + 1
+    for (int i = 0; i < G; ++i) x[i] = dfdt::ld_shared_v4(kt + (threadIdx.x + (i0 + i) * 128) * 16);
 #pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    if (!LAST || kk * 8 < kv) {
-      dfdt::FragA a;
-      dfdt::c_to_a_tf32<NT>(a, s, kk);
-#pragma unroll
-      for (int jd = 0; jd < DP / 8; ++jd) {
-        dfdt::FragB b;
-        dfdt::load_b_kn<LD>(b, tV, kk, jd);
-        dfdt::mma_3xtf32(acc[jd], a, b);
-      }
+    for (int i = 0; i < G; ++i) {
+      const uint32_t off = (threadIdx.x + (i0 + i) * 128) * 16;
+      uint32_t big[4], small[4];
+      dfdt::split_tf32(x[i].x, big[0], small[0]);
+      dfdt::split_tf32(x[i].y, big[1], small[1]);
+      dfdt::split_tf32(x[i].z, big[2], small[2]);
+      dfdt::split_tf32(x[i].w, big[3], small[3]);
+      dfdt::st_shared_v4(kt + off, big[0], big[1], big[2], big[3]);
+      dfdt::st_shared_v4(ks + off, small[0], small[1], small[2], small[3]);
     }
   }
 }
 
-// One block per (64-row query tile, b*h), row tile fastest: Q once, then
-// every K/V tile through the 2-stage cp.async ring; O and lse in f32.
+// V's tile (32 keys at vt, as TMA landed it) written transposed as its two
+// tf32 terms: row c of tb (big) and of ts (small) holds column c of V, its
+// 32 keys in the relabelled k order (key 8j + 2u at k-step j's position u,
+// 8j + 2u + 1 at u + 4), 128-byte swizzled: the K-major B operand of O +=
+// P V. A unit is one 32-column block, one k-step j and one parity of keys;
+// warp w takes units w + 4 i, each lane one column: the 4 keys of its
+// column (32-bit loads: the 32 lanes on 32 banks), split, go out as one
+// 16-byte chunk of each term (8 lanes on 8 chunks). Every address is the
+// same for every tile: a base and constant offsets. G units are read before
+// the first of them is written. A call, not inlined: see the header.
 template <int DP>
-__global__ void __launch_bounds__(TfFwd<DP>::THREADS)
-flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
-                      int H, int N, int d, float scale) {
+__device__ __noinline__ void transpose_v_tile(uint32_t vt, uint32_t tb, uint32_t ts) {
+  constexpr int IT = DP / 16;  // units a warp
+  constexpr int G = IT < 4 ? IT : 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, p = warp & 1;
+  // key 8j + 2u + p of this lane's column, less the unit's offset
+  uint32_t src[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    src[u] = vt + (2 * u + p) * 128 + (((lane >> 2) ^ (2 * u + p)) << 4) + (lane & 3) * 4;
+  // unit warp + 4 i: p, k-step j and column block in bits 0, 1-2 and 3 on
+  auto keys = [&](int i) { return (((warp + 4 * i) >> 3) * 32 + ((warp + 4 * i) >> 1 & 3) * 8); };
+#pragma unroll
+  for (int i0 = 0; i0 < IT; i0 += G) {
+    float x[G][4];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) x[i][u] = dfdt::ld_shared_f32(src[u] + keys(i0 + i) * 128);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int unit = warp + 4 * (i0 + i), j = unit >> 1 & 3;
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dfdt::split_tf32(x[i][u], big[u], small[u]);
+      const uint32_t to = ((unit >> 3) * 32 + lane) * 128 + (((2 * j + p) ^ (lane & 7)) << 4);
+      dfdt::st_shared_v4(tb + to, big[0], big[1], big[2], big[3]);
+      dfdt::st_shared_v4(ts + to, small[0], small[1], small[2], small[3]);
+    }
+  }
+}
+
+// One block per (64-row query tile, b*h), row tile fastest: O = softmax(Q
+// K^T scale) V and lse over every key tile, in f32 (the design: the header).
+template <int DP>
+__global__ void __launch_bounds__(TfFwd<DP>::THREADS, TfFwd<DP>::MIN_BLOCKS)
+flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+                            int H, int N, float scale) {
+  FWD_MARK(0);
   using C = TfFwd<DP>;
-  constexpr int BN = C::BN, LD = C::LD;
+  constexpr int BN = C::BN, ST = C::ST, NB = C::NB, CBO = DP / NB, NT = BN / 8, KC = C::KC;
+  constexpr uint32_t TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + C::BM * LD;   // two stages
-  float* sV = sK + 2 * BN * LD;  // two stages
+  const uint32_t base = (dfdt::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, ring = base + C::RING, sKs = base + C::KS;
+  const uint32_t sVtb = base + C::VTB, sVts = sVtb + C::VT;
+  const uint32_t q_full = base + C::BAR;
+  auto full = [&](int st) { return q_full + 8 + 8 * st; };
 
   const dfdt::Work w = dfdt::block_work<C::BM, BN>(N, 1);
   const int b = w.bh / H;
   const int h = w.bh % H;
-  const int row0 = w.row0;
+  const int n = w.t1;  // key tiles
+  const bool leader = threadIdx.x == 0;
+  // K/V tile i into its stage (free: the caller has passed the barrier
+  // after the stage's last reader)
+  auto load_kv = [&](int i) {
+    const uint32_t kt = ring + 2 * (i % ST) * TILE;
+    dfdt::mbar_expect_tx(full(i % ST), 2 * TILE);
+    dfdt::load_f32<DP, BN, BN>(kt, &tk, full(i % ST), i * BN, h, b);
+    dfdt::load_f32<DP, BN, BN>(kt + TILE, &tv, full(i % ST), i * BN, h, b);
+  };
+  if (leader) {
+    dfdt::tma_prefetch(&tq);
+    dfdt::tma_prefetch(&tk);
+    dfdt::tma_prefetch(&tv);
+    dfdt::tma_prefetch(&to);
+    dfdt::mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) dfdt::mbar_init(full(st), 1);
+    dfdt::mbar_fence_init();
+    dfdt::mbar_expect_tx(q_full, C::Q_BYTES);
+    dfdt::load_f32<DP, C::BM, C::BM>(sQ, &tq, q_full, w.row0, h, b);
+    for (int i = 0; i < ST && i < n; ++i) load_kv(i);
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int tq = lane % 4;
-  const bool active = row0 + warp * 16 < N;
-
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  dfdt::tile_async<DP, LD, C::BM, C::THREADS>(sQ, q + b * sq.b + h * sq.h, sq.n, row0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sK, kb, sk.n, 0, N, d);
-  dfdt::tile_async<DP, LD, BN, C::THREADS>(sV, vb, sv.n, 0, N, d);
-  dfdt::cp_async_commit();
-
+  const int tq4 = lane % 4;
   const float sl2 = scale * kLog2e;
   float m[2] = {kNegBig, kNegBig};  // running max, log2 units, rows g and g + 8
   float l[2] = {0.f, 0.f};          // this lane's part of the running sum
-  float acc[DP / 8][4] = {};
-  const uint32_t wQ = dfdt::smem_u32(sQ + warp * 16 * LD) + dfdt::a_off_f32<LD>(lane);
-  const int n_tiles = (N + BN - 1) / BN;
+  float alpha[2];
+  float acc[CBO][NB / 8][4] = {};   // O, NB columns of d at a time
+  float s[NT][4];                   // S, then P, of one key tile
+  uint32_t pb[NT][4], ps[NT][4];    // P's terms as the A operands of its k-steps
+  uint32_t qb[C::QN][4], qs[C::QREG ? 1 : C::QN][4];  // Q's terms as A operands
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sK + (st ^ 1) * BN * LD, kb, sk.n,
-                                                   (t + 1) * BN, N, d);
-      dfdt::tile_async<DP, LD, BN, C::THREADS>(sV + (st ^ 1) * BN * LD, vb, sv.n,
-                                                   (t + 1) * BN, N, d);
-      dfdt::cp_async_commit();
-      dfdt::cp_async_wait<1>();
+  // Q's A operands of k-steps [k0, k0 + cnt) into slots [slot, slot + cnt),
+  // read from its tile and split (above d = 64)
+  auto load_q = [&](int k0, int slot, int cnt) {
+    const int r = warp * 16 + lane / 4;
+#pragma unroll
+    for (int kk = 0; kk < cnt; ++kk) {
+      const int col = (k0 + kk) * 8 + tq4;
+      const uint32_t o[4] = {dfdt::sw_f32(r, col, 64), dfdt::sw_f32(r + 8, col, 64),
+                             dfdt::sw_f32(r, col + 4, 64), dfdt::sw_f32(r + 8, col + 4, 64)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dfdt::split_tf32(dfdt::ld_shared_f32(sQ + o[e]), qb[slot + kk][e], qs[slot + kk][e]);
+    }
+  };
+  // Q's big terms into registers and its small terms over its tile, in place
+  auto split_q = [&]() {
+    const int r = warp * 16 + lane / 4;
+    uint32_t o[DP / 8][4];
+    float x[DP / 8][4];
+#pragma unroll
+    for (int kd = 0; kd < DP / 8; ++kd) {
+      const int col = kd * 8 + tq4;
+      o[kd][0] = dfdt::sw_f32(r, col, 64);
+      o[kd][1] = dfdt::sw_f32(r + 8, col, 64);
+      o[kd][2] = dfdt::sw_f32(r, col + 4, 64);
+      o[kd][3] = dfdt::sw_f32(r + 8, col + 4, 64);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[kd][e] = dfdt::ld_shared_f32(sQ + o[kd][e]);
+    }
+#pragma unroll
+    for (int kd = 0; kd < DP / 8; ++kd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t small;
+        dfdt::split_tf32(x[kd][e], qb[kd][e], small);
+        dfdt::st_shared_b32(sQ + o[kd][e], small);
+      }
+  };
+  // the three products of k-step kd of S = Q K^T, Q's big term in slot q
+  // (its small term in slot q, or over its tile), K's big in place at kt,
+  // its small term at sKs
+  auto s_kstep = [&](uint32_t kt, int kd, int q) {
+    const uint32_t off = ((kd / 4) * BN * 128 + (kd % 4) * 32) >> 4;
+    const uint64_t db = dfdt::desc_sw128(kt, 16, 1024) + off;
+    const uint64_t ds = dfdt::desc_sw128(sKs, 16, 1024) + off;
+    if constexpr (C::QREG) {
+      static_assert(BN == 32, "Q's small term enters m64n32k8 products");
+      const uint32_t qoff = ((kd / 4) * C::BM * 128 + (kd % 4) * 32) >> 4;
+      dfdt::wgmma_tf32_ss_n32(s, dfdt::desc_sw128(sQ, 16, 1024) + qoff, db, kd > 0);
     } else {
-      dfdt::cp_async_wait<0>();
+      dfdt::wgmma_tf32<BN>(s, qs[q], db, kd > 0);
     }
-    __syncthreads();
+    dfdt::wgmma_tf32<BN>(s, qb[q], ds, 1);
+    dfdt::wgmma_tf32<BN>(s, qb[q], db, 1);
+  };
+  // S = Q K^T of the split K tile at kt: one group, or (Q read from its
+  // tile) a group of KC k-steps at a time, the next KC read and split while
+  // one runs
+  auto issue_s = [&](uint32_t kt) {
+    if constexpr (C::QREG) {
+      dfdt::fence_regs(s);
+      dfdt::wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < DP / 8; ++kd) s_kstep(kt, kd, kd);
+      dfdt::wgmma_commit();
+    } else {
+      load_q(0, 0, KC);
+#pragma unroll
+      for (int g = 0; g < DP / 8 / KC; ++g) {
+        const int u = (g & 1) * KC;
+        dfdt::fence_regs(s);
+        dfdt::fence_regs(qb);
+        dfdt::fence_regs(qs);
+        dfdt::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) s_kstep(kt, g * KC + kk, u + kk);
+        dfdt::wgmma_commit();
+        if (g + 1 < DP / 8 / KC) {
+          dfdt::wgmma_wait<1>();  // group g - 1, the last reader of the other slots, is done
+          dfdt::fence_regs(qb);
+          dfdt::fence_regs(qs);
+          load_q((g + 1) * KC, KC - u, KC);
+        }
+      }
+    }
+  };
+  // O += P V: P's terms (pb, ps) from registers, V^T's from shared memory,
+  // NB columns a product; one group
+  auto issue_pv = [&]() {
+#pragma unroll
+    for (int cb = 0; cb < CBO; ++cb) dfdt::fence_regs(acc[cb]);
+    dfdt::fence_regs(pb);
+    dfdt::fence_regs(ps);
+    dfdt::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int cb = 0; cb < CBO; ++cb) {
+        const uint32_t off = (cb * NB * 128 + j * 32) >> 4;
+        const uint64_t db = dfdt::desc_sw128(sVtb, 16, 1024) + off;
+        const uint64_t ds = dfdt::desc_sw128(sVts, 16, 1024) + off;
+        dfdt::wgmma_tf32<NB>(acc[cb], ps[j], db, 1);
+        dfdt::wgmma_tf32<NB>(acc[cb], pb[j], ds, 1);
+        dfdt::wgmma_tf32<NB>(acc[cb], pb[j], db, 1);
+      }
+    dfdt::wgmma_commit();
+  };
+  auto retire_pv = [&]() {
+#pragma unroll
+    for (int cb = 0; cb < CBO; ++cb) dfdt::fence_regs(acc[cb]);
+    dfdt::fence_regs(pb);
+    dfdt::fence_regs(ps);
+  };
 
-    if (active) {
-      const uint32_t tK = dfdt::smem_u32(sK + st * BN * LD) + dfdt::bn_off_f32<LD>(lane);
-      const float* tV = sV + st * BN * LD + dfdt::bk_off_f32<LD>(lane);
-      if ((t + 1) * BN <= N)
-        fwd_tile_tf32<DP, BN, false>(acc, m, l, wQ, tK, tV, t * BN, N, sl2, tq);
-      else
-        fwd_tile_tf32<DP, BN, true>(acc, m, l, wQ, tK, tV, t * BN, N, sl2, tq);
+  // Q's terms (up to d = 64), the first tile's splits and its S
+  dfdt::mbar_wait(q_full, 0);
+  if constexpr (C::QREG) split_q();
+  dfdt::mbar_wait(full(0), 0);
+  FWD_MARK(1);
+  split_k_tile<DP>(ring, sKs);
+  transpose_v_tile<DP>(ring + TILE, sVtb, sVts);
+  dfdt::fence_proxy_async();
+  dfdt::named_bar_sync(1, C::THREADS);
+  issue_s(ring);
+  dfdt::wgmma_wait<0>();
+  dfdt::fence_regs(s);
+  dfdt::fence_regs(qb);
+  dfdt::fence_regs(qs);
+  dfdt::named_bar_sync(1, C::THREADS);  // every warp's S is done: stage 0 is free
+  if (leader && ST < n) load_kv(ST);
+  FWD_MARK(2);
+  FWD_PHASES;
+
+  // the softmax of tile i on s, P's terms, then O += P V, issued
+  auto softmax_pv = [&](int i) {
+    if ((i + 1) * BN > N)
+      online_softmax<NT, true, true>(s, m, l, alpha, i * BN, N, sl2, tq4);
+    else
+      online_softmax<NT, false, true>(s, m, l, alpha, i * BN, N, sl2, tq4);
+#pragma unroll
+    for (int cb = 0; cb < CBO; ++cb)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[cb][j][e] *= alpha[e >> 1];
+    // accumulator column 2t is k = t, 2t + 1 is k = t + 4
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      dfdt::split_tf32(s[j][0], pb[j][0], ps[j][0]);
+      dfdt::split_tf32(s[j][2], pb[j][1], ps[j][1]);
+      dfdt::split_tf32(s[j][1], pb[j][2], ps[j][2]);
+      dfdt::split_tf32(s[j][3], pb[j][3], ps[j][3]);
     }
-    __syncthreads();
+    issue_pv();
+  };
+
+  // tile i's P V runs while K_{i+1} is split and S_{i+1} issued; then V_{i+1}
+  // is transposed while S_{i+1} runs
+  for (int i = 0; i + 1 < n; ++i) {
+    softmax_pv(i);
+    FWD_PHASE(0);
+    const int st = (i + 1) % ST;
+    const uint32_t kt = ring + 2 * st * TILE;
+    dfdt::mbar_wait(full(st), ((i + 1) / ST) & 1);
+    split_k_tile<DP>(kt, sKs);
+    dfdt::fence_proxy_async();
+    dfdt::named_bar_sync(1, C::THREADS);
+    issue_s(kt);
+    FWD_PHASE(1);
+    // V_{i+1} transposed while S_{i+1} runs, once every warp is past P V
+    dfdt::wgmma_wait<1>();
+    retire_pv();
+    dfdt::named_bar_sync(1, C::THREADS);
+    transpose_v_tile<DP>(kt + TILE, sVtb, sVts);
+    dfdt::fence_proxy_async();
+    FWD_PHASE(2);
+    dfdt::wgmma_wait<0>();
+    dfdt::fence_regs(s);
+    dfdt::fence_regs(qb);
+    dfdt::fence_regs(qs);
+    // V^T is written and every warp's S is done: the stage is free
+    dfdt::named_bar_sync(1, C::THREADS);
+    if (leader && i + 1 + ST < n) load_kv(i + 1 + ST);
+    FWD_PHASE(3);
   }
-  if (!active) return;
+  FWD_MARK(3);
+  softmax_pv(n - 1);
+  dfdt::wgmma_wait<0>();
+  retire_pv();
+  FWD_MARK(4);
+  FWD_PHASES_STORE;
 
-  const int wrow0 = row0 + warp * 16;
-  float inv[2];
+  const int g = lane / 4;
+  float inv[2], row_lse[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const float l_safe = fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / l_safe;
-    const int gr = wrow0 + lane / 4 + 8 * i;
-    if (gr < N && tq == 0) lse[(long long)w.bh * N + gr] = m[i] * kLn2 + logf(l_safe);
+    row_lse[i] = m[i] * kLn2 + logf(l_safe);
   }
-  dfdt::store_rows_f32<DP>(o + b * so.b + h * so.h, so.n, acc, inv, wrow0, N, d, lane);
+  // O through the Q tile's shared memory, swizzled as TMA stores it: every
+  // warp's last read of it (Q's split, or the last S) is behind a barrier
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+#pragma unroll
+    for (int cb = 0; cb < CBO; ++cb)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+        dfdt::st_shared_v2(sQ + dfdt::sw_f32(r, cb * NB + j * 8 + 2 * tq4, 64),
+                           acc[cb][j][2 * i] * inv[i], acc[cb][j][2 * i + 1] * inv[i]);
+    if (tq4 == 0 && w.row0 + r < N) lse[(long long)w.bh * N + w.row0 + r] = row_lse[i];
+  }
+  dfdt::fence_proxy_async();
+  dfdt::named_bar_sync(1, C::THREADS);
+  if (leader) {
+#pragma unroll
+    for (int cb = 0; cb < DP / 32; ++cb)
+      dfdt::tma_store_4d(&to, sQ + cb * C::BM * 128, cb * 32, w.row0, h, b);
+    dfdt::tma_store_commit();
+    dfdt::tma_store_wait_read();
+  }
+  FWD_MARK(5);
 }
 
-// q, k, v, o: (b, h, n) strides in st[0..3]
+// geo: 9 values per operand (q, k, v, o), as encode_map reads them; Q's and
+// O's boxes 64 rows, K's and V's 32, every box 32 columns
 template <int DP>
-cudaError_t launch_tf32(const float* q, const float* k, const float* v, float* o, float* lse,
-                        const Strides* st, int B, int H, int N, int d, float scale,
-                        cudaStream_t stream) {
+int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
+                const long long* geo, int B, int H, int N, int d, float scale,
+                cudaStream_t stream) {
   using C = TfFwd<DP>;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::smem);
-  if (err != cudaSuccess) return err;
+  CUtensorMap mq, mk, mv, mo;
+  int err = dfdt::encode_map(&mq, q, geo, d, N, H, B, C::BM, true);
+  if (!err) err = dfdt::encode_map(&mk, k, geo + 9, d, N, H, B, C::BN, true);
+  if (!err) err = dfdt::encode_map(&mv, v, geo + 18, d, N, H, B, C::BN, true);
+  if (!err) err = dfdt::encode_map(&mo, o, geo + 27, d, N, H, B, C::BM, true);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tf32_wgmma_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+  if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)B * H * ((N + C::BM - 1) / C::BM);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_tf32_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
-      q, k, v, o, lse, st[0], st[1], st[2], st[3], H, N, d, scale);
-  return cudaGetLastError();
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_fwd_tf32_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
+      mq, mk, mv, mo, lse, H, N, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// strides: 12 element strides, (b, h, n) for q, k, v and o in that order.
-// bf16 goes to the Hopper kernels, which read q, k and v and write o through
+// strides: 12 element strides, (b, h, n) for q, k, v and o in that order
+// (the combine kernel's o). Both dtypes read q, k and v and write o through
 // tensor maps built from `tma` (9 values for each of q, k, v and o, see
-// encode_map; d a multiple of 8; the combine kernel writes o through its
-// strides); f32 goes to the 3xTF32 kernel, which takes 16-byte rows
-// (cudaErrorMisalignedAddress otherwise) and ignores `tma`. splits: 1, or
-// (bf16 only) the key splits S of the split route, with `scratch` the
-// caller's f32 buffer of S*B*H*N*(d + 1) elements for the partials.
+// encode_map): bf16 (d a multiple of 8) goes to the Hopper kernels, f32 (d a
+// multiple of 4) to the 3xTF32 Hopper kernel. splits: 1, or (bf16 only) the
+// key splits S of the split route, with `scratch` the caller's f32 buffer
+// of S*B*H*N*(d + 1) elements for the partials.
 
 extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int H, int N, int d, int is_bf16,
@@ -783,27 +1086,17 @@ extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void*
   if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * kBlockM || splits < 1 ||
       (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides so{strides[9], strides[10], strides[11]};
+  if (tma == nullptr || d % (is_bf16 ? 8 : 4)) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (!is_bf16) {
-    if (!dfdt::f32_aligned(q, sq, d) || !dfdt::f32_aligned(k, sk, d) ||
-        !dfdt::f32_aligned(v, sv, d) || so.b % 2 || so.h % 2 || so.n % 2)
-      return (int)cudaErrorMisalignedAddress;
-    const Strides st[4] = {sq, sk, sv, so};
-    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
-                *fv = static_cast<const float*>(v);
-    float* fo = static_cast<float*>(o);
-    if (d <= 32) return (int)launch_tf32<32>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
-    if (d <= 64) return (int)launch_tf32<64>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
-    if (d <= 128) return (int)launch_tf32<128>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
-    return (int)launch_tf32<256>(fq, fk, fv, fo, l, st, B, H, N, d, scale, s);
+    if (d <= 32) return launch_tf32<32>(q, k, v, o, l, tma, B, H, N, d, scale, s);
+    if (d <= 64) return launch_tf32<64>(q, k, v, o, l, tma, B, H, N, d, scale, s);
+    if (d <= 128) return launch_tf32<128>(q, k, v, o, l, tma, B, H, N, d, scale, s);
+    return launch_tf32<256>(q, k, v, o, l, tma, B, H, N, d, scale, s);
   }
-  if (tma == nullptr || d % 8 || so.b % 2 || so.h % 2 || so.n % 2 ||
-      reinterpret_cast<uintptr_t>(o) % 4)
+  const Strides so{strides[9], strides[10], strides[11]};
+  if (so.b % 2 || so.h % 2 || so.n % 2 || reinterpret_cast<uintptr_t>(o) % 4)
     return (int)cudaErrorMisalignedAddress;
   float* part_o = static_cast<float*>(scratch);
   const CombineArgs a{static_cast<__nv_bfloat16*>(o), l, part_o,
@@ -816,9 +1109,10 @@ extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void*
 }
 
 #ifdef DFDT_FWD_TRACE
-// the first `blocks` blocks' cycle marks (6 each) of the last traced launch
+// the first `blocks` blocks' cycle marks and phase sums (kTraceSlots each)
+// of the last traced launch
 extern "C" int dfdt_fwd_trace(long long* out, int blocks) {
-  return (int)cudaMemcpyFromSymbol(out, g_fwd_trace, sizeof(long long) * 6 * blocks);
+  return (int)cudaMemcpyFromSymbol(out, g_fwd_trace, sizeof(long long) * kTraceSlots * blocks);
 }
 #endif
 

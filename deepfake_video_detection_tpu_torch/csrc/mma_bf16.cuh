@@ -1,10 +1,10 @@
 // Warp-level building blocks of the flash kernels (flash_fwd.cu,
-// flash_bwd.cu), as inline PTX for sm_90a: 16- and 4-byte cp.async copies
-// from global into shared memory (zero-filling what lies outside the
-// tensor), ldmatrix fragment loads (the 3xTF32 kernels, mma_tf32.cuh), the
-// rounding of f32 accumulators into the bf16 A operand of the next product;
-// and what the split route of both sources shares (a block's rows and run
-// of streamed tiles, the f32 partial rows).
+// flash_bwd.cu), as inline PTX for sm_90a: 4-byte cp.async copies from
+// global into shared memory (zero-filling what lies outside the tensor; the
+// backward's lse and D rows), the rounding of f32 accumulators into the bf16
+// A operand of the next product; and a block's rows and run of streamed
+// tiles (block_work: the forward's kernels; the backward balances its
+// splits the same way).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
 // l of a warp, g = l / 4, t = l % 4:
@@ -30,35 +30,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; 16 zero bytes when !valid (src is not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
 // 4 bytes global -> shared; 4 zero bytes when !valid
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-// Addresses are 32-bit shared-window offsets (smem_u32), which take one
-// register where a generic pointer takes two.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // two f32 rounded to bf16, `lo` in the low half (the lower column index)
@@ -93,24 +68,6 @@ __device__ __forceinline__ void c_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4
   }
 }
 
-// Rows [row0, row0 + ROWS) of one (b, h) slice, columns [0, DP) of T (bf16
-// or f32), into shared memory (row stride LD) by 16-byte cp.async: rows >= n
-// and columns >= d (d a multiple of 16 bytes' worth) are zero-filled. Rows in
-// global memory must be 16-byte aligned.
-template <int DP, int LD, int ROWS, int THREADS, typename T>
-__device__ __forceinline__ void tile_async(T* dst, const T* src, long long row_stride,
-                                           int row0, int n, int d) {
-  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int CPR = DP / EPC;        // chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += THREADS) {
-    const int r = idx / CPR;
-    const int c = (idx % CPR) * EPC;
-    const int gr = row0 + r;
-    const bool ok = gr < n && c < d;
-    cp_async16(dst + r * LD + c, ok ? src + gr * row_stride + c : src, ok);
-  }
-}
-
 // The work of one block of a flash kernel: its ROWS rows from row0 of head
 // bh, against streamed tiles [t0, t1) of BN rows, the run of split s of
 // `splits`. Blocks go row tile fastest, then split, then head, so the blocks
@@ -134,28 +91,6 @@ __device__ __forceinline__ Work block_work(int n, int splits) {
   w.t0 = w.s * n_tiles / splits;
   w.t1 = (w.s + 1) * n_tiles / splits;
   return w;
-}
-
-// Write a warp's 16 x DP accumulator, row i times mul[i], as f32 rows (row
-// stride row_stride: d for a split's partial, the caller's for an f32
-// output), rows < n and columns < d (d even).
-template <int DP>
-__device__ __forceinline__ void store_rows_f32(float* dst, long long row_stride,
-                                               const float (&acc)[DP / 8][4],
-                                               const float (&mul)[2], int row0, int n, int d,
-                                               int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gr = row0 + lane / 4 + 8 * i;
-    if (gr >= n) continue;
-#pragma unroll
-    for (int jd = 0; jd < DP / 8; ++jd) {
-      const int c = jd * 8 + 2 * (lane % 4);
-      if (c < d)
-        *reinterpret_cast<float2*>(dst + gr * row_stride + c) =
-            make_float2(acc[jd][2 * i] * mul[i], acc[jd][2 * i + 1] * mul[i]);
-    }
-  }
 }
 
 }  // namespace dfdt

@@ -2,7 +2,7 @@
 // as inline PTX for sm_90a: mbarriers, TMA tile loads (cp.async.bulk.tensor)
 // that complete on an mbarrier, and warpgroup products (wgmma.mma_async)
 // with f32 accumulators: bf16 operands (the bf16 kernels) and tf32 operands
-// (the f32 backward, 3xTF32).
+// (the f32 kernels, 3xTF32).
 //
 // Shared-memory tiles are stored as TMA writes them with a 128-byte swizzle:
 // rows of 128 bytes (64 bf16 or 32 f32), groups of 8 rows (1024 bytes, each
@@ -259,7 +259,7 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// ---- tf32 wgmma, A from registers (the f32 backward) ----
+// ---- tf32 wgmma (the f32 kernels) ----
 
 // d (+)= A B, 64 x N x 8 in tf32 (the operands' low 13 bits are zero): A
 // (the tf32 A fragment above) from registers, B from shared memory K-major
@@ -330,6 +330,25 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 8][4], const uint32_t 
     wgmma_tf32_n32(d, a, desc_b, scale_d);
   else
     wgmma_tf32_n16(d, a, desc_b, scale_d);
+}
+
+// d (+)= A B, 64 x 32 x 8 in tf32, A and B from shared memory, both K-major
+// (the f32 forward's Q small term as A)
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[4][4], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // ---- shared memory by 32-bit window address ----

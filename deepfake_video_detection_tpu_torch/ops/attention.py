@@ -14,36 +14,33 @@ both routes on the tensor cores: bf16 as bf16 products with f32 sums, f32
 as 3xTF32 (each f32 operand split into two tf32 terms, three products in
 place of one, f32 sums: the error of a plain f32 product).
 
-The bf16 kernels and the f32 backward are built for Hopper
-(FlashAttention-3's shape): one thread (of a producer warp in the bf16
-forward, of the warpgroup in the backward) loads a block's own tiles and
-rings of streamed tiles by TMA into shared memory (128-byte swizzled,
-completing on mbarriers), and a warpgroup takes every product as a
-``wgmma``. The bf16 forward takes
-S = QKᵀ and O += P·V, P from registers as two bf16 terms (hi + lo), the
-next tile's S issued before the softmax of the last one finishes its P·V.
-The backward's dQ pass takes S = QKᵀ, dP = dO·Vᵀ and dQ += dS·K, its dK/dV
-pass Sᵀ = KQᵀ, dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q, P and dS from
-registers rounded once to bf16. The f32 backward takes the same products
-in 3xTF32 on tf32 ``wgmma``, which reads shared memory K-major only: the
-own side's tiles are A operands split in registers, each streamed tile is
-split in shared memory (big in place, small beside it) and its output
-columns written transposed for the products whose B operand lies MN-major
-(K in dQ += dS·K, Q and dO in the dK/dV pass). What bounds them on an
-H100: bytes at the ViT shape (N = 197), the tile body's rate at the long
-clips' (N = 1025). They read q, k, v (and O, dO) and the backward writes
-dq, dk, dv through 4-D tensor maps whose geometry :func:`_tma_geometry`
+Every kernel is built for Hopper (FlashAttention-3's shape): one thread
+(of a producer warp in the bf16 forward, of the warpgroup elsewhere) loads
+a block's own tiles and rings of streamed tiles by TMA into shared memory
+(128-byte swizzled, completing on mbarriers), and a warpgroup takes every
+product as a ``wgmma``. The bf16 forward takes S = QKᵀ and O += P·V, P
+from registers as two bf16 terms (hi + lo), the next tile's S issued
+before the softmax of the last one finishes its P·V. The backward's dQ
+pass takes S = QKᵀ, dP = dO·Vᵀ and dQ += dS·K, its dK/dV pass Sᵀ = KQᵀ,
+dPᵀ = V·dOᵀ, dV += Pᵀ·dO and dK += dSᵀ·Q, P and dS from registers rounded
+once to bf16. The f32 kernels take the same products in 3xTF32 on tf32
+``wgmma``, which reads shared memory K-major only: the own side's tiles
+(Q in the forward) are A operands split in registers, each streamed tile
+is split in shared memory (big in place, small beside it), and where a
+product's B operand lies MN-major its columns are written transposed (V in
+O += P·V; K in dQ += dS·K, Q and dO in the dK/dV pass). What bounds them
+on an H100: bytes at the ViT shape (N = 197), the tile body's rate at the
+long clips' (N = 1025). They read q, k, v (and O, dO) and write O (and dq,
+dk, dv) through 4-D tensor maps whose geometry :func:`_tma_geometry`
 computes from each tensor's shape and strides, so the views of a fused QKV
 projection and dO's head-merge view go in as they are; columns past d, up
 to a whole 128-byte row, and rows past N come from TMA's zero fill. An
 input TMA cannot describe (a byte stride not a multiple of 16, unaligned
 data) or with d not a multiple of 16 bytes' worth (8 bf16, 4 f32) goes to
 the kernel as a contiguous copy zero-padded to that multiple in d, with
-the scale of the true d, and the result is sliced back. The f32 forward
-takes rows of 16-byte multiples by ``cp.async`` (d not a multiple of 4, a
-B/H/N stride not a multiple of 4 elements, or unaligned data get the same
-copy). On CPU tensors each wrapper takes its plain version, a dense f32
-computation.
+the scale of the true d, and the result is sliced back
+(:func:`_tma_geometries`). On CPU tensors each wrapper takes its plain
+version, a dense f32 computation.
 
 The split route (bf16 at N > 512, the regime of the TPU's streaming
 kernels K3, K5 and K6). One block per (64-row tile, head) leaves most of
@@ -184,16 +181,28 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _fwd_key_tile(d: int) -> int:
-    """Keys per K/V tile of the bf16 forward at head dim d: 64, and 32
-    above d = 128 (the kernel pads d to DP, a multiple of 64)."""
-    return 64 if _cdiv(d, 64) * 64 <= 128 else 32
+def _fwd_key_tile(d: int, bf16: bool = True) -> int:
+    """Keys per K/V tile of the forward at head dim d, and the rows of the
+    K and V tensor maps' boxes: bf16 64, and 32 above d = 128 (the kernel
+    pads d to DP, a multiple of 64); f32 32 (one 128-byte row of the
+    transposed V tile)."""
+    return 64 if bf16 and _cdiv(d, 64) * 64 <= 128 else 32
 
 
-def _fwd_smem(d: int) -> int:
-    """Dynamic shared memory of a bf16 forward block at head dim d: the Q
-    tile and two-stage K and V rings at d padded to a multiple of 64, nine
-    8-byte barriers and 1 KB for aligning the base to 1024 bytes."""
+def _fwd_smem(d: int, bf16: bool = True) -> int:
+    """Dynamic shared memory of a forward block at head dim d, with 1 KB
+    for aligning the base to 1024 bytes. bf16: the Q tile and two-stage K
+    and V rings at d padded to a multiple of 64 and nine 8-byte barriers.
+    f32 (``flash_fwd.cu``'s ``TfFwd``): the 64-row Q tile at the padded head
+    dim, a ring of K/V tiles (2 stages up to d = 128, else 1), K's small
+    term, V's tile transposed as two terms (a 128-byte row for each of the
+    head dim's columns) and 1 + stages barriers."""
+    if not bf16:
+        dp = _f32_dp(d)
+        bn = _fwd_key_tile(d, False)
+        stages = 2 if dp <= 128 else 1
+        return _ROW_TILE * dp * 4 + (2 * stages + 1) * bn * dp * 4 + 2 * dp * 128 \
+            + 8 * (1 + stages) + 1024
     return 2 * _cdiv(d, 64) * 64 * (_ROW_TILE + 4 * _fwd_key_tile(d)) + 9 * 8 + 1024
 
 
@@ -208,9 +217,9 @@ def _bwd_tile(d: int, bf16: bool = True) -> int:
     return 32 if d <= 128 else 16
 
 
-def _f32_bwd_dp(d: int) -> int:
-    """The padded head dim of the f32 backward's kernels: 32, 64, 128 or
-    256."""
+def _f32_dp(d: int) -> int:
+    """The padded head dim of the f32 kernels (forward and backward): 32,
+    64, 128 or 256."""
     return next(dp for dp in (32, 64, 128, 256) if d <= dp)
 
 
@@ -227,7 +236,7 @@ def _bwd_smem(d: int, bf16: bool = True) -> Tuple[int, int]:
     dO), and D of the block's rows (dQ) or two tiles' lse and D rows
     (dK/dV)."""
     if not bf16:
-        dp = _f32_bwd_dp(d)
+        dp = _f32_dp(d)
         bn, oc = _bwd_tile(d, False), min(dp, 64)
         own, tile, tt = _ROW_TILE * dp * 4, bn * dp * 4, oc * 128
         st_dq, st_dkv = (2 if dp <= 128 else 1), 1
@@ -320,14 +329,6 @@ def _row_elems(t: torch.Tensor) -> int:
     return 16 // t.element_size()
 
 
-def _tc_aligned(*ts: torch.Tensor) -> bool:
-    """Whether the kernels take these tensors as they are: d and the B/H/N
-    strides multiples of 16 bytes' worth of elements (8 bf16, 4 f32), data
-    16-byte aligned."""
-    return all(t.shape[-1] % _row_elems(t) == 0 and t.data_ptr() % 16 == 0
-               and all(st % _row_elems(t) == 0 for st in t.stride()[:3]) for t in ts)
-
-
 def _pad_head_dim(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t``, its last axis zero-padded to a multiple
     of 16 bytes' worth of elements."""
@@ -353,6 +354,19 @@ def _tma_geometry(t: torch.Tensor, rows: int):
     return (d, N, H, B), strides, (_TMA_ROW_BYTES // es, rows)
 
 
+def _tma_geometries(ts, rows):
+    """The tensor maps' geometries of ``ts`` (boxes of ``rows`` rows, one
+    count or one a tensor), or None where a kernel cannot take the tensors
+    as they are: d not a multiple of 16 bytes' worth of elements (8 bf16,
+    4 f32), or a tensor that TMA cannot describe. The wrapper then hands
+    over zero-padded contiguous copies, which always have tensor maps."""
+    rows = rows if isinstance(rows, tuple) else (rows,) * len(ts)
+    geos = [_tma_geometry(t, r) for t, r in zip(ts, rows)]
+    if ts[0].shape[-1] % _row_elems(ts[0]) or None in geos:
+        return None
+    return geos
+
+
 def _strides(*ts: torch.Tensor) -> array.array:
     """The B/H/N strides of ``ts`` as a C array of int64 (its address:
     ``.buffer_info()[0]``; cheaper to build than a ctypes array)."""
@@ -375,16 +389,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     B, H, N, d = q.shape
     scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        rows = (_ROW_TILE,) + (_fwd_key_tile(d),) * 2   # the box rows of Q, K, V
-        geos = [_tma_geometry(t, r) for t, r in zip((q, k, v), rows)]
-        padded = d % 8 != 0 or None in geos
-    else:
-        padded = not _tc_aligned(q, k, v)
+    rows = (_ROW_TILE,) + (_fwd_key_tile(d, bf16),) * 2   # the box rows of Q, K, V
+    geos = _tma_geometries((q, k, v), rows)
+    padded = geos is None
     if padded:
         q, k, v = (_pad_head_dim(t) for t in (q, k, v))
-        if bf16:    # a contiguous copy always has a tensor map
-            geos = [_tma_geometry(t, r) for t, r in zip((q, k, v), rows)]
+        geos = _tma_geometries((q, k, v), rows)
     dp = q.shape[-1]
     splits = _long_splits(B, H, N, d, bf16)[0]
     out = _heads_view(B, H, N, dp, q)
@@ -392,16 +402,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     # partial O (B*H, S, N, dp) and lse (B*H, S, N) of the split route
     part, part_ptr = _partials(B * H * N * (dp + 1), splits, q)
     strides = _strides(q, k, v, out)
-    tma = None
-    if bf16:        # the tensor maps of q, k, v and out
-        geos.append(_tma_geometry(out, _ROW_TILE))
-        tma = array.array("q", [x for g in geos for f in g for x in f])
+    # the tensor maps of q, k, v and out
+    geos.append(_tma_geometry(out, _ROW_TILE))
+    tma = array.array("q", [x for g in geos for f in g for x in f])
     lib = _fwd_library()
     status = lib.dfdt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, N, dp, int(bf16), strides.buffer_info()[0],
         scale, splits, part_ptr, torch.cuda.current_stream(q.device).cuda_stream,
-        None if tma is None else tma.buffer_info()[0])
+        tma.buffer_info()[0])
     _build.check(lib, status, "flash_attention_fwd")
     with _count_lock:
         flash_attention_fwd.launches += 1
@@ -440,11 +449,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # every box of the backward's maps, own tile or streamed, is _bwd_tile
     # rows: one tensor map a tensor
     rows = _bwd_tile(d, bf16)
-    geos = [_tma_geometry(t, rows) for t in ins]
-    padded = d % _row_elems(q) != 0 or None in geos
-    if padded:      # a contiguous copy always has a tensor map
+    geos = _tma_geometries(ins, rows)
+    padded = geos is None
+    if padded:
         q, k, v, out, dout = ins = tuple(_pad_head_dim(t) for t in ins)
-        geos = [_tma_geometry(t, rows) for t in ins]
+        geos = _tma_geometries(ins, rows)
     dp = q.shape[-1]
     splits = _long_splits(B, H, N, d, bf16)[1]
     dq, dk, dv = (_heads_view(B, H, N, dp, q) for _ in range(3))
@@ -481,9 +490,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # package's streaming kernels (K3 forward, K5/K6 backward);
 # ``launches_split`` those that took the split route (S > 1, with its
 # combine or reduce kernel); ``launches_f32`` those of f32 inputs (the
-# 3xTF32 kernels: the forward's mma.sync kernel, the backward's Hopper
-# passes); ``launches`` counts them all, ``launches_by_device`` by
-# card index (a dict, emptied by callers).
+# 3xTF32 Hopper kernels: the forward's one kernel, the backward's two
+# passes); ``launches`` counts them all, ``launches_by_device`` by card
+# index (a dict, emptied by callers).
 for _f in (flash_attention_fwd, flash_attention_bwd):
     _f.launches = _f.launches_long = _f.launches_split = _f.launches_f32 = 0
     _f.launches_by_device = {}

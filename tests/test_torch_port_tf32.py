@@ -8,9 +8,9 @@ a product a.b is taken as small(a).big(b) + big(a).small(b) + big(a).big(b)
 with f32 sums. This file holds a model of that arithmetic (both roundings
 as bit operations on the int32 view, the three-term product) and shows, with numpy-seeded inputs, that it holds the
 f32 gates ``chip_smoke.py`` keeps against the plain versions where one tf32
-term does not; and the f32 layout rule of the wrapper (16-byte rows) on CPU
-tensors. The kernels themselves run only on a card
-(``tests/test_torch_port_cuda.py``).
+term does not; and the layout rule of the wrapper (d a multiple of 16
+bytes' worth, every tensor one a tensor map describes) on CPU tensors. The
+kernels themselves run only on a card (``tests/test_torch_port_cuda.py``).
 """
 
 import numpy as np
@@ -182,9 +182,10 @@ def _fused_qkv(d, dtype=torch.float32):
     ("bf16 views of a fused QKV buffer", True),
 ])
 def test_layout_rule_of_the_kernels(case, aligned):
-    """Both routes take 16-byte rows: d and the B/H/N strides multiples of
-    4 f32 (8 bf16) elements and 16-byte aligned data; anything else goes to
-    the kernel as a contiguous copy zero-padded to that multiple in d."""
+    """Both routes read their inputs through tensor maps: d a multiple of 4
+    f32 (8 bf16) elements, byte strides multiples of 16 and 16-byte aligned
+    data; anything else goes to the kernel as a contiguous copy zero-padded
+    to that multiple in d."""
     if case.endswith("fused QKV buffer"):
         ts = _fused_qkv(64, torch.bfloat16 if case.startswith("bf16") else torch.float32)
     elif case == "f32 d = 30":
@@ -195,13 +196,13 @@ def test_layout_rule_of_the_kernels(case, aligned):
         ts = [torch.zeros(2 * 4 * 50 * 64 + 1)[1:].view(2, 4, 50, 64)]
     else:
         ts = [torch.zeros((2, 4, 50, 36), dtype=torch.bfloat16)]
-    assert A._tc_aligned(*ts) == aligned
+    assert (A._tma_geometries(ts, A._ROW_TILE) is not None) == aligned
     if not aligned:
         t = ts[0]
         padded = A._pad_head_dim(t)
         multiple = 16 // t.element_size()
         assert padded.is_contiguous() and padded.shape[-1] % multiple == 0
         assert padded.shape[-1] - t.shape[-1] < multiple
-        assert A._tc_aligned(padded)
+        assert A._tma_geometries([padded], A._ROW_TILE) is not None
         assert torch.equal(padded[..., :t.shape[-1]], t)
         assert not padded[..., t.shape[-1]:].any()

@@ -89,7 +89,7 @@ def _blocks(A, B, H, N, d, bf16):
     run) at the policy's split count: one block per 64-row tile, column
     block of the outputs (64 columns; f32 32 at d <= 32) and split."""
     splits = A._long_splits(B, H, N, d, bf16)[1]
-    cols = 64 if bf16 else min(A._f32_bwd_dp(d), 64)
+    cols = 64 if bf16 else min(A._f32_dp(d), 64)
     blocks = B * H * -(-N // 64) * -(-d // cols) * splits
     return splits, blocks, -(-N // A._bwd_tile(d, bf16)) // splits
 
