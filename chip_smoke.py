@@ -51,10 +51,14 @@ Imports only the port (``deepfake_video_detection_tpu_torch``), never JAX.
    tensor cores: bf16 to its bf16 kernels, f32 to its 3xTF32 ones (bound by
    3 x operations at the TF32 rate, ``bound_ms``, beside the CUDA-core
    f32 figure, ``bound_ms_cuda_core``); bf16 at N > 512 takes the split
-   route (``splits`` > 1: split kernels, then the combine or reduce
-   kernel; every route is Hopper kernels, ``ROUTES``);
-   every main-path case is bf16. Then the split sweep: the long-N calls'
-   device time at every split count, beside the policy's.
+   route where ``_long_splits`` says (``splits`` > 1: split kernels, then
+   the combine or reduce kernel; every route is Hopper kernels,
+   ``ROUTES``); every main-path case is bf16, and the long-clip ones split.
+   Then the split sweep: the long-N calls' device time at every split
+   count, beside the policy's. Then ``flash_host``: at each small call of
+   ``HOST_SHAPES`` the card ms (median of 7 windows of 20 back-to-back
+   calls), the device ms, the library call's card ms and the wrapper's
+   host ns by phase (``host_record``).
 8. Serving: a ViT-B/16 ``BackboneDetector`` (random weights from a seeded
    generator, f32 params, bf16 activations) behind a ``Predictor`` with
    micro-batching and warmup: sequential, concurrent, packed-YUV420 and
@@ -284,6 +288,7 @@ cards.
 
 from __future__ import annotations
 
+import array
 import gc
 import json
 import math
@@ -470,6 +475,7 @@ GAN_GRAD_TOL = CPU_TOL["f32"]["grad_norm"]
 LONG = {"backbone": "vit_base_patch16_224", "d_model": 256, "depth": 4,
         "num_heads": 4, "clips": 8, "frames": 1024, "train_frames": 640,
         "eval_batch": 2, "size": 224, "serve_frames": 8}
+LONG_HEAD_DIM = LONG["d_model"] // LONG["num_heads"]
 
 # the parallel phase: every multi-device mode on a world of one over NCCL.
 # (a)/(b) ViT-B/16, bf16, the training phase's batch (8 clips x 16 frames of
@@ -840,48 +846,86 @@ def check_k1_yuv(torch, P, gen):
     return cases
 
 
+# check_k2's cases: (B, H, N, d, dtype, q/k/v as strided views of one QKV
+# buffer, note)
+K2_SPECS = ((8, 12, 197, 64, "bf16", True, "main: one request"),
+            (128, 12, 197, 64, "bf16", True, "largest bucket"),
+            (8, 12, 197, 64, "f32", False, ""),
+            (2, 12, 640, 64, "bf16", False, "K3 regime, n_pad > 512"),
+            (2, 4, 1025, 64, "bf16", True,
+             "K3 main: long-clip evaluation, 2 clips x 1024 frames + cls"),
+            (1, 4, 641, 64, "bf16", True,
+             "K3 main: long-clip training, 1 clip x 640 frames + cls"),
+            (2, 4, 513, 64, "bf16", False, "N = 513: the first split shape"),
+            (1, 4, 4097, 64, "bf16", True, "a clip of minutes: 4096 frames + cls"),
+            (4, 6, 197, 32, "f32", False, "d = 32"),
+            (16, 12, 1, 64, "bf16", False, "N = 1"),
+            (2, 4, 130, 256, "f32", False, "d = 256"),
+            (2, 4, 100, 80, "bf16", True, "d = 80"),
+            (2, 3, 77, 36, "bf16", False, "d = 36: zero-padded copy to 40"),
+            (2, 3, 77, 30, "f32", False, "d = 30: zero-padded copy to 32"),
+            (4, 12, 256, 64, "bf16", False, "N a multiple of the tile"),
+            (128, 12, 197, 64, "f32", True, F32_ROW + "ViT training shape"),
+            (1, 4, 641, 64, "f32", True, F32_ROW + "long-clip training shape"),
+            (128, 3, 197, 64, "f32", True,
+             LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
+            (16, 3, 197, 64, "bf16", True, LEGACY_ROW + "vit_gcn serving, one clip"),
+            (16, 6, 197, 64, "f32", True, LEGACY_ROW + "the ViT-GNN trainer"),
+            (8, 4, 17, 64, "f32", True,
+             CONV_ROW + "the training CLI's --model temporal step over B0"),
+            (8, 4, 17, 64, "bf16", True, CONV_ROW + "the same with --bf16"),
+            (2, 4, 300, 128, "bf16", True, "d = 128: two 64-column boxes a tile"),
+            (1, 2, 700, 256, "bf16", False, "d = 256: 32-key tiles, split"))
+
+
+# check_k4's cases: (B, H, N, d, dtype, strided q/k/v and dO, note)
+K4_SPECS = ((128, 12, 197, 64, "bf16", True,
+             "main: one train step of ViT-B/16 (8 clips x 16 frames)"),
+            (8, 12, 197, 64, "f32", True, ""),
+            (2, 12, 640, 64, "bf16", False, "K5/K6 regime, n_pad > 512"),
+            (1, 4, 641, 64, "bf16", True,
+             "K5/K6 main: long-clip training, 1 clip x 640 frames + cls"),
+            (2, 4, 513, 64, "bf16", False, "N = 513: the first split shape"),
+            (1, 4, 4097, 64, "bf16", True, "a clip of minutes: 4096 frames + cls"),
+            (16, 12, 1, 64, "bf16", False, "N = 1"),
+            (4, 6, 197, 32, "f32", False, "d = 32"),
+            (2, 4, 130, 256, "f32", False, "d = 256"),
+            (2, 3, 77, 36, "bf16", False, "d = 36: zero-padded copy to 40"),
+            (2, 3, 77, 30, "f32", False, "d = 30: zero-padded copy to 32"),
+            (4, 12, 256, 64, "bf16", False, "N a multiple of the tile"),
+            (128, 12, 197, 64, "f32", True, F32_ROW + "ViT training shape"),
+            (1, 4, 641, 64, "f32", True, F32_ROW + "long-clip training shape"),
+            (128, 3, 197, 64, "f32", True,
+             LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
+            (16, 6, 197, 64, "f32", True, LEGACY_ROW + "the ViT-GNN trainer"),
+            (8, 4, 17, 64, "f32", True,
+             CONV_ROW + "the training CLI's --model temporal step over B0"),
+            (8, 4, 17, 64, "bf16", True, CONV_ROW + "the same with --bf16"),
+            (8, 12, 197, 64, "bf16", True,
+             EXPLAIN_ROW + "one explain request's input gradient (ViT-B/16, 8 frames)"))
+
+
+def _dtype(torch, name: str):
+    return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+
+
+def _fwd_inputs(torch, gen, B, H, N, d, dt, strided):
+    """q, k, v: views of one (B, N, 3, H, d) QKV buffer when ``strided`` (as
+    ``multi_head_attention`` cuts them), else three (B, H, N, d) tensors."""
+    if strided:
+        qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    return tuple(torch.randn((B, H, N, d), device="cuda", generator=gen).to(dt)
+                 for _ in range(3))
+
+
 def check_k2(torch, A, gen):
     """flash_attention_fwd vs its plain version. Returns the case records."""
     import torch.nn.functional as F
 
     cases = []
-    # (B, H, N, d, dtype, q/k/v as strided views of one QKV buffer, note)
-    specs = [(8, 12, 197, 64, torch.bfloat16, True, "main: one request"),
-             (128, 12, 197, 64, torch.bfloat16, True, "largest bucket"),
-             (8, 12, 197, 64, torch.float32, False, ""),
-             (2, 12, 640, 64, torch.bfloat16, False, "K3 regime, n_pad > 512"),
-             (2, 4, 1025, 64, torch.bfloat16, True,
-              "K3 main: long-clip evaluation, 2 clips x 1024 frames + cls"),
-             (1, 4, 641, 64, torch.bfloat16, True,
-              "K3 main: long-clip training, 1 clip x 640 frames + cls"),
-             (2, 4, 513, 64, torch.bfloat16, False, "N = 513: the first split shape"),
-             (1, 4, 4097, 64, torch.bfloat16, True, "a clip of minutes: 4096 frames + cls"),
-             (4, 6, 197, 32, torch.float32, False, "d = 32"),
-             (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
-             (2, 4, 130, 256, torch.float32, False, "d = 256"),
-             (2, 4, 100, 80, torch.bfloat16, True, "d = 80"),
-             (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
-             (2, 3, 77, 30, torch.float32, False, "d = 30: zero-padded copy to 32"),
-             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
-             (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
-             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape"),
-             (128, 3, 197, 64, torch.float32, True,
-              LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
-             (16, 3, 197, 64, torch.bfloat16, True, LEGACY_ROW + "vit_gcn serving, one clip"),
-             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer"),
-             (8, 4, 17, 64, torch.float32, True,
-              CONV_ROW + "the training CLI's --model temporal step over B0"),
-             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16"),
-             (2, 4, 300, 128, torch.bfloat16, True, "d = 128: two 64-column boxes a tile"),
-             (1, 2, 700, 256, torch.bfloat16, False, "d = 256: 32-key tiles, split")]
-    for B, H, N, d, dt, strided, note in specs:
-        if strided:
-            qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
-            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        else:
-            q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dt)
-                       for _ in range(3))
-        name = "bf16" if dt == torch.bfloat16 else "f32"
+    for B, H, N, d, name, strided, note in K2_SPECS:
+        q, k, v = _fwd_inputs(torch, gen, B, H, N, d, _dtype(torch, name), strided)
         splits = A._long_splits(B, H, N, d, name == "bf16")[0]
         out, lse = A.flash_attention_fwd(q, k, v)
         ref, ref_lse = A.flash_attention_plain(q, k, v)
@@ -929,12 +973,7 @@ def _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided):
     """q, k, v (views of one QKV buffer when ``strided``), the forward's out
     and lse, and dO as the (B, H, N, d) view of a (B, N, H*d) gradient, as
     the head merge of ``multi_head_attention`` hands it back."""
-    if strided:
-        qkv = torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dt)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-    else:
-        q, k, v = (torch.randn((B, H, N, d), device="cuda", generator=gen).to(dt)
-                   for _ in range(3))
+    q, k, v = _fwd_inputs(torch, gen, B, H, N, d, dt, strided)
     out, lse = A.flash_attention_fwd(q, k, v)
     dout = torch.randn((B, N, H * d), device="cuda", generator=gen).to(dt)
     return q, k, v, out, lse, dout.view(B, N, H, d).transpose(1, 2)
@@ -945,34 +984,9 @@ def check_k4(torch, A, gen):
     import torch.nn.functional as F
 
     cases = []
-    # (B, H, N, d, dtype, strided q/k/v and dO, note)
-    specs = [(128, 12, 197, 64, torch.bfloat16, True,
-              "main: one train step of ViT-B/16 (8 clips x 16 frames)"),
-             (8, 12, 197, 64, torch.float32, True, ""),
-             (2, 12, 640, 64, torch.bfloat16, False, "K5/K6 regime, n_pad > 512"),
-             (1, 4, 641, 64, torch.bfloat16, True,
-              "K5/K6 main: long-clip training, 1 clip x 640 frames + cls"),
-             (2, 4, 513, 64, torch.bfloat16, False, "N = 513: the first split shape"),
-             (1, 4, 4097, 64, torch.bfloat16, True, "a clip of minutes: 4096 frames + cls"),
-             (16, 12, 1, 64, torch.bfloat16, False, "N = 1"),
-             (4, 6, 197, 32, torch.float32, False, "d = 32"),
-             (2, 4, 130, 256, torch.float32, False, "d = 256"),
-             (2, 3, 77, 36, torch.bfloat16, False, "d = 36: zero-padded copy to 40"),
-             (2, 3, 77, 30, torch.float32, False, "d = 30: zero-padded copy to 32"),
-             (4, 12, 256, 64, torch.bfloat16, False, "N a multiple of the tile"),
-             (128, 12, 197, 64, torch.float32, True, F32_ROW + "ViT training shape"),
-             (1, 4, 641, 64, torch.float32, True, F32_ROW + "long-clip training shape"),
-             (128, 3, 197, 64, torch.float32, True,
-              LEGACY_ROW + "the training CLI's default step (vit_gcn, ViT-Tiny)"),
-             (16, 6, 197, 64, torch.float32, True, LEGACY_ROW + "the ViT-GNN trainer"),
-             (8, 4, 17, 64, torch.float32, True,
-              CONV_ROW + "the training CLI's --model temporal step over B0"),
-             (8, 4, 17, 64, torch.bfloat16, True, CONV_ROW + "the same with --bf16"),
-             (8, 12, 197, 64, torch.bfloat16, True,
-              EXPLAIN_ROW + "one explain request's input gradient (ViT-B/16, 8 frames)")]
-    for B, H, N, d, dt, strided, note in specs:
-        q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, dt, strided)
-        name = "bf16" if dt == torch.bfloat16 else "f32"
+    for B, H, N, d, name, strided, note in K4_SPECS:
+        q, k, v, out, lse, dout = _bwd_inputs(torch, A, gen, B, H, N, d, _dtype(torch, name),
+                                              strided)
         splits = A._long_splits(B, H, N, d, name == "bf16")[1]
         got = A.flash_attention_bwd(q, k, v, out, lse, dout)
         ref = A.flash_attention_bwd_plain(q, k, v, out, lse, dout)
@@ -1082,13 +1096,222 @@ def sweep_splits(torch, A, gen):
     return recs
 
 
-def _require_split_route(A, what: str) -> None:
-    """Every flash call at N > 512 since the last reset took the split
-    route."""
-    for f in (A.flash_attention_fwd, A.flash_attention_bwd):
-        _require(f.launches_split == f.launches_long,
+# the small shapes of the port's paths, where a flash call's wall time is the
+# host's: (direction, (B, H, N, d), dtype, its path); q/k/v (and dO) strided
+# as the model hands them over
+HOST_SHAPES = (("fwd", (8, 12, 197, 64), "bf16", "one ViT request; an explain request's forward"),
+               ("fwd", (16, 3, 197, 64), "bf16", "vit_gcn serving, one clip"),
+               ("fwd", (16, 6, 197, 64), "f32", "the ViT-GNN trainer"),
+               ("fwd", (1, 4, 641, 64), "bf16", "long-clip training"),
+               ("fwd", (2, 4, 1025, 64), "bf16", "long-clip evaluation"),
+               ("fwd", (1, 4, 641, 64), "f32", "the ring's fold"),
+               ("bwd", (8, 4, 17, 64), "bf16", "the temporal step over B0, --bf16"),
+               ("bwd", (8, 4, 17, 64), "f32", "the temporal step over B0"),
+               ("bwd", (1, 4, 641, 64), "bf16", "long-clip training"),
+               ("bwd", (8, 12, 197, 64), "bf16", "an explain request's input gradient"))
+# the ViT training shape, whose calls the device bounds
+MAIN_DEVICE_SHAPE = (128, 12, 197, 64)
+HOST_ITERS = 200
+HOST_WINDOWS = 7
+
+
+def host_split(torch, call, iters: int = HOST_ITERS):
+    """Mean host ns a call of each phase that ``call()`` reports (it runs one
+    call and returns ``{phase: ns}``), over ``iters`` calls queued behind a
+    spin of the card, so that no phase waits on it; and whether the card was
+    still spinning when the last call had been queued (else the split holds
+    waits)."""
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    host_s = (time.perf_counter() - t0) / 20 * iters
+    torch.cuda.synchronize()
+    spun = torch.cuda.Event()
+    torch.cuda._sleep(int(4 * host_s * 2e9) + 1_000_000)  # 4x the host's time at <= 2 GHz
+    spun.record()
+    sums = {}
+    for _ in range(iters):
+        for k, v in call().items():
+            sums[k] = sums.get(k, 0) + v
+    ahead = not spun.query()
+    torch.cuda.synchronize()
+    return {k: v / iters for k, v in sums.items()}, ahead
+
+
+def library_calls(torch, direction, args) -> list:
+    """The library call that computes what a flash call on ``args``
+    computes: ``scaled_dot_product_attention``; for the backward, autograd
+    through it and its forward alone, whose difference is the yardstick."""
+    import torch.nn.functional as F
+
+    if direction == "fwd":
+        return [lambda: F.scaled_dot_product_attention(*args)]
+    ql, kl, vl = (t.detach().requires_grad_() for t in args[:3])
+
+    def fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), args[5])
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(ql, kl, vl)
+    return [fwd_bwd, fwd]
+
+
+def _flash_host_inputs(torch, A, gen, direction, shape, name):
+    """The call's inputs (strided, as the model hands them over) and its
+    library call."""
+    B, H, N, d = shape
+    if direction == "fwd":
+        args = _fwd_inputs(torch, gen, B, H, N, d, _dtype(torch, name), True)
+    else:
+        args = _bwd_inputs(torch, A, gen, B, H, N, d, _dtype(torch, name), True)
+    return args, library_calls(torch, direction, args)
+
+
+def _phases_cached(torch, A, direction, args):
+    """One call of ``flash_attention_fwd`` or ``flash_attention_bwd`` on CUDA
+    inputs that need no copy, its steps as the wrapper runs them, each timed:
+    returns ``{phase: ns}``. key: the launch key (the checks); plan: its
+    lookup and the split count; alloc: the outputs (and the partials);
+    call_block: the stream and the call's int64 block; ctypes_call: the
+    library entry (tensor maps copied from the cache with their addresses
+    replaced, the launches); counters."""
+    ns = time.perf_counter_ns
+    t = [ns()]
+    fwd = direction == "fwd"
+    q = args[0]
+    if fwd:
+        q, k, v = args
+        q.is_cpu
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        key = A._fwd_key(q, k, v, ptrs)
+    else:
+        q, k, v, out, lse, dout = args
+        q.is_cpu
+        ptrs = [x.data_ptr() for x in (q, k, v, out, dout)]
+        key = A._bwd_key(q, k, v, out, lse, dout, ptrs)
+    t.append(ns())
+    plans = A._FWD_PLANS if fwd else A._BWD_PLANS
+    plan = plans.get(key) or (A._fwd_plan(key, *args) if fwd else A._bwd_plan(key, *args))
+    _require(not (plan.padded or plan.copies), "host split: inputs need a copy")
+    if not fwd and plan.lse_copy:
+        lse = lse.contiguous()
+    device = q.get_device()
+    splits = A._long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[0 if fwd else 1]
+    t.append(ns())
+    if fwd:
+        outs = [q.new_empty_strided(plan.out_size, plan.out_stride)]
+        rows = q.new_empty((plan.B, plan.H, plan.N), dtype=torch.float32)
+        part = q.new_empty(splits * plan.part_n, dtype=torch.float32) if splits > 1 else None
+        part_ptr = 0 if part is None else part.data_ptr()
+    else:
+        outs = [q.new_empty_strided(plan.out_size, plan.out_stride) for _ in range(3)]
+        n = -(-plan.B * plan.H * plan.N // 64) * 64
+        rows = q.new_empty(n + (splits * plan.part_n if splits > 1 else 0), dtype=torch.float32)
+        part_ptr = rows.data_ptr() + 4 * n if splits > 1 else 0
+    t.append(ns())
+    if fwd:
+        vals = (*ptrs, outs[0].data_ptr(), rows.data_ptr())
+    else:
+        vals = (*ptrs, lse.data_ptr(), rows.data_ptr(), *(o.data_ptr() for o in outs))
+    call = array.array("q", (*vals, part_ptr, torch._C._cuda_getCurrentRawStream(device),
+                             splits))
+    t.append(ns())
+    status = plan.fn(call.buffer_info()[0], plan.addr)
+    t.append(ns())
+    _require(status == 0, f"host split: status {status}")
+    A._count(A.flash_attention_fwd if fwd else A.flash_attention_bwd, plan, splits, device)
+    t.append(ns())
+    names = ("key", "plan", "alloc", "call_block", "ctypes_call", "counters")
+    return {n: b - a for n, a, b in zip(names, t, t[1:])}
+
+
+def _wrapper_ns(fn):
+    def call():
+        t = time.perf_counter_ns()
+        fn()
+        return {"wrapper": time.perf_counter_ns() - t}
+    return call
+
+
+def _median_time_ms(torch, fn, windows: int = HOST_WINDOWS) -> float:
+    """The median of ``windows`` readings of ``_time_ms`` (20 calls each):
+    a host-bound call's events time moves with the host's speed from one
+    window to the next."""
+    return float(np.median([_time_ms(torch, fn) for _ in range(windows)]))
+
+
+def host_record(torch, A, direction, args, library, phases=None) -> dict:
+    """A flash call's wall time beside its host's share: card ms (events
+    around 20 back-to-back calls, the median of ``HOST_WINDOWS`` windows: at
+    a small shape the host's time a call),
+    the library call's card ms (``library``: its callables, the first less
+    the rest), the wrapper's own host ns a call and its phases' (``host_split``
+    of ``phases(torch, A, direction, args)``, by default ``_phases_cached``,
+    the wrapper's steps timed one by one)."""
+    phases = phases or _phases_cached
+    fn = A.flash_attention_fwd if direction == "fwd" else A.flash_attention_bwd
+    split, ahead = host_split(torch, lambda: phases(torch, A, direction, args))
+    wrapper, wrapper_ahead = host_split(torch, _wrapper_ns(lambda: fn(*args)))
+    lib_ms = [_median_time_ms(torch, f) for f in library]
+    return {"card_ms": _median_time_ms(torch, lambda: fn(*args)),
+            "library_card_ms": lib_ms[0] - sum(lib_ms[1:]),
+            "wrapper_host_ns": wrapper["wrapper"], "host_split_ns": split,
+            "host_split_sum_ns": sum(split.values()), "card_kept_ahead": ahead and wrapper_ahead}
+
+
+def flash_host(torch, A, smi: str = "", phases=None):
+    """The ``flash_host`` phase: at each call of ``HOST_SHAPES``
+    ``host_record`` beside the device ms of the call's kernels. Returns the
+    records."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    recs = []
+    for direction, shape, name, path in HOST_SHAPES:
+        args, library = _flash_host_inputs(torch, A, gen, direction, shape, name)
+        fn = A.flash_attention_fwd if direction == "fwd" else A.flash_attention_bwd
+        splits = A._long_splits(*shape, name == "bf16")[direction == "bwd"]
+        rec = {"phase": "flash_host", "direction": direction, "shape": list(shape),
+               "dtype": name, "path": path, "splits": splits,
+               **host_record(torch, A, direction, args, library, phases),
+               "device_ms": _device_ms(torch, lambda: fn(*args),
+                                       _flash_kernels(direction, name, splits)),
+               "nvidia_smi": smi}
+        _emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def flash_main_device(torch, A):
+    """Device ms of the forward and backward at ``MAIN_DEVICE_SHAPE`` in
+    both dtypes (strided q/k/v and dO), where the device bounds a call."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    recs = []
+    for name in ("bf16", "f32"):
+        args = _bwd_inputs(torch, A, gen, *MAIN_DEVICE_SHAPE, _dtype(torch, name), True)
+        for direction in ("fwd", "bwd"):
+            fn = A.flash_attention_fwd if direction == "fwd" else A.flash_attention_bwd
+            call_args = args[:3] if direction == "fwd" else args
+            rec = {"phase": "flash_main_device", "main_device": True, "direction": direction,
+                   "shape": list(MAIN_DEVICE_SHAPE), "dtype": name,
+                   "device_ms": _device_ms(torch, lambda: fn(*call_args),
+                                           _flash_kernels(direction, name, 1))}
+            _emit(rec)
+            recs.append(rec)
+    return recs
+
+
+def _require_split_route(A, what: str, shape) -> None:
+    """Every flash call at N > 512 since the last reset, each at ``shape``
+    (B, H, N, d), took the route that ``_long_splits`` names for it in its
+    direction: the split kernels where its S > 1, the unsplit ones at 1."""
+    for f, splits in zip((A.flash_attention_fwd, A.flash_attention_bwd), A._long_splits(*shape)):
+        want = f.launches_long if splits > 1 else 0
+        _require(f.launches_split == want,
                  f"{what}: {f.__name__} launched {f.launches_long} times at N > 512, "
-                 f"{f.launches_split} of them split")
+                 f"{f.launches_split} of them split; S = {splits} at {tuple(shape)}")
 
 
 def _plain_attention(A):
@@ -4245,7 +4468,7 @@ def train_long(torch, A, P, smi: str, data: str, out: str, device: str = "cuda")
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t
     launches = _counts(A, P)
-    _require_split_route(A, "long-clip training")
+    _require_split_route(A, "long-clip training", (B, LONG["num_heads"], T + 1, LONG_HEAD_DIM))
     peak_bytes = torch.cuda.max_memory_allocated()
 
     depth_bb, depth_t = len(model.backbone.blocks), model.depth
@@ -4300,7 +4523,7 @@ def evaluate_long(torch, A, P, smi: str, data: str, ckpt: str, device: str = "cu
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t
     launches = _counts(A, P)
-    _require_split_route(A, "long-clip evaluation")
+    _require_split_route(A, "long-clip evaluation", (B, LONG["num_heads"], T + 1, LONG_HEAD_DIM))
 
     with open(out_csv) as f:
         rows = list(csv.DictReader(f))
@@ -5185,7 +5408,8 @@ def parallel_seq(torch, A, P, smi: str, data: str) -> dict:
 
         rec = {}
         _first_steps(torch, A, P, step, state, batch, gen, rec)
-        _require_split_route(A, f"sequence-parallel {name}")
+        _require_split_route(A, f"sequence-parallel {name}",
+                             (1, LONG["num_heads"], T, LONG_HEAD_DIM))
         bd = _kernel_breakdown(torch, lambda: step(state, batch, gen()), top=5)
         rec.update(step_ms=bd["events_ms"], device_ms=bd["device_ms"],
                    idle_share=bd["idle_share"], kernel_launches=bd["launches"])
@@ -6038,9 +6262,10 @@ def main() -> int:
     for c in k2_cases + k4_cases:
         if c["note"].startswith(MAIN_NOTES):
             _require(c["dtype"] == "bf16", f"main-path case {c['note']!r} is {c['dtype']}")
-        if c["shape"][2] > A._SHORT_MAX and c["dtype"] == "bf16":
-            _require(c["splits"] > 1, f"flash {c['shape']} bf16 was not split")
+            if c["shape"][2] > A._SHORT_MAX:    # the long-clip paths run the split route
+                _require(c["splits"] > 1, f"flash {c['note']!r} was not split")
     timed("split_sweep", sweep_splits, torch, A, gen)
+    timed("flash_host", flash_host, torch, A, smi)
 
     served, _ = timed("vit_serving", serve, torch, A, P, smi)
     _require(all(v > 0 for v in served.values()),

@@ -860,21 +860,19 @@ int launch_bf16(const BwdArgs& a, const long long* geo, int B, cudaStream_t stre
   if (a.splits > n_tiles) return (int)cudaErrorInvalidValue;  // no split without rows
   const bool split = a.splits > 1;
   const void* ptrs[8] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  const int box_rows[8] = {C::ROWS, C::ROWS, C::ROWS, C::ROWS, C::ROWS, C::ROWS, C::ROWS, C::ROWS};
   CUtensorMap m[8];  // q, k, v, o, dout, and (unsplit) dq, dk, dv
-  for (int i = 0; i < (split ? 5 : 8); ++i) {
-    const int err = dfdt::encode_map(&m[i], ptrs[i], geo + 9 * i, a.d, a.N, a.H, B, C::ROWS);
-    if (err) return err;
-  }
-  const void* dq_kernel = split ? (const void*)flash_bwd_dq_split_bf16_wgmma_kernel<DP>
-                                : (const void*)flash_bwd_dq_bf16_wgmma_kernel<DP>;
-  const void* dkv_kernel = split ? (const void*)flash_bwd_dkv_split_bf16_wgmma_kernel<DP>
-                                 : (const void*)flash_bwd_dkv_bf16_wgmma_kernel<DP>;
-  cudaError_t e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)C::dq_smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)C::dkv_smem);
-  if (e != cudaSuccess) return (int)e;
+  dfdt::LaunchCache& cache = dfdt::launch_cache();
+  int err = cache.maps(m, ptrs, geo, box_rows, split ? 5 : 8, a.d, a.N, a.H, B, false);
+  if (!err)
+    err = cache.smem_attribute(split ? (const void*)flash_bwd_dq_split_bf16_wgmma_kernel<DP>
+                                     : (const void*)flash_bwd_dq_bf16_wgmma_kernel<DP>,
+                               (int)C::dq_smem);
+  if (!err)
+    err = cache.smem_attribute(split ? (const void*)flash_bwd_dkv_split_bf16_wgmma_kernel<DP>
+                                     : (const void*)flash_bwd_dkv_bf16_wgmma_kernel<DP>,
+                               (int)C::dkv_smem);
+  if (err) return err;
   const long long blocks = (long long)B * a.H * n_tiles * C::CB * a.splits;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
@@ -884,7 +882,7 @@ int launch_bf16(const BwdArgs& a, const long long* geo, int B, cudaStream_t stre
   else
     flash_bwd_dq_bf16_wgmma_kernel<DP><<<grid, C::THREADS, C::dq_smem, stream>>>(
         m[0], m[1], m[2], m[3], m[4], m[5], a.lse, a.dvec, a.H, a.N, a.d, a.scale);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (split)
     flash_bwd_dkv_split_bf16_wgmma_kernel<DP><<<grid, C::THREADS, C::dkv_smem, stream>>>(
@@ -1516,24 +1514,22 @@ template <int DP>
 int launch_tf32(const TfArgs& a, const long long* geo, int B, cudaStream_t stream) {
   using C = TfHopper<DP>;
   const void* ptrs[8] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  const int box_rows[8] = {C::BN, C::BN, C::BN, C::BN, C::BN, C::BN, C::BN, C::BN};
   CUtensorMap m[8];
-  for (int i = 0; i < 8; ++i) {
-    const int err = dfdt::encode_map(&m[i], ptrs[i], geo + 9 * i, a.d, a.N, a.H, B, C::BN, true);
-    if (err) return err;
-  }
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tf32_wgmma_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)C::dq_smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(flash_bwd_dkv_tf32_wgmma_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::dkv_smem);
-  if (e != cudaSuccess) return (int)e;
+  dfdt::LaunchCache& cache = dfdt::launch_cache();
+  int err = cache.maps(m, ptrs, geo, box_rows, 8, a.d, a.N, a.H, B, true);
+  if (!err)
+    err = cache.smem_attribute((const void*)flash_bwd_dq_tf32_wgmma_kernel<DP>, (int)C::dq_smem);
+  if (!err)
+    err = cache.smem_attribute((const void*)flash_bwd_dkv_tf32_wgmma_kernel<DP>,
+                               (int)C::dkv_smem);
+  if (err) return err;
   const long long blocks = (long long)B * a.H * ((a.N + C::ROWS - 1) / C::ROWS) * C::CB;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_bwd_dq_tf32_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dq_smem, stream>>>(
       m[0], m[1], m[2], m[3], m[4], m[5], a.o, a.dout, a.so, a.sdo, a.lse, a.dvec, a.H, a.N,
       a.d, a.scale);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dkv_tf32_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::dkv_smem, stream>>>(
       m[0], m[1], m[2], m[4], m[6], m[7], a.lse, a.dvec, a.H, a.N, a.scale);
@@ -1542,49 +1538,65 @@ int launch_tf32(const TfArgs& a, const long long* geo, int B, cudaStream_t strea
 
 }  // namespace
 
-// strides: 24 element strides, (b, h, n) for q, k, v, o, dout, dq, dk, dv in
-// that order. lse and dvec (scratch for D) are contiguous f32 (B, H, N).
-// Both dtypes read q, k, v, dout and write dq, dk, dv through tensor maps
-// built from `tma` (9 values for each of the eight, see encode_map): bf16
-// (d a multiple of 8) goes to the bf16 Hopper kernels, which read o by its
-// map too (the reduce kernel of the split route writes dq, dk, dv through
-// their strides); f32 (d a multiple of 4) to the 3xTF32 Hopper kernels,
-// which read o and dout for D through their strides (16-byte rows). splits:
-// 1, or (bf16 only) the splits S of the split route, with `scratch` the
-// caller's f32 buffer of 3*S*B*H*N*d elements for the partials.
-extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const void* o,
-                              const void* dout, const void* lse, void* dvec, void* dq,
-                              void* dk, void* dv, int B, int H, int N, int d, int is_bf16,
-                              const long long* strides, float scale, int splits, void* scratch,
-                              void* stream, const long long* tma) {
+// The two int64 blocks of a backward call (ops/attention.py packs them). The
+// plan, built once per shape, strides, dtype, device and alignment of the
+// inputs: the call's sizes (d the head dim the kernels see), the dtype, the
+// scale's f32 bits, 24 element strides ((b, h, n) of q, k, v, o, dout, dq,
+// dk, dv) and the tensor maps' geometries (9 values for each of the eight,
+// as encode_map reads them). The call: the pointers (lse and dvec, scratch
+// for D, contiguous f32 (B, H, N)), the stream and the split count S (1, or
+// bf16's splits, with `scratch` an f32 buffer of 3*S*B*H*N*d elements for
+// the partials).
+enum BwdPlan { kPB, kPH, kPN, kPD, kPBf16, kPScale, kPStrides, kPGeo = kPStrides + 24 };
+enum BwdCall {
+  kCQ, kCK, kCV, kCO, kCDout, kCLse, kCDvec, kCDq, kCDk, kCDv, kCScratch, kCStream, kCSplits
+};
+
+// Both dtypes read q, k, v, dout and write dq, dk, dv through tensor maps:
+// bf16 (d a multiple of 8) goes to the bf16 Hopper kernels, which read o by
+// its map too (the reduce kernel of the split route writes dq, dk, dv
+// through their strides); f32 (d a multiple of 4) to the 3xTF32 Hopper
+// kernels, which read o and dout for D through their strides (16-byte rows).
+extern "C" int dfdt_flash_bwd(const long long* call, const long long* plan) {
+  const int B = (int)plan[kPB], H = (int)plan[kPH], N = (int)plan[kPN], d = (int)plan[kPD];
+  const bool is_bf16 = plan[kPBf16] != 0;
+  const int splits = (int)call[kCSplits];
+  void* scratch = reinterpret_cast<void*>(call[kCScratch]);
   if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * 32 || splits < 1 ||
       (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
+  float scale;
+  const uint32_t scale_bits = (uint32_t)plan[kPScale];
+  std::memcpy(&scale, &scale_bits, sizeof scale);
+  const long long* strides = plan + kPStrides;
+  const long long* tma = plan + kPGeo;
+  auto ptr = [call](int i) { return reinterpret_cast<void*>(call[i]); };
   Strides st[8];
   for (int i = 0; i < 8; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* dvv = static_cast<float*>(dvec);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(call[kCStream]);
+  const float* l = static_cast<const float*>(ptr(kCLse));
+  float* dvv = static_cast<float*>(ptr(kCDvec));
   for (int i = 5; i < 8; ++i)
     if (st[i].b % 2 || st[i].h % 2 || st[i].n % 2) return (int)cudaErrorMisalignedAddress;
   if (!is_bf16) {
-    if (tma == nullptr || !dfdt::f32_aligned(o, st[3], d) || !dfdt::f32_aligned(dout, st[4], d))
+    if (!dfdt::f32_aligned(ptr(kCO), st[3], d) || !dfdt::f32_aligned(ptr(kCDout), st[4], d))
       return (int)cudaErrorMisalignedAddress;
     using F = const float*;
-    const TfArgs a{static_cast<F>(q), static_cast<F>(k), static_cast<F>(v), static_cast<F>(o),
-                   static_cast<F>(dout), l, dvv, static_cast<float*>(dq),
-                   static_cast<float*>(dk), static_cast<float*>(dv), st[3], st[4], H, N, d,
-                   scale};
+    const TfArgs a{static_cast<F>(ptr(kCQ)), static_cast<F>(ptr(kCK)), static_cast<F>(ptr(kCV)),
+                   static_cast<F>(ptr(kCO)), static_cast<F>(ptr(kCDout)), l, dvv,
+                   static_cast<float*>(ptr(kCDq)), static_cast<float*>(ptr(kCDk)),
+                   static_cast<float*>(ptr(kCDv)), st[3], st[4], H, N, d, scale};
     if (d <= 32) return launch_tf32<32>(a, tma, B, s);
     if (d <= 64) return launch_tf32<64>(a, tma, B, s);
     if (d <= 128) return launch_tf32<128>(a, tma, B, s);
     return launch_tf32<256>(a, tma, B, s);
   }
-  if (tma == nullptr || d % 8) return (int)cudaErrorMisalignedAddress;
+  if (d % 8) return (int)cudaErrorMisalignedAddress;
   using T = __nv_bfloat16;
-  const BwdArgs a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(o), static_cast<const T*>(dout), l, dvv,
-                  static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
+  const BwdArgs a{static_cast<const T*>(ptr(kCQ)), static_cast<const T*>(ptr(kCK)),
+                  static_cast<const T*>(ptr(kCV)), static_cast<const T*>(ptr(kCO)),
+                  static_cast<const T*>(ptr(kCDout)), l, dvv, static_cast<T*>(ptr(kCDq)),
+                  static_cast<T*>(ptr(kCDk)), static_cast<T*>(ptr(kCDv)),
                   static_cast<float*>(scratch), (long long)splits * B * H * N * d,
                   st[5], st[6], st[7], H, N, d, splits, scale};
   if (d <= 64) return launch_bf16<64>(a, tma, B, s);
@@ -1592,6 +1604,10 @@ extern "C" int dfdt_flash_bwd(const void* q, const void* k, const void* v, const
   if (d <= 192) return launch_bf16<192>(a, tma, B, s);
   return launch_bf16<256>(a, tma, B, s);
 }
+
+// Forget the tensor maps and shared-memory attributes this library keeps
+// (tests: a cleared cache must give the same results).
+extern "C" void dfdt_clear_launch_cache() { dfdt::launch_cache().clear(); }
 
 #ifdef DFDT_BWD_TRACE
 // the first `blocks` blocks' cycle marks and phase sums (kTraceSlots each)

@@ -630,27 +630,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const long
   const int n_tiles = (a.N + C::BN - 1) / C::BN;
   if (a.splits > n_tiles) return (int)cudaErrorInvalidValue;  // no split without keys
   const bool split = a.splits > 1;
-  CUtensorMap mq, mk, mv, mo;
-  int err = dfdt::encode_map(&mq, q, geo, a.d, a.N, a.H, B, C::BM);
-  if (!err) err = dfdt::encode_map(&mk, k, geo + 9, a.d, a.N, a.H, B, C::BN);
-  if (!err) err = dfdt::encode_map(&mv, v, geo + 18, a.d, a.N, a.H, B, C::BN);
-  if (!err && !split) err = dfdt::encode_map(&mo, o, geo + 27, a.d, a.N, a.H, B, C::BM);
+  const void* ptrs[4] = {q, k, v, o};
+  const int box_rows[4] = {C::BM, C::BN, C::BN, C::BM};
+  CUtensorMap m[4];  // q, k, v, and (unsplit) o
+  dfdt::LaunchCache& cache = dfdt::launch_cache();
+  int err = cache.maps(m, ptrs, geo, box_rows, split ? 3 : 4, a.d, a.N, a.H, B, false);
+  if (!err)
+    err = cache.smem_attribute(split ? (const void*)flash_fwd_split_bf16_wgmma_kernel<DP>
+                                     : (const void*)flash_fwd_bf16_wgmma_kernel<DP>,
+                               (int)C::smem);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(
-      split ? (const void*)flash_fwd_split_bf16_wgmma_kernel<DP>
-            : (const void*)flash_fwd_bf16_wgmma_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
-  if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)B * a.H * a.N;
   const long long blocks = (long long)B * a.H * ((a.N + C::BM - 1) / C::BM) * a.splits;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (split)
     flash_fwd_split_bf16_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
-        mq, mk, mv, a.part_o, a.part_lse, a.H, a.N, a.d, a.splits, scale);
+        m[0], m[1], m[2], a.part_o, a.part_lse, a.H, a.N, a.d, a.splits, scale);
   else
     flash_fwd_bf16_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
-        mq, mk, mv, mo, a.lse, a.H, a.N, a.d, scale);
-  e = cudaGetLastError();
+        m[0], m[1], m[2], m[3], a.lse, a.H, a.N, a.d, scale);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !split) return (int)e;
   const long long cells = rows * (a.d / 8);
   flash_fwd_combine_kernel<<<(unsigned)((cells + kCombineThreads - 1) / kCombineThreads),
@@ -1053,42 +1052,56 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse
                 const long long* geo, int B, int H, int N, int d, float scale,
                 cudaStream_t stream) {
   using C = TfFwd<DP>;
-  CUtensorMap mq, mk, mv, mo;
-  int err = dfdt::encode_map(&mq, q, geo, d, N, H, B, C::BM, true);
-  if (!err) err = dfdt::encode_map(&mk, k, geo + 9, d, N, H, B, C::BN, true);
-  if (!err) err = dfdt::encode_map(&mv, v, geo + 18, d, N, H, B, C::BN, true);
-  if (!err) err = dfdt::encode_map(&mo, o, geo + 27, d, N, H, B, C::BM, true);
+  const void* ptrs[4] = {q, k, v, o};
+  const int box_rows[4] = {C::BM, C::BN, C::BN, C::BM};
+  CUtensorMap m[4];
+  dfdt::LaunchCache& cache = dfdt::launch_cache();
+  int err = cache.maps(m, ptrs, geo, box_rows, 4, d, N, H, B, true);
+  if (!err) err = cache.smem_attribute((const void*)flash_fwd_tf32_wgmma_kernel<DP>, (int)C::smem);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tf32_wgmma_kernel<DP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
-  if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)B * H * ((N + C::BM - 1) / C::BM);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_fwd_tf32_wgmma_kernel<DP><<<(unsigned)blocks, C::THREADS, C::smem, stream>>>(
-      mq, mk, mv, mo, lse, H, N, scale);
+      m[0], m[1], m[2], m[3], lse, H, N, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// strides: 12 element strides, (b, h, n) for q, k, v and o in that order
-// (the combine kernel's o). Both dtypes read q, k and v and write o through
-// tensor maps built from `tma` (9 values for each of q, k, v and o, see
-// encode_map): bf16 (d a multiple of 8) goes to the Hopper kernels, f32 (d a
-// multiple of 4) to the 3xTF32 Hopper kernel. splits: 1, or (bf16 only) the
-// key splits S of the split route, with `scratch` the caller's f32 buffer
-// of S*B*H*N*(d + 1) elements for the partials.
+// The two int64 blocks of a forward call (ops/attention.py packs them). The
+// plan, built once per shape, strides, dtype, device and alignment of the
+// inputs: the call's sizes (d the head dim the kernels see), the dtype, the
+// scale's f32 bits, 12 element strides ((b, h, n) of q, k, v and o; the
+// combine kernel's o) and the tensor maps' geometries (9 values for each of
+// q, k, v and o, as encode_map reads them). The call: the pointers, the
+// stream and the split count S (1, or bf16's key splits, with `scratch` an
+// f32 buffer of S*B*H*N*(d + 1) elements for the partials).
+enum FwdPlan { kPB, kPH, kPN, kPD, kPBf16, kPScale, kPStrides, kPGeo = kPStrides + 12 };
+enum FwdCall { kCQ, kCK, kCV, kCO, kCLse, kCScratch, kCStream, kCSplits };
 
-extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                              int B, int H, int N, int d, int is_bf16,
-                              const long long* strides, float scale, int splits, void* scratch,
-                              void* stream, const long long* tma) {
+// Both dtypes read q, k and v and write o through tensor maps: bf16 (d a
+// multiple of 8) goes to the Hopper kernels, f32 (d a multiple of 4) to the
+// 3xTF32 Hopper kernel.
+extern "C" int dfdt_flash_fwd(const long long* call, const long long* plan) {
+  const int B = (int)plan[kPB], H = (int)plan[kPH], N = (int)plan[kPN], d = (int)plan[kPD];
+  const bool is_bf16 = plan[kPBf16] != 0;
+  const int splits = (int)call[kCSplits];
+  void* scratch = reinterpret_cast<void*>(call[kCScratch]);
   if (B < 1 || H < 1 || N < 1 || d < 1 || d > 256 || N > 65535 * kBlockM || splits < 1 ||
       (splits > 1 && (!is_bf16 || scratch == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (tma == nullptr || d % (is_bf16 ? 8 : 4)) return (int)cudaErrorMisalignedAddress;
-  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  if (d % (is_bf16 ? 8 : 4)) return (int)cudaErrorMisalignedAddress;
+  float scale;
+  const uint32_t scale_bits = (uint32_t)plan[kPScale];
+  std::memcpy(&scale, &scale_bits, sizeof scale);
+  const long long* strides = plan + kPStrides;
+  const long long* tma = plan + kPGeo;
+  const void* q = reinterpret_cast<const void*>(call[kCQ]);
+  const void* k = reinterpret_cast<const void*>(call[kCK]);
+  const void* v = reinterpret_cast<const void*>(call[kCV]);
+  void* o = reinterpret_cast<void*>(call[kCO]);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(call[kCStream]);
+  float* l = reinterpret_cast<float*>(call[kCLse]);
   if (!is_bf16) {
     if (d <= 32) return launch_tf32<32>(q, k, v, o, l, tma, B, H, N, d, scale, s);
     if (d <= 64) return launch_tf32<64>(q, k, v, o, l, tma, B, H, N, d, scale, s);
@@ -1107,6 +1120,10 @@ extern "C" int dfdt_flash_fwd(const void* q, const void* k, const void* v, void*
   if (d <= 192) return launch_bf16<192>(q, k, v, o, tma, a, B, scale, s);
   return launch_bf16<256>(q, k, v, o, tma, a, B, scale, s);
 }
+
+// Forget the tensor maps and shared-memory attributes this library keeps
+// (tests: a cleared cache must give the same results).
+extern "C" void dfdt_clear_launch_cache() { dfdt::launch_cache().clear(); }
 
 #ifdef DFDT_FWD_TRACE
 // the first `blocks` blocks' cycle marks and phase sums (kTraceSlots each)

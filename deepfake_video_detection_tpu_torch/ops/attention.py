@@ -42,14 +42,25 @@ the scale of the true d, and the result is sliced back
 (:func:`_tma_geometries`). On CPU tensors each wrapper takes its plain
 version, a dense f32 computation.
 
+The launch route. What a call computes from its inputs' shapes, strides,
+dtypes, card and alignment (the checks, the route, the tensor maps'
+geometries, the element strides) it looks up by those: a plan
+(:class:`_Plan`) built on the first call of its key. A call then allocates
+its outputs and hands the library two int64 blocks by address, the plan's
+and its own (pointers, stream, split count). The library encodes a tensor
+map once per geometry, dtype and card and gives a cached copy each call's
+address (``cuTensorMapReplaceAddress``, ``csrc/tma_map.cuh``), and sets a
+kernel's shared-memory attribute once per card.
+
 The split route (bf16 at N > 512, the regime of the TPU's streaming
 kernels K3, K5 and K6). One block per (64-row tile, head) leaves most of
 the card idle at the temporal transformer's few heads, so the streamed loop
 is cut into S runs, each a block of its own writing f32 partials that a
 last small kernel combines (forward: by their logsumexps) or sums (backward)
 in a fixed order, so reruns are bit-identical. :func:`_long_splits` picks S
-from the shape alone; S = 1 runs the unsplit kernels. The wrapper allocates
-the partials.
+from the shape alone; S = 1 runs the unsplit kernels (the backward's S is 1
+where its unsplit grid already fills the card). The wrapper allocates the
+partials.
 
 :class:`FlashAttention` saves q, k, v, O and lse, as the JAX ``custom_vjp``
 keeps them as residuals, and :func:`flash_attention` is differentiable on
@@ -91,23 +102,28 @@ _count_lock = threading.Lock()
 # above d = 64. The card runs _SMS times the blocks an SM holds at once (a
 # wave): 3 of the split forward (160 threads of 122 registers at d = 64,
 # ptxas), _BWD_BLOCKS_PER_SM of the backward's dK/dV pass, fewer where the
-# shared memory of a larger d allows fewer. S minimises waves x
-# tiles per split (the streamed tiles the slowest SM walks) + _SPLIT_COST
-# x S (a split's partials, written once and read again by the combine or
-# reduce kernel), the smallest S on a tie, over the counts that keep each
-# split at least _SPLIT_MIN_TILES tiles (a 2-stage ring overlaps one
-# tile's copy with the other's products) and the partials at most
-# _SPLIT_SCRATCH_CAP bytes. Tuned on an H100 against the split sweep of
-# `chip_smoke.py` (PERF.md): a fixed fill target (the smallest S that fills
-# one wave) put the N = 4097 backward into 2 waves of long blocks (0.357
-# against 0.304 ms at its best S), and waves x tiles alone split the short
-# calls into more blocks than their partials repay. The Hopper forward kept
-# these constants: at the long-clip evaluation shape the policy's S is the
-# sweep's best, elsewhere within 11 % of it (PERF.md). So did the Hopper
-# backward: its sweep's best S >= 2 at (2, 4, 513, 64), (2, 12, 640, 64) and
-# (1, 4, 4097, 64), 13 % above it at (1, 4, 641, 64) (S = 4 against 3); S = 1
-# itself read faster than any split wherever the unsplit grid nearly fills
-# the card ((2, 12, 640, 64), (1, 4, 4097, 64); PERF.md).
+# shared memory of a larger d allows fewer. Either direction's S keeps each
+# split at least _SPLIT_MIN_TILES tiles (a 2-stage ring overlaps one tile's
+# copy with the other's products) and its partials at most
+# _SPLIT_SCRATCH_CAP bytes; the smallest S on a tie.
+# The forward's S minimises waves x tiles per split (the streamed tiles the
+# slowest SM walks) + _SPLIT_COST x S (a split's partials, written once and
+# read again by the combine kernel). Tuned on an H100 against the split
+# sweep of `chip_smoke.py` (PERF.md): a fixed fill target (the smallest S
+# that fills one wave) put long calls into 2 waves of long blocks, and waves
+# x tiles alone split the short calls into more blocks than their partials
+# repay. The Hopper forward kept these constants: at the long-clip
+# evaluation shape its S is the sweep's best, elsewhere within 11 % of it.
+# The backward's S minimises its modelled device time (_bwd_us): the tiles a
+# split walks, a block alone on its SM or sharing it, and for S > 1 the
+# three f32 partial planes (dQ, dK, dV) written and read again by the
+# reduce kernel, and a fixed term. Its constants are a least-squares fit
+# (relative error) to the bf16 backward's device time at every S of 12
+# long-N shapes on an H100 80GB HBM3 at 700 W (`tools/flash_bwd_check.py
+# --sweep`, PERF.md): within 7 % RMS, its S within 6 % of the sweep's best
+# but at (1, 4, 2049, 64), 12 %. S = 1 where the unsplit grid already fills
+# the card ((2, 12, 640, 64), (1, 4, 4097, 64)): a split adds waves and
+# planes there.
 _SMS = 132                          # streaming multiprocessors of an H100
 _ROW_TILE = 64
 _SMEM_PER_SM = 227 * 1024
@@ -116,6 +132,11 @@ _BWD_BLOCKS_PER_SM = 2
 _SPLIT_COST = 0.5
 _SPLIT_MIN_TILES = 2
 _SPLIT_SCRATCH_CAP = 256 << 20
+_BWD_TILE_US = 0.937        # a streamed tile of both passes a 64-column block, alone on an SM
+_BWD_SHARED_SM = 1.91       # blocks sharing an SM: each takes this times as long
+_BWD_SPLIT_US = -4.21       # the split route's fixed term against the unsplit, reduce included
+                            # (fitted, negative: split blocks end sooner than their tiles say)
+_BWD_PLANE_BYTES_US = 1.171 / 3.35e6   # µs a byte of the partial planes, written or read
 # the TMA box of a tensor map: one 128-byte swizzled row (64 bf16 or 32 f32
 # columns)
 _TMA_ROW_BYTES = 128
@@ -155,26 +176,25 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fwd_library() -> ctypes.CDLL:
-    lib = _build.load(_FWD_SOURCE)
-    fn = lib.dfdt_flash_fwd
+def _library(source: str, entry: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, its entry ``entry`` taking the
+    call's and the plan's int64 blocks by address."""
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:     # once per loaded library
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.dfdt_clear_launch_cache.argtypes = []
+        lib.dfdt_clear_launch_cache.restype = None
     return lib
+
+
+def _fwd_library() -> ctypes.CDLL:
+    return _library(_FWD_SOURCE, "dfdt_flash_fwd")
 
 
 def _bwd_library() -> ctypes.CDLL:
-    lib = _build.load(_BWD_SOURCE)
-    fn = lib.dfdt_flash_bwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+    return _library(_BWD_SOURCE, "dfdt_flash_bwd")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -254,12 +274,30 @@ def _bwd_smem(d: int, bf16: bool = True) -> Tuple[int, int]:
     return dq, dkv
 
 
-def _split_count(blocks: int, tiles: int, per_sm: int, split_bytes: int,
-                 least: int = 1) -> int:
+def _most_splits(tiles: int, split_bytes: int) -> int:
+    return max(1, min(tiles // _SPLIT_MIN_TILES, _SPLIT_SCRATCH_CAP // split_bytes))
+
+
+def _split_count(blocks: int, tiles: int, per_sm: int, split_bytes: int) -> int:
     slots = _SMS * per_sm
-    most = max(1, min(tiles // _SPLIT_MIN_TILES, _SPLIT_SCRATCH_CAP // split_bytes))
-    return min(range(min(least, most), most + 1),
+    return min(range(1, _most_splits(tiles, split_bytes) + 1),
                key=lambda s: _cdiv(blocks * s, slots) * _cdiv(tiles, s) + _SPLIT_COST * s)
+
+
+def _bwd_us(B: int, H: int, N: int, d: int, splits: int) -> float:
+    """The bf16 backward's modelled device µs at ``splits`` (both passes and,
+    for S > 1, the reduce), less a term common to every S."""
+    col_blocks = _cdiv(d, 64)
+    blocks = B * H * _cdiv(N, _ROW_TILE) * col_blocks * splits
+    resident = min(_BWD_BLOCKS_PER_SM, _SMEM_PER_SM // max(_bwd_smem(d)))
+    per_sm = _cdiv(blocks, _SMS)
+    load = 1.0 if per_sm == 1 else (
+        per_sm if resident == 1 else _BWD_SHARED_SM * _cdiv(per_sm, resident))
+    us = _BWD_TILE_US * col_blocks * _cdiv(_cdiv(N, _bwd_tile(d)), splits) * load
+    if splits == 1:
+        return us
+    planes = 3 * 4 * B * H * N * _cdiv(d, 8) * 8 * splits     # f32 dQ, dK, dV partials
+    return us + _BWD_SPLIT_US + 2 * planes * _BWD_PLANE_BYTES_US
 
 
 @functools.lru_cache(maxsize=1024)
@@ -277,23 +315,9 @@ def _long_splits(B: int, H: int, N: int, d: int, bf16: bool = True
     s_fwd = _split_count(blocks, _cdiv(N, _fwd_key_tile(d)),
                          min(_BLOCKS_PER_SM, _SMEM_PER_SM // _fwd_smem(d)),
                          4 * B * H * N * (dp + 1))
-    # the backward runs a block a 64-column block of d, and splits every
-    # call at N > 512 that its scratch cap allows (S >= 2: the K5/K6 regime's
-    # route), though its sweep reads S = 1 faster where the unsplit grid
-    # nearly fills the card (ROADMAP)
-    s_bwd = _split_count(blocks * _cdiv(d, 64), _cdiv(N, _bwd_tile(d)),
-                         min(_BWD_BLOCKS_PER_SM, _SMEM_PER_SM // max(_bwd_smem(d))),
-                         3 * 4 * B * H * N * dp, least=2)
+    most = _most_splits(_cdiv(N, _bwd_tile(d)), 3 * 4 * B * H * N * dp)
+    s_bwd = min(range(1, most + 1), key=lambda s: _bwd_us(B, H, N, d, s))
     return s_fwd, s_bwd
-
-
-def _partials(n: int, splits: int, like: torch.Tensor):
-    """The split kernels' f32 partials, ``splits * n`` elements, and their
-    address; none (a null address) when ``splits`` is 1."""
-    if splits == 1:
-        return None, None
-    buf = torch.empty(splits * n, dtype=torch.float32, device=like.device)
-    return buf, buf.data_ptr()
 
 
 def _check_inputs(*ts: torch.Tensor) -> None:
@@ -367,27 +391,76 @@ def _tma_geometries(ts, rows):
     return geos
 
 
-def _strides(*ts: torch.Tensor) -> array.array:
-    """The B/H/N strides of ``ts`` as a C array of int64 (its address:
-    ``.buffer_info()[0]``; cheaper to build than a ctypes array)."""
-    return array.array("q", [s for t in ts for s in t.stride()[:3]])
+class _Plan:
+    """What every call of one launch key shares, built on the key's first
+    call: the library entry, the int64 plan block the kernels read (sizes,
+    dtype, the scale's f32 bits, the element strides and tensor maps'
+    geometries of ``tensors``, the inputs as the kernels see them and then
+    an output a map, see ``dfdt_flash_fwd``/``dfdt_flash_bwd``) and its
+    address, the route (``copies``: which inputs go as contiguous copies;
+    ``padded``: zero-padded copies in d), the outputs' layout and the split
+    route's partials a split."""
+
+    __slots__ = ("fn", "lib", "block", "addr", "B", "H", "N", "d", "bf16", "long", "copies",
+                 "lse_copy", "padded", "out_size", "out_stride", "part_n")
+
+    def __init__(self, lib, fn, tensors, geos, d, copies, padded, part_n):
+        B, H, N, dp = tensors[0].shape
+        self.lib, self.fn = lib, fn
+        self.B, self.H, self.N, self.d = B, H, N, d
+        self.bf16 = tensors[0].dtype == torch.bfloat16
+        self.long = int(N > _SHORT_MAX)
+        self.copies, self.padded, self.part_n = copies, padded, part_n
+        self.lse_copy = False
+        self.out_size, self.out_stride = tensors[-1].shape, tensors[-1].stride()
+        self.block = array.array(
+            "q", [B, H, N, dp, int(self.bf16), _f32_bits(1.0 / math.sqrt(d))]
+            + [s for t in tensors for s in t.stride()[:3]]
+            + [x for g in geos for f in g for x in f])
+        self.addr = self.block.buffer_info()[0]
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``q, k, v``: ``(B, H, N, d)``, bf16 or f32, d ≤ 256, any N ≥ 1.
-    Returns ``(out, lse)``: out ``(B, H, N, d)`` in q's dtype, lse f32
-    ``(B, H, N)``, the logsumexp of the scaled scores of each query row.
-    Not differentiable through the kernel: use :func:`flash_attention`."""
-    _check_inputs(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    _check_kernel_shape(q)
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash attention kernel needs the last axis of q, "
-                         "k, v contiguous")
+# launch keys -> _Plan, at most _PLAN_CAP of each (emptied when full): a
+# key is the inputs' shapes, strides, dtypes, cards and the low 4 bits of
+# their addresses, everything the checks and _tma_geometries decide from
+_FWD_PLANS: dict = {}
+_BWD_PLANS: dict = {}
+_PLAN_CAP = 1024
+
+
+def _f32_bits(x: float) -> int:
+    """The bits of ``x`` rounded to f32, as ctypes passes a float."""
+    return int.from_bytes(array.array("f", [x]).tobytes(), "little")
+
+
+def _remember(plans: dict, key, plan: _Plan) -> _Plan:
+    if len(plans) >= _PLAN_CAP:
+        plans.clear()
+    plans[key] = plan
+    return plan
+
+
+def _fwd_key(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ptrs) -> tuple:
+    """A forward call's launch key: its inputs' shapes, strides, dtypes and
+    cards, and the low 4 bits of their addresses ``ptrs``."""
+    return (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(), q.dtype, k.dtype,
+            v.dtype, q.get_device(), k.get_device(), v.get_device(),
+            (ptrs[0] | ptrs[1] | ptrs[2]) & 15)
+
+
+def _bwd_key(q, k, v, out, lse, dout, ptrs) -> tuple:
+    """A backward call's launch key, as :func:`_fwd_key` (lse's address is
+    not in it: the kernels read lse as plain f32 rows)."""
+    return (q.shape, k.shape, v.shape, out.shape, dout.shape, lse.shape, q.stride(), k.stride(),
+            v.stride(), out.stride(), dout.stride(), lse.stride(), q.dtype, k.dtype, v.dtype,
+            out.dtype, dout.dtype, lse.dtype, q.get_device(), k.get_device(), v.get_device(),
+            out.get_device(), dout.get_device(), lse.get_device(), tuple(p & 15 for p in ptrs))
+
+
+def _fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lib=None) -> _Plan:
+    """The route and plan block of a forward call on ``q, k, v`` (their
+    geometry: d, strides, alignment), launching through ``lib``."""
     B, H, N, d = q.shape
-    scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
     rows = (_ROW_TILE,) + (_fwd_key_tile(d, bf16),) * 2   # the box rows of Q, K, V
     geos = _tma_geometries((q, k, v), rows)
@@ -396,30 +469,124 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         q, k, v = (_pad_head_dim(t) for t in (q, k, v))
         geos = _tma_geometries((q, k, v), rows)
     dp = q.shape[-1]
-    splits = _long_splits(B, H, N, d, bf16)[0]
     out = _heads_view(B, H, N, dp, q)
-    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    # partial O (B*H, S, N, dp) and lse (B*H, S, N) of the split route
-    part, part_ptr = _partials(B * H * N * (dp + 1), splits, q)
-    strides = _strides(q, k, v, out)
     # the tensor maps of q, k, v and out
     geos.append(_tma_geometry(out, _ROW_TILE))
-    tma = array.array("q", [x for g in geos for f in g for x in f])
-    lib = _fwd_library()
-    status = lib.dfdt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, N, dp, int(bf16), strides.buffer_info()[0],
-        scale, splits, part_ptr, torch.cuda.current_stream(q.device).cuda_stream,
-        tma.buffer_info()[0])
-    _build.check(lib, status, "flash_attention_fwd")
+    # partial O (B*H, S, N, dp) and lse (B*H, S, N) of the split route
+    return _Plan(lib, lib and lib.dfdt_flash_fwd, (q, k, v, out), geos, d, None, padded,
+                 B * H * N * (dp + 1))
+
+
+def _bwd_layout(q, k, v, out, lse, dout, lib=None) -> _Plan:
+    """The route and plan block of a backward call, as :func:`_fwd_layout`:
+    a tensor whose last axis is strided goes as a contiguous copy, and lse
+    as a contiguous one unless it is."""
+    ins = (q, k, v, out, dout)
+    copies = tuple(t.stride(-1) != 1 for t in ins)
+    ins = tuple(t.contiguous() if c else t for t, c in zip(ins, copies))
+    B, H, N, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    # every box of the backward's maps, own tile or streamed, is _bwd_tile
+    # rows: one tensor map a tensor
+    rows = _bwd_tile(d, bf16)
+    geos = _tma_geometries(ins, rows)
+    padded = geos is None
+    if padded:
+        ins = tuple(_pad_head_dim(t) for t in ins)
+        geos = _tma_geometries(ins, rows)
+    dp = ins[0].shape[-1]
+    grad = _heads_view(B, H, N, dp, ins[0])
+    # the tensor maps of q, k, v, out, dout, dq, dk and dv
+    geos += [_tma_geometry(grad, rows)] * 3
+    # partial dQ, dK and dV, each (B*H, S, N, dp), of the split route
+    plan = _Plan(lib, lib and lib.dfdt_flash_bwd, ins + (grad,) * 3, geos, d,
+                 copies if any(copies) else None, padded, 3 * B * H * N * dp)
+    plan.lse_copy = not lse.is_contiguous()
+    return plan
+
+
+def _fwd_plan(key, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> _Plan:
+    """The checks and plan of a forward key, on its first call."""
+    _check_inputs(q, k, v)
+    _check_kernel_shape(q)
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash attention kernel needs the last axis of q, "
+                         "k, v contiguous")
+    return _remember(_FWD_PLANS, key, _fwd_layout(q, k, v, _fwd_library()))
+
+
+def _bwd_plan(key, q, k, v, out, lse, dout) -> _Plan:
+    """The checks and plan of a backward key, on its first call."""
+    _check_bwd_inputs(q, k, v, out, lse, dout)
+    _check_kernel_shape(q)
+    return _remember(_BWD_PLANS, key, _bwd_layout(q, k, v, out, lse, dout, _bwd_library()))
+
+
+def _clear_launch_caches() -> None:
+    """Forget every launch plan, and the tensor maps and shared-memory
+    attributes that the loaded flash libraries keep (tests: results after a
+    clear equal those before)."""
+    _FWD_PLANS.clear()
+    _BWD_PLANS.clear()
+    for source in (_FWD_SOURCE, _BWD_SOURCE):
+        lib = _build._libs.get(source)
+        if lib is not None:
+            lib.dfdt_clear_launch_cache()
+
+
+def _count(f, plan: _Plan, splits: int, device: int) -> None:
     with _count_lock:
-        flash_attention_fwd.launches += 1
-        flash_attention_fwd.launches_long += int(N > _SHORT_MAX)
-        flash_attention_fwd.launches_split += int(splits > 1)
-        flash_attention_fwd.launches_f32 += int(not bf16)
-        by = flash_attention_fwd.launches_by_device
-        by[q.device.index] = by.get(q.device.index, 0) + 1
-    return (out[..., :d] if padded else out), lse
+        f.launches += 1
+        f.launches_long += plan.long
+        f.launches_split += splits > 1
+        f.launches_f32 += not plan.bf16
+        by = f.launches_by_device
+        by[device] = by.get(device, 0) + 1
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``q, k, v``: ``(B, H, N, d)``, bf16 or f32, d ≤ 256, any N ≥ 1.
+    Returns ``(out, lse)``: out ``(B, H, N, d)`` in q's dtype, lse f32
+    ``(B, H, N)``, the logsumexp of the scaled scores of each query row.
+    Not differentiable through the kernel: use :func:`flash_attention`.
+
+    A call looks its launch plan up by the inputs' shapes, strides, dtypes,
+    cards and alignment (built, checks included, on the key's first call),
+    then allocates the outputs and hands the kernel's library two int64
+    blocks: the plan's, and one of this call's pointers, stream and split
+    count."""
+    if q.is_cpu:
+        _check_inputs(q, k, v)
+        return flash_attention_plain(q, k, v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    key = _fwd_key(q, k, v, ptrs)
+    plan = _FWD_PLANS.get(key) or _fwd_plan(key, q, k, v)
+    if plan.padded:
+        q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    device = q.get_device()
+    splits = _long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[0]
+    out = q.new_empty_strided(plan.out_size, plan.out_stride)
+    lse = q.new_empty((plan.B, plan.H, plan.N), dtype=torch.float32)
+    part = q.new_empty(splits * plan.part_n, dtype=torch.float32) if splits > 1 else None
+    call = array.array("q", (*ptrs, out.data_ptr(), lse.data_ptr(),
+                             0 if part is None else part.data_ptr(),
+                             torch._C._cuda_getCurrentRawStream(device), splits))
+    status = plan.fn(call.buffer_info()[0], plan.addr)
+    if status:
+        _build.check(plan.lib, status, "flash_attention_fwd")
+    _count(flash_attention_fwd, plan, splits, device)
+    return (out[..., :plan.d] if plan.padded else out), lse
+
+
+def _check_bwd_inputs(q, k, v, out, lse, dout) -> None:
+    _check_inputs(q, k, v, out, dout)
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"flash attention backward takes lse f32 "
+                         f"{tuple(q.shape[:3])} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -429,57 +596,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cotangent ``dout``, from the forward's ``out`` and ``lse``. All of
     q, k, v, out, dout ``(B, H, N, d)`` in one dtype; lse f32 ``(B, H, N)``.
     A tensor whose last axis is not contiguous is copied; any other strides
-    that a tensor map describes go to the kernel as they are."""
-    _check_inputs(q, k, v, out, dout)
-    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
-            or lse.device != q.device:
-        raise ValueError(f"flash attention backward takes lse f32 "
-                         f"{tuple(q.shape[:3])} on {q.device}, got "
-                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
-    if q.device.type == "cpu":
+    that a tensor map describes go to the kernel as they are. Launched as
+    :func:`flash_attention_fwd` is, from a plan looked up by the inputs'
+    shapes, strides, dtypes, cards and alignment."""
+    if q.is_cpu:
+        _check_bwd_inputs(q, k, v, out, lse, dout)
         return flash_attention_bwd_plain(q, k, v, out, lse, dout)
-    _check_kernel_shape(q)
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
-                          for t in (q, k, v, out, dout))
-    lse = lse.contiguous()
-    B, H, N, d = q.shape
-    scale = 1.0 / math.sqrt(d)
-    bf16 = q.dtype == torch.bfloat16
     ins = (q, k, v, out, dout)
-    # every box of the backward's maps, own tile or streamed, is _bwd_tile
-    # rows: one tensor map a tensor
-    rows = _bwd_tile(d, bf16)
-    geos = _tma_geometries(ins, rows)
-    padded = geos is None
-    if padded:
-        q, k, v, out, dout = ins = tuple(_pad_head_dim(t) for t in ins)
-        geos = _tma_geometries(ins, rows)
-    dp = q.shape[-1]
-    splits = _long_splits(B, H, N, d, bf16)[1]
-    dq, dk, dv = (_heads_view(B, H, N, dp, q) for _ in range(3))
-    dcap = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    # partial dQ, dK and dV, each (B*H, S, N, dp), of the split route
-    part, part_ptr = _partials(3 * B * H * N * dp, splits, q)
-    strides = _strides(q, k, v, out, dout, dq, dk, dv)
-    # the tensor maps of q, k, v, out, dout, dq, dk and dv
-    geos += [_tma_geometry(t, rows) for t in (dq, dk, dv)]
-    tma = array.array("q", [x for g in geos for f in g for x in f])
-    lib = _bwd_library()
-    status = lib.dfdt_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, N, dp, int(bf16),
-        strides.buffer_info()[0], scale, splits, part_ptr,
-        torch.cuda.current_stream(q.device).cuda_stream, tma.buffer_info()[0])
-    _build.check(lib, status, "flash_attention_bwd")
-    with _count_lock:
-        flash_attention_bwd.launches += 1
-        flash_attention_bwd.launches_long += int(N > _SHORT_MAX)
-        flash_attention_bwd.launches_split += int(splits > 1)
-        flash_attention_bwd.launches_f32 += int(not bf16)
-        by = flash_attention_bwd.launches_by_device
-        by[q.device.index] = by.get(q.device.index, 0) + 1
-    if padded:
+    ptrs = [t.data_ptr() for t in ins]
+    key = _bwd_key(q, k, v, out, lse, dout, ptrs)
+    plan = _BWD_PLANS.get(key) or _bwd_plan(key, q, k, v, out, lse, dout)
+    if plan.copies:
+        ins = tuple(t.contiguous() if c else t for t, c in zip(ins, plan.copies))
+    if plan.padded:
+        ins = tuple(_pad_head_dim(t) for t in ins)
+    if plan.copies or plan.padded:
+        ptrs = [t.data_ptr() for t in ins]
+    if plan.lse_copy:
+        lse = lse.contiguous()
+    device = q.get_device()
+    splits = _long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[1]
+    q = ins[0]
+    dq, dk, dv = (q.new_empty_strided(plan.out_size, plan.out_stride) for _ in range(3))
+    # one f32 scratch: D of each row, then (split route) the partials from
+    # a 64-element boundary, aligned for their 16-byte loads
+    rows = _cdiv(plan.B * plan.H * plan.N, 64) * 64
+    scratch = q.new_empty(rows + (splits * plan.part_n if splits > 1 else 0),
+                          dtype=torch.float32)
+    dcap = scratch.data_ptr()
+    call = array.array("q", (*ptrs, lse.data_ptr(), dcap, dq.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), dcap + 4 * rows if splits > 1 else 0,
+                             torch._C._cuda_getCurrentRawStream(device), splits))
+    status = plan.fn(call.buffer_info()[0], plan.addr)
+    if status:
+        _build.check(plan.lib, status, "flash_attention_bwd")
+    _count(flash_attention_bwd, plan, splits, device)
+    if plan.padded:
+        d = plan.d
         return dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv
 

@@ -232,21 +232,24 @@ def test_f32_kernels_propagate_nan():
         assert bool(g.isnan().any())
 
 
-@pytest.mark.parametrize("B,H,N,d", [
-    (4, 4, 641, 64),                              # S divides neither pass's 11 tiles
-    (1, 4, 1025, 64),                             # a 1024-frame clip
-    (1, 4, 4097, 64),                             # a clip of minutes
-    (1, 4, 1025, 128),                            # d = 128
-    (1, 2, 700, 256),                             # d = 256: 32-key forward tiles
+@pytest.mark.parametrize("B,H,N,d,splits", [
+    (4, 4, 641, 64, (2, 1)),                      # S divides neither pass's 11 tiles
+    (1, 4, 1025, 64, (5, 3)),                     # a 1024-frame clip
+    (1, 4, 4097, 64, (3, 1)),                     # a clip of minutes
+    (1, 4, 1025, 128, (3, 3)),                    # d = 128
+    (1, 2, 700, 256, (6, 3)),                     # d = 256: 32-key forward tiles
 ])
-def test_flash_split_route_matches_plain(B, H, N, d):
-    """bf16 at N > 512 takes the split kernels (S > 1; at N = 641 and 1025 S
-    does not divide the streamed tiles, so the splits are uneven): forward
-    and backward against the plain versions, and a rerun of the backward
-    bit-identical."""
+def test_flash_split_route_matches_plain(B, H, N, d, splits, monkeypatch):
+    """bf16 at N > 512: the policy's S (``_long_splits``: the forward
+    splits each of these, the backward where its modelled device time says
+    so), then the split kernels forced (the backward's S at least 2) so that
+    each shape runs them; at N = 641 and 1025 S does not divide the streamed
+    tiles, so the splits are uneven. Forward and backward against the plain
+    versions, and a rerun of the backward bit-identical."""
     gen = _cuda_generator()
-    s_fwd, s_bwd = A._long_splits(B, H, N, d)
-    assert s_fwd > 1 and s_bwd > 1
+    assert A._long_splits(B, H, N, d) == splits
+    s_fwd, s_bwd = splits[0], max(2, splits[1])
+    monkeypatch.setattr(A, "_long_splits", lambda *_: (s_fwd, s_bwd))
     if N < 4096:
         assert -(-N // A._fwd_key_tile(d)) % s_fwd and -(-N // A._bwd_tile(d)) % s_bwd
     q, k, v, _, _, dout = _bwd_inputs(gen, B, H, N, d, torch.bfloat16, True)
@@ -262,6 +265,107 @@ def test_flash_split_route_matches_plain(B, H, N, d):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     for g, r in zip(got, A.flash_attention_bwd_plain(q, k, v, out, lse, dout)):
         assert float((g.float() - r.float()).abs().max()) <= 2e-2 * float(r.float().abs().max())
+
+
+def _one_key_input_sets(gen, B, H, N, d, dtype):
+    """Four sets of q, k, v and dO of one launch key: the views of two fused
+    QKV buffers, and of the two halves of a third one (views at two offsets
+    of one buffer); dO the head-merge view of a gradient buffer."""
+    def fused(qkv):
+        return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+    one = B * N * 3 * H * d
+    halves = torch.randn(2 * one, device="cuda", generator=gen).to(dtype)
+    qkvs = [torch.randn((B, N, 3, H, d), device="cuda", generator=gen).to(dtype)
+            for _ in range(2)] + [halves[i * one:(i + 1) * one].view(B, N, 3, H, d)
+                                  for i in range(2)]
+    sets = []
+    for qkv in qkvs:
+        dout = torch.randn((B, N, H * d), device="cuda", generator=gen).to(dtype)
+        sets.append((*fused(qkv), dout.view(B, N, H, d).transpose(1, 2)))
+    return sets
+
+
+def _flash_calls(sets, rounds=2):
+    """Forward and backward on each set in turn, ``rounds`` times; returns
+    the last round's (O, lse, dQ, dK, dV) of each set."""
+    for _ in range(rounds):
+        res = []
+        for q, k, v, dout in sets:
+            out, lse = A.flash_attention_fwd(q, k, v)
+            res.append((out, lse, *A.flash_attention_bwd(q, k, v, out, lse, dout)))
+    torch.cuda.synchronize()
+    return res
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 4, 197, 64), torch.bfloat16),            # the unsplit kernels
+    ((1, 4, 641, 64), torch.bfloat16),            # the split route: partials, combine, reduce
+    ((2, 4, 197, 64), torch.float32),             # the 3xTF32 kernels
+    ((2, 3, 77, 36), torch.bfloat16),             # the padded copies' maps
+])
+def test_cached_tensor_maps_follow_each_calls_addresses(shape, dtype):
+    """Calls alternate between four input sets of one launch key, so every
+    call reuses the key's plan and its cached tensor maps, given that call's
+    addresses (a stale address would read another set's data): each result
+    within the plain version's gate, and bit-identical to the same call
+    after the launch caches are cleared and every map is encoded anew."""
+    gen = _cuda_generator()
+    sets = _one_key_input_sets(gen, *shape, dtype)
+    A._clear_launch_caches()
+    got = _flash_calls(sets)
+    assert len(A._FWD_PLANS) == len(A._BWD_PLANS) == 1
+    bf16 = dtype == torch.bfloat16
+    for (q, k, v, dout), res in zip(sets, got):
+        ref, ref_lse = A.flash_attention_plain(q, k, v)
+        err = float((res[0].float() - ref.float()).abs().max())
+        assert err <= (2e-2 * float(ref.float().abs().max()) if bf16 else 1e-4)
+        assert float((res[1] - ref_lse).abs().max()) <= 1e-3
+        for g, r in zip(res[2:], A.flash_attention_bwd_plain(q, k, v, res[0], res[1], dout)):
+            if bf16:
+                err = float((g.float() - r.float()).abs().max())
+                assert err <= max(2e-2 * float(r.float().abs().max()), 1e-4)
+            else:
+                assert torch.allclose(g, r, atol=1e-3, rtol=1e-3)
+    A._clear_launch_caches()
+    fresh = [_flash_calls([s], rounds=1)[0] for s in sets]
+    for a, b in zip(got, fresh):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_cached_launches_from_two_threads_on_two_cards():
+    """Serving replicas launch from a thread a card: two threads, one on
+    each of two cards, alternate between input sets of one shape; every
+    result is bit-identical to the same call made alone on its card."""
+    _cuda_generator()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import threading
+
+    results, errors = {}, []
+
+    def replica(i):
+        try:
+            with torch.cuda.device(i):
+                gen = torch.Generator(device=f"cuda:{i}").manual_seed(i)
+                sets = _one_key_input_sets(gen, 8, 12, 197, 64, torch.bfloat16)
+                alone = [_flash_calls([s], rounds=1)[0] for s in sets]
+                barrier.wait()
+                results[i] = (alone, _flash_calls(sets, rounds=20))
+        except BaseException as e:  # re-raised in the test's thread
+            errors.append(e)
+            barrier.abort()
+
+    barrier = threading.Barrier(2)
+    threads = [threading.Thread(target=replica, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for alone, together in results.values():
+        for a, b in zip(alone, together):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_vit_shapes_take_the_unsplit_kernels():

@@ -208,9 +208,29 @@ def test_split_policy_keeps_short_n_and_f32_unsplit(shape, bf16):
 @pytest.mark.parametrize("shape", [(2, 4, 1025, 64), (1, 4, 641, 64)])
 def test_split_policy_splits_the_long_clip_shapes(shape):
     """The temporal transformer's evaluation (N = 1025) and training
-    (N = 641) calls: 4 heads per clip leave most of the card idle unsplit."""
+    (N = 641) calls: 4 heads per clip leave most of the card idle unsplit,
+    so the forward splits both. The backward splits the training call (its
+    one backward); at N = 1025 its unsplit grid of 136 blocks reads fastest
+    on the card (the backward sweep, PERF.md)."""
     s_fwd, s_bwd = A._long_splits(*shape)
-    assert s_fwd > 1 and s_bwd > 1
+    assert s_fwd > 1
+    assert (s_bwd > 1) == (shape[2] == 641)
+
+
+@pytest.mark.parametrize("shape,split", [
+    ((2, 12, 640, 64), False),      # the K5/K6 regime at 12 heads: 240 blocks unsplit
+    ((1, 4, 4097, 64), False),      # a clip of minutes: 260 blocks unsplit
+    ((1, 4, 641, 64), True),        # long-clip training: 44 blocks unsplit
+    ((2, 4, 513, 64), True),        # the first split shape: 72 blocks unsplit
+])
+def test_split_policy_follows_the_backward_sweep(shape, split):
+    """The bf16 backward takes S = 1 where its sweep on the card read S = 1
+    fastest (the unsplit grid nearly fills the card: a split adds waves and
+    three f32 partial planes), and S >= 2 where the split still wins."""
+    s_bwd = A._long_splits(*shape)[1]
+    assert (s_bwd > 1) == split
+    times = {s: A._bwd_us(*shape, s) for s in range(1, 9)}
+    assert times[s_bwd] == min(times.values())
 
 
 @pytest.mark.parametrize("shape", [

@@ -13,9 +13,11 @@ dtype (bf16 by default) against the plain version (bf16: dQ, dK, dV within
 ``K4_TOL_F32``; ``chip_smoke.py``'s gates) and a rerun bit for bit.
 ``--time`` adds, at ``TIMED``, the device ms of the call by kernel and of
 ``scaled_dot_product_attention``'s backward (autograd through it less its
-forward, as ``chip_smoke.py`` reads it) and the bound; ``--sweep`` the
-backward's device ms at every split count of ``SWEPT`` (bf16: f32 has no
-split route); ``--trace`` builds the source again with ``-DDFDT_BWD_TRACE``
+forward, as ``chip_smoke.py`` reads it) and the bound, beside both calls'
+card ms and the wrapper's host time by phase (``chip_smoke.host_record``);
+``--sweep`` the backward's device ms at every split count of ``SWEPT``
+(bf16: f32 has no split route), the data ``_long_splits``' backward model
+is fitted to; ``--trace`` builds the source again with ``-DDFDT_BWD_TRACE``
 (its ``BWD_MARK`` cycle marks) and prints, at ``TRACED``, the median
 cycles of a block's phases in each pass: set-up and the first loads, the
 first streamed tile, each further tile, the epilogue. One JSON object a
@@ -47,7 +49,13 @@ CASES = [(8, 12, 197, 64, True), (128, 12, 197, 64, True), (16, 12, 1, 64, False
 TIMED = [(128, 12, 197, 64), (128, 3, 197, 64), (16, 6, 197, 64), (8, 12, 197, 64),
          (8, 4, 17, 64), (1, 4, 641, 64),
          (2, 12, 640, 64), (1, 4, 4097, 64), (4, 12, 256, 64), (2, 4, 513, 64)]
-SWEPT = [(1, 4, 641, 64), (2, 12, 640, 64), (1, 4, 4097, 64), (2, 4, 513, 64)]
+# the backward's long-N calls whose split counts the policy is fitted to:
+# the long-clip training call, the K5/K6 regime at 12 heads, a clip of
+# minutes, the first split shape, then more batches, heads, lengths and
+# head dims of the temporal transformer's range
+SWEPT = [(1, 4, 641, 64), (2, 12, 640, 64), (1, 4, 4097, 64), (2, 4, 513, 64),
+         (2, 4, 1025, 64), (1, 4, 1025, 64), (1, 8, 641, 64), (4, 4, 641, 64),
+         (1, 4, 2049, 64), (2, 4, 2049, 64), (1, 4, 1025, 128), (1, 2, 700, 256)]
 TRACED = [(128, 12, 197, 64), (8, 12, 197, 64), (1, 4, 641, 64)]
 PHASES = ("to_first_tiles", "first_tile", "per_further_tile", "epilogue")
 # the f32 passes' phases of a streamed tile (BWD_PHASE), summed over a block's tiles
@@ -175,11 +183,11 @@ def main(argv) -> int:
             kern = cs._device_ms(torch, _bwd(A, args), cs._flash_kernels("bwd", name, splits),
                                  parts=parts)
             lib = _library_ms(torch, *args[:3], args[5])
+            host = cs.host_record(torch, A, "bwd", args, cs.library_calls(torch, "bwd", args))
             _emit({"shape": [B, H, N, d], "dtype": name, "splits": splits,
                    "kernel_device_ms": kern, "by_kernel": parts, "library_device_ms": lib,
-                   "kernel_ms": cs._time_ms(torch, _bwd(A, args)),
                    "ratio": None if not (kern and lib) else kern / lib,
-                   "bound_ms": bound, "bound_by": by})
+                   "bound_ms": bound, "bound_by": by, **host})
     if "--sweep" in argv and bf16:
         for B, H, N, d in SWEPT:
             args = cs._bwd_inputs(torch, A, gen, B, H, N, d, torch.bfloat16, True)

@@ -13,7 +13,8 @@ within ``K2_TOL_F32``; lse within ``K2_TOL_LSE``: ``chip_smoke.py``'s
 gates). ``--time`` adds, at ``TIMED`` (``F32_TIMED``), the device ms of
 the kernel and of ``scaled_dot_product_attention`` (CUDA events over queued
 calls held against ``torch.profiler``, as ``chip_smoke.py`` reads them) and
-the bound; ``--sweep`` the bf16 forward's device ms at every split count of
+the bound, beside both calls' card ms and the wrapper's host time by phase
+(``chip_smoke.host_record``); ``--sweep`` the bf16 forward's device ms at every split count of
 the long-N shapes (f32 has no split route); ``--trace`` builds the source
 again with ``-DDFDT_FWD_TRACE`` (its ``FWD_MARK`` cycle marks) and prints,
 at ``TRACED``, the median cycles of a block's phases: set-up and the first
@@ -202,11 +203,12 @@ def main(argv) -> int:
             kern = cs._device_ms(torch, lambda: A.flash_attention_fwd(q, k, v),
                                  cs._flash_kernels("fwd", name, splits))
             lib = cs._session_device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+            host = cs.host_record(torch, A, "fwd", (q, k, v),
+                                  cs.library_calls(torch, "fwd", (q, k, v)))
             _emit({"shape": [B, H, N, d], "dtype": name, "splits": splits,
                    "kernel_device_ms": kern, "library_device_ms": lib,
-                   "kernel_ms": cs._time_ms(torch, lambda: A.flash_attention_fwd(q, k, v)),
                    "ratio": None if not (kern and lib) else kern / lib,
-                   "bound_ms": bound, "bound_by": by})
+                   "bound_ms": bound, "bound_by": by, **host})
     if "--sweep" in argv and bf16:
         for B, H, N, d in SWEPT:
             q, k, v = _qkv(torch, gen, B, H, N, d, True, dtype)
