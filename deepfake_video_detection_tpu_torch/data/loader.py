@@ -13,6 +13,13 @@ hands each device its rows of the global batch.
 each batch is copied into pinned host memory and sent with a
 ``non_blocking`` copy (:func:`batch_to_device`), so the transfer overlaps
 the previous step.
+
+Spans and counters (``utils/profiling.py``), while something records:
+``loader.wait``, the consumer blocked on a batch's item loads (``ready``:
+whether every load was done when it asked), with the counters
+``loader.asked`` and ``loader.ready``; ``loader.stack``, the batch's
+``np.stack``; ``loader.pin``, :func:`batch_to_device`'s pin and copy
+enqueue.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import concurrent.futures as _fut
 from typing import Any, Dict, Iterator
 
 import numpy as np
+
+from deepfake_video_detection_tpu_torch.utils import profiling
 
 
 class Loader:
@@ -105,9 +114,18 @@ class Loader:
             for b, p in enumerate(plans):
                 if b + 2 < len(plans):
                     pending.append(submit(pool, plans[b + 2]))
-                items = [f.result() for f in pending.popleft()]
+                futures = pending.popleft()
+                with profiling.annotate("loader.wait") as span:
+                    if span:
+                        ready = all(f.done() for f in futures)
+                        span.set(ready=ready)
+                        profiling.count("loader.asked")
+                        profiling.count("loader.ready", int(ready))
+                    items = [f.result() for f in futures]
+                with profiling.annotate("loader.stack"):
+                    frames = np.stack([it[0] for it in items])        # (B,T,H,W,3) uint8
                 yield {
-                    "frames": np.stack([it[0] for it in items]),      # (B,T,H,W,3) uint8
+                    "frames": frames,
                     "labels": np.asarray([it[1] for it in items], np.int64),
                     "valid": np.asarray([v for _, v in p], bool),
                     "paths": [it[2] for it in items],
@@ -122,15 +140,16 @@ def batch_to_device(batch: Dict[str, Any], device: Any) -> Dict[str, Any]:
 
     device = torch.device(device)
     dev = {}
-    for k, v in batch.items():
-        if not isinstance(v, np.ndarray):
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        dev[k] = t
+    with profiling.annotate("loader.pin"):
+        for k, v in batch.items():
+            if not isinstance(v, np.ndarray):
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            else:
+                t = t.to(device)
+            dev[k] = t
     return dev
 
 

@@ -72,6 +72,11 @@ for B, H and N (the last axis must be contiguous), so the q/k/v views that
 the strided dO that autograd hands back through the head merge, go in
 without a copy. O, dQ, dK and dV come back as ``(B, H, N, d)`` views of
 ``(B, N, H, d)`` buffers.
+
+While something records (``utils/profiling.py``), each call of
+:func:`flash_attention_fwd` and :func:`flash_attention_bwd` is a span,
+``ops.flash_fwd`` or ``ops.flash_bwd``, with q's shape and dtype: the
+wrapper's host time, the launch included.
 """
 
 from __future__ import annotations
@@ -86,6 +91,7 @@ from typing import Tuple
 import torch
 
 from deepfake_video_detection_tpu_torch.ops import _build
+from deepfake_video_detection_tpu_torch.utils.profiling import annotate
 
 _FWD_SOURCE = "flash_fwd.cu"
 _BWD_SOURCE = "flash_bwd.cu"
@@ -556,28 +562,31 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     then allocates the outputs and hands the kernel's library two int64
     blocks: the plan's, and one of this call's pointers, stream and split
     count."""
-    if q.is_cpu:
-        _check_inputs(q, k, v)
-        return flash_attention_plain(q, k, v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    key = _fwd_key(q, k, v, ptrs)
-    plan = _FWD_PLANS.get(key) or _fwd_plan(key, q, k, v)
-    if plan.padded:
-        q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+    with annotate("ops.flash_fwd") as span:
+        if span:
+            span.set(shape=q.shape, dtype=q.dtype)
+        if q.is_cpu:
+            _check_inputs(q, k, v)
+            return flash_attention_plain(q, k, v)
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    device = q.get_device()
-    splits = _long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[0]
-    out = q.new_empty_strided(plan.out_size, plan.out_stride)
-    lse = q.new_empty((plan.B, plan.H, plan.N), dtype=torch.float32)
-    part = q.new_empty(splits * plan.part_n, dtype=torch.float32) if splits > 1 else None
-    call = array.array("q", (*ptrs, out.data_ptr(), lse.data_ptr(),
-                             0 if part is None else part.data_ptr(),
-                             torch._C._cuda_getCurrentRawStream(device), splits))
-    status = plan.fn(call.buffer_info()[0], plan.addr)
-    if status:
-        _build.check(plan.lib, status, "flash_attention_fwd")
-    _count(flash_attention_fwd, plan, splits, device)
-    return (out[..., :plan.d] if plan.padded else out), lse
+        key = _fwd_key(q, k, v, ptrs)
+        plan = _FWD_PLANS.get(key) or _fwd_plan(key, q, k, v)
+        if plan.padded:
+            q, k, v = (_pad_head_dim(t) for t in (q, k, v))
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        device = q.get_device()
+        splits = _long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[0]
+        out = q.new_empty_strided(plan.out_size, plan.out_stride)
+        lse = q.new_empty((plan.B, plan.H, plan.N), dtype=torch.float32)
+        part = q.new_empty(splits * plan.part_n, dtype=torch.float32) if splits > 1 else None
+        call = array.array("q", (*ptrs, out.data_ptr(), lse.data_ptr(),
+                                 0 if part is None else part.data_ptr(),
+                                 torch._C._cuda_getCurrentRawStream(device), splits))
+        status = plan.fn(call.buffer_info()[0], plan.addr)
+        if status:
+            _build.check(plan.lib, status, "flash_attention_fwd")
+        _count(flash_attention_fwd, plan, splits, device)
+        return (out[..., :plan.d] if plan.padded else out), lse
 
 
 def _check_bwd_inputs(q, k, v, out, lse, dout) -> None:
@@ -599,42 +608,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that a tensor map describes go to the kernel as they are. Launched as
     :func:`flash_attention_fwd` is, from a plan looked up by the inputs'
     shapes, strides, dtypes, cards and alignment."""
-    if q.is_cpu:
-        _check_bwd_inputs(q, k, v, out, lse, dout)
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout)
-    ins = (q, k, v, out, dout)
-    ptrs = [t.data_ptr() for t in ins]
-    key = _bwd_key(q, k, v, out, lse, dout, ptrs)
-    plan = _BWD_PLANS.get(key) or _bwd_plan(key, q, k, v, out, lse, dout)
-    if plan.copies:
-        ins = tuple(t.contiguous() if c else t for t, c in zip(ins, plan.copies))
-    if plan.padded:
-        ins = tuple(_pad_head_dim(t) for t in ins)
-    if plan.copies or plan.padded:
+    with annotate("ops.flash_bwd") as span:
+        if span:
+            span.set(shape=q.shape, dtype=q.dtype)
+        if q.is_cpu:
+            _check_bwd_inputs(q, k, v, out, lse, dout)
+            return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        ins = (q, k, v, out, dout)
         ptrs = [t.data_ptr() for t in ins]
-    if plan.lse_copy:
-        lse = lse.contiguous()
-    device = q.get_device()
-    splits = _long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[1]
-    q = ins[0]
-    dq, dk, dv = (q.new_empty_strided(plan.out_size, plan.out_stride) for _ in range(3))
-    # one f32 scratch: D of each row, then (split route) the partials from
-    # a 64-element boundary, aligned for their 16-byte loads
-    rows = _cdiv(plan.B * plan.H * plan.N, 64) * 64
-    scratch = q.new_empty(rows + (splits * plan.part_n if splits > 1 else 0),
-                          dtype=torch.float32)
-    dcap = scratch.data_ptr()
-    call = array.array("q", (*ptrs, lse.data_ptr(), dcap, dq.data_ptr(), dk.data_ptr(),
-                             dv.data_ptr(), dcap + 4 * rows if splits > 1 else 0,
-                             torch._C._cuda_getCurrentRawStream(device), splits))
-    status = plan.fn(call.buffer_info()[0], plan.addr)
-    if status:
-        _build.check(plan.lib, status, "flash_attention_bwd")
-    _count(flash_attention_bwd, plan, splits, device)
-    if plan.padded:
-        d = plan.d
-        return dq[..., :d], dk[..., :d], dv[..., :d]
-    return dq, dk, dv
+        key = _bwd_key(q, k, v, out, lse, dout, ptrs)
+        plan = _BWD_PLANS.get(key) or _bwd_plan(key, q, k, v, out, lse, dout)
+        if plan.copies:
+            ins = tuple(t.contiguous() if c else t for t, c in zip(ins, plan.copies))
+        if plan.padded:
+            ins = tuple(_pad_head_dim(t) for t in ins)
+        if plan.copies or plan.padded:
+            ptrs = [t.data_ptr() for t in ins]
+        if plan.lse_copy:
+            lse = lse.contiguous()
+        device = q.get_device()
+        splits = _long_splits(plan.B, plan.H, plan.N, plan.d, plan.bf16)[1]
+        q = ins[0]
+        dq, dk, dv = (q.new_empty_strided(plan.out_size, plan.out_stride) for _ in range(3))
+        # one f32 scratch: D of each row, then (split route) the partials from
+        # a 64-element boundary, aligned for their 16-byte loads
+        rows = _cdiv(plan.B * plan.H * plan.N, 64) * 64
+        scratch = q.new_empty(rows + (splits * plan.part_n if splits > 1 else 0),
+                              dtype=torch.float32)
+        dcap = scratch.data_ptr()
+        call = array.array("q", (*ptrs, lse.data_ptr(), dcap, dq.data_ptr(), dk.data_ptr(),
+                                 dv.data_ptr(), dcap + 4 * rows if splits > 1 else 0,
+                                 torch._C._cuda_getCurrentRawStream(device), splits))
+        status = plan.fn(call.buffer_info()[0], plan.addr)
+        if status:
+            _build.check(plan.lib, status, "flash_attention_bwd")
+        _count(flash_attention_bwd, plan, splits, device)
+        if plan.padded:
+            d = plan.d
+            return dq[..., :d], dk[..., :d], dv[..., :d]
+        return dq, dk, dv
 
 
 # kernel launches since the last reset (plain integers, set to 0 by callers);

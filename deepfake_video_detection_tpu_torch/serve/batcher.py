@@ -18,6 +18,14 @@ call:
 Items are host arrays, stacked once on the host so one batch is one
 host→device copy. ``fn`` may return tensors on any device: each output is
 brought to the host once per batch (bf16 as f32) and sliced there.
+
+Spans (``utils/profiling.py``), while something records: ``batch.collect``,
+the batcher thread's wait for a ready group; ``batch.step``, a group's run
+(``n`` items, bucket ``b``, the items still ``pending`` after the take, the
+``requests`` served: each caller's innermost span, its ``serve.request``),
+over ``batch.stack`` and ``batch.to_host``; and ``batch.queue_wait``, an
+item's wait from its enqueue to the take of its group, written on the
+batcher thread with the caller's span as its parent.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from deepfake_video_detection_tpu_torch.utils import profiling
 
 
 def _bucket(n: int, max_batch: int, multiple: int = 1) -> int:
@@ -51,13 +61,16 @@ def to_host(x: Any) -> Optional[np.ndarray]:
 
 
 class _Entry:
-    __slots__ = ("item", "event", "result", "error")
+    __slots__ = ("item", "event", "result", "error", "request", "enqueued")
 
     def __init__(self, item: np.ndarray):
         self.item = item
         self.event = threading.Event()
         self.result: Any = None
         self.error: Optional[BaseException] = None
+        # the caller's span and the enqueue time, kept while tracing
+        self.request: Optional[int] = None
+        self.enqueued: Optional[int] = None
 
 
 class MicroBatcher:
@@ -96,6 +109,8 @@ class MicroBatcher:
     def call(self, fn: Callable[[Any], Tuple], item: Any,
              out_axes: Sequence[Optional[int]]) -> Tuple:
         entry = _Entry(item)
+        if profiling.enabled():
+            entry.request, entry.enqueued = profiling.current(), time.perf_counter_ns()
         key = (id(fn), tuple(np.shape(item)), str(np.asarray(item).dtype),
                tuple(out_axes))
         with self._cond:
@@ -145,15 +160,33 @@ class MicroBatcher:
 
     def _run(self) -> None:
         while True:
-            with self._cond:
-                batch = self._take_ready_locked()
-                while batch is None:
-                    if self._closed and not self._pending:
-                        return
-                    self._cond.wait(timeout=self._next_deadline_locked())
+            entries: List[_Entry] = []
+            try:
+                with profiling.annotate("batch.collect"), self._cond:
                     batch = self._take_ready_locked()
-            fn, out_axes, entries = batch
-            self._execute(fn, out_axes, entries)
+                    while batch is None:
+                        if self._closed and not self._pending:
+                            return
+                        self._cond.wait(timeout=self._next_deadline_locked())
+                        batch = self._take_ready_locked()
+                    fn, out_axes, entries = batch
+                    pending = (sum(len(v[3]) for v in self._pending.values())
+                               if profiling.enabled() else None)
+                self._execute(fn, out_axes, entries, pending)
+            except BaseException as exc:  # hand the failure to every waiter
+                if not entries:
+                    raise
+                for e in entries:
+                    if not e.event.is_set():
+                        # a fresh instance per waiter: request threads re-raising
+                        # one shared exception would mutate its traceback at once
+                        try:
+                            err: BaseException = type(exc)(*exc.args)
+                        except Exception:
+                            err = RuntimeError(f"batched forward failed: {exc!r}")
+                        err.__cause__ = exc
+                        e.error = err
+                        e.event.set()
 
     def _next_deadline_locked(self) -> Optional[float]:
         if not self._pending:
@@ -182,17 +215,28 @@ class MicroBatcher:
             self._pending[best_key] = [fn, axes, ts, rest]
         return fn, axes, take
 
-    def _execute(self, fn, out_axes, entries: List[_Entry]) -> None:
-        try:
-            n = len(entries)
-            b = _bucket(n, self.max_batch, self.bucket_multiple)
-            items = [e.item for e in entries]
-            items += [items[-1]] * (b - n)  # repeat-pad to the bucket
-            outputs = fn(np.stack([np.asarray(x) for x in items]))
+    def _execute(self, fn, out_axes, entries: List[_Entry],
+                 pending: Optional[int]) -> None:
+        n = len(entries)
+        b = _bucket(n, self.max_batch, self.bucket_multiple)
+        with profiling.annotate("batch.step") as span:
+            if span:
+                taken = time.perf_counter_ns()
+                for e in entries:
+                    if e.enqueued is not None:
+                        profiling.record("batch.queue_wait", e.enqueued, taken,
+                                         parent=e.request)
+                span.set(n=n, b=b, pending=pending, requests=[e.request for e in entries])
+            with profiling.annotate("batch.stack"):
+                items = [e.item for e in entries]
+                items += [items[-1]] * (b - n)  # repeat-pad to the bucket
+                stacked = np.stack([np.asarray(x) for x in items])
+            outputs = fn(stacked)
             if not isinstance(outputs, tuple):
                 outputs = (outputs,)
             # one device→host copy per output per batch, sliced on the host
-            outputs = tuple(to_host(o) for o in outputs)
+            with profiling.annotate("batch.to_host"):
+                outputs = tuple(to_host(o) for o in outputs)
             self.batches_run += 1
             self.items_run += n
             for i, e in enumerate(entries):
@@ -201,18 +245,6 @@ class MicroBatcher:
                     else (out if ax is None else _slice(out, ax, i))
                     for out, ax in zip(outputs, out_axes))
                 e.event.set()
-        except BaseException as exc:  # hand the failure to every waiter
-            for e in entries:
-                if not e.event.is_set():
-                    # a fresh instance per waiter: request threads re-raising
-                    # one shared exception would mutate its traceback at once
-                    try:
-                        err: BaseException = type(exc)(*exc.args)
-                    except Exception:
-                        err = RuntimeError(f"batched forward failed: {exc!r}")
-                    err.__cause__ = exc
-                    e.error = err
-                    e.event.set()
 
 
 def _slice(x: Any, axis: int, i: int) -> Any:

@@ -69,6 +69,13 @@ gathered in row order. The windowed scan pads its W windows up to a
 multiple of the replica count with the last window. Explanations run on the
 first replica. A replica that fails is an error of the request or of the
 warmup: nothing falls back to fewer cards.
+
+Spans (``utils/profiling.py``), while something records: ``serve.request``,
+all of :meth:`Predictor._predict_pretrained` (its id is the request's id
+in the batcher's spans); ``serve.policy``, the host work after the
+probabilities are back (threshold, calibration, agent, the result dict);
+``serve.h2d``, a batch's host→device copy; ``serve.forward``, the
+forward's host enqueue on one device.
 """
 
 from __future__ import annotations
@@ -96,6 +103,7 @@ from deepfake_video_detection_tpu_torch.utils.config import env_bool, env_float,
 from deepfake_video_detection_tpu_torch.utils.device import (  # noqa: F401
     resolve_device, serving_dtype)
 from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
+from deepfake_video_detection_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -257,7 +265,8 @@ class _Replica:
 
     def _run(self, rows: np.ndarray, yuv: bool) -> tuple:
         with torch.cuda.device(self.device) if self.device.type == "cuda" else _NULL_CTX:
-            x = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
+            with annotate("serve.h2d"):
+                x = torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
             out = tuple(to_host(o) for o in (self.forward_yuv if yuv else self.forward)(x))
         self.batches += 1
         return out
@@ -342,14 +351,17 @@ class Predictor:
             self.warmup_done.set()
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        with annotate("serve.h2d"):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _run(self, rows: np.ndarray, yuv: bool) -> tuple:
         """The serving forward (RGB or packed YUV) on a host batch: on the
         one device, or split into equal row shards, one a replica, and
         gathered on the host in row order."""
         if not self._replicas:
-            return (self._forward_yuv if yuv else self._forward)(self._to_device(rows))
+            x = self._to_device(rows)
+            with annotate("serve.forward"):
+                return (self._forward_yuv if yuv else self._forward)(x)
         n, r = divmod(rows.shape[0], self._n_dp)
         if r:
             raise ValueError(f"a batch of {rows.shape[0]} does not split over "
@@ -541,199 +553,202 @@ class Predictor:
                             packed_yuv: bool = False, windows: int = 1,
                             n_extracted: Optional[int] = None,
                             explain: bool = False) -> Dict[str, Any]:
-        abstain_conf = env_float("DETECT_ABSTAIN_CONF", 0.60)
-        abstain_margin = max(0.0, min(0.5, env_float("DETECT_ABSTAIN_MARGIN", 0.0)))
-        # the number of faces actually extracted, not a padded count
-        num_faces = int(faces.shape[0]) if n_extracted is None else n_extracted
-        min_faces = max(1, env_int("MIN_FACES", 2))
-        if num_faces < min_faces:
-            return {
-                "prediction": "Uncertain", "verdict_yes_no": "Unsure",
-                "description": (
-                    f"Not enough faces/frames detected for a stable decision "
-                    f"(num_faces={num_faces}, min_faces={min_faces}). Try a "
-                    f"clearer face shot, better lighting, or a longer clip."),
-                "pred_class": None, "confidence": None, "prob_real": None,
-                "prob_fake": None, "num_faces": num_faces, "abstained": True,
-            }
-
-        win_payload = None
-        if windows > 1:
-            # windowed scan: one batched forward over (W, T, ...) — the
-            # windows are the batch, so this bypasses the request batcher
-            T = max(1, -(-faces.shape[0] // windows))  # ceil: keep the tail
-            need = windows * T
-            if faces.shape[0] < need:  # repeat-pad short clips
-                pad = np.repeat(faces[-1:], need - faces.shape[0], axis=0)
-                faces = np.concatenate([faces, pad])
-            faces_w = np.asarray(faces[:need]).reshape(
-                (windows, T) + faces.shape[1:])
-            # over several replicas the windows must split evenly: repeat
-            # the last, and slice the outputs back
-            w_pad = -(-windows // self._n_dp) * self._n_dp
-            if w_pad > windows:
-                faces_w = np.concatenate(
-                    [faces_w, np.repeat(faces_w[-1:], w_pad - windows, axis=0)])
-            probs, logits, frame_scores, member_logits = (
-                to_host(o) for o in self._run(faces_w, packed_yuv))
-            probs, logits, frame_scores = probs[:windows], logits[:windows], \
-                frame_scores[:windows]
-            if member_logits is not None:
-                member_logits = member_logits[:, :windows]
-        elif self._batcher is not None:
-            # coalesce with concurrent requests into one device step; each
-            # output comes back as this request's length-1 slice
-            item_fn = self._fwd_yuv_item if packed_yuv else self._fwd_item
-            probs, logits, frame_scores, member_logits = self._batcher.call(
-                item_fn, np.asarray(faces), out_axes=(0, 0, 0, 1))
-        else:
-            fwd = self._forward_yuv if packed_yuv else self._forward
-            probs, logits, frame_scores, member_logits = (
-                to_host(o) for o in fwd(self._to_device(np.asarray(faces)[None])))
-        probs_all = np.asarray(probs)          # (W or 1, C)
-        fake_idx = _get_fake_class_index(probs_all.shape[1])
-        # verdict from the most-suspicious window (max prob_fake)
-        widx = int(np.argmax(probs_all[:, fake_idx])) \
-            if probs_all.shape[0] > 1 else 0
-        if windows > 1:
-            win_payload = {
-                "policy": "max", "count": int(probs_all.shape[0]),
-                "deciding_window": widx,
-                "prob_fake": [round(float(p), 6)
-                              for p in probs_all[:, fake_idx]],
-            }
-            if num_faces < need:
-                # frames without a detected face were dropped and the rest
-                # cycle-padded: window i is no longer the i-th time segment
-                win_payload["temporal_alignment"] = "cycled"
-                win_payload["note"] = (
-                    "some sampled frames had no detected face and were "
-                    "dropped before cycle-padding; window indices are "
-                    "approximate, not uniform time segments")
-            else:
-                win_payload["temporal_alignment"] = "exact"
-        probs = probs_all[widx]
-        real_idx = 1 - fake_idx if probs.shape[0] == 2 else 0
-        prob_fake = float(probs[fake_idx])
-        prob_real = float(probs[real_idx])
-
-        thr = load_calibration_threshold(self.checkpoint_path)
-        thr = 0.5 if thr is None else float(thr)
-        thr = float(_detection_threshold(thr))
-        if not env_bool("ALLOW_EXTREME_CALIBRATION_THRESHOLD") and \
-                (thr < 0.05 or thr > 0.95):
-            thr = 0.5
-        if windows > 1 and env_bool("SERVE_WINDOW_CAL", True):
-            # max-of-W inflates real-video FPR at the single-span threshold;
-            # correct via the calibration artifact's real-score CDF
-            cal = load_calibration(self.checkpoint_path) or {}
-            thr_w = windowed_threshold(thr, int(probs_all.shape[0]),
-                                       cal.get("real_score_quantiles"))
-            win_payload["threshold_correction"] = {
-                "method": ("order-statistics over the calibration "
-                           "real-score quantiles"
-                           if thr_w != thr else "unavailable"),
-                "base": round(float(thr), 6),
-                "effective": round(float(thr_w), 6),
-            }
-            thr = thr_w
-        is_fake = prob_fake >= thr
-        pred_class = 1 if is_fake else 0
-        confidence = prob_fake if is_fake else prob_real
-        description = (f"Ensemble pretrained detector (thr={thr:.2f})"
-                       if self.model_type == "ensemble_pretrained"
-                       else f"Pretrained detector (thr={thr:.2f})")
-
-        agent_payload = None
-        if (not env_bool("DISABLE_ENHANCED_AGENT")
-                and self.enhanced_agent is not None
-                and member_logits is not None):
-            member_np = np.asarray(member_logits)[:, widx]  # (M, C)
-            x = member_np - member_np.max(-1, keepdims=True)
-            member_probs = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
-            ind = member_probs[:, fake_idx]
-            uncertainty = float(np.std(ind)) if ind.shape[0] >= 2 else 0.0
-            try:
-                # per-call overrides, not attribute writes: the agent is
-                # shared by the request threads
-                pred = self.enhanced_agent.process_ensemble_output(
-                    np.asarray(logits)[widx], list(member_np),
-                    np.asarray(frame_scores)[widx], video_id, uncertainty,
-                    decision_threshold=thr, fake_class_index=fake_idx)
-                agent_payload = {
-                    "is_fake": bool(pred.is_fake) if pred.is_fake is not None else None,
-                    "ensemble_prob": float(pred.ensemble_prob),
-                    "confidence": float(pred.confidence),
-                    "alert_level": pred.alert_level.name,
-                    "uncertainty": float(pred.uncertainty),
-                    "explanation": pred.explanation,
+        with annotate("serve.request"):
+            abstain_conf = env_float("DETECT_ABSTAIN_CONF", 0.60)
+            abstain_margin = max(0.0, min(0.5, env_float("DETECT_ABSTAIN_MARGIN", 0.0)))
+            # the number of faces actually extracted, not a padded count
+            num_faces = int(faces.shape[0]) if n_extracted is None else n_extracted
+            min_faces = max(1, env_int("MIN_FACES", 2))
+            if num_faces < min_faces:
+                return {
+                    "prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                    "description": (
+                        f"Not enough faces/frames detected for a stable decision "
+                        f"(num_faces={num_faces}, min_faces={min_faces}). Try a "
+                        f"clearer face shot, better lighting, or a longer clip."),
+                    "pred_class": None, "confidence": None, "prob_real": None,
+                    "prob_fake": None, "num_faces": num_faces, "abstained": True,
                 }
-                description = agent_payload["explanation"] or description
-                if pred.is_fake is not None:
-                    pred_class = int(pred.is_fake)
-                confidence = float(agent_payload["confidence"])
-            except Exception:
-                # as in the JAX package, a failing agent leaves the verdict to
-                # the detector; the failure is logged here
-                logger.exception("enhanced agent failed for %s", video_id)
-                agent_payload = None
 
-        base = {"prob_real": prob_real, "prob_fake": prob_fake,
-                "num_faces": num_faces, "threshold": thr,
-                "enhanced_agent": agent_payload,
-                # the temporal attention weights of the deciding window
-                "frame_scores": [round(float(s), 4)
-                                 for s in np.asarray(frame_scores)[widx]]}
-        if win_payload is not None:
-            base["windows"] = win_payload
-        if explain and not packed_yuv:
-            # the deciding window's spatial explanation; it rides through
-            # the abstain returns below, so an uncertain verdict still
-            # shows where the detector looked
-            try:
-                sal = self.explain_faces(faces_w[widx] if windows > 1 else np.asarray(faces))
-                if sal is not None:
-                    if self.extractor.detector in ("center", "haar"):
-                        # these detectors' non-explain verdicts ride the
-                        # packed-YUV420 path, the explanation the RGB one
-                        sal["pipeline_note"] = (
-                            "saliency explains the RGB extraction pipeline; "
-                            "non-explain verdicts use the packed-YUV420 "
-                            "path, which may differ marginally near the "
-                            "decision threshold")
-                    base["saliency"] = sal
-            except Exception as e:
-                # as in the JAX package the verdict stands without the key;
-                # the failure is logged and kept
-                logger.exception("saliency explain failed for %s", video_id)
-                self.explain_error = e
-        if abstain_margin > 0.0 and abs(prob_fake - thr) <= abstain_margin:
-            return {
-                "prediction": "Uncertain", "verdict_yes_no": "Unsure",
-                "description": (
-                    f"Borderline score (prob_fake={prob_fake * 100:.1f}%, "
-                    f"thr={thr:.2f} ± {abstain_margin:.2f}). Manual review "
-                    f"recommended.\n\n" + description),
-                "pred_class": None, "confidence": float(confidence),
-                "abstained": True, **base,
-            }
-        if confidence < abstain_conf:
-            return {
-                "prediction": "Uncertain", "verdict_yes_no": "Unsure",
-                "description": (
-                    f"Low confidence ({confidence * 100:.1f}%). This video may "
-                    f"be out-of-domain (different compression, face quality, "
-                    f"lighting, or manipulation type). Manual review "
-                    f"recommended.\n\n" + description),
-                "pred_class": None, "confidence": float(confidence),
-                "abstained": True, **base,
-            }
-        return {
-            "prediction": "Deepfake" if pred_class == 1 else "Real",
-            "verdict_yes_no": "Yes" if pred_class == 1 else "No",
-            "description": description, "pred_class": pred_class,
-            "confidence": float(confidence), **base,
-        }
+            win_payload = None
+            if windows > 1:
+                # windowed scan: one batched forward over (W, T, ...) — the
+                # windows are the batch, so this bypasses the request batcher
+                T = max(1, -(-faces.shape[0] // windows))  # ceil: keep the tail
+                need = windows * T
+                if faces.shape[0] < need:  # repeat-pad short clips
+                    pad = np.repeat(faces[-1:], need - faces.shape[0], axis=0)
+                    faces = np.concatenate([faces, pad])
+                faces_w = np.asarray(faces[:need]).reshape(
+                    (windows, T) + faces.shape[1:])
+                # over several replicas the windows must split evenly: repeat
+                # the last, and slice the outputs back
+                w_pad = -(-windows // self._n_dp) * self._n_dp
+                if w_pad > windows:
+                    faces_w = np.concatenate(
+                        [faces_w, np.repeat(faces_w[-1:], w_pad - windows, axis=0)])
+                probs, logits, frame_scores, member_logits = (
+                    to_host(o) for o in self._run(faces_w, packed_yuv))
+                probs, logits, frame_scores = probs[:windows], logits[:windows], \
+                    frame_scores[:windows]
+                if member_logits is not None:
+                    member_logits = member_logits[:, :windows]
+            elif self._batcher is not None:
+                # coalesce with concurrent requests into one device step; each
+                # output comes back as this request's length-1 slice
+                item_fn = self._fwd_yuv_item if packed_yuv else self._fwd_item
+                probs, logits, frame_scores, member_logits = self._batcher.call(
+                    item_fn, np.asarray(faces), out_axes=(0, 0, 0, 1))
+            else:
+                fwd = self._forward_yuv if packed_yuv else self._forward
+                probs, logits, frame_scores, member_logits = (
+                    to_host(o) for o in fwd(self._to_device(np.asarray(faces)[None])))
+            with annotate("serve.policy"):
+                probs_all = np.asarray(probs)          # (W or 1, C)
+                fake_idx = _get_fake_class_index(probs_all.shape[1])
+                # verdict from the most-suspicious window (max prob_fake)
+                widx = int(np.argmax(probs_all[:, fake_idx])) \
+                    if probs_all.shape[0] > 1 else 0
+                if windows > 1:
+                    win_payload = {
+                        "policy": "max", "count": int(probs_all.shape[0]),
+                        "deciding_window": widx,
+                        "prob_fake": [round(float(p), 6)
+                                      for p in probs_all[:, fake_idx]],
+                    }
+                    if num_faces < need:
+                        # frames without a detected face were dropped and the rest
+                        # cycle-padded: window i is no longer the i-th time segment
+                        win_payload["temporal_alignment"] = "cycled"
+                        win_payload["note"] = (
+                            "some sampled frames had no detected face and were "
+                            "dropped before cycle-padding; window indices are "
+                            "approximate, not uniform time segments")
+                    else:
+                        win_payload["temporal_alignment"] = "exact"
+                probs = probs_all[widx]
+                real_idx = 1 - fake_idx if probs.shape[0] == 2 else 0
+                prob_fake = float(probs[fake_idx])
+                prob_real = float(probs[real_idx])
+
+                thr = load_calibration_threshold(self.checkpoint_path)
+                thr = 0.5 if thr is None else float(thr)
+                thr = float(_detection_threshold(thr))
+                if not env_bool("ALLOW_EXTREME_CALIBRATION_THRESHOLD") and \
+                        (thr < 0.05 or thr > 0.95):
+                    thr = 0.5
+                if windows > 1 and env_bool("SERVE_WINDOW_CAL", True):
+                    # max-of-W inflates real-video FPR at the single-span threshold;
+                    # correct via the calibration artifact's real-score CDF
+                    cal = load_calibration(self.checkpoint_path) or {}
+                    thr_w = windowed_threshold(thr, int(probs_all.shape[0]),
+                                               cal.get("real_score_quantiles"))
+                    win_payload["threshold_correction"] = {
+                        "method": ("order-statistics over the calibration "
+                                   "real-score quantiles"
+                                   if thr_w != thr else "unavailable"),
+                        "base": round(float(thr), 6),
+                        "effective": round(float(thr_w), 6),
+                    }
+                    thr = thr_w
+                is_fake = prob_fake >= thr
+                pred_class = 1 if is_fake else 0
+                confidence = prob_fake if is_fake else prob_real
+                description = (f"Ensemble pretrained detector (thr={thr:.2f})"
+                               if self.model_type == "ensemble_pretrained"
+                               else f"Pretrained detector (thr={thr:.2f})")
+
+                agent_payload = None
+                if (not env_bool("DISABLE_ENHANCED_AGENT")
+                        and self.enhanced_agent is not None
+                        and member_logits is not None):
+                    member_np = np.asarray(member_logits)[:, widx]  # (M, C)
+                    x = member_np - member_np.max(-1, keepdims=True)
+                    member_probs = np.exp(x) / np.exp(x).sum(-1, keepdims=True)
+                    ind = member_probs[:, fake_idx]
+                    uncertainty = float(np.std(ind)) if ind.shape[0] >= 2 else 0.0
+                    try:
+                        # per-call overrides, not attribute writes: the agent is
+                        # shared by the request threads
+                        pred = self.enhanced_agent.process_ensemble_output(
+                            np.asarray(logits)[widx], list(member_np),
+                            np.asarray(frame_scores)[widx], video_id, uncertainty,
+                            decision_threshold=thr, fake_class_index=fake_idx)
+                        agent_payload = {
+                            "is_fake": bool(pred.is_fake) if pred.is_fake is not None else None,
+                            "ensemble_prob": float(pred.ensemble_prob),
+                            "confidence": float(pred.confidence),
+                            "alert_level": pred.alert_level.name,
+                            "uncertainty": float(pred.uncertainty),
+                            "explanation": pred.explanation,
+                        }
+                        description = agent_payload["explanation"] or description
+                        if pred.is_fake is not None:
+                            pred_class = int(pred.is_fake)
+                        confidence = float(agent_payload["confidence"])
+                    except Exception:
+                        # as in the JAX package, a failing agent leaves the verdict to
+                        # the detector; the failure is logged here
+                        logger.exception("enhanced agent failed for %s", video_id)
+                        agent_payload = None
+
+                base = {"prob_real": prob_real, "prob_fake": prob_fake,
+                        "num_faces": num_faces, "threshold": thr,
+                        "enhanced_agent": agent_payload,
+                        # the temporal attention weights of the deciding window
+                        "frame_scores": [round(float(s), 4)
+                                         for s in np.asarray(frame_scores)[widx]]}
+                if win_payload is not None:
+                    base["windows"] = win_payload
+                if explain and not packed_yuv:
+                    # the deciding window's spatial explanation; it rides through
+                    # the abstain returns below, so an uncertain verdict still
+                    # shows where the detector looked
+                    try:
+                        sal = self.explain_faces(
+                            faces_w[widx] if windows > 1 else np.asarray(faces))
+                        if sal is not None:
+                            if self.extractor.detector in ("center", "haar"):
+                                # these detectors' non-explain verdicts ride the
+                                # packed-YUV420 path, the explanation the RGB one
+                                sal["pipeline_note"] = (
+                                    "saliency explains the RGB extraction pipeline; "
+                                    "non-explain verdicts use the packed-YUV420 "
+                                    "path, which may differ marginally near the "
+                                    "decision threshold")
+                            base["saliency"] = sal
+                    except Exception as e:
+                        # as in the JAX package the verdict stands without the key;
+                        # the failure is logged and kept
+                        logger.exception("saliency explain failed for %s", video_id)
+                        self.explain_error = e
+                if abstain_margin > 0.0 and abs(prob_fake - thr) <= abstain_margin:
+                    return {
+                        "prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                        "description": (
+                            f"Borderline score (prob_fake={prob_fake * 100:.1f}%, "
+                            f"thr={thr:.2f} ± {abstain_margin:.2f}). Manual review "
+                            f"recommended.\n\n" + description),
+                        "pred_class": None, "confidence": float(confidence),
+                        "abstained": True, **base,
+                    }
+                if confidence < abstain_conf:
+                    return {
+                        "prediction": "Uncertain", "verdict_yes_no": "Unsure",
+                        "description": (
+                            f"Low confidence ({confidence * 100:.1f}%). This video may "
+                            f"be out-of-domain (different compression, face quality, "
+                            f"lighting, or manipulation type). Manual review "
+                            f"recommended.\n\n" + description),
+                        "pred_class": None, "confidence": float(confidence),
+                        "abstained": True, **base,
+                    }
+                return {
+                    "prediction": "Deepfake" if pred_class == 1 else "Real",
+                    "verdict_yes_no": "Yes" if pred_class == 1 else "No",
+                    "description": description, "pred_class": pred_class,
+                    "confidence": float(confidence), **base,
+                }
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,12 @@ share of the objective into ``.grad`` (the way FSDP2's hooks take
 gradients), the runtime sums the gradients over the ranks, and the metrics
 are the global batch's. Without a plan the runtime is one device's, and
 each of those reductions is the identity.
+
+While something records (``utils/profiling.py``), a step of
+:func:`make_train_step` (and so each step of :func:`make_multi_step`) is
+the span ``train.step`` over ``train.forward`` (forward and loss),
+``train.backward`` and ``train.update`` (the optimizer over the leaves):
+host time, the launches included.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from deepfake_video_detection_tpu_torch.parallel.mesh import rows_sum
 from deepfake_video_detection_tpu_torch.parallel.strategy import ParallelRuntime
 from deepfake_video_detection_tpu_torch.train.optim import Optimizer, global_norm  # noqa: F401 (re-exported)
 from deepfake_video_detection_tpu_torch.train.state import TrainState
+from deepfake_video_detection_tpu_torch.utils.profiling import annotate
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -126,21 +133,25 @@ def make_train_step(model: Any, tx: Optimizer, loss_fn: Callable[..., torch.Tens
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
-        params = state.params
-        for p in params.values():
-            p.grad = None
-        with runtime.context():
-            logits, aux = _forward(model, batch, True, generator, remat)
-            valid = batch.get("valid")
-            task = loss_fn(logits, batch["labels"], sample_mask=valid)
-            runtime.backward(task, aux, aux_loss_weight)
-        grad_norm = _update(runtime, tx, params, state)
-        correct, count = _hits(logits.detach(), batch["labels"], valid)
-        loss, correct, count = runtime.reduce_metrics(task, correct, count)
-        if aux is not None:
-            loss = loss + aux_loss_weight * aux.detach()
-        return state, {"loss": loss, "correct": correct, "count": count,
-                       "grad_norm": grad_norm}
+        with annotate("train.step"):
+            params = state.params
+            for p in params.values():
+                p.grad = None
+            with runtime.context():
+                with annotate("train.forward"):
+                    logits, aux = _forward(model, batch, True, generator, remat)
+                    valid = batch.get("valid")
+                    task = loss_fn(logits, batch["labels"], sample_mask=valid)
+                with annotate("train.backward"):
+                    runtime.backward(task, aux, aux_loss_weight)
+            with annotate("train.update"):
+                grad_norm = _update(runtime, tx, params, state)
+            correct, count = _hits(logits.detach(), batch["labels"], valid)
+            loss, correct, count = runtime.reduce_metrics(task, correct, count)
+            if aux is not None:
+                loss = loss + aux_loss_weight * aux.detach()
+            return state, {"loss": loss, "correct": correct, "count": count,
+                           "grad_norm": grad_norm}
 
     return step
 

@@ -51,6 +51,10 @@ every rank scores the whole split. Rank 0 alone writes checkpoints (the
 whole tensors, FSDP shards and the pipeline stages' blocks and their
 optimizer slots gathered, in JAX's layout), the history, the predictions
 and the logs; a resume gives each rank its share.
+
+While something records (``utils/profiling.py``), the batch transform runs
+inside the span ``train.prep`` (augment and normalise) and each step inside
+``train.step`` (``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ from deepfake_video_detection_tpu_torch.train.steps import (
     make_accum_step, make_eval_step, make_multi_step, make_train_step)
 from deepfake_video_detection_tpu_torch.utils.device import resolve_device
 from deepfake_video_detection_tpu_torch.utils.graph import chain_adjacency, normalize_adjacency
+from deepfake_video_detection_tpu_torch.utils.profiling import annotate
 
 _METRIC_ALIASES = {
     "acc": "accuracy", "accuracy": "accuracy", "val_acc": "accuracy",
@@ -316,11 +321,12 @@ class Trainer:
             return apply_params(frames, {k: v[lo:lo + B] for k, v in p.items()})
 
         def _prep_train(batch, generator):
-            if config.augment:
-                frames = norm(_augment(generator, batch["frames"]) / 255.0, scaled=True)
-            else:
-                frames = norm(batch["frames"])
-            return _with_adjacency(dict(batch, frames=frames))
+            with annotate("train.prep"):
+                if config.augment:
+                    frames = norm(_augment(generator, batch["frames"]) / 255.0, scaled=True)
+                else:
+                    frames = norm(batch["frames"])
+                return _with_adjacency(dict(batch, frames=frames))
 
         self._prep_train = _prep_train
         self._prep_eval = lambda batch: _with_adjacency(

@@ -846,22 +846,32 @@ def test_explanation_text_matches_jax(args):
 
 
 def test_stage_timer_and_trace(tmp_path, monkeypatch):
-    summaries = []
-    for mod in (jax_profiling, profiling):
-        ticks = iter(np.arange(0.0, 100.0, 0.0125).tolist())
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        timer = mod.StageTimer(window=3)
-        for _ in range(5):
-            for name in ("decode", "detect", "forward"):
-                with timer.stage(name):
-                    pass
-        with pytest.raises(ValueError):
-            with timer.stage("fails"):
-                raise ValueError
-        summaries.append((timer.summary(), timer.report()))
+    # the JAX package's StageTimer and the port's spans over the same ticks:
+    # the port keeps every span, not the last three
+    ticks = iter(np.arange(0.0, 100.0, 0.0125).tolist())
+    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
+    timer = jax_profiling.StageTimer(window=3)
+    ns = iter(range(0, 10 ** 11, 12_500_000))
+    monkeypatch.setattr(time, "perf_counter_ns", lambda: next(ns))
+    profiling.clear()
+    with profiling.recording():
+        for stage in (timer.stage, profiling.annotate):
+            for _ in range(5):
+                for name in ("decode", "detect", "forward"):
+                    with stage(name):
+                        pass
+            with pytest.raises(ValueError):
+                with stage("fails"):
+                    raise ValueError
     monkeypatch.undo()
-    assert summaries[0] == summaries[1]
-    assert summaries[1][0]["decode"]["count"] == 3 and "fails" in summaries[1][0]
+    theirs, ours = timer.summary(), profiling.summary()
+    profiling.clear()
+    assert set(ours) == set(theirs) == {"decode", "detect", "forward", "fails"}
+    for name, s in theirs.items():
+        for key in ("p50_ms", "max_ms"):
+            assert ours[name][key] == pytest.approx(s[key]), (name, key)
+    assert theirs["decode"]["count"] == 3 and ours["decode"]["count"] == 5
+    assert ours["fails"]["count"] == 1 and ours["decode"]["p95_ms"] == 12.5
 
     # trace: a TensorBoard trace with the annotated region; a no-op without a directory
     monkeypatch.delenv("DFDT_PROFILE_DIR", raising=False)
